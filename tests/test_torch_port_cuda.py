@@ -1,0 +1,121 @@
+"""PyTorch port, CUDA kernels on the card: each kernel against its plain twin
+at the flagship widths (a short spatial extent), and its launch counter.
+Skipped without a CUDA device. On the card, where JAX is not installed,
+run it without tests/conftest.py (which imports JAX):
+`python -m pytest --noconftest tests/test_torch_port_cuda.py`.
+chip_smoke.py runs the same comparison at every main-path shape."""
+
+import pytest
+import torch
+
+from videometamaterials_tpu_torch.ops.cuda import _build
+from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+# bf16 outputs: the JAX kernel test's tolerance
+# (tests/test_fused_temporal_block.py:50); float32 z: summation order
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+STATS_TOL = dict(rtol=1e-3, atol=1e-3)
+# ctx: a bf16(exp(k)) or bf16(v / HW) factor can round one ulp (2^-7 of
+# it) apart in the kernel and the twin, so ctx is held to 2^-7 of the sum
+# of its summands' magnitudes
+CTX_SHARE = 2.0 ** -7
+# linear apply: the update out - x - out_bias against the twin's, relative
+# to its largest element. Its stats inputs are O(1) (z = 1 + |N|,
+# ctx ~ 32 N) so the update is about as large as x; the real stats (v / HW)
+# leave it below one bf16 ulp of the output
+APPLY_TOL = 3e-2
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _rnd(gen, *shape, scale=1.0):
+    return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("t_tok", [0, 11])
+def test_temporal_kernel_matches_twin(cuda, c, t_tok):
+    bf = torch.bfloat16
+    b, f, s, hd = 2, 11, 100, 256          # 100: a ragged last tile of 8
+    args = dict(
+        x=_rnd(cuda, b, f, s, c).to(bf), gamma=1 + _rnd(cuda, c, scale=0.1),
+        w_all=(_rnd(cuda, f, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        ek=_rnd(cuda, b, t_tok, hd).to(bf) if t_tok else None,
+        ev=_rnd(cuda, b, t_tok, hd).to(bf) if t_tok else None,
+        bias_all=_rnd(cuda, f, f + t_tok, 8, scale=0.5))
+    before = _build.LAUNCH_COUNTS["fused_temporal_block"]
+    got = tmp.fused_temporal_block(**args, heads=8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["fused_temporal_block"] == before + 1
+    torch.testing.assert_close(got.float(),
+                               tmp.temporal_block_plain(**args, heads=8)
+                               .float(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("n,c", [(100, 64), (144, 512)])
+def test_linear_kernels_match_twins(cuda, n, c):
+    bf = torch.bfloat16
+    b, hd = 6, 256
+    x = _rnd(cuda, b, n, c).to(bf)
+    gamma = 1 + _rnd(cuda, c, scale=0.1)
+    w_qkv = (_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf)
+    w_out = (_rnd(cuda, hd, c) * hd ** -0.5).to(bf)
+    out_bias = _rnd(cuda, c, scale=0.1)
+    ek, ev = _rnd(cuda, b, 1, hd).to(bf), _rnd(cuda, b, 1, hd).to(bf)
+    ctx_p, z_p = lin.linear_stats_plain(x, gamma, w_qkv, ek, ev, heads=8,
+                                        spatial_size=n)
+    ctx_k, z_k = lin.linear_stats(x, gamma, w_qkv, ek, ev, heads=8,
+                                  spatial_size=n)
+    mag = lin.linear_stats_magnitude(x, gamma, w_qkv, ek, ev, heads=8,
+                                     spatial_size=n)
+    assert ((ctx_k - ctx_p).abs() <= CTX_SHARE * mag).all()
+    torch.testing.assert_close(z_k, z_p, **STATS_TOL)
+    ctx, z = _rnd(cuda, b, 8, 32, 32, scale=32.0), 1 + _rnd(cuda, b, hd).abs()
+    _assert_apply_matches(x, gamma, w_qkv, w_out, out_bias, ctx, z)
+
+
+def _assert_apply_matches(x, gamma, w_qkv, w_out, out_bias, ctx, z):
+    args = (x, gamma, w_qkv, w_out, out_bias, ctx, z)
+    got = lin.linear_apply(*args, heads=8, scale=32 ** -0.5)
+    torch.cuda.synchronize()
+    want = lin.linear_apply_plain(*args, heads=8, scale=32 ** -0.5)
+    assert torch.isfinite(got).all()
+    base = x.float() + out_bias
+    upd_k, upd_p = got.float() - base, want.float() - base
+    assert upd_p.pow(2).mean().sqrt() > 0.5 * x.float().pow(2).mean().sqrt()
+    err = (upd_k - upd_p).abs().max()
+    assert err <= APPLY_TOL * upd_p.abs().max(), err
+
+
+def test_linear_apply_kernel_per_head_shift(cuda):
+    """Head 0's q logits ~1000x the others' (tests/test_fused_linear_block.py
+    :288): the per-head max shift keeps the output finite and the other
+    heads exact. Head 0's context is zero: a one-ulp bf16 flip of an LN
+    output moves its logits by ~0.5 and reorders its near-ties."""
+    bf = torch.bfloat16
+    b, n, c, hd = 4, 100, 64, 256
+    w_qkv = _rnd(cuda, c, 3 * hd) * c ** -0.5
+    w_qkv[:, :32] *= 1000.0
+    ctx = _rnd(cuda, b, 8, 32, 32, scale=32.0)
+    ctx[:, 0] = 0.0
+    _assert_apply_matches(
+        _rnd(cuda, b, n, c).to(bf), 1 + _rnd(cuda, c, scale=0.1),
+        w_qkv.to(bf), (_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        _rnd(cuda, c, scale=0.1), ctx, 1 + _rnd(cuda, b, hd).abs())
+
+
+def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
+    x = torch.zeros((2, 11, 16, 48), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="C in"):
+        tmp.fused_temporal_block(
+            x, torch.ones(48, device="cuda"),
+            torch.zeros((11, 48, 768), dtype=torch.bfloat16, device="cuda"),
+            torch.zeros((256, 48), dtype=torch.bfloat16, device="cuda"),
+            None, None, torch.zeros((11, 11, 8), device="cuda"), heads=8)

@@ -1,0 +1,112 @@
+"""Whole temporal-attention block: CUDA kernel wrapper and plain twin.
+
+Replaces videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_kernel
+(split softmax layout). The kernel is csrc/fused_temporal_block.cu; its
+source note gives the bound and the design.
+
+    out = x + W_out . softmax_j(q_i.k_j + bias_ij || q_i.ek_t + bias_it)
+                    . [v_j || ev_t]
+
+per spatial position over the F frames (+ T conditioning tokens), with LN
+scale-only and two-pass, rotary and 1/sqrt(d) folded into the per-frame
+`w_all`, and bf16 roundings at qkv, at the softmax weights and at the value
+sum (the JAX kernel's :124, :226, :235).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from videometamaterials_tpu_torch.ops.cuda import _build
+from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
+
+FRAMES = 11
+CHANNELS = (64, 128, 256, 512)
+HEADS = 8
+HIDDEN = 256
+
+
+def temporal_block_plain(x, gamma, w_all, w_out, ek, ev, bias_all, *,
+                         heads: int) -> torch.Tensor:
+    """The kernel's function in plain PyTorch (the pattern of the JAX
+    package's reference_temporal_block, with the kernel's roundings).
+    x: (B, F, S, C); gamma (C,); w_all (F, C, 3*hidden); w_out (hidden, C);
+    ek/ev (B, T, hidden) or None; bias_all (F, F+T, heads) float32.
+    Roundings follow w_all's dtype (none in float32)."""
+    b, f, s, c = x.shape
+    hidden = w_out.shape[0]
+    d = hidden // heads
+    cdt = w_all.dtype
+    y = channel_layer_norm(x, gamma, one_pass=False).to(cdt)
+    qkv = torch.einsum("bfsc,fch->bfsh", y.float(), w_all.float()).to(cdt)
+    q, k, v = (t.float().reshape(b, f, s, heads, d)
+               for t in qkv.split(hidden, dim=-1))
+    bias = bias_all.float()
+    sim = torch.einsum("bishd,bjshd->bijsh", q, k) + bias[None, :, :f, None, :]
+    if ek is not None:
+        t_tok = ek.shape[1]
+        ekh = ek.float().reshape(b, t_tok, heads, d)
+        evh = ev.float().reshape(b, t_tok, heads, d)
+        sim_c = (torch.einsum("bishd,bthd->bitsh", q, ekh)
+                 + bias[None, :, f:, None, :])
+        sim = torch.cat([sim, sim_c], dim=2)
+    p = torch.softmax(sim, dim=2).to(cdt).float()
+    out = torch.einsum("bijsh,bjshd->bishd", p[:, :, :f], v)
+    if ek is not None:
+        out = out + torch.einsum("bitsh,bthd->bishd", p[:, :, f:], evh)
+    out = out.to(cdt).float().reshape(b, f, s, hidden)
+    out = torch.einsum("bfsh,hc->bfsc", out, w_out.float())
+    return (x.float() + out).to(x.dtype)
+
+
+def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
+    req = _build.require
+    req(x.is_cuda, "the kernel takes CUDA tensors")
+    req(x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous(),
+        "x must be contiguous bf16 (B, F, S, C)")
+    b, f, s, c = x.shape
+    req(f == FRAMES, f"the kernel takes {FRAMES} frames, got {f}")
+    req(c in CHANNELS, f"the kernel takes C in {CHANNELS}, got {c}")
+    req(heads == HEADS and tuple(w_out.shape) == (HIDDEN, c),
+        f"the kernel takes {HEADS} heads of 32 and w_out ({HIDDEN}, C)")
+    req(gamma.dtype == torch.float32 and tuple(gamma.shape) == (c,)
+        and gamma.is_contiguous(), "gamma must be contiguous float32 (C,)")
+    req(w_all.dtype == torch.bfloat16 and w_all.is_contiguous()
+        and tuple(w_all.shape) == (f, c, 3 * HIDDEN),
+        "w_all must be contiguous bf16 (F, C, 3*hidden)")
+    req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous(),
+        "w_out must be contiguous bf16")
+    t_tok = 0 if ek is None else ek.shape[1]
+    req(bias_all.dtype == torch.float32 and bias_all.is_contiguous()
+        and tuple(bias_all.shape) == (f, f + t_tok, heads),
+        "bias_all must be contiguous float32 (F, F+T, heads)")
+    req((ek is None) == (ev is None), "ek and ev come together")
+    if ek is not None:
+        req(t_tok == FRAMES, f"the kernel takes 0 or {FRAMES} cond tokens")
+        for t in (ek, ev):
+            req(t.dtype == torch.bfloat16 and t.is_contiguous()
+                and tuple(t.shape) == (b, t_tok, HIDDEN),
+                "ek/ev must be contiguous bf16 (B, T, hidden)")
+    for t in (gamma, w_all, w_out, bias_all, ek, ev):
+        req(t is None or t.device == x.device, "all operands on x's device")
+
+
+def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
+                         heads: int) -> torch.Tensor:
+    """x + block(x). A CPU tensor takes the plain twin; a CUDA tensor
+    launches the kernel or raises."""
+    if x.device.type == "cpu":
+        return temporal_block_plain(x, gamma, w_all, w_out, ek, ev, bias_all,
+                                    heads=heads)
+    _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    b, f, s, c = x.shape
+    p = _build.ptr
+    err = lib.vmt_temporal_block_fwd(
+        p(x), p(gamma), p(w_all), p(w_out), p(bias_all), p(ek), p(ev),
+        p(out), b, f, s, c, 0 if ek is None else ek.shape[1], heads,
+        _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "fused_temporal_block")
+    _build.LAUNCH_COUNTS["fused_temporal_block"] += 1
+    return out
