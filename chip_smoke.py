@@ -7,17 +7,27 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 
 Phases, each printing its wall time as it finishes:
   0 device   card name and power limit (nvidia-smi), torch/CUDA versions
-  1 build    the sm_90a kernels, one nvcc command (seconds, not minutes)
+  1 build    the sm_90a kernels: one nvcc process per source, all started
+             together, and a link (seconds, not minutes)
   2 kernels  each kernel against its plain PyTorch twin at every shape the
              main path gives it (temporal block at every level with and
              without conditioning tokens, linear stats + apply at every
              level, the per-head-shift NaN case), with kernel/twin times
+  2b backward  each backward kernel against its twin at every shape of the
+             training path (batch 4, 44 folded frames): every cotangent,
+             with kernel/twin times and bounds
   3 model    one guided forward of the flagship UNet3D, fused plans against
              the unfused plans, on the same input
   4 chain    the main path: guided DDPM sampling (w = 5, bisect dynamic
              thresholding) of one video at 96x96x11 through `sample()`,
              the launch counters proving every step went through the
              kernels
+  5 train    the flagship train step at batch 4 with the fused blocks and
+             their backward kernels under grad: one step's gradients
+             against the recompute backward and the unfused plan, then
+             --train-steps steps under each of the three plans (median step
+             ms, peak memory, finite losses, parameters that moved, the EMA
+             rule, launch counters 10/10/8/8/2/6 per kernel-plan step)
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -29,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -77,6 +89,37 @@ APPLY_TOL = 3e-2
 APPLY_CTX_SCALE = 32.0
 # relative L2 error of the guided eps, fused plans against unfused plans
 MODEL_TOL = 0.15
+# backward: each cotangent within 5e-2 of the twin's largest |element|,
+# rtol 0, and nonzero somewhere -- the JAX package's rule for its backward
+# kernels (tests/test_fused_temporal_block.py:277,
+# tests/test_fused_linear_block.py:205-211) and for its module-level fused
+# gradients (tests/test_fused_temporal_block.py:322-358), which phase 5
+# applies to every parameter of a fused block. Without those tests' 1e-3
+# floor on the max: at the flagship shapes some cotangents (the linear
+# dek/dev, the conditioning projections' gradients) lie far below it, and
+# the floor would make their limit larger than the values themselves
+GRAD_TOL = 5e-2
+
+
+def cond_key_shift(n: int) -> float:
+    """The shift of the linear backward's conditioning key in phase 2b:
+    log N + 1/2, about log sum_n exp(k_n) for k ~ N(0, 1), so the token
+    takes about half of each feature's token softmax. At the path's own
+    keys its weight is ~1/N: dek and dev are then tiny, and S (the
+    softmax's sum_e dctx ctx) is a percent of dek, where a kernel that
+    dropped it would still pass."""
+    return math.log(n) + 0.5
+
+
+# the training path: batch 4 (bench.py's train workload), the init block at
+# batch 4 without conditioning (no CFG pair in training)
+TRAIN_BATCH = 4
+TRAIN_TEMPORAL = [(TRAIN_BATCH, s, c, t) for _, s, c, t in TEMPORAL_PATH]
+TRAIN_LINEAR = [(TRAIN_BATCH * 11, n, c) for _, n, c in LINEAR_PATH]
+# device functions of the port's hand-written kernels (profile summary)
+PORTED_KERNELS = ("temporal_fwd_kernel", "temporal_bwd_kernel",
+                  "linear_stats_", "linear_apply_kernel", "lin_bwd_",
+                  "contract_partial", "colsum_kernel")
 
 
 def log(msg: str) -> None:
@@ -196,6 +239,37 @@ def linear_inputs(bf_, n, c, gen):
         z=1 + rnd(bf_, HIDDEN).abs())
 
 
+def check_cotangents(name, names, got, want):
+    """Each cotangent within GRAD_TOL of its own twin's largest |element|
+    and nonzero somewhere; returns the largest abs error, the largest share
+    of its cotangent's max and the cotangent that reached it."""
+    import torch
+
+    worst, share, at = 0.0, 0.0, ""
+    for n, a, b in zip(names, got, want):
+        if b is None:
+            if a is not None:
+                raise AssertionError(f"{name} {n}: kernel gave a cotangent "
+                                     "the twin does not have")
+            continue
+        a32, b32 = a.float(), b.float()
+        if not torch.isfinite(a32).all():
+            raise AssertionError(f"{name} {n}: not finite")
+        scale = b32.abs().max().item()
+        if scale == 0:
+            raise AssertionError(f"{name} {n}: the twin's cotangent is zero "
+                                 "everywhere, nothing to compare")
+        err = (a32 - b32).abs().max().item()
+        if err > GRAD_TOL * scale:
+            raise AssertionError(f"{name} {n}: max |kernel - twin| {err:.3e} "
+                                 f"beyond {GRAD_TOL} * {scale:.3e}")
+        if a32.abs().max().item() == 0:
+            raise AssertionError(f"{name} {n}: zero everywhere")
+        worst = max(worst, err)
+        share, at = max((share, at), (err / scale, n))
+    return worst, share, at
+
+
 def temporal_cost(b, s, c, t_tok):
     """(bytes, flops): x read and out written once, weights once; QKV
     projection, out-projection, scores and value sums."""
@@ -211,6 +285,35 @@ def stats_cost(bf_, n, c):
     nbytes = (bf_ * n * c * 2 + c * 2 * HIDDEN * 2 + 2 * bf_ * HIDDEN * 2
               + bf_ * (HEADS * 32 * 32 + HIDDEN) * 4)
     flops = 2 * bf_ * n * (c * 2 * HIDDEN + HEADS * 32 * 32)
+    return nbytes, flops
+
+
+def temporal_bwd_cost(b, s, c, t_tok):
+    """(bytes, flops): x and g read, dx written, weights read once, the f32
+    parameter cotangents written once; the recomputed QKV, dy and dw_all
+    (3 x 2 C 3H a row), g_acc and dw_out (2 x 2 H C), and the attention
+    backward (scores, dp, values, dq, dk, dv: 12 (F+T) H a row)."""
+    rows = b * FRAMES * s
+    weights = (FRAMES * c * 3 * HIDDEN + HIDDEN * c + 2 * b * t_tok * HIDDEN
+               ) * 2 + FRAMES * (FRAMES + t_tok) * HEADS * 4 + c * 4
+    grads = (FRAMES * c * 3 * HIDDEN + HIDDEN * c + c + 2 * b * t_tok * HIDDEN
+             + FRAMES * (FRAMES + t_tok) * HEADS) * 4
+    flops = rows * (3 * 2 * c * 3 * HIDDEN + 2 * 2 * HIDDEN * c
+                    + 12 * (FRAMES + t_tok) * HIDDEN)
+    return 3 * rows * c * 2 + weights + grads, flops
+
+
+def linear_bwd_cost(bf_, n, c):
+    """(bytes, flops): x and g read, dx written, weights and cond tokens
+    read, the f32 cotangents written; the QKV projection, dy and dW_qkv
+    (3 x 2 C 3H a token), g_oh and dW_out (2 x 2 H C), and six per-head
+    32 x 32 products (stats, oh, dQ, dctx, dP, dV)."""
+    rows = bf_ * n
+    nbytes = (3 * rows * c * 2 + (c * 3 * HIDDEN + HIDDEN * c) * 2
+              + 2 * bf_ * HIDDEN * 2 + c * 8
+              + (c * 3 * HIDDEN + HIDDEN * c + 2 * c + 2 * bf_ * HIDDEN) * 4)
+    flops = rows * (3 * 2 * c * 3 * HIDDEN + 2 * 2 * HIDDEN * c
+                    + 6 * 2 * HIDDEN * 32)
     return nbytes, flops
 
 
@@ -320,6 +423,68 @@ def phase_kernels(report):
         f"update err {err:.3e}")
 
 
+def phase_bwd_kernels(report):
+    """Each backward kernel against its twin at every training-path shape;
+    times and bounds at level 0 (the merged linear row: its largest shape,
+    level 1, since level 0 takes the per-head row)."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t_names = ("dx", "dgamma", "dw_all", "dw_out", "dek", "dev", "dbias")
+    for b, s, c, t_tok in sorted(set(TRAIN_TEMPORAL),
+                                 key=lambda v: (-v[1], v[3])):
+        a = temporal_inputs(b, s, c, t_tok, gen)
+        g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        err, share, at = check_cotangents(
+            f"temporal bwd {b, s, c, t_tok}", t_names,
+            tmp.temporal_block_bwd(**a, g=g, heads=HEADS),
+            tmp.temporal_block_bwd_plain(**a, g=g, heads=HEADS))
+        ms = cuda_ms(lambda: tmp.temporal_block_bwd(**a, g=g, heads=HEADS),
+                     reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: tmp.temporal_block_bwd_plain(
+            **a, g=g, heads=HEADS), reps=2, warmup=1)
+        bms, by = bound(*temporal_bwd_cost(b, s, c, t_tok))
+        log(f"  temporal bwd B={b} S={s} C={c} T={t_tok}: max_abs_err "
+            f"{err:.3e} (worst {at}, {share:.2e} of its max, tol {GRAD_TOL}) "
+            f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {bms:.4f} ms "
+            f"({by})")
+        if (b, s, c, t_tok) == (TRAIN_BATCH, 9216, 64, 11):
+            report["temporal_bwd"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, shape=[b, FRAMES, s, c, t_tok])
+
+    l_names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    for bf_, n, c in sorted(set(TRAIN_LINEAR), key=lambda v: -v[1]):
+        a = linear_inputs(bf_, n, c, gen)
+        del a["ctx"], a["z"]
+        a["ek"] = (a["ek"].float() + cond_key_shift(n)).to(torch.bfloat16)
+        g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        route = lin.bwd_route(n)
+        kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n, route=route)
+        err, share, at = check_cotangents(
+            f"linear bwd {route} {bf_, n, c}", l_names,
+            lin.linear_block_bwd(**a, g=g, **kw),
+            lin.linear_block_bwd_plain(**a, g=g, **kw))
+        ms = cuda_ms(lambda: lin.linear_block_bwd(**a, g=g, **kw), reps=3,
+                     warmup=1)
+        plain_ms = cuda_ms(lambda: lin.linear_block_bwd_plain(**a, g=g, **kw),
+                           reps=2, warmup=1)
+        bms, by = bound(*linear_bwd_cost(bf_, n, c))
+        log(f"  linear bwd ({route}) BF={bf_} N={n} C={c}: max_abs_err "
+            f"{err:.3e} (worst {at}, {share:.2e} of its max, tol {GRAD_TOL}) "
+            f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {bms:.4f} ms "
+            f"({by})")
+        key = f"linear_bwd_{route}"
+        if (n, c) in ((9216, 64), (2304, 128)):
+            report[key].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bms, bound_by=by, shape=[bf_, n, c])
+
+
 def phase_model(diffusion, cfg):
     """One guided forward: the fused plans (the kernels) against the
     unfused plans on the same weights and input."""
@@ -351,44 +516,221 @@ def phase_model(diffusion, cfg):
     return rel
 
 
-def profile_steps(diffusion, cond, steps: int, out_path: str | None) -> None:
-    """Device time by kernel over `steps` guided steps, and the share of
-    the wall time the device was busy (sum of kernel times / wall)."""
+def _param_groups(model):
+    """Parameter name -> group: the fused temporal blocks, the fused linear
+    blocks, the relative position bias table, and the rest."""
+    from videometamaterials_tpu_torch.models.unet3d import (
+        SpatialLinearAttentionBlock,
+        TemporalAttentionBlock,
+    )
+
+    groups = {n: "rest" for n, _ in model.named_parameters()}
+    groups["time_rel_pos_bias.relative_attention_bias.weight"] = "bias table"
+    for prefix, m in model.named_modules():
+        kind = {TemporalAttentionBlock: "temporal blocks",
+                SpatialLinearAttentionBlock: "linear blocks"}.get(type(m))
+        if kind:
+            for n, _ in m.named_parameters():
+                groups[f"{prefix}.{n}"] = kind
+    return groups
+
+
+def phase_train(cfg, train_steps: int, report, profile: int = 0,
+                profile_out: str | None = None) -> dict:
+    """The train step under the three plans: 'kernel' (fused blocks, their
+    backward kernels), 'recompute' (fused blocks, autograd through the
+    twins) and 'unfused'. One step's gradients compared on the same batch,
+    then `train_steps` timed steps each."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import TrainerConfig
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.train import bench_batches
+    from videometamaterials_tpu_torch.training.trainer import Trainer
+
+    plans = {"kernel": cfg,
+             "recompute": cfg.replace(fused_bwd_kernels=False),
+             "unfused": cfg.replace(fused_blocks_in_training=False)}
+
+    def build(plan_cfg):
+        model = build_unet(plan_cfg, device="cuda", seed=0)
+        return GaussianDiffusion.from_config(model, plan_cfg, "cuda")
+
+    # ---- one step's gradients, the three plans on the same numbers
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    videos, labels = next(bench_batches(cfg, gen, "cuda"))
+    b = cfg.batch_size
+    t = torch.randint(0, cfg.train_timesteps, (b,), generator=gen,
+                      device="cuda")
+    noise = torch.randn(videos.shape, generator=gen, device="cuda")
+    mask = torch.tensor([False, True] + [False] * (b - 2), device="cuda")
+    grads, groups = {}, None
+    for name, plan_cfg in plans.items():
+        diff = build(plan_cfg)
+        with diff.model.fused_plans(plan_cfg.fused_blocks_in_training):
+            loss = diff.loss(videos, labels, t=t, noise=noise,
+                             null_cond_mask=mask)
+        loss.backward()
+        grads[name] = {n: p.grad for n, p in diff.model.named_parameters()
+                       if p.grad is not None}
+        groups = groups or _param_groups(diff.model)
+        del diff
+    for ref in ("recompute", "unfused"):
+        rel = {}
+        for g in ("temporal blocks", "linear blocks", "bias table", "rest"):
+            names = [n for n in grads["kernel"] if groups[n] == g]
+            num = sum((grads["kernel"][n] - grads[ref][n]).float().pow(2).sum()
+                      for n in names)
+            den = sum(grads[ref][n].float().pow(2).sum() for n in names)
+            rel[g] = (num / den).sqrt().item()
+        worst, worst_name, smallest = 0.0, "", {}
+        for n, g in grads["kernel"].items():
+            if groups[n] == "rest":
+                continue
+            w = grads[ref][n].float()
+            size = w.abs().max().item()
+            if size == 0:
+                raise AssertionError(f"gradient of {n} under the {ref} plan "
+                                     "is zero")
+            share = (g.float() - w).abs().max().item() / size
+            if not share <= GRAD_TOL:
+                raise AssertionError(
+                    f"gradient of {n}, kernel plan against {ref}: "
+                    f"{share:.3e} of its max, beyond {GRAD_TOL}")
+            if g.abs().max().item() == 0:
+                raise AssertionError(f"gradient of {n} is zero")
+            worst, worst_name = max((worst, worst_name), (share, n))
+            smallest[groups[n]] = min((size, n), smallest.get(groups[n],
+                                                              (size, n)))
+        log(f"  grads, kernel plan vs {ref}: relative L2 " + ", ".join(
+            f"{k} {v:.3e}" for k, v in rel.items()) + f"; every fused-block "
+            f"parameter within {worst:.3e} of its own max (worst "
+            f"{worst_name}, limit {GRAD_TOL}); smallest max " + ", ".join(
+                f"{k} {v:.3e} ({n})" for k, (v, n) in smallest.items()))
+    del grads
+
+    # ---- train_steps steps under each plan
+    # EMA every 2 steps from step 4: the reset, the skip and the lerp
+    tcfg = TrainerConfig(ema_update_every=2, ema_start_step=4)
+    per_step = {"kernel": dict(fused_temporal_block=10, linear_stats=8,
+                               linear_apply=8, temporal_bwd=10,
+                               linear_bwd_head=2, linear_bwd_merged=6),
+                "recompute": dict(fused_temporal_block=10, linear_stats=8,
+                                  linear_apply=8, temporal_bwd=0,
+                                  linear_bwd_head=0, linear_bwd_merged=0),
+                "unfused": {}}
+    out = {}
+    for name, plan_cfg in plans.items():
+        diff = build(plan_cfg)
+        model = diff.model
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        trainer = Trainer(diff, plan_cfg, tcfg,
+                          bench_batches(plan_cfg, gen, "cuda"), generator=gen)
+        start = [p.detach().clone() for p in model.parameters()]
+        shadow = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        losses, times = [], []
+        for step in range(train_steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = trainer.step()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            with torch.no_grad():       # the EMA rule, written out
+                if step % tcfg.ema_update_every == 0:
+                    for e, p in zip(shadow, model.parameters()):
+                        if step < tcfg.ema_start_step:
+                            e.copy_(p)
+                        else:
+                            e.mul_(tcfg.ema_decay).add_(
+                                p, alpha=1.0 - tcfg.ema_decay)
+        counts = dict(_build.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: per_step[name].get(k, 0) * train_steps for k in counts}
+        if counts != want:
+            raise AssertionError(f"{name} plan: launch counts {counts}, "
+                                 f"expected {want}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name} plan: losses {losses}")
+        if not any(not torch.equal(a, p)
+                   for a, p in zip(start, model.parameters())):
+            raise AssertionError(f"{name} plan: no parameter moved")
+        for e, want_e in zip(trainer.state.ema, shadow):
+            torch.testing.assert_close(e, want_e, rtol=1e-6, atol=1e-7)
+        med = statistics.median(times) * 1e3
+        out[name] = dict(median_ms=med, peak_bytes=peak, losses=losses,
+                         counts=counts)
+        log(f"  {name} plan: {train_steps} steps, median {med:.1f} ms a "
+            f"step (min {min(times) * 1e3:.1f}, first {times[0] * 1e3:.1f}),"
+            f" peak memory {peak / 2 ** 30:.2f} GiB, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; launches {counts}")
+        if name == "kernel":
+            for k in ("temporal_bwd", "linear_bwd_head",
+                      "linear_bwd_merged"):
+                report[k]["launches"] = counts[k]
+            if profile:
+                profile_steps(
+                    lambda: [trainer.step() for _ in range(profile)],
+                    f"{profile} train steps, kernel plan", profile_out)
+        del diff, model, trainer, start, shadow
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_steps(run, what: str, out_path: str | None) -> None:
+    """Device time by kernel over run() (warmed by one call first), and the
+    share of the wall time the device was busy (sum of kernel times /
+    wall)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    diffusion.sample(cond, 5.0, generator=gen, num_steps=1)     # warm
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        diffusion.sample(cond, 5.0, generator=gen, num_steps=steps)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
     # kernel rows only: an operator's row repeats its kernels' device time
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    rows = [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in rows)
+    ported_us = sum(e.self_device_time_total for e in rows
+                    if any(k in e.key for k in PORTED_KERNELS))
     table = events.table(sort_by="self_device_time_total", row_limit=40,
                          max_name_column_width=60)
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(table)
     log(table[:6000])
-    log(f"[profile] {steps} steps: wall {wall_ms:.1f} ms, device busy "
-        f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}%)")
+    log(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy "
+        f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}%), "
+        f"of which the port's kernels {ported_us / 1e3:.1f} ms "
+        f"({100 * ported_us / max(device_us, 1):.1f}%)")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=256,
                     help="steps of the DDPM-256 chain to run (default all)")
+    ap.add_argument("--train-steps", type=int, default=20,
+                    help="timed train steps under each plan (phase 5)")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                    help="after the checks, trace STEPS guided steps with "
+                    help="after the checks, trace STEPS guided steps and "
+                         "STEPS train steps (kernel plan) with "
                          "torch.profiler and print device time by kernel")
     ap.add_argument("--profile-out", metavar="PATH",
-                    help="also write the whole profile table to PATH")
+                    help="also write the whole profile tables to PATH "
+                         "(.sample and .train suffixes)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -440,8 +782,24 @@ def main(argv=None) -> int:
     report["linear_apply"].update(
         source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block.cu",
         replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:146")
+    report["temporal_bwd"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_temporal_block_bwd.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_temporal_block.py:240")
+    report["linear_bwd_head"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block_bwd.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:414")
+    report["linear_bwd_merged"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block_bwd.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:196")
     phase_kernels(report)
     log(f"[2 kernels] all kernels match their twins | "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- 2b backward kernels against their twins
+    t0 = time.perf_counter()
+    phase_bwd_kernels(report)
+    torch.cuda.synchronize()
+    log(f"[2b backward] all backward kernels match their twins | "
         f"{time.perf_counter() - t0:.1f}s")
 
     # ---- 3 model: fused plans against unfused plans
@@ -469,7 +827,8 @@ def main(argv=None) -> int:
     chain_s = time.perf_counter() - t0
     counts = dict(_build.LAUNCH_COUNTS)
     want = {"fused_temporal_block": 10 * steps, "linear_stats": 8 * steps,
-            "linear_apply": 8 * steps}
+            "linear_apply": 8 * steps, "temporal_bwd": 0,
+            "linear_bwd_head": 0, "linear_bwd_merged": 0}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
     if tuple(videos.shape) != (1, FRAMES, cfg.image_size, cfg.image_size, 3):
@@ -490,7 +849,27 @@ def main(argv=None) -> int:
         f"{tuple(videos.shape)} in [{lo:.3f}, {hi:.3f}]")
 
     if args.profile:
-        profile_steps(diffusion, cond, args.profile, args.profile_out)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        profile_steps(lambda: diffusion.sample(cond, 5.0, generator=gen,
+                                               num_steps=args.profile),
+                      f"{args.profile} guided steps",
+                      args.profile_out and args.profile_out + ".sample")
+    del diffusion
+    torch.cuda.empty_cache()
+
+    # ---- 5 train: the flagship train step with the backward kernels
+    t0 = time.perf_counter()
+    train_cfg = cfg.replace(fused_blocks_in_training=True,
+                            fused_bwd_kernels=True)
+    train = phase_train(train_cfg, args.train_steps, report, args.profile,
+                        args.profile_out and args.profile_out + ".train")
+    log(f"[5 train] batch {train_cfg.batch_size}, {args.train_steps} steps a "
+        "plan: median ms a step " + ", ".join(
+            f"{k} {v['median_ms']:.1f}" for k, v in train.items())
+        + "; peak memory " + ", ".join(
+            f"{k} {v['peak_bytes'] / 2 ** 30:.2f} GiB"
+            for k, v in train.items())
+        + f" on {smi} | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

@@ -5,6 +5,8 @@ run it without tests/conftest.py (which imports JAX):
 `python -m pytest --noconftest tests/test_torch_port_cuda.py`.
 chip_smoke.py runs the same comparison at every main-path shape."""
 
+import math
+
 import pytest
 import torch
 
@@ -119,3 +121,133 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
             torch.zeros((11, 48, 768), dtype=torch.bfloat16, device="cuda"),
             torch.zeros((256, 48), dtype=torch.bfloat16, device="cuda"),
             None, None, torch.zeros((11, 11, 8), device="cuda"), heads=8)
+
+
+# ------------------------------------------------------------ backward
+# each cotangent within 5e-2 of the twin's largest element, rtol 0, and
+# nonzero somewhere: the JAX backward-kernel tests' rule
+# (tests/test_fused_temporal_block.py:277, tests/test_fused_linear_block.py
+# :205-211), without their 1e-3 floor on the max, which the linear dek/dev
+# lie below
+GRAD_TOL = 5e-2
+
+
+def _assert_cotangents(names, got, want):
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        a32, b32 = a.float(), b.float()
+        assert torch.isfinite(a32).all(), name
+        scale = b32.abs().max().item()
+        assert scale > 0, name
+        err = (a32 - b32).abs().max().item()
+        assert err <= GRAD_TOL * scale, (name, err, scale)
+        assert a32.abs().max() > 0, name
+
+
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("t_tok", [0, 11])
+def test_temporal_bwd_kernel_matches_twin(cuda, c, t_tok):
+    bf = torch.bfloat16
+    b, f, s, hd = 2, 11, 100, 256          # 100: a ragged last tile of 8
+    args = dict(
+        x=_rnd(cuda, b, f, s, c).to(bf), gamma=1 + _rnd(cuda, c, scale=0.1),
+        w_all=(_rnd(cuda, f, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        ek=_rnd(cuda, b, t_tok, hd).to(bf) if t_tok else None,
+        ev=_rnd(cuda, b, t_tok, hd).to(bf) if t_tok else None,
+        bias_all=_rnd(cuda, f, f + t_tok, 8, scale=0.5))
+    g = _rnd(cuda, b, f, s, c).to(bf)
+    before = _build.LAUNCH_COUNTS["temporal_bwd"]
+    got = tmp.temporal_block_bwd(**args, g=g, heads=8)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["temporal_bwd"] == before + 1
+    want = tmp.temporal_block_bwd_plain(**args, g=g, heads=8)
+    _assert_cotangents(("dx", "dgamma", "dw_all", "dw_out", "dek", "dev",
+                        "dbias"), got, want)
+    # deterministic: no atomics, the same bits twice
+    again = tmp.temporal_block_bwd(**args, g=g, heads=8)
+    for a, b_ in zip(got, again):
+        assert a is None or torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("route", ["head", "merged"])
+@pytest.mark.parametrize("n,c", [(100, 64), (144, 512)])
+def test_linear_bwd_kernel_matches_twin(cuda, route, n, c):
+    bf = torch.bfloat16
+    b, hd = 6, 256
+    args = dict(
+        x=_rnd(cuda, b, n, c).to(bf), gamma=1 + _rnd(cuda, c, scale=0.1),
+        w_qkv=(_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        out_bias=_rnd(cuda, c, scale=0.1),
+        # the conditioning key takes about half of each feature's softmax,
+        # so dek, dev and the softmax's S term are not lost beside the rest
+        ek=(_rnd(cuda, b, 1, hd) + math.log(n) + 0.5).to(bf),
+        ev=_rnd(cuda, b, 1, hd).to(bf))
+    g = _rnd(cuda, b, n, c).to(bf)
+    kw = dict(heads=8, scale=32 ** -0.5, spatial_size=n, route=route)
+    name = f"linear_bwd_{route}"
+    before = _build.LAUNCH_COUNTS[name]
+    got = lin.linear_block_bwd(**args, g=g, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS[name] == before + 1
+    want = lin.linear_block_bwd_plain(**args, g=g, **kw)
+    _assert_cotangents(("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias",
+                        "dek", "dev"), got, want)
+    again = lin.linear_block_bwd(**args, g=g, **kw)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("bwd", ["recompute", "kernel"])
+def test_fused_plans_send_gradients_to_every_parameter(cuda, bwd):
+    """On the card with grad on, the fused plans keep the graph: every
+    parameter of a fused block gets a nonzero gradient that matches the
+    unfused plan's (the attention blocks at flagship widths, levels 0-1)."""
+    from videometamaterials_tpu_torch.models.unet3d import (
+        SpatialLinearAttentionBlock,
+        TemporalAttentionBlock,
+        UNet3D,
+    )
+
+    model = UNet3D(dim=64, dim_mults=(1, 2), num_frames=11,
+                   fused_bwd_kernels=bwd == "kernel").cuda()
+    model.init_weights(torch.Generator().manual_seed(0))
+    x = _rnd(cuda, 2, 11, 16, 16, 3)
+    t = torch.tensor([10, 200], device="cuda")
+    cond = _rnd(cuda, 2, 11)
+
+    def grads(fused):
+        model.zero_grad(set_to_none=True)
+        with model.fused_plans(fused):
+            eps = model(x, t, cond)
+        assert eps.grad_fn is not None
+        eps.square().mean().backward()
+        return {n: None if p.grad is None else p.grad.clone()
+                for n, p in model.named_parameters()}
+
+    counts = dict(_build.LAUNCH_COUNTS)
+    fused = grads(True)
+    torch.cuda.synchronize()
+    # 6 temporal blocks (init, 2 down, mid, 2 up), 4 linear blocks
+    n_kernel = _build.LAUNCH_COUNTS["temporal_bwd"] - counts["temporal_bwd"]
+    assert n_kernel == (6 if bwd == "kernel" else 0)
+    unfused = grads(False)
+    names = ["time_rel_pos_bias.relative_attention_bias.weight"]
+    for prefix, m in model.named_modules():
+        if isinstance(m, (TemporalAttentionBlock,
+                          SpatialLinearAttentionBlock)):
+            names += [f"{prefix}.{n}" for n, _ in m.named_parameters()]
+    assert len(names) == 1 + 6 * 5 + 4 * 6
+    for name in names:
+        if name.startswith("init_temporal_attn.") and (
+                "to_k" in name or "to_v" in name):
+            # the init block runs without conditioning tokens
+            assert fused[name] is None and unfused[name] is None, name
+            continue
+        a, b_ = fused[name].float(), unfused[name].float()
+        assert a.abs().max() > 0, name
+        scale = b_.abs().max().item()
+        assert (a - b_).abs().max().item() <= GRAD_TOL * scale, name

@@ -1,12 +1,13 @@
-"""Gaussian diffusion: classifier-free guidance, dynamic thresholding and
-the DDPM ancestral chain.
+"""Gaussian diffusion: classifier-free guidance, dynamic thresholding, the
+DDPM ancestral chain and the training loss.
 
-Port of videometamaterials_tpu/diffusion/gaussian.py:132-364. The chain is a
-plain Python loop over timesteps; randomness comes from an explicit
-`torch.Generator`, or is injected (x_T and per-step noise) so that a test
-can drive the JAX sampler with the same numbers. Videos are
-(B, F, H, W, C), [0, 1] at the API and [-1, 1] inside. DDIM, latent
-interpolation and the losses wait for later slices.
+Port of videometamaterials_tpu/diffusion/gaussian.py:132-364 and :491-539.
+The chain is a plain Python loop over timesteps; randomness comes from an
+explicit `torch.Generator`, or is injected (x_T and per-step noise; the
+loss's t, noise and null-conditioning mask) so that a test can drive the
+JAX functions with the same numbers. Videos are (B, F, H, W, C), [0, 1] at
+the API and [-1, 1] inside. DDIM and latent interpolation wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -33,10 +34,13 @@ class GaussianDiffusion:
                  dynamic_thres_percentile: float = 0.9,
                  dynamic_thres_method: str = "bisect",
                  cfg_rescale: float = 0.0, cfg_shared_init: bool = True,
-                 device: torch.device | str = "cpu"):
+                 loss_type: str = "l1", device: torch.device | str = "cpu"):
         if dynamic_thres_method not in ("bisect", "sort"):
             raise ValueError(f"unknown threshold method "
                              f"{dynamic_thres_method!r}")
+        if loss_type not in ("l1", "l2"):
+            raise ValueError(f"unknown loss_type {loss_type!r}")
+        self.loss_type = loss_type
         self.model = model
         self.image_size = image_size
         self.num_frames = num_frames
@@ -61,13 +65,21 @@ class GaussianDiffusion:
                    dynamic_thres_percentile=cfg.dynamic_thres_percentile,
                    dynamic_thres_method=cfg.dynamic_thres_method,
                    cfg_rescale=cfg.cfg_rescale,
-                   cfg_shared_init=cfg.cfg_shared_init, device=device)
+                   cfg_shared_init=cfg.cfg_shared_init,
+                   loss_type=cfg.loss_type, device=device)
 
     def video_shape(self, batch: int) -> tuple:
         return (batch, self.num_frames, self.image_size, self.image_size,
                 self.channels)
 
     # ------------------------------------------------------------ q process
+    def q_sample(self, x_start, t, noise):
+        """Forward noising q(x_t | x_0)."""
+        s = self.schedule
+        nd = x_start.ndim
+        return (extract(s.sqrt_alphas_cumprod, t, nd) * x_start
+                + extract(s.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
     def predict_start_from_noise(self, x_t, t, noise):
         s = self.schedule
         return (extract(s.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t
@@ -188,3 +200,39 @@ class GaussianDiffusion:
         """Guided DDPM sampling of len(cond) videos in [0, 1]."""
         return self.p_sample_loop(cond.to(self.device, torch.float32),
                                   guidance_scale, **kw)
+
+    # ----------------------------------------------------------------- loss
+    def p_losses(self, x_start, t, cond, noise, null_cond_mask,
+                 per_sample: bool = False):
+        """Epsilon-prediction loss (l1 or l2) of x_start in [-1, 1] at
+        timesteps t with the given noise and null-conditioning mask: the
+        batch mean, or per_sample=True the (b,) per-sample means."""
+        x_noisy = self.q_sample(x_start, t, noise)
+        eps_hat = self.model(x_noisy, t, cond, null_cond_mask=null_cond_mask)
+        diff = noise - eps_hat
+        err = diff.abs() if self.loss_type == "l1" else diff.square()
+        if per_sample:
+            return err.reshape(err.shape[0], -1).mean(dim=-1)
+        return err.mean()
+
+    def loss(self, x, cond, *, null_cond_prob: float = 0.0,
+             generator: Optional[torch.Generator] = None, t=None, noise=None,
+             null_cond_mask=None, per_sample: bool = False):
+        """Training objective on [0, 1] videos: t ~ U[0, T), standard
+        normal noise and a Bernoulli(null_cond_prob) null-conditioning mask,
+        each drawn from `generator` unless given."""
+        b = x.shape[0]
+        if tuple(x.shape[1:]) != self.video_shape(b)[1:]:
+            raise ValueError(f"bad video shape {tuple(x.shape)}")
+        dev = x.device
+        if t is None:
+            t = torch.randint(0, self.timesteps, (b,), generator=generator,
+                              device=dev)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, device=dev,
+                                dtype=torch.float32)
+        if null_cond_mask is None:
+            null_cond_mask = torch.rand(b, generator=generator,
+                                        device=dev) < null_cond_prob
+        return self.p_losses(normalize_img(x.float()), t, cond, noise,
+                             null_cond_mask, per_sample=per_sample)

@@ -18,13 +18,20 @@ reference checkpoint with `load_state_dict(strict=True)`.
 The temporal-attention and spatial linear-attention blocks each have two
 plans: the unfused plan (plain PyTorch, what the JAX package runs off the
 TPU) and the fused plan, which calls the hand-written CUDA kernels on a
-CUDA tensor and their plain twins on a CPU tensor. The focus-present mask,
+CUDA tensor and their plain twins on a CPU tensor. Under grad the fused
+plans backpropagate through autograd of the plain twins ('recompute') or
+through the backward kernels ('kernel', from `fused_bwd_kernels` and
+`temporal_vjp`); `UNet3D.fused_plans(False)` runs every block on its
+unfused plan over the same parameters (the JAX Trainer's plan split). The
+focus-present mask,
 cross-attention conditioning, the CNN/GRU signal embedders and the circular
 padding modes are off the sampling path and wait for later slices.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -36,6 +43,7 @@ from videometamaterials_tpu_torch.config import (
     ModelConfig,
     resolve_device,
     set_precision,
+    temporal_bwd_mode,
 )
 from videometamaterials_tpu_torch.models.embeddings import (
     RelativePositionBias,
@@ -151,6 +159,17 @@ class _GroupNormParams(nn.Module):
 
 
 # ------------------------------------------------------------------ blocks
+
+
+@functools.lru_cache(maxsize=None)
+def _rotary_tables(f: int, dim_head: int, device: torch.device):
+    """The rotary angle table (f, rot) and per-frame rotation matrices
+    (f, d, d) on `device`, float32, built once per (f, d, device): they do
+    not depend on parameters, so no step copies them to the card again."""
+    freqs = rotary_frequencies(f, min(32, dim_head))
+    return (torch.as_tensor(freqs, device=device),
+            torch.as_tensor(rotary_head_matrices(freqs, dim_head),
+                            device=device))
 
 
 def _inference_cache(module: nn.Module, key, params, build):
@@ -274,10 +293,7 @@ class Attention(nn.Module):
         w = self.to_qkv.weight.float().t()                 # (c, 3*hidden)
         c = w.shape[0]
         w_q, w_k, w_v = w.split(hidden, dim=-1)
-        freqs_np = rotary_frequencies(f, min(32, dh))
-        freqs = torch.as_tensor(freqs_np, device=w.device)
-        rot = torch.as_tensor(rotary_head_matrices(freqs_np, dh),
-                              device=w.device)            # (f, d, d)
+        freqs, rot = _rotary_tables(f, dh, w.device)      # rot: (f, d, d)
         w_qf = torch.einsum("chd,fde->fche", w_q.reshape(c, heads, dh),
                             rot * scale).reshape(f, c, hidden)
         w_kf = torch.einsum("chd,fde->fche", w_k.reshape(c, heads, dh),
@@ -299,16 +315,22 @@ class Attention(nn.Module):
         bias_v = pos_bias.float().permute(1, 2, 0)
         return torch.cat([bias_v] * (2 if t_tok else 1), dim=1).contiguous()
 
-    def temporal_fused(self, x_bfsc, norm_gamma, pos_bias, label_emb=None):
+    def temporal_fused(self, x_bfsc, norm_gamma, pos_bias, label_emb=None,
+                       bwd: str = "recompute"):
         """The whole temporal block through the fused kernel (its twin on a
-        CPU tensor). x_bfsc: (b, f, s, c). Returns x + block(x)."""
+        CPU tensor). x_bfsc: (b, f, s, c). Returns x + block(x). Under grad
+        the fold re-runs, in float32, so the weight gradients reach
+        to_qkv.weight and come out float32; bwd is the backward plan."""
         f = x_bfsc.shape[1]
         dt = self.dtype
 
         def weights():
             w_all, freqs = self._folded_temporal_weights(f)
-            return (w_all.to(dt).contiguous(),
-                    self.to_out.weight.t().to(dt).contiguous(), freqs)
+            w_out = self.to_out.weight.t()
+            if not torch.is_grad_enabled():     # cached: cast once
+                w_all, w_out = (w_all.to(dt).contiguous(),
+                                w_out.to(dt).contiguous())
+            return w_all, w_out, freqs
 
         w_all, w_out, freqs = _inference_cache(
             self, ("temporal", f), (self.to_qkv.weight, self.to_out.weight),
@@ -319,7 +341,8 @@ class Attention(nn.Module):
             x_bfsc.contiguous(), norm_gamma.float().contiguous(), w_all, w_out,
             None if ek is None else ek.to(dt).contiguous(),
             None if ev is None else ev.to(dt).contiguous(),
-            self._temporal_bias_all(f, t_tok, pos_bias), heads=self.heads)
+            self._temporal_bias_all(f, t_tok, pos_bias), heads=self.heads,
+            bwd=bwd)
 
     def temporal_xla(self, x_bfsc, norm_gamma, pos_bias, label_emb=None):
         """The unfused plan of the temporal block (the JAX package's
@@ -410,25 +433,34 @@ class SpatialLinearAttention(nn.Module):
                       self.to_out.matrix, self.to_out.bias)
         return out.reshape(b, f, h, w, self.dim)
 
-    def forward_fused(self, x, norm_gamma, label_emb=None):
+    def forward_fused(self, x, norm_gamma, label_emb=None,
+                      bwd: str = "recompute"):
         """Fused plan: LN, attention, out-proj and residual through the
-        stats + apply kernels (their twins on a CPU tensor)."""
+        stats + apply kernels (their twins on a CPU tensor). Under grad the
+        weights enter in float32 (float32 gradients); bwd is the backward
+        plan."""
         b, f, h, w, c = x.shape
         dt = self.dtype
         ek = ev = None
         if label_emb is not None:
             ek, ev = (t.contiguous() for t in self._cond_kv(label_emb, b, f))
+
+        def weights():
+            w_qkv, w_out = self.to_qkv.matrix.t(), self.to_out.matrix.t()
+            if not torch.is_grad_enabled():     # cached: cast once
+                w_qkv, w_out = (w_qkv.to(dt).contiguous(),
+                                w_out.to(dt).contiguous())
+            return w_qkv, w_out, self.to_out.bias.float().contiguous()
+
         w_qkv, w_out, out_bias = _inference_cache(
             self, "linear",
             (self.to_qkv.weight, self.to_out.weight, self.to_out.bias),
-            lambda: (self.to_qkv.matrix.t().to(dt).contiguous(),
-                     self.to_out.matrix.t().to(dt).contiguous(),
-                     self.to_out.bias.float().contiguous()))
+            weights)
         out = fused_linear_block(
             x.reshape(b * f, h * w, c).to(dt).contiguous(),
             norm_gamma.float().contiguous(), w_qkv, w_out, out_bias, ek, ev,
             heads=self.heads, scale=self.dim_head ** -0.5,
-            spatial_size=h * w)
+            spatial_size=h * w, bwd=bwd)
         return out.reshape(b, f, h, w, c).to(x.dtype)
 
 
@@ -437,18 +469,23 @@ class TemporalAttentionBlock(nn.Module):
     nest as the reference's `fn.norm.gamma` / `fn.fn.fn.<proj>`."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype, use_fused_block: bool):
+                 dtype, use_fused_block: bool, bwd: str = "recompute"):
         super().__init__()
         self.fn = _PreNorm(dim, _Rearranged(Attention(
             dim, heads, dim_head, cond_dim, dtype)))
         self.use_fused_block = use_fused_block
+        self.bwd = bwd
 
     def forward(self, x, pos_bias, label_emb=None):
         b, f, h, w, c = x.shape
         attn = self.fn.fn.fn
-        plan = attn.temporal_fused if self.use_fused_block else attn.temporal_xla
-        out = plan(x.reshape(b, f, h * w, c), self.fn.norm.scale, pos_bias,
-                   label_emb=label_emb)
+        x4 = x.reshape(b, f, h * w, c)
+        if self.use_fused_block:
+            out = attn.temporal_fused(x4, self.fn.norm.scale, pos_bias,
+                                      label_emb=label_emb, bwd=self.bwd)
+        else:
+            out = attn.temporal_xla(x4, self.fn.norm.scale, pos_bias,
+                                    label_emb=label_emb)
         return out.reshape(b, f, h, w, c)
 
 
@@ -474,16 +511,18 @@ class SpatialLinearAttentionBlock(nn.Module):
     `fn.fn.<proj>`)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype, use_fused_block: bool):
+                 dtype, use_fused_block: bool, bwd: str = "recompute"):
         super().__init__()
         self.fn = _PreNorm(dim, SpatialLinearAttention(
             dim, heads, dim_head, cond_dim, dtype))
         self.use_fused_block = use_fused_block
+        self.bwd = bwd
 
     def forward(self, x, label_emb=None):
         gamma = self.fn.norm.scale
         if self.use_fused_block:
-            return self.fn.fn.forward_fused(x, gamma, label_emb=label_emb)
+            return self.fn.fn.forward_fused(x, gamma, label_emb=label_emb,
+                                            bwd=self.bwd)
         y = self.fn.fn(channel_layer_norm(x, gamma), label_emb=label_emb)
         return x + y.to(x.dtype)
 
@@ -524,8 +563,12 @@ class UNet3D(nn.Module):
                  padding_mode: str = "zeros", num_frames: int = 11,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  use_fused_linear_block: bool | str | int = "all",
-                 use_fused_temporal_block: bool | str | int = "all"):
+                 use_fused_temporal_block: bool | str | int = "all",
+                 fused_bwd_kernels: bool = False,
+                 temporal_vjp: str | None = None):
         super().__init__()
+        temporal_bwd = temporal_bwd_mode(temporal_vjp, fused_bwd_kernels)
+        linear_bwd = "kernel" if fused_bwd_kernels else "recompute"
         unported = {"per_frame_cond": per_frame_cond is not True,
                     "use_sparse_linear_attn": use_sparse_linear_attn is not True,
                     "cond_to_time": cond_to_time != "add",
@@ -542,12 +585,12 @@ class UNet3D(nn.Module):
         def temporal(d):
             return TemporalAttentionBlock(
                 d, attn_heads, attn_dim_head, cond_dim, compute_dtype,
-                self._tri_state(use_fused_temporal_block, d))
+                self._tri_state(use_fused_temporal_block, d), temporal_bwd)
 
         def linear(d):
             return SpatialLinearAttentionBlock(
                 d, attn_heads, 32, cond_dim, compute_dtype,
-                self._tri_state(use_fused_linear_block, d))
+                self._tri_state(use_fused_linear_block, d), linear_bwd)
 
         def res(a, b_):
             return ResnetBlock(a, b_, cond_dim, resnet_groups, compute_dtype)
@@ -606,6 +649,24 @@ class UNet3D(nn.Module):
         if flag == "level0":
             return dim == self.init_dim
         raise ValueError(f"unknown fused-block setting {flag!r}")
+
+    @contextlib.contextmanager
+    def fused_plans(self, enabled: bool):
+        """With enabled=False, every attention block runs its unfused plan
+        inside the block, on the same parameters; enabled=True keeps the
+        configured plans."""
+        blocks = [m for m in self.modules()
+                  if isinstance(m, (TemporalAttentionBlock,
+                                    SpatialLinearAttentionBlock))]
+        saved = [m.use_fused_block for m in blocks]
+        if not enabled:
+            for m in blocks:
+                m.use_fused_block = False
+        try:
+            yield self
+        finally:
+            for m, flag in zip(blocks, saved):
+                m.use_fused_block = flag
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -701,7 +762,9 @@ class UNet3D(nn.Module):
             padding_mode=cfg.padding_mode, num_frames=cfg.num_frames,
             compute_dtype=cfg.torch_dtype,
             use_fused_linear_block=cfg.use_fused_linear_block,
-            use_fused_temporal_block=cfg.use_fused_temporal_block)
+            use_fused_temporal_block=cfg.use_fused_temporal_block,
+            fused_bwd_kernels=cfg.fused_bwd_kernels,
+            temporal_vjp=cfg.temporal_vjp)
 
 
 def build_unet(cfg: ModelConfig, *, device=None,

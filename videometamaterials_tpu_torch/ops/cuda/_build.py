@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by ONE plain `nvcc` command into one
-shared library with an `extern "C"` interface, loaded with ctypes. No
-PyTorch header is included and `torch.utils.cpp_extension` is not used, so
-a build takes seconds.
+Every `csrc/*.cu` file is compiled by its own plain `nvcc` process, all
+started together, and one more `nvcc` links the objects into one shared
+library with an `extern "C"` interface, loaded with ctypes. No PyTorch
+header is included and `torch.utils.cpp_extension` is not used, so a build
+takes seconds.
 
 The library goes to `build/vmt_torch_kernels/<hash>/` at the root of the
 checkout (gitignored), keyed by a hash of the sources and flags, and is
@@ -31,13 +32,16 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "vmt_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libvmt_kernels.so"
 
 LAUNCH_COUNTS: dict[str, int] = {
     "fused_temporal_block": 0,
     "linear_stats": 0,
     "linear_apply": 0,
+    "temporal_bwd": 0,
+    "linear_bwd_head": 0,
+    "linear_bwd_merged": 0,
 }
 
 _P = ctypes.c_void_p
@@ -52,6 +56,18 @@ _SIGNATURES = {
     # x, gamma, w_qkv, w_out, out_bias, ctx, z, out,
     # BF, N, C, heads, tile, scale, stream
     "vmt_linear_apply": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # x, gamma, w_all, w_allT, w_outT, bias, ek, ev, g, dx, dgamma, dw_all,
+    # dw_out, dbias, dekv, workspace, B, F, S, C, T, heads, stream
+    "vmt_temporal_block_bwd": [_P] * 16 + [_I] * 6 + [_P],
+    # x, gamma, w_qkv, w_qkvT, w_outT, ek, ev, g, dx, dgamma, dw_qkv, dw_out,
+    # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, tile, scale,
+    # inv_hw, clip, stream
+    "vmt_linear_block_bwd": [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
+}
+# workspace sizes (bytes) of the backward entry points
+_SIZE_SIGNATURES = {
+    "vmt_temporal_block_bwd_workspace": [_I] * 5,     # B, F, S, C, T
+    "vmt_linear_block_bwd_workspace": [_I] * 4,       # BF, N, C, tile
 }
 
 
@@ -92,16 +108,33 @@ def build_info() -> dict:
         return {"path": str(lib_path), "built": False, "seconds": 0.0,
                 "log": ""}
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"tmp{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in _sources()]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(_sources(), objs)]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs))
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        link = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append(proc.returncode)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + log)
-    if proc.returncode != 0:
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (out_dir / "build.log").write_text(log)
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed (exit {failed[0]}):\n{log}")
     os.replace(tmp, lib_path)
     return {"path": str(lib_path), "built": True, "seconds": seconds,
             "log": log}
@@ -114,6 +147,10 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SIZE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_size_t
     lib.vmt_error_string.argtypes = [ctypes.c_int]
     lib.vmt_error_string.restype = ctypes.c_char_p
     return lib
@@ -130,8 +167,28 @@ def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def workspace(nbytes: int, device: torch.device) -> torch.Tensor:
+    """Scratch of a backward launch: one byte tensor the kernel carves."""
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
 def stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def plain_cotangents(fn, x, g, rest, **kw):
+    """The backward twins' autograd: the cotangents of fn(x, *rest, **kw)
+    against g, at float32 leaves of `rest` (x keeps its dtype), in the order
+    (x, *rest); None operands stay None."""
+    leaves = [x.detach()] + [None if t is None else t.detach().float()
+                             for t in rest]
+    want = [t for t in leaves if t is not None]
+    with torch.enable_grad():
+        for t in want:
+            t.requires_grad_(True)
+        out = fn(*leaves, **kw)
+        grads = iter(torch.autograd.grad(out, want, g.to(out.dtype)))
+    return tuple(None if t is None else next(grads) for t in leaves)
 
 
 def require(cond: bool, what: str) -> None:

@@ -1,10 +1,15 @@
-"""Whole spatial linear-attention block: stats and apply kernel wrappers and
-their plain twins.
+"""Whole spatial linear-attention block: stats, apply and backward kernel
+wrappers, their plain twins and the differentiable entry point.
 
 Replaces videometamaterials_tpu/ops/pallas/fused_linear_block.py:
-_merged_stats_kernel and _merged_apply_kernel. The kernels are
-csrc/fused_linear_block.cu; its source note gives the bounds and the
-design.
+_merged_stats_kernel and _merged_apply_kernel (csrc/fused_linear_block.cu)
+and both backward kernels, _bwd_kernel (per-head) and _bwd_kernel_merged
+(csrc/fused_linear_block_bwd.cu, one source with a clip flag); each source
+note gives the bounds and the design. `fused_linear_block` is the JAX
+package's custom VJP as a torch.autograd.Function: stats + apply on the
+primals, which are saved, and a backward that is autograd through the
+plain twins ('recompute', the JAX default) or the backward kernel
+('kernel'), routed per-head or merged by the JAX rule (`bwd_route`).
 
     stats:  z[a] = sum_tok exp(clip(k, +-60))[a]
             ctx[h, a, e] = sum_tok bf16(exp(clip(k)))[h, a] * bf16(v / HW)[h, e]
@@ -28,6 +33,10 @@ CHANNELS = (64, 128, 256, 512)
 HEADS = 8
 HIDDEN = 256
 APPLY_TILE = 64
+# the JAX _core_bwd route (fused_linear_block.py:580-586): the merged
+# backward is untiled there, so it takes only shapes whose ~12 live
+# (N, hidden) f32 arrays fit in 40 MiB; larger ones go per-head
+ROUTE_BYTES = 40 * 2 ** 20
 
 
 def stats_tile(n: int) -> int:
@@ -193,12 +202,171 @@ def linear_apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
     return out
 
 
-def fused_linear_block(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
-                       heads: int, scale: float, spatial_size: int):
+def linear_block_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
+                     heads: int, scale: float, spatial_size: int):
     """x: (B, N, C) with frames folded into B; w_qkv (C, 3*hidden);
     w_out (hidden, C); out_bias (C,); ek/ev (B, Mc, hidden) or None.
-    Returns x + block(x)."""
+    Returns x + block(x): the stats and apply kernels (their twins on a CPU
+    tensor)."""
     ctx, z = linear_stats(x, gamma, w_qkv, ek, ev, heads=heads,
                           spatial_size=spatial_size)
     return linear_apply(x, gamma, w_qkv, w_out, out_bias, ctx, z,
                         heads=heads, scale=scale)
+
+
+def bwd_route(n: int, hidden: int = HIDDEN) -> str:
+    """'head' where the JAX package sends the backward to the per-head
+    kernel (12 * N * hidden * 4 B above 40 MiB), else 'merged'."""
+    return "head" if 12 * n * hidden * 4 > ROUTE_BYTES else "merged"
+
+
+def linear_block_softmax_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
+                               heads: int, scale: float, spatial_size: int,
+                               clip: bool):
+    """The block in the form the backward kernel differentiates: y rounded
+    to x's dtype, then float32 with a max-shifted token softmax. clip=True:
+    k clamped to +-60 with no gradient where |k| >= 60 (the JAX merged
+    backward's where form, fused_linear_block.py:311, :315); clip=False:
+    the unclamped softmax (the JAX per-head backward)."""
+    b, n, _ = x.shape
+    hidden = w_out.shape[0]
+    d = hidden // heads
+    y = channel_layer_norm(x, gamma, one_pass=False).to(x.dtype).float()
+    q, k, v = (y @ w_qkv.float()).split(hidden, dim=-1)
+    if ek is not None:
+        k = torch.cat([ek.float(), k], dim=1)
+        v = torch.cat([ev.float(), v], dim=1)
+    if clip:
+        k = torch.where(k.abs() < K_CLAMP, k,
+                        k.detach().clamp(-K_CLAMP, K_CLAMP))
+    m = k.shape[1]
+    pk = torch.softmax(k.reshape(b, m, heads, d), dim=1)
+    ctx = torch.einsum("bmha,bmhe->bhae", pk,
+                       v.reshape(b, m, heads, d) / spatial_size)
+    qs = torch.softmax(q.reshape(b, n, heads, d), dim=-1) * scale
+    oh = torch.einsum("bnha,bhae->bnhe", qs, ctx).reshape(b, n, hidden)
+    out = x.float() + out_bias.float() + oh @ w_out.float()
+    return out.to(x.dtype)
+
+
+def linear_block_bwd_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
+                           heads: int, scale: float, spatial_size: int,
+                           route: str):
+    """Plain twin of the backward kernel: autograd through
+    linear_block_softmax_plain, clamped for the merged route and unclamped
+    for the per-head one, at the weights rounded to x's dtype. Returns
+    (dx, dgamma, dw_qkv, dw_out, dout_bias, dek, dev); dx in x's dtype, the
+    rest float32, dek/dev None without conditioning tokens."""
+    cdt = x.dtype
+    return _build.plain_cotangents(linear_block_softmax_plain, x, g,
+                  (gamma, w_qkv.to(cdt), w_out.to(cdt), out_bias,
+                   None if ek is None else ek.to(cdt),
+                   None if ev is None else ev.to(cdt)),
+                  heads=heads, scale=scale, spatial_size=spatial_size,
+                  clip=route == "merged")
+
+
+def linear_block_recompute(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
+                           heads: int, scale: float, spatial_size: int):
+    """The default backward: autograd through the forward twins (the JAX
+    'recompute' _core_bwd), in linear_block_bwd_plain's result order."""
+    cdt = x.dtype
+    return _build.plain_cotangents(linear_block_plain, x, g,
+                  (gamma, w_qkv.to(cdt), w_out.to(cdt), out_bias,
+                   None if ek is None else ek.to(cdt),
+                   None if ev is None else ev.to(cdt)),
+                  heads=heads, scale=scale, spatial_size=spatial_size)
+
+
+def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
+                     heads: int, scale: float, spatial_size: int,
+                     route: str):
+    """All cotangents of the block (linear_block_bwd_plain's order) on the
+    given route ('head' or 'merged'). A CPU tensor takes the plain twin; a
+    CUDA tensor launches the backward kernel or raises."""
+    if route not in ("head", "merged"):
+        raise ValueError(f"unknown backward route {route!r}")
+    if x.device.type == "cpu":
+        return linear_block_bwd_plain(x, gamma, w_qkv, w_out, out_bias, ek,
+                                      ev, g, heads=heads, scale=scale,
+                                      spatial_size=spatial_size, route=route)
+    _check_common(x, gamma, w_qkv, heads)
+    b, n, c = x.shape
+    req = _build.require
+    req(w_out.dtype == torch.bfloat16 and tuple(w_out.shape) == (HIDDEN, c)
+        and w_out.device == x.device, "w_out must be bf16 (hidden, C)")
+    req(g.dtype == x.dtype and g.shape == x.shape and g.is_contiguous()
+        and g.device == x.device, "g must be contiguous, of x's shape and dtype")
+    req((ek is None) == (ev is None), "ek and ev come together")
+    m_c = 0
+    if ek is not None:
+        m_c = ek.shape[1]
+        for t in (ek, ev):
+            req(t.dtype == torch.bfloat16 and t.is_contiguous()
+                and tuple(t.shape) == (b, m_c, HIDDEN)
+                and t.device == x.device,
+                "ek/ev must be contiguous bf16 (B, Mc, hidden) on x's device")
+    tile = stats_tile(n)
+    lib = _build.load_library()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((c,), **f32)
+    dw_qkv = torch.empty((c, 3 * HIDDEN), **f32)
+    dw_out = torch.empty((HIDDEN, c), **f32)
+    dout_bias = torch.empty((c,), **f32)
+    dek = torch.empty((b, m_c, HIDDEN), **f32) if m_c else None
+    dev = torch.empty((b, m_c, HIDDEN), **f32) if m_c else None
+    ws = _build.workspace(
+        lib.vmt_linear_block_bwd_workspace(b, n, c, tile), x.device)
+    w_qkv_t = w_qkv.t().contiguous()
+    w_out_t = w_out.t().contiguous()
+    p = _build.ptr
+    err = lib.vmt_linear_block_bwd(
+        p(x), p(gamma), p(w_qkv), p(w_qkv_t), p(w_out_t), p(ek), p(ev), p(g),
+        p(dx), p(dgamma), p(dw_qkv), p(dw_out), p(dout_bias), p(dek), p(dev),
+        p(ws), b, n, c, m_c, heads, tile, scale, 1.0 / spatial_size,
+        int(route == "merged"), _build.stream_handle(x.device))
+    _build.check_launch(lib, err, f"linear_block_bwd ({route})")
+    _build.LAUNCH_COUNTS[f"linear_bwd_{route}"] += 1
+    return dx, dgamma, dw_qkv, dw_out, dout_bias, dek, dev
+
+
+class _FusedLinearBlock(torch.autograd.Function):
+    """The JAX custom VJP (fused_linear_block.py:550-745): stats + apply on
+    the primals, which are saved; the backward recomputes through the plain
+    twins or runs the backward kernel on the JAX route."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w_qkv, w_out, out_bias, ek, ev, heads, scale,
+                spatial_size, bwd):
+        cdt = x.dtype
+        w_qkv, w_out = w_qkv.to(cdt).contiguous(), w_out.to(cdt).contiguous()
+        ctx.kw = dict(heads=heads, scale=scale, spatial_size=spatial_size)
+        ctx.bwd = bwd
+        ctx.save_for_backward(x, gamma, w_qkv, w_out, out_bias, ek, ev)
+        return linear_block_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev,
+                                **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        if ctx.bwd == "kernel":
+            grads = linear_block_bwd(*args, g.contiguous(), **ctx.kw,
+                                     route=bwd_route(args[0].shape[1]))
+        else:
+            grads = linear_block_recompute(*args, g, **ctx.kw)
+        return (*grads, None, None, None, None)
+
+
+def fused_linear_block(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
+                       heads: int, scale: float, spatial_size: int,
+                       bwd: str = "recompute"):
+    """x + block(x), differentiable in every operand. x: (B, N, C) in the
+    compute dtype; w_qkv/w_out in any float dtype (cast to x's inside, so
+    float32 weights get float32 gradients); bwd: 'recompute' (autograd
+    through the plain twins) or 'kernel' (the backward kernel; its twin on
+    the CPU)."""
+    if bwd not in ("recompute", "kernel"):
+        raise ValueError(f"unknown backward plan {bwd!r}")
+    return _FusedLinearBlock.apply(x, gamma, w_qkv, w_out, out_bias, ek, ev,
+                                   heads, scale, spatial_size, bwd)

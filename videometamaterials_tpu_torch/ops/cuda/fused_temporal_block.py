@@ -1,8 +1,13 @@
-"""Whole temporal-attention block: CUDA kernel wrapper and plain twin.
+"""Whole temporal-attention block: CUDA kernel wrappers, their plain twins
+and the differentiable entry point.
 
 Replaces videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_kernel
-(split softmax layout). The kernel is csrc/fused_temporal_block.cu; its
-source note gives the bound and the design.
+(split softmax layout; csrc/fused_temporal_block.cu) and _bwd_kernel
+(csrc/fused_temporal_block_bwd.cu); each source note gives the bound and
+the design. `fused_temporal_block` is the JAX package's custom VJP as a
+torch.autograd.Function: the forward kernel, the primal inputs saved, and
+a backward that is autograd through the plain twin ('recompute', the JAX
+default) or the backward kernel ('kernel').
 
     out = x + W_out . softmax_j(q_i.k_j + bias_ij || q_i.ek_t + bias_it)
                     . [v_j || ev_t]
@@ -91,8 +96,8 @@ def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
         req(t is None or t.device == x.device, "all operands on x's device")
 
 
-def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
-                         heads: int) -> torch.Tensor:
+def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
+                       heads: int) -> torch.Tensor:
     """x + block(x). A CPU tensor takes the plain twin; a CUDA tensor
     launches the kernel or raises."""
     if x.device.type == "cpu":
@@ -110,3 +115,94 @@ def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     _build.check_launch(lib, err, "fused_temporal_block")
     _build.LAUNCH_COUNTS["fused_temporal_block"] += 1
     return out
+
+
+def temporal_block_bwd_plain(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
+                             heads: int):
+    """Plain twin of the backward kernel: autograd through
+    temporal_block_plain at the bf16-rounded weights. Returns (dx, dgamma,
+    dw_all, dw_out, dek, dev, dbias): dx in x's dtype, the rest float32;
+    dek/dev None without conditioning tokens."""
+    cdt = x.dtype
+    return _build.plain_cotangents(
+        temporal_block_plain, x, g,
+        [gamma] + [None if t is None else t.to(cdt)
+                   for t in (w_all, w_out, ek, ev)] + [bias_all],
+        heads=heads)
+
+
+def temporal_block_bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
+                       heads: int):
+    """All cotangents of the block (the order of temporal_block_bwd_plain's
+    result). A CPU tensor takes the plain twin; a CUDA tensor launches the
+    backward kernel or raises."""
+    if x.device.type == "cpu":
+        return temporal_block_bwd_plain(x, gamma, w_all, w_out, ek, ev,
+                                        bias_all, g, heads=heads)
+    _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
+    _build.require(g.dtype == x.dtype and g.shape == x.shape
+                   and g.is_contiguous() and g.device == x.device,
+                   "g must be contiguous, of x's shape and dtype")
+    b, f, s, c = x.shape
+    t_tok = 0 if ek is None else ek.shape[1]
+    lib = _build.load_library()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((c,), **f32)
+    dw_all = torch.empty((f, c, 3 * HIDDEN), **f32)
+    dw_out = torch.empty((HIDDEN, c), **f32)
+    dbias = torch.empty((f, f + t_tok, heads), **f32)
+    dekv = torch.empty((b, 2, t_tok, HIDDEN), **f32) if t_tok else None
+    ws = _build.workspace(
+        lib.vmt_temporal_block_bwd_workspace(b, f, s, c, t_tok), x.device)
+    w_all_t = w_all.transpose(1, 2).contiguous()
+    w_out_t = w_out.t().contiguous()
+    p = _build.ptr
+    err = lib.vmt_temporal_block_bwd(
+        p(x), p(gamma), p(w_all), p(w_all_t), p(w_out_t), p(bias_all), p(ek),
+        p(ev), p(g), p(dx), p(dgamma), p(dw_all), p(dw_out), p(dbias),
+        p(dekv), p(ws), b, f, s, c, t_tok, heads,
+        _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "temporal_block_bwd")
+    _build.LAUNCH_COUNTS["temporal_bwd"] += 1
+    dek = dev = None
+    if t_tok:
+        dek, dev = dekv[:, 0], dekv[:, 1]
+    return dx, dgamma, dw_all, dw_out, dek, dev, dbias
+
+
+class _FusedTemporalBlock(torch.autograd.Function):
+    """The JAX custom VJP (fused_temporal_block.py:462-588): the forward
+    kernel on the primals, which are saved; the backward recomputes
+    through the plain twin or runs the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w_all, w_out, ek, ev, bias_all, heads, bwd):
+        cdt = x.dtype
+        w_all, w_out = w_all.to(cdt).contiguous(), w_out.to(cdt).contiguous()
+        ctx.heads, ctx.bwd = heads, bwd
+        ctx.save_for_backward(x, gamma, w_all, w_out, ek, ev, bias_all)
+        return temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all,
+                                  heads=heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        run = (temporal_block_bwd if ctx.bwd == "kernel"
+               else temporal_block_bwd_plain)
+        dx, dgamma, dw_all, dw_out, dek, dev, dbias = run(
+            *args, g.contiguous(), heads=ctx.heads)
+        return dx, dgamma, dw_all, dw_out, dek, dev, dbias, None, None
+
+
+def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
+                         heads: int, bwd: str = "recompute") -> torch.Tensor:
+    """x + block(x), differentiable in every operand. x: (B, F, S, C) in the
+    compute dtype; w_all/w_out in any float dtype (cast to x's inside, so
+    float32 weights get float32 gradients); bwd: 'recompute' (autograd
+    through the plain twin) or 'kernel' (the backward kernel; its twin on
+    the CPU)."""
+    if bwd not in ("recompute", "kernel"):
+        raise ValueError(f"unknown backward plan {bwd!r}")
+    return _FusedTemporalBlock.apply(x, gamma, w_all, w_out, ek, ev,
+                                     bias_all, heads, bwd)
