@@ -12,22 +12,34 @@ Phases, each printing its wall time as it finishes:
   2 kernels  each kernel against its plain PyTorch twin at every shape the
              main path gives it (temporal block at every level with and
              without conditioning tokens, linear stats + apply at every
-             level, the per-head-shift NaN case), with kernel/twin times
+             level, the per-head-shift NaN case), with kernel/twin times;
+             the emit_p temporal forward at every training-path shape (out
+             bit-equal to the plain forward kernel's, out and p against the
+             twin, p's rows summing to one) and the head-layout linear
+             forward at every sampling- and training-path shape and with
+             |k| across the merged stats' clamp
   2b backward  each backward kernel against its twin at every shape of the
              training path (batch 4, 44 folded frames): every cotangent,
              with kernel/twin times and bounds
   3 model    one guided forward of the flagship UNet3D, fused plans against
              the unfused plans, on the same input
+  3b model   the same with the linear blocks on the head layout
+             (VMT_LINEAR_LAYOUT=head)
   4 chain    the main path: guided DDPM sampling (w = 5, bisect dynamic
              thresholding) of one video at 96x96x11 through `sample()`,
              the launch counters proving every step went through the
              kernels
+  4b chain   the same chain with the linear blocks on the head layout
+             (counters: 8 head-layout launches a step, no stats/apply)
   5 train    the flagship train step at batch 4 with the fused blocks and
-             their backward kernels under grad: one step's gradients
-             against the recompute backward and the unfused plan, then
-             --train-steps steps under each of the three plans (median step
+             their backward kernels under grad: one step's gradients of the
+             kernel plan and of the saved plan (temporal_vjp: saved) against
+             the recompute backward and the unfused plan, then
+             --train-steps steps under each of the four plans (median step
              ms, peak memory, finite losses, parameters that moved, the EMA
-             rule, launch counters 10/10/8/8/2/6 per kernel-plan step)
+             rule, launch counters 10/10/8/8/2/6 per kernel-plan step and
+             10 emit_p forwards, no temporal backward kernel, 8/8/2/6 per
+             saved-plan step)
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -38,8 +50,10 @@ on an H100, the build included.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -48,10 +62,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and the dense bf16
-# tensor-core rate, the type of the kernels' operands
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, the dense bf16
+# tensor-core rate (the type of the kernels' operands) and the fp32 rate
+# outside the tensor cores (the head-layout kernel's float32 products)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_FP32_FLOP_PER_S = 67e12
 
 # main-path shapes per guided step at batch 1 (the CFG pair is batch 2):
 # temporal (batch, spatial, channels, cond tokens) in path order
@@ -87,6 +103,21 @@ APPLY_TOL = 3e-2
 # (v / HW, z ~ HW E[exp k]) make it ~1e-5 of |x|, below one bf16 ulp of
 # the output, where no comparison of outputs can see the attention term
 APPLY_CTX_SCALE = 32.0
+# the softmax weights p sum to one per (position, head): bf16 keeps 8
+# significant bits, so each of the F+T weights is within 2^-8 of its
+# float32 value relative to it and their sum within 2^-8 of one; 2^-7
+# leaves room for the float32 sums. A p that is off by a factor misses by
+# O(1)
+P_SUM_TOL = 2.0 ** -7
+# head-layout inputs with an O(1) update beside x (check_update): the v
+# columns of w_qkv times HW (undoing the layout's v / HW) and 32, and the
+# key columns times 8, so the token softmax picks few tokens and ctx is not
+# an average near zero. At the path's own v / HW the attention term is
+# ~1e-5 of |x|, below one bf16 ulp of the output
+HEAD_V_SCALE, HEAD_K_SCALE = 32.0, 8.0
+# keys times 40: |k| on both sides of 60, where the merged stats' clamp
+# changes the function and the head layout must not clamp
+HEAD_CLAMP_K_SCALE = 40.0
 # relative L2 error of the guided eps, fused plans against unfused plans
 MODEL_TOL = 0.15
 # backward: each cotangent within 5e-2 of the twin's largest |element|,
@@ -119,7 +150,7 @@ TRAIN_LINEAR = [(TRAIN_BATCH * 11, n, c) for _, n, c in LINEAR_PATH]
 # device functions of the port's hand-written kernels (profile summary)
 PORTED_KERNELS = ("temporal_fwd_kernel", "temporal_bwd_kernel",
                   "linear_stats_", "linear_apply_kernel", "lin_bwd_",
-                  "contract_partial", "colsum_kernel")
+                  "linear_head_apply", "contract_partial", "colsum_kernel")
 
 
 def log(msg: str) -> None:
@@ -194,9 +225,14 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float,
+          fp32_flops: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: its bytes at the HBM rate against its
+    operations at the peak rate of their type (bf16 tensor cores; fp32
+    outside them for `fp32_flops`)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_ops = (flops / PEAK_BF16_FLOP_PER_S
+             + fp32_flops / PEAK_FP32_FLOP_PER_S) * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -279,6 +315,24 @@ def temporal_cost(b, s, c, t_tok):
     flops = 2 * b * FRAMES * s * (c * 3 * HIDDEN + HIDDEN * c
                                   + 2 * (FRAMES + t_tok) * HIDDEN)
     return 2 * act + weights, flops
+
+
+def temporal_p_cost(b, s, c, t_tok):
+    """temporal_cost plus the bf16 softmax weights written once."""
+    nbytes, flops = temporal_cost(b, s, c, t_tok)
+    return nbytes + b * FRAMES * s * (FRAMES + t_tok) * HEADS * 2, flops
+
+
+def head_cost(bf_, n, c, m_c=1):
+    """(bytes, bf16 flops, fp32 flops): x read and out written once, the
+    weights and cond tokens read once; the QKV projection on bf16 operands,
+    and the products the layout keeps in float32: ctx and Q ctx (2 x 2 H d
+    a token) and the out-projection (2 H C a token)."""
+    rows = bf_ * n
+    nbytes = (2 * rows * c * 2 + (c * 3 * HIDDEN + HIDDEN * c) * 2
+              + 2 * bf_ * m_c * HIDDEN * 2 + c * 8)
+    return (nbytes, 2 * rows * c * 3 * HIDDEN,
+            rows * (2 * 2 * HIDDEN * 32 + 2 * HIDDEN * c))
 
 
 def stats_cost(bf_, n, c):
@@ -423,6 +477,125 @@ def phase_kernels(report):
         f"update err {err:.3e}")
 
 
+def phase_emit_p(report):
+    """The emit_p temporal forward at every training-path shape: out
+    bit-equal to the plain forward kernel's on the same inputs, out and p
+    within BF16_TOL of the twin's, p's rows summing to one."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for b, s, c, t_tok in sorted(set(TRAIN_TEMPORAL),
+                                 key=lambda v: (-v[1], v[3])):
+        a = temporal_inputs(b, s, c, t_tok, gen)
+        name = f"emit_p {b, s, c, t_tok}"
+        out, p_w = tmp.temporal_block_fwd(**a, heads=HEADS, emit_p=True)
+        plain_out = tmp.temporal_block_fwd(**a, heads=HEADS)
+        if not torch.equal(out, plain_out):
+            raise AssertionError(f"{name}: out is not bit-equal to the plain "
+                                 "forward kernel's")
+        want_out, want_p = tmp.temporal_block_plain_p(**a, heads=HEADS)
+        err = max(check_close(f"{name} out", out, want_out, BF16_TOL),
+                  check_close(f"{name} p", p_w, want_p, BF16_TOL))
+        groups = FRAMES + t_tok
+        sums = p_w.float().reshape(b, FRAMES, s, groups, HEADS).sum(dim=3)
+        sum_err = (sums - 1).abs().max().item()
+        if not sum_err <= P_SUM_TOL:
+            raise AssertionError(f"{name}: p sums to one within {sum_err:.3e}"
+                                 f", beyond {P_SUM_TOL:.3e}")
+        del want_out, want_p, sums
+        ms = cuda_ms(lambda: tmp.temporal_block_fwd(**a, heads=HEADS,
+                                                    emit_p=True))
+        plain_ms = cuda_ms(lambda: tmp.temporal_block_plain_p(
+            **a, heads=HEADS), reps=2, warmup=1)
+        bms, by = bound(*temporal_p_cost(b, s, c, t_tok))
+        log(f"  emit_p B={b} S={s} C={c} T={t_tok}: out bit-equal to the "
+            f"plain kernel's; max_abs_err {err:.3e} (tol {BF16_TOL}); p row "
+            f"sums within {sum_err:.2e} of 1 (tol {P_SUM_TOL:.2e}); kernel "
+            f"{ms:.3f} ms, twin {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+        if (b, s, c, t_tok) == (TRAIN_BATCH, 9216, 64, 11):
+            report["temporal_fwd_p"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, shape=[b, FRAMES, s, c, t_tok])
+
+
+def head_inputs(bf_, n, c, gen, k_scale=HEAD_K_SCALE):
+    """linear_inputs with an O(1) update: the v columns of w_qkv times
+    HW * HEAD_V_SCALE, the key columns times k_scale."""
+    import torch
+
+    a = linear_inputs(bf_, n, c, gen)
+    del a["ctx"], a["z"]
+    w = a["w_qkv"].float()
+    w[:, HIDDEN:2 * HIDDEN] *= k_scale
+    w[:, 2 * HIDDEN:] *= n * HEAD_V_SCALE
+    a["w_qkv"] = w.to(torch.bfloat16)
+    return a
+
+
+def phase_head(report):
+    """The head-layout linear forward at every shape of the sampling (22
+    folded frames) and training (44) paths, its update against the twin's;
+    then |k| on both sides of 60, where it must follow its unclamped twin
+    and miss the clamped merged twin."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    kw = dict(heads=HEADS, scale=32 ** -0.5)
+    log("  head layout bounds: the bf16 QKV projection at the tensor-core "
+        "rate plus the float32 products (ctx, Q ctx, out-projection) at the "
+        "fp32 rate")
+    for bf_, n, c in sorted(set(LINEAR_PATH) | set(TRAIN_LINEAR),
+                            key=lambda v: (-v[1], v[0])):
+        a = head_inputs(bf_, n, c, gen)
+        want = lin.linear_block_head_plain(**a, **kw, spatial_size=n)
+        err = check_update(f"head {bf_, n, c}", lin.linear_block_head(
+            **a, **kw, spatial_size=n), want, a["x"], a["out_bias"])
+        upd_rms = (want.float() - a["x"].float() - a["out_bias"]).pow(2
+                                                                      ).mean(
+            ).sqrt().item()
+        ms = cuda_ms(lambda: lin.linear_block_head(**a, **kw, spatial_size=n))
+        plain_ms = cuda_ms(lambda: lin.linear_block_head_plain(
+            **a, **kw, spatial_size=n), reps=2, warmup=1)
+        nbytes, flops, fp32 = head_cost(bf_, n, c)
+        bms, by = bound(nbytes, flops, fp32)
+        log(f"  head BF={bf_} N={n} C={c}: update err {err:.3e} (update rms "
+            f"{upd_rms:.3f}, tol {APPLY_TOL} of its max) kernel {ms:.3f} ms, "
+            f"twin {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+        if (bf_, n, c) == (22, 9216, 64):
+            report["linear_head"].update(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, shape=[bf_, n, c])
+
+    a = head_inputs(22, 9216, 64, gen, k_scale=HEAD_CLAMP_K_SCALE)
+    y = channel_layer_norm(a["x"], a["gamma"], one_pass=False)
+    keys = y.float() @ a["w_qkv"][:, HIDDEN:2 * HIDDEN].float()
+    if not ((keys.abs() > 60).any() and (keys.abs() < 60).any()):
+        raise AssertionError("the clamp case has no |k| on both sides of 60")
+    del y, keys
+    got = lin.linear_block_head(**a, **kw, spatial_size=9216)
+    want = lin.linear_block_head_plain(**a, **kw, spatial_size=9216)
+    err = check_update("head, |k| across 60", got, want, a["x"],
+                       a["out_bias"])
+    clamped = lin.linear_block_plain(**a, **kw, spatial_size=9216)
+    base = a["x"].float() + a["out_bias"]
+    gap = ((clamped.float() - base) - (got.float() - base)).abs().max().item()
+    size = (want.float() - base).abs().max().item()
+    if not gap > APPLY_TOL * size:
+        raise AssertionError(f"head, |k| across 60: the clamped merged twin is "
+                             f"within {gap:.3e} of the kernel, inside "
+                             f"{APPLY_TOL} * {size:.3e}: the case cannot tell "
+                             "a clamp")
+    log(f"  head BF=22 N=9216 C=64, keys x{HEAD_CLAMP_K_SCALE:g} (|k| across "
+        f"60): update err {err:.3e} against the unclamped twin; the clamped "
+        f"merged twin is {gap:.3e} away ({gap / size:.2f} of the update's "
+        f"max)")
+
+
 def phase_bwd_kernels(report):
     """Each backward kernel against its twin at every training-path shape;
     times and bounds at level 0 (the merged linear row: its largest shape,
@@ -537,10 +710,12 @@ def _param_groups(model):
 
 def phase_train(cfg, train_steps: int, report, profile: int = 0,
                 profile_out: str | None = None) -> dict:
-    """The train step under the three plans: 'kernel' (fused blocks, their
-    backward kernels), 'recompute' (fused blocks, autograd through the
-    twins) and 'unfused'. One step's gradients compared on the same batch,
-    then `train_steps` timed steps each."""
+    """The train step under the four plans: 'kernel' (fused blocks, their
+    backward kernels), 'saved' (the same with temporal_vjp: saved: the
+    emit_p forward and the backward from the saved softmax weights),
+    'recompute' (fused blocks, autograd through the twins) and 'unfused'.
+    One step's gradients compared on the same batch (kernel and saved
+    against recompute and unfused), then `train_steps` timed steps each."""
     import torch
 
     from videometamaterials_tpu_torch.config import TrainerConfig
@@ -553,6 +728,7 @@ def phase_train(cfg, train_steps: int, report, profile: int = 0,
     from videometamaterials_tpu_torch.training.trainer import Trainer
 
     plans = {"kernel": cfg,
+             "saved": cfg.replace(temporal_vjp="saved"),
              "recompute": cfg.replace(fused_bwd_kernels=False),
              "unfused": cfg.replace(fused_blocks_in_training=False)}
 
@@ -560,7 +736,7 @@ def phase_train(cfg, train_steps: int, report, profile: int = 0,
         model = build_unet(plan_cfg, device="cuda", seed=0)
         return GaussianDiffusion.from_config(model, plan_cfg, "cuda")
 
-    # ---- one step's gradients, the three plans on the same numbers
+    # ---- one step's gradients, the four plans on the same numbers
     gen = torch.Generator(device="cuda").manual_seed(6)
     videos, labels = next(bench_batches(cfg, gen, "cuda"))
     b = cfg.batch_size
@@ -579,16 +755,17 @@ def phase_train(cfg, train_steps: int, report, profile: int = 0,
                        if p.grad is not None}
         groups = groups or _param_groups(diff.model)
         del diff
-    for ref in ("recompute", "unfused"):
+    for plan, ref in (("kernel", "recompute"), ("kernel", "unfused"),
+                      ("saved", "recompute"), ("saved", "unfused")):
         rel = {}
         for g in ("temporal blocks", "linear blocks", "bias table", "rest"):
-            names = [n for n in grads["kernel"] if groups[n] == g]
-            num = sum((grads["kernel"][n] - grads[ref][n]).float().pow(2).sum()
+            names = [n for n in grads[plan] if groups[n] == g]
+            num = sum((grads[plan][n] - grads[ref][n]).float().pow(2).sum()
                       for n in names)
             den = sum(grads[ref][n].float().pow(2).sum() for n in names)
             rel[g] = (num / den).sqrt().item()
         worst, worst_name, smallest = 0.0, "", {}
-        for n, g in grads["kernel"].items():
+        for n, g in grads[plan].items():
             if groups[n] == "rest":
                 continue
             w = grads[ref][n].float()
@@ -599,14 +776,14 @@ def phase_train(cfg, train_steps: int, report, profile: int = 0,
             share = (g.float() - w).abs().max().item() / size
             if not share <= GRAD_TOL:
                 raise AssertionError(
-                    f"gradient of {n}, kernel plan against {ref}: "
+                    f"gradient of {n}, {plan} plan against {ref}: "
                     f"{share:.3e} of its max, beyond {GRAD_TOL}")
             if g.abs().max().item() == 0:
                 raise AssertionError(f"gradient of {n} is zero")
             worst, worst_name = max((worst, worst_name), (share, n))
             smallest[groups[n]] = min((size, n), smallest.get(groups[n],
                                                               (size, n)))
-        log(f"  grads, kernel plan vs {ref}: relative L2 " + ", ".join(
+        log(f"  grads, {plan} plan vs {ref}: relative L2 " + ", ".join(
             f"{k} {v:.3e}" for k, v in rel.items()) + f"; every fused-block "
             f"parameter within {worst:.3e} of its own max (worst "
             f"{worst_name}, limit {GRAD_TOL}); smallest max " + ", ".join(
@@ -619,6 +796,9 @@ def phase_train(cfg, train_steps: int, report, profile: int = 0,
     per_step = {"kernel": dict(fused_temporal_block=10, linear_stats=8,
                                linear_apply=8, temporal_bwd=10,
                                linear_bwd_head=2, linear_bwd_merged=6),
+                "saved": dict(temporal_fwd_p=10, linear_stats=8,
+                              linear_apply=8, linear_bwd_head=2,
+                              linear_bwd_merged=6),
                 "recompute": dict(fused_temporal_block=10, linear_stats=8,
                                   linear_apply=8, temporal_bwd=0,
                                   linear_bwd_head=0, linear_bwd_merged=0),
@@ -671,6 +851,8 @@ def phase_train(cfg, train_steps: int, report, profile: int = 0,
             f"step (min {min(times) * 1e3:.1f}, first {times[0] * 1e3:.1f}),"
             f" peak memory {peak / 2 ** 30:.2f} GiB, loss {losses[0]:.4f} -> "
             f"{losses[-1]:.4f}; launches {counts}")
+        if name == "saved":
+            report["temporal_fwd_p"]["launches"] = counts["temporal_fwd_p"]
         if name == "kernel":
             for k in ("temporal_bwd", "linear_bwd_head",
                       "linear_bwd_merged"):
@@ -716,6 +898,60 @@ def profile_steps(run, what: str, out_path: str | None) -> None:
         f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}%), "
         f"of which the port's kernels {ported_us / 1e3:.1f} ms "
         f"({100 * ported_us / max(device_us, 1):.1f}%)")
+
+
+@contextlib.contextmanager
+def linear_layout(layout: str):
+    """VMT_LINEAR_LAYOUT, the JAX package's switch of the fused linear
+    blocks' layout, set for the block's duration."""
+    old = os.environ.get("VMT_LINEAR_LAYOUT")
+    os.environ["VMT_LINEAR_LAYOUT"] = layout
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["VMT_LINEAR_LAYOUT"]
+        else:
+            os.environ["VMT_LINEAR_LAYOUT"] = old
+
+
+def run_chain(diffusion, cfg, steps: int, per_step: dict, smi: str,
+              what: str) -> dict:
+    """The guided DDPM chain of one video from the counters at zero;
+    checks the launch counters against per_step (launches a step, absent
+    ones 0), the videos' shape, finiteness and range. Returns the
+    counters."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    t0 = time.perf_counter()
+    cond = torch.rand((1, FRAMES), generator=torch.Generator().manual_seed(2)
+                      ) * 2 - 1
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _build.reset_launch_counts()
+    videos = diffusion.sample(cond, 5.0, generator=gen, num_steps=steps)
+    torch.cuda.synchronize()
+    chain_s = time.perf_counter() - t0
+    counts = dict(_build.LAUNCH_COUNTS)
+    want = {k: per_step.get(k, 0) * steps for k in counts}
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected "
+                             f"{want}")
+    if tuple(videos.shape) != (1, FRAMES, cfg.image_size, cfg.image_size, 3):
+        raise AssertionError(f"{what}: videos shape {tuple(videos.shape)}")
+    if not torch.isfinite(videos).all():
+        raise AssertionError(f"{what}: sampled videos are not finite")
+    lo, hi = videos.min().item(), videos.max().item()
+    if steps == cfg.train_timesteps and (lo < 0.0 or hi > 1.0):
+        # the last step (t = 0) returns the thresholded x0 in [-1, 1]
+        raise AssertionError(f"{what}: videos outside [0, 1]: [{lo}, {hi}]")
+    rate = (f"{60.0 / chain_s:.3f} videos/min" if steps == cfg.train_timesteps
+            else f"{chain_s / steps * 1e3:.1f} ms a step (partial chain)")
+    log(f"[{what}] guided DDPM, {steps} steps, batch 1 (CFG pair 2), w=5: "
+        f"{chain_s:.2f}s, {rate} on {smi}; launches {counts}; videos "
+        f"{tuple(videos.shape)} in [{lo:.3f}, {hi:.3f}]")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -791,7 +1027,16 @@ def main(argv=None) -> int:
     report["linear_bwd_merged"].update(
         source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block_bwd.cu",
         replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:196")
+    report["temporal_fwd_p"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_temporal_block.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_temporal_block.py:150")
+    report["linear_head"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block_head.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:336")
     phase_kernels(report)
+    phase_emit_p(report)
+    phase_head(report)
+    torch.cuda.synchronize()
     log(f"[2 kernels] all kernels match their twins | "
         f"{time.perf_counter() - t0:.1f}s")
 
@@ -812,44 +1057,41 @@ def main(argv=None) -> int:
         f"relative error {rel:.3e} (limit {MODEL_TOL}) | "
         f"{time.perf_counter() - t0:.1f}s")
 
-    # ---- 4 main path
+    # ---- 3b model: the linear blocks on the head layout
     t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    with linear_layout("head"):
+        rel_head = phase_model(diffusion, cfg)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCH_COUNTS)
+    if counts["linear_head"] != 8 or counts["linear_stats"] != 0:
+        raise AssertionError(f"head-layout eps: launch counts {counts}")
+    log(f"[3b model] guided eps with VMT_LINEAR_LAYOUT=head, fused vs "
+        f"unfused plans: relative error {rel_head:.3e} (limit {MODEL_TOL}); "
+        f"launches {counts} | {time.perf_counter() - t0:.1f}s")
+
+    # ---- 4 main path
     steps = args.steps
     if steps != cfg.train_timesteps:
         log(f"  running the first {steps} steps of the DDPM-"
             f"{cfg.train_timesteps} chain")
-    cond = torch.rand((1, FRAMES), generator=torch.Generator().manual_seed(2)
-                      ) * 2 - 1
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    _build.reset_launch_counts()
-    videos = diffusion.sample(cond, 5.0, generator=gen, num_steps=steps)
-    torch.cuda.synchronize()
-    chain_s = time.perf_counter() - t0
-    counts = dict(_build.LAUNCH_COUNTS)
-    want = {"fused_temporal_block": 10 * steps, "linear_stats": 8 * steps,
-            "linear_apply": 8 * steps, "temporal_bwd": 0,
-            "linear_bwd_head": 0, "linear_bwd_merged": 0}
-    if counts != want:
-        raise AssertionError(f"launch counts {counts}, expected {want}")
-    if tuple(videos.shape) != (1, FRAMES, cfg.image_size, cfg.image_size, 3):
-        raise AssertionError(f"videos shape {tuple(videos.shape)}")
-    if not torch.isfinite(videos).all():
-        raise AssertionError("sampled videos are not finite")
-    lo, hi = videos.min().item(), videos.max().item()
-    if steps == cfg.train_timesteps and (lo < 0.0 or hi > 1.0):
-        # the last step (t = 0) returns the thresholded x0 in [-1, 1]
-        raise AssertionError(f"videos outside [0, 1]: [{lo}, {hi}]")
+    counts = run_chain(diffusion, cfg, steps,
+                       dict(fused_temporal_block=10, linear_stats=8,
+                            linear_apply=8), smi, "4 chain")
     for k in report:
         report[k]["launches"] = counts[k]
         report[k]["library_ms"] = None
-    rate = (f"{60.0 / chain_s:.3f} videos/min" if steps == cfg.train_timesteps
-            else f"{chain_s / steps * 1e3:.1f} ms a step (partial chain)")
-    log(f"[4 chain] guided DDPM, {steps} steps, batch 1 (CFG pair 2), w=5: "
-        f"{chain_s:.2f}s, {rate} on {smi}; launches {counts}; videos "
-        f"{tuple(videos.shape)} in [{lo:.3f}, {hi:.3f}]")
+
+    # ---- 4b the chain with the linear blocks on the head layout
+    with linear_layout("head"):
+        counts = run_chain(diffusion, cfg, steps,
+                           dict(fused_temporal_block=10, linear_head=8),
+                           smi, "4b chain, head layout")
+    report["linear_head"]["launches"] = counts["linear_head"]
 
     if args.profile:
         gen = torch.Generator(device="cuda").manual_seed(4)
+        cond = torch.rand((1, FRAMES), generator=gen, device="cuda") * 2 - 1
         profile_steps(lambda: diffusion.sample(cond, 5.0, generator=gen,
                                                num_steps=args.profile),
                       f"{args.profile} guided steps",

@@ -113,6 +113,93 @@ def test_linear_apply_kernel_per_head_shift(cuda):
         _rnd(cuda, c, scale=0.1), ctx, 1 + _rnd(cuda, b, hd).abs())
 
 
+@pytest.mark.parametrize("t_tok", [0, 11])
+def test_temporal_emit_p_kernel(cuda, t_tok):
+    """The emit_p launch: out bit-equal to the plain launch's, out and p
+    within the bf16 tolerance of the twin's, p summing to one per position
+    and head (8 significant bits a weight: 2^-8, and float32 sums), the
+    same bits on a second launch."""
+    bf = torch.bfloat16
+    b, f, s, c, hd = 2, 11, 100, 64, 256   # 100: a ragged last tile of 8
+    args = dict(
+        x=_rnd(cuda, b, f, s, c).to(bf), gamma=1 + _rnd(cuda, c, scale=0.1),
+        w_all=(_rnd(cuda, f, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        ek=_rnd(cuda, b, t_tok, hd).to(bf) if t_tok else None,
+        ev=_rnd(cuda, b, t_tok, hd).to(bf) if t_tok else None,
+        bias_all=_rnd(cuda, f, f + t_tok, 8, scale=0.5))
+    before = _build.LAUNCH_COUNTS["temporal_fwd_p"]
+    out, p = tmp.temporal_block_fwd(**args, heads=8, emit_p=True)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["temporal_fwd_p"] == before + 1
+    assert torch.equal(out, tmp.temporal_block_fwd(**args, heads=8))
+    want_out, want_p = tmp.temporal_block_plain_p(**args, heads=8)
+    torch.testing.assert_close(out.float(), want_out.float(), **BF16_TOL)
+    torch.testing.assert_close(p.float(), want_p.float(), **BF16_TOL)
+    sums = p.float().reshape(b, f, s, f + t_tok, 8).sum(dim=3)
+    assert (sums - 1).abs().max() <= 2.0 ** -7
+    out2, p2 = tmp.temporal_block_fwd(**args, heads=8, emit_p=True)
+    assert torch.equal(out, out2) and torch.equal(p, p2)
+
+
+def _head_args(gen, b, n, c, k_scale):
+    """Head-layout inputs with an O(1) update beside x: the v columns of
+    w_qkv times HW (undoing v / HW) and 32, the key columns times k_scale
+    (8: the token softmax picks few tokens, so ctx is no average near 0)."""
+    bf, hd = torch.bfloat16, 256
+    w_qkv = _rnd(gen, c, 3 * hd) * c ** -0.5
+    w_qkv[:, hd:2 * hd] *= k_scale
+    w_qkv[:, 2 * hd:] *= n * 32.0
+    return dict(x=_rnd(gen, b, n, c).to(bf), gamma=1 + _rnd(gen, c, scale=0.1),
+                w_qkv=w_qkv.to(bf),
+                w_out=(_rnd(gen, hd, c) * hd ** -0.5).to(bf),
+                out_bias=_rnd(gen, c, scale=0.1),
+                ek=_rnd(gen, b, 1, hd).to(bf), ev=_rnd(gen, b, 1, hd).to(bf))
+
+
+def _update_err(got, want, x, out_bias):
+    """max |update - twin's update| over the twin's largest update, the
+    update being out - x - out_bias, which must be O(1) beside x."""
+    assert torch.isfinite(got).all()
+    base = x.float() + out_bias
+    upd_k, upd_p = got.float() - base, want.float() - base
+    assert upd_p.pow(2).mean().sqrt() > 0.5 * x.float().pow(2).mean().sqrt()
+    return ((upd_k - upd_p).abs().max() / upd_p.abs().max()).item()
+
+
+@pytest.mark.parametrize("n,c", [(100, 64), (144, 512)])
+def test_linear_head_kernel_matches_twin(cuda, n, c):
+    args = _head_args(cuda, 6, n, c, 8.0)
+    kw = dict(heads=8, scale=32 ** -0.5, spatial_size=n)
+    before = _build.LAUNCH_COUNTS["linear_head"]
+    got = lin.linear_block_head(**args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["linear_head"] == before + 1
+    want = lin.linear_block_head_plain(**args, **kw)
+    assert _update_err(got, want, args["x"], args["out_bias"]) <= APPLY_TOL
+    # deterministic: the ordered merge has no atomics
+    assert torch.equal(got, lin.linear_block_head(**args, **kw))
+
+
+def test_linear_head_kernel_does_not_clamp(cuda):
+    """Keys times 40, |k| on both sides of 60: the head kernel follows its
+    unclamped twin and misses the clamped merged twin."""
+    n = 100
+    args = _head_args(cuda, 6, n, 64, 40.0)
+    kw = dict(heads=8, scale=32 ** -0.5, spatial_size=n)
+    from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
+    k = (channel_layer_norm(args["x"], args["gamma"], one_pass=False).float()
+         @ args["w_qkv"][:, 256:512].float())
+    assert (k.abs() > 60).any() and (k.abs() < 60).any()
+    got = lin.linear_block_head(**args, **kw)
+    torch.cuda.synchronize()
+    x, ob = args["x"], args["out_bias"]
+    assert _update_err(got, lin.linear_block_head_plain(**args, **kw), x,
+                       ob) <= APPLY_TOL
+    assert _update_err(got, lin.linear_block_plain(**args, **kw), x,
+                       ob) > APPLY_TOL
+
+
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     x = torch.zeros((2, 11, 16, 48), dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError, match="C in"):
@@ -201,11 +288,13 @@ def test_linear_bwd_kernel_matches_twin(cuda, route, n, c):
         assert torch.equal(a, b_)
 
 
-@pytest.mark.parametrize("bwd", ["recompute", "kernel"])
+@pytest.mark.parametrize("bwd", ["recompute", "kernel", "saved"])
 def test_fused_plans_send_gradients_to_every_parameter(cuda, bwd):
     """On the card with grad on, the fused plans keep the graph: every
     parameter of a fused block gets a nonzero gradient that matches the
-    unfused plan's (the attention blocks at flagship widths, levels 0-1)."""
+    unfused plan's (the attention blocks at flagship widths, levels 0-1).
+    'saved': the backward kernels with temporal_vjp saved, whose temporal
+    blocks run the emit_p forward."""
     from videometamaterials_tpu_torch.models.unet3d import (
         SpatialLinearAttentionBlock,
         TemporalAttentionBlock,
@@ -213,7 +302,8 @@ def test_fused_plans_send_gradients_to_every_parameter(cuda, bwd):
     )
 
     model = UNet3D(dim=64, dim_mults=(1, 2), num_frames=11,
-                   fused_bwd_kernels=bwd == "kernel").cuda()
+                   fused_bwd_kernels=bwd != "recompute",
+                   temporal_vjp="saved" if bwd == "saved" else None).cuda()
     model.init_weights(torch.Generator().manual_seed(0))
     x = _rnd(cuda, 2, 11, 16, 16, 3)
     t = torch.tensor([10, 200], device="cuda")
@@ -234,6 +324,8 @@ def test_fused_plans_send_gradients_to_every_parameter(cuda, bwd):
     # 6 temporal blocks (init, 2 down, mid, 2 up), 4 linear blocks
     n_kernel = _build.LAUNCH_COUNTS["temporal_bwd"] - counts["temporal_bwd"]
     assert n_kernel == (6 if bwd == "kernel" else 0)
+    n_p = _build.LAUNCH_COUNTS["temporal_fwd_p"] - counts["temporal_fwd_p"]
+    assert n_p == (6 if bwd == "saved" else 0)
     unfused = grads(False)
     names = ["time_rel_pos_bias.relative_attention_bias.weight"]
     for prefix, m in model.named_modules():

@@ -1,8 +1,9 @@
 """PyTorch port, the train step on the CPU: the diffusion loss and every
 parameter's gradient against the JAX package (jax.grad of
 GaussianDiffusion.loss) on weights from the JAX init carried over by
-convert.py, under the three plans (unfused; fused with the recompute
-backward; fused with the backward kernels, whose twins run here); Adam,
+convert.py, under the four plans (unfused; fused with the recompute
+backward; fused with the backward kernels, whose twins run here; fused
+with the backward kernels and `temporal_vjp: saved`); Adam,
 the global-norm clip and the EMA rule against optax and the JAX train
 step; the batch sampler's index streams; and the wiring (the plan split,
 what raises, the training CLI)."""
@@ -63,7 +64,8 @@ BF16_GRAD_TOL = 5e-2
 PLANS = {"unfused": dict(use_fused_linear_block=False,
                          use_fused_temporal_block=False),
          "fused_recompute": dict(fused_bwd_kernels=False),
-         "fused_kernel": dict(fused_bwd_kernels=True)}
+         "fused_kernel": dict(fused_bwd_kernels=True),
+         "fused_saved": dict(fused_bwd_kernels=True, temporal_vjp="saved")}
 
 
 def _batch(seed=0):
@@ -135,21 +137,36 @@ class _Spy:
         monkeypatch.setattr(module, name, wrapped)
 
 
-@pytest.mark.parametrize("plan", list(PLANS))
-def test_gradients_match_jax(plan, monkeypatch):
-    dtype, _, j_diff, params = _jax_side("float32")
+@functools.lru_cache(maxsize=None)
+def _jax_grads(seed):
+    """jax.grad of the float32 JAX loss on _batch() at PRNGKey(seed), as a
+    state dict (one trace for every plan's test)."""
+    _, _, j_diff, params = _jax_side("float32")
+    rng = jax.random.PRNGKey(seed)
     videos, labels = _batch()
-    rng = jax.random.PRNGKey(3)
     want = jax.jit(jax.grad(lambda p: j_diff.loss(
         p, rng, jnp.asarray(videos), jnp.asarray(labels),
         null_cond_prob=NULL_P)))(params)
-    want = flax_to_torch_state_dict(want)
+    return flax_to_torch_state_dict(want)
+
+
+@pytest.mark.parametrize("plan", list(PLANS))
+def test_gradients_match_jax(plan, monkeypatch):
+    """Off the TPU the JAX model runs every block on its XLA plan, whatever
+    its fused-block and backward settings: that is the reference of every
+    plan here."""
+    dtype, _, _, params = _jax_side("float32")
+    videos, labels = _batch()
+    rng = jax.random.PRNGKey(3)
+    want = _jax_grads(3)
     t, noise, mask = _draws(rng, BATCH)
 
     spies = {"temporal_bwd": _Spy(monkeypatch, t_tmp, "temporal_block_bwd"),
              "linear_bwd": _Spy(monkeypatch, t_lin, "linear_block_bwd"),
              "linear_recompute": _Spy(monkeypatch, t_lin,
-                                      "linear_block_recompute")}
+                                      "linear_block_recompute"),
+             "temporal_from_p": _Spy(monkeypatch, t_tmp,
+                                     "temporal_bwd_from_p")}
     diff = _port(params, dtype, plan)
     loss = diff.loss(torch.tensor(videos), torch.tensor(labels), t=t,
                      noise=noise, null_cond_mask=mask)
@@ -157,11 +174,14 @@ def test_gradients_match_jax(plan, monkeypatch):
     # 6 temporal blocks (init, 2 down, mid, 2 up) and 4 linear blocks
     calls = {k: s.calls for k, s in spies.items()}
     assert calls == {
-        "unfused": dict(temporal_bwd=0, linear_bwd=0, linear_recompute=0),
+        "unfused": dict(temporal_bwd=0, linear_bwd=0, linear_recompute=0,
+                        temporal_from_p=0),
         "fused_recompute": dict(temporal_bwd=0, linear_bwd=0,
-                                linear_recompute=4),
+                                linear_recompute=4, temporal_from_p=0),
         "fused_kernel": dict(temporal_bwd=6, linear_bwd=4,
-                             linear_recompute=0)}[plan]
+                             linear_recompute=0, temporal_from_p=0),
+        "fused_saved": dict(temporal_bwd=0, linear_bwd=4,
+                            linear_recompute=0, temporal_from_p=6)}[plan]
     tol = F32_GRAD_TOL
     for name, p in diff.model.named_parameters():
         w = want[name].numpy()
@@ -400,12 +420,17 @@ def test_batch_sampler_streams_match_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="Queue 2 item 7"):
-        t_config.ModelConfig(temporal_vjp="saved")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        UNet3D(num_frames=FRAMES, temporal_vjp="saved", **TINY)
+    """The options still unported raise; temporal_vjp 'saved' is ported
+    and resolves, and an unknown plan still raises."""
+    assert t_config.ModelConfig(temporal_vjp="saved").temporal_vjp == "saved"
+    assert t_config.temporal_bwd_mode("saved", False) == "saved"
+    model = UNet3D(num_frames=FRAMES, temporal_vjp="saved", **TINY)
+    assert {m.bwd for m in model.modules()
+            if isinstance(m, t_unet.TemporalAttentionBlock)} == {"saved"}
     with pytest.raises(ValueError):
         t_config.ModelConfig(temporal_vjp="other")
+    with pytest.raises(ValueError):
+        UNet3D(num_frames=FRAMES, temporal_vjp="other", **TINY)
     with pytest.raises(NotImplementedError, match="focus"):
         t_config.TrainerConfig(prob_focus_present=0.1)
     with pytest.raises(NotImplementedError, match="MultiSteps"):
@@ -468,3 +493,24 @@ def test_train_cli_runs_on_the_cpu(tmp_path, capsys):
     assert meta["steps"] == 2 and meta["device"] == "cpu"
     assert meta["fused_bwd_kernels"] is True
     assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+
+
+def test_train_cli_runs_the_saved_plan_on_the_cpu(tmp_path, capsys,
+                                                  monkeypatch):
+    """temporal_vjp: saved in the YAML runs the train step with every
+    temporal block backed through temporal_bwd_from_p."""
+    spy = _Spy(monkeypatch, t_tmp, "temporal_bwd_from_p")
+    cfg = tmp_path / "tiny_saved.yaml"
+    cfg.write_text(
+        "batch_size: 2\nlearning_rate: 1.e-4\nselected_channels: [0, 1, 3]\n"
+        "train_timesteps: 8\nsampling_timesteps: 8\nunet_dim: 8\n"
+        "dim_mults: [1, 2]\nunet_attn_heads: 2\nunet_attn_dim_head: 8\n"
+        f"image_size: {IMG}\ncompute_dtype: float32\n"
+        "fused_blocks_in_training: true\nfused_bwd_kernels: true\n"
+        "temporal_vjp: saved\n")
+    out = t_train.main(["--config", str(cfg), "--steps", "1",
+                        "--device", "cpu"])
+    meta = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert meta["temporal_vjp"] == "saved" and meta["device"] == "cpu"
+    assert spy.calls == 6       # init, 2 down, mid, 2 up
+    assert np.isfinite(out["losses"]).all()

@@ -5,14 +5,17 @@ numpy and the standard library only; it keeps its own copies of the
 framework-free pieces it needs (config, label normalization).
 
 Slice 1 covers guided DDPM sampling of the flagship UNet3D, slice 2 its
-train step (loss, gradient, Adam, EMA):
+train step (loss, gradient, Adam, EMA), slice 3 the `temporal_vjp: saved`
+plan and the head-layout linear forward (`VMT_LINEAR_LAYOUT=head`):
   config.py            ModelConfig (defaults = the flagship model.yaml) and
                        TrainerConfig
   ops/                 schedules, norms, rotary, relative bias, convs,
                        attention cores
-  ops/cuda/            hand-written sm_90a kernels (fused temporal block and
-                       its backward, fused linear-attention stats + apply and
-                       its backward, the deterministic reductions), their
+  ops/cuda/            hand-written sm_90a kernels (fused temporal block,
+                       with or without its softmax weights out, and its
+                       backward; fused linear-attention stats + apply, the
+                       head-layout forward and the backward; the
+                       deterministic reductions), their
                        plain PyTorch twins, the autograd.Functions and the
                        nvcc/ctypes loader
   models/              UNet3D and its embeddings

@@ -57,7 +57,8 @@ class ModelConfig:
     # (instead of autograd through the plain twins)
     fused_bwd_kernels: bool = False
     # temporal backward plan: None (from fused_bwd_kernels) | 'recompute' |
-    # 'kernel'; 'saved' is not ported yet
+    # 'kernel' | 'saved' (the forward kernel emits the softmax weights,
+    # the backward starts from them)
     temporal_vjp: str | None = None
 
     def __post_init__(self):
@@ -85,12 +86,7 @@ def temporal_bwd_mode(temporal_vjp: str | None,
     else 'kernel' with fused_bwd_kernels and 'recompute' without."""
     if temporal_vjp is None:
         return "kernel" if fused_bwd_kernels else "recompute"
-    if temporal_vjp == "saved":
-        raise NotImplementedError(
-            "temporal_vjp 'saved' (the emit_p forward kernel and the "
-            "backward from saved softmax weights) is not ported yet: "
-            "ROADMAP.md Queue 2 item 7")
-    if temporal_vjp not in ("recompute", "kernel"):
+    if temporal_vjp not in ("recompute", "kernel", "saved"):
         raise ValueError(f"unknown temporal_vjp {temporal_vjp!r}")
     return temporal_vjp
 

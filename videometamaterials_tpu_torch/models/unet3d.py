@@ -19,9 +19,13 @@ The temporal-attention and spatial linear-attention blocks each have two
 plans: the unfused plan (plain PyTorch, what the JAX package runs off the
 TPU) and the fused plan, which calls the hand-written CUDA kernels on a
 CUDA tensor and their plain twins on a CPU tensor. Under grad the fused
-plans backpropagate through autograd of the plain twins ('recompute') or
+plans backpropagate through autograd of the plain twins ('recompute'),
 through the backward kernels ('kernel', from `fused_bwd_kernels` and
-`temporal_vjp`); `UNet3D.fused_plans(False)` runs every block on its
+`temporal_vjp`), or, for the temporal blocks under `temporal_vjp: saved`,
+from the softmax weights the forward kernel saved ('saved'). The linear
+blocks take the JAX package's `VMT_LINEAR_LAYOUT` switch ('merged' stats
++ apply, or the 'head' kernel) inside `fused_linear_block`;
+`UNet3D.fused_plans(False)` runs every block on its
 unfused plan over the same parameters (the JAX Trainer's plan split). The
 focus-present mask,
 cross-attention conditioning, the CNN/GRU signal embedders and the circular

@@ -42,14 +42,17 @@ LAUNCH_COUNTS: dict[str, int] = {
     "temporal_bwd": 0,
     "linear_bwd_head": 0,
     "linear_bwd_merged": 0,
+    "temporal_fwd_p": 0,
+    "linear_head": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, gamma, w_all, w_out, bias, ek, ev, out, B, F, S, C, T, heads, stream
-    "vmt_temporal_block_fwd": [_P] * 8 + [_I] * 6 + [_P],
+    # x, gamma, w_all, w_out, bias, ek, ev, out, p (null: no softmax
+    # weights out), B, F, S, C, T, heads, stream
+    "vmt_temporal_block_fwd": [_P] * 9 + [_I] * 6 + [_P],
     # x, gamma, w_qkv, ek, ev, part_ctx, part_z, ctx, z,
     # BF, N, C, Mc, heads, tile, inv_hw, stream
     "vmt_linear_stats": [_P] * 9 + [_I] * 6 + [_F, _P],
@@ -63,11 +66,15 @@ _SIGNATURES = {
     # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, tile, scale,
     # inv_hw, clip, stream
     "vmt_linear_block_bwd": [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
+    # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace, BF, N, C, Mc,
+    # heads, stats tile, apply tile, scale, inv_hw, stream
+    "vmt_linear_head": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
 }
-# workspace sizes (bytes) of the backward entry points
+# workspace sizes (bytes) of the entry points that take one
 _SIZE_SIGNATURES = {
     "vmt_temporal_block_bwd_workspace": [_I] * 5,     # B, F, S, C, T
     "vmt_linear_block_bwd_workspace": [_I] * 4,       # BF, N, C, tile
+    "vmt_linear_head_workspace": [_I] * 3,            # BF, N, tile
 }
 
 

@@ -53,6 +53,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "linear_stats.cuh"
 #include "reduce.cuh"
 
 namespace {
@@ -586,13 +587,11 @@ cudaError_t launch(const void* x, const void* gamma, const void* w_qkv,
   const dim3 grid(nT, BF);
   cudaError_t err;
 
-  lin_bwd_stats<kC><<<grid, kThreads, 0, st>>>(xb, gm, wq, w.pctx, w.pz, w.pm,
-                                               N, tile, inv_hw, clip);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  lin_bwd_stats_reduce<<<BF, kThreads, 0, st>>>(w.pctx, w.pz, w.pm, ekb, evb,
-                                                w.ctxn, w.m, w.zinv, nT, Mc,
-                                                inv_hw, clip);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  err = vmt::launch_online_stats(
+      xb, gm, wq, ekb, evb,
+      vmt::OnlineStats{w.pctx, w.pz, w.pm, w.ctxn, w.m, w.zinv}, BF, N, kC,
+      Mc, tile, inv_hw, clip, st);
+  if (err != cudaSuccess) return err;
 
   const size_t smem1 = (2 * (size_t)kR * kC + 2 * (size_t)kR * kH) * 4;
   err = cudaFuncSetAttribute(lin_bwd_pass1<kC>,
@@ -636,6 +635,48 @@ cudaError_t launch(const void* x, const void* gamma, const void* w_qkv,
 }
 
 }  // namespace
+
+namespace vmt {
+
+void online_stats_sizes(int BF, int N, int tile, size_t (&bytes)[6]) {
+  const size_t blks = (size_t)BF * ((N + tile - 1) / tile);
+  const size_t sz[6] = {blks * kD * kH * 4, blks * kH * 4, blks * kH * 4,
+                        (size_t)BF * kH * kD * 4, (size_t)BF * kH * 4,
+                        (size_t)BF * kH * 4};
+  for (int i = 0; i < 6; ++i) bytes[i] = sz[i];
+}
+
+cudaError_t launch_online_stats(const __nv_bfloat16* x, const float* gamma,
+                                const __nv_bfloat16* w_qkv,
+                                const __nv_bfloat16* ek,
+                                const __nv_bfloat16* ev, const OnlineStats& s,
+                                int BF, int N, int C, int Mc, int tile,
+                                float inv_hw, int clip, cudaStream_t st) {
+  const int nT = (N + tile - 1) / tile;
+  const dim3 grid(nT, BF);
+  switch (C) {
+#define VMT_CASE(CC)                                                         \
+  case CC:                                                                   \
+    lin_bwd_stats<CC><<<grid, kThreads, 0, st>>>(x, gamma, w_qkv, s.pctx,    \
+                                                 s.pz, s.pm, N, tile, inv_hw, \
+                                                 clip);                      \
+    break;
+    VMT_CASE(64)
+    VMT_CASE(128)
+    VMT_CASE(256)
+    VMT_CASE(512)
+#undef VMT_CASE
+    default: return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  lin_bwd_stats_reduce<<<BF, kThreads, 0, st>>>(s.pctx, s.pz, s.pm, ek, ev,
+                                                s.ctxn, s.m, s.zinv, nT, Mc,
+                                                inv_hw, clip);
+  return cudaGetLastError();
+}
+
+}  // namespace vmt
 
 // Workspace bytes of vmt_linear_block_bwd for these sizes.
 extern "C" size_t vmt_linear_block_bwd_workspace(int BF, int N, int C,

@@ -1,7 +1,16 @@
 // Fused temporal-attention block, forward, for sm_90a.
 //
 // Replaces videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_kernel
-// (split softmax layout, has_cond both ways; pallas_call in _run_kernel).
+// (pallas_call in _run_kernel), has_cond both ways, in its two uses:
+//   split softmax layout                  -> vmt_temporal_block_fwd, p null
+//   merged layout with emit_p (the 'saved' backward plan's forward,
+//   _savedp_fwd)                          -> vmt_temporal_block_fwd, p set
+// The merged layout computes the split layout's out bit for bit (the JAX
+// test pins it); emit_p adds one store: the bf16 softmax weights the value
+// sum consumes, p[b, i, s, jg * 8 + h] (key group jg = frame j, then cond
+// token t). The TPU's full-lane concatenation of the scores is a lane
+// layout trick with no counterpart here: the weights are already in
+// registers, one head per warp.
 //
 // Per batch row b and spatial position s, over F = 11 frames and T cond
 // tokens (T = 11, or 0 for the init block), heads = 8 of d = 32:
@@ -34,7 +43,11 @@
 // registers (frames and tokens are template constants). acc overwrites q
 // in shared memory, and the out-projection runs once over all 88 rows.
 // The TPU layout tricks (selector/expand matmuls, Ek_sel/Ev_exp fold) have
-// no counterpart here: ek and ev are read directly.
+// no counterpart here: ek and ev are read directly. With p, lane j of warp
+// h stores weight j of head h, the same rounded value the value sum uses,
+// so out stays bit-equal to the launch without p. p adds
+// B*F*S*(F+T)*8*2 bytes of writes (143 MB for each conditioned level-0
+// block at batch 4; 43 us at 3.35 TB/s): the operations still bound it.
 #include "common.cuh"
 
 namespace {
@@ -49,7 +62,7 @@ using vmt::warp_sum;
 constexpr int kP = 8;  // spatial positions per block (one LN row per warp)
 static_assert(kP == kThreads / 32, "one warp per position in the LN phase");
 
-template <int kF, int kT, int kC>
+template <int kF, int kT, int kC, bool kEmitP>
 __global__ void __launch_bounds__(kThreads, 1) temporal_fwd_kernel(
     const __nv_bfloat16* __restrict__ x,      // (B, F, S, C)
     const float* __restrict__ gamma,          // (C)
@@ -59,6 +72,7 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_fwd_kernel(
     const __nv_bfloat16* __restrict__ ek,     // (B, T, H) or null
     const __nv_bfloat16* __restrict__ ev,     // (B, T, H) or null
     __nv_bfloat16* __restrict__ out,          // (B, F, S, C)
+    __nv_bfloat16* __restrict__ p_out,        // (B, F, S, (F+T)*heads), kEmitP
     int S) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [F][P][H]
@@ -163,6 +177,16 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_fwd_kernel(
       for (int u = 0; u < kT; ++u)
         acc = fmaf(round_bf16(sc[kF + u] * inv_z), evr[u], acc);
       qs[oi] = __float2bfloat16(acc);  // q_i at p is dead: reuse its slot
+      if (kEmitP) {
+        // lane jg writes key group jg's weight: the value sum's operand
+        float pj = 0.f;
+#pragma unroll
+        for (int j = 0; j < kF + kT; ++j)
+          if (lane == j) pj = sc[j] * inv_z;
+        if (lane < kF + kT)
+          p_out[(((size_t)(b * kF + i) * S + s0 + p) * (kF + kT) + lane) *
+                    kHeads + h] = __float2bfloat16(pj);
+      }
     }
   }
   __syncthreads();
@@ -199,14 +223,14 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_fwd_kernel(
   }
 }
 
-template <int kF, int kT, int kC>
+template <int kF, int kT, int kC, bool kEmitP>
 cudaError_t launch(const void* x, const void* gamma, const void* w_all,
                    const void* w_out, const void* bias, const void* ek,
-                   const void* ev, void* out, int B, int S,
+                   const void* ev, void* out, void* p_out, int B, int S,
                    cudaStream_t stream) {
   const size_t smem = 3 * (size_t)kF * kP * kH * sizeof(__nv_bfloat16) +
                       (size_t)kP * kC * sizeof(float);
-  auto kernel = temporal_fwd_kernel<kF, kT, kC>;
+  auto kernel = temporal_fwd_kernel<kF, kT, kC, kEmitP>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -217,39 +241,50 @@ cudaError_t launch(const void* x, const void* gamma, const void* w_all,
       static_cast<const __nv_bfloat16*>(w_out),
       static_cast<const float*>(bias), static_cast<const __nv_bfloat16*>(ek),
       static_cast<const __nv_bfloat16*>(ev), static_cast<__nv_bfloat16*>(out),
-      S);
+      static_cast<__nv_bfloat16*>(p_out), S);
   return cudaGetLastError();
 }
 
-template <int kT>
+template <int kT, bool kEmitP>
 cudaError_t launch_c(int C, const void* x, const void* gamma, const void* w_all,
                      const void* w_out, const void* bias, const void* ek,
-                     const void* ev, void* out, int B, int S,
+                     const void* ev, void* out, void* p_out, int B, int S,
                      cudaStream_t stream) {
   switch (C) {
-    case 64: return launch<11, kT, 64>(x, gamma, w_all, w_out, bias, ek, ev, out, B, S, stream);
-    case 128: return launch<11, kT, 128>(x, gamma, w_all, w_out, bias, ek, ev, out, B, S, stream);
-    case 256: return launch<11, kT, 256>(x, gamma, w_all, w_out, bias, ek, ev, out, B, S, stream);
-    case 512: return launch<11, kT, 512>(x, gamma, w_all, w_out, bias, ek, ev, out, B, S, stream);
+    case 64: return launch<11, kT, 64, kEmitP>(x, gamma, w_all, w_out, bias, ek, ev, out, p_out, B, S, stream);
+    case 128: return launch<11, kT, 128, kEmitP>(x, gamma, w_all, w_out, bias, ek, ev, out, p_out, B, S, stream);
+    case 256: return launch<11, kT, 256, kEmitP>(x, gamma, w_all, w_out, bias, ek, ev, out, p_out, B, S, stream);
+    case 512: return launch<11, kT, 512, kEmitP>(x, gamma, w_all, w_out, bias, ek, ev, out, p_out, B, S, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
+template <bool kEmitP>
+cudaError_t launch_t(int T, int C, const void* x, const void* gamma,
+                     const void* w_all, const void* w_out, const void* bias,
+                     const void* ek, const void* ev, void* out, void* p_out,
+                     int B, int S, cudaStream_t stream) {
+  if (T == 0)
+    return launch_c<0, kEmitP>(C, x, gamma, w_all, w_out, bias, nullptr, nullptr, out, p_out, B, S, stream);
+  if (T == 11)
+    return launch_c<11, kEmitP>(C, x, gamma, w_all, w_out, bias, ek, ev, out, p_out, B, S, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// p: (B, F, S, (F+T)*heads) bf16 softmax weights out, or null for none.
 extern "C" int vmt_temporal_block_fwd(const void* x, const void* gamma,
                                       const void* w_all, const void* w_out,
                                       const void* bias, const void* ek,
-                                      const void* ev, void* out, int B, int F,
-                                      int S, int C, int T, int heads,
-                                      void* stream) {
+                                      const void* ev, void* out, void* p,
+                                      int B, int F, int S, int C, int T,
+                                      int heads, void* stream) {
   if (F != 11 || heads != kHeads) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (T == 0)
-    return (int)launch_c<0>(C, x, gamma, w_all, w_out, bias, nullptr, nullptr, out, B, S, st);
-  if (T == 11)
-    return (int)launch_c<11>(C, x, gamma, w_all, w_out, bias, ek, ev, out, B, S, st);
-  return (int)cudaErrorInvalidValue;
+  if (p != nullptr)
+    return (int)launch_t<true>(T, C, x, gamma, w_all, w_out, bias, ek, ev, out, p, B, S, st);
+  return (int)launch_t<false>(T, C, x, gamma, w_all, w_out, bias, ek, ev, out, nullptr, B, S, st);
 }
 
 extern "C" const char* vmt_error_string(int err) {

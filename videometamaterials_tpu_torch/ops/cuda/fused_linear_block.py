@@ -1,21 +1,28 @@
-"""Whole spatial linear-attention block: stats, apply and backward kernel
-wrappers, their plain twins and the differentiable entry point.
+"""Whole spatial linear-attention block: stats, apply, head-layout and
+backward kernel wrappers, their plain twins and the differentiable entry
+point.
 
 Replaces videometamaterials_tpu/ops/pallas/fused_linear_block.py:
-_merged_stats_kernel and _merged_apply_kernel (csrc/fused_linear_block.cu)
-and both backward kernels, _bwd_kernel (per-head) and _bwd_kernel_merged
+_merged_stats_kernel and _merged_apply_kernel (csrc/fused_linear_block.cu),
+_kernel, the "head" layout (csrc/fused_linear_block_head.cu), and both
+backward kernels, _bwd_kernel (per-head) and _bwd_kernel_merged
 (csrc/fused_linear_block_bwd.cu, one source with a clip flag); each source
 note gives the bounds and the design. `fused_linear_block` is the JAX
-package's custom VJP as a torch.autograd.Function: stats + apply on the
-primals, which are saved, and a backward that is autograd through the
-plain twins ('recompute', the JAX default) or the backward kernel
-('kernel'), routed per-head or merged by the JAX rule (`bwd_route`).
+package's custom VJP as a torch.autograd.Function: the forward of the
+layout ('merged': stats + apply; 'head': the head-layout kernel) on the
+primals, which are saved, and a backward that is autograd through the JAX
+package's reference_linear_block ('recompute', the JAX default) or the
+backward kernel ('kernel'), routed per-head or merged by the JAX rule
+(`bwd_route`).
 
     stats:  z[a] = sum_tok exp(clip(k, +-60))[a]
             ctx[h, a, e] = sum_tok bf16(exp(clip(k)))[h, a] * bf16(v / HW)[h, e]
             (the conditioning tokens counted once)
     apply:  out = x + out_bias + bf16(qn_h @ bf16(ctx_h)) @ W_out with
             qn = bf16(softmax_head(q) * scale / z) (per-head max shift)
+    head:   out = bf16(x + out_bias + sum_h (softmax_d(q_h) scale)
+                  (softmax_tok(k_h)^T v_h / HW) W_out_h), unclamped and
+            max-shifted, float32 after the bf16 LN output
 
 Only the eight diagonal (32 x 32) blocks of the TPU kernel's masked
 (256 x 256) context are computed: ctx is (B, heads, d, d).
@@ -23,8 +30,13 @@ Only the eight diagonal (32 x 32) blocks of the TPU kernel's masked
 
 from __future__ import annotations
 
+import os
+
 import torch
 
+from videometamaterials_tpu_torch.ops.attention import (
+    linear_attention_tokens_first,
+)
 from videometamaterials_tpu_torch.ops.cuda import _build
 from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
 
@@ -37,6 +49,7 @@ APPLY_TILE = 64
 # backward is untiled there, so it takes only shapes whose ~12 live
 # (N, hidden) f32 arrays fit in 40 MiB; larger ones go per-head
 ROUTE_BYTES = 40 * 2 ** 20
+LAYOUTS = ("merged", "head")
 
 
 def stats_tile(n: int) -> int:
@@ -132,6 +145,20 @@ def _check_common(x, gamma, w_qkv, heads):
         req(t.device == x.device, "all operands on x's device")
 
 
+def _check_cond(ek, ev, x) -> int:
+    """Check the conditioning K/V of a kernel launch; returns Mc."""
+    req = _build.require
+    req((ek is None) == (ev is None), "ek and ev come together")
+    if ek is None:
+        return 0
+    for t in (ek, ev):
+        req(t.dtype == torch.bfloat16 and t.is_contiguous()
+            and tuple(t.shape) == (x.shape[0], ek.shape[1], HIDDEN)
+            and t.device == x.device,
+            "ek/ev must be contiguous bf16 (B, Mc, hidden) on x's device")
+    return ek.shape[1]
+
+
 def linear_stats(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
     """(ctx, z) of the block. A CPU tensor takes the plain twin; a CUDA
     tensor launches the kernel (partials pass + ordered reduce) or raises."""
@@ -140,16 +167,7 @@ def linear_stats(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
                                   spatial_size=spatial_size)
     _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
-    req = _build.require
-    req((ek is None) == (ev is None), "ek and ev come together")
-    m_c = 0
-    if ek is not None:
-        m_c = ek.shape[1]
-        for t in (ek, ev):
-            req(t.dtype == torch.bfloat16 and t.is_contiguous()
-                and tuple(t.shape) == (b, m_c, HIDDEN)
-                and t.device == x.device,
-                "ek/ev must be contiguous bf16 (B, Mc, hidden) on x's device")
+    m_c = _check_cond(ek, ev, x)
     tile = stats_tile(n)
     n_tiles = -(-n // tile)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -214,20 +232,91 @@ def linear_block_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
                         heads=heads, scale=scale)
 
 
-def bwd_route(n: int, hidden: int = HIDDEN) -> str:
-    """'head' where the JAX package sends the backward to the per-head
-    kernel (12 * N * hidden * 4 B above 40 MiB), else 'merged'."""
+def linear_block_head_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
+                            heads: int, scale: float, spatial_size: int):
+    """Plain twin of the head-layout kernel (the JAX _kernel, :336-411):
+    y = LN(x) gamma (two-pass) rounded to x's dtype; then float32
+    throughout: q, k, v from w_qkv rounded to x's dtype, the q feature
+    softmax times scale, the token softmax over [cond || tokens] max-shifted
+    and unclamped, ctx = pk^T (v / HW) per head, oh = q ctx, and
+    x + out_bias + oh @ W_out with W_out as given (float32 there); one
+    rounding to x's dtype at the end."""
+    b, n, _ = x.shape
+    hidden = w_out.shape[0]
+    d = hidden // heads
+    y = channel_layer_norm(x, gamma, one_pass=False).to(x.dtype).float()
+    q, k, v = (y @ w_qkv.to(x.dtype).float()).split(hidden, dim=-1)
+    q = q.reshape(b, n, heads, d)
+    q = torch.exp(q - q.amax(dim=-1, keepdim=True))
+    q = q * (scale / q.sum(dim=-1, keepdim=True))
+    if ek is not None:
+        k = torch.cat([ek.float(), k], dim=1)
+        v = torch.cat([ev.float(), v], dim=1)
+    m = k.shape[1]
+    k = k.reshape(b, m, heads, d)
+    pk = torch.exp(k - k.amax(dim=1, keepdim=True))
+    pk = pk / pk.sum(dim=1, keepdim=True)
+    ctx = torch.einsum("bmha,bmhe->bhae", pk,
+                       v.reshape(b, m, heads, d) * (1.0 / spatial_size))
+    oh = torch.einsum("bnha,bhae->bnhe", q, ctx).reshape(b, n, hidden)
+    out = x.float() + out_bias.float() + oh @ w_out.float()
+    return out.to(x.dtype)
+
+
+def linear_block_head(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
+                      heads: int, scale: float, spatial_size: int):
+    """x + block(x) through the head-layout kernel (its operands as
+    linear_block_fwd's). A CPU tensor takes the plain twin; a CUDA tensor
+    launches the kernel (online-max stats, ordered merge, apply) or
+    raises. W_out is bf16 here: the JAX model hands the kernel a weight
+    cast to the compute dtype, which the kernel then reads in float32."""
+    if x.device.type == "cpu":
+        return linear_block_head_plain(x, gamma, w_qkv, w_out, out_bias, ek,
+                                       ev, heads=heads, scale=scale,
+                                       spatial_size=spatial_size)
+    _check_common(x, gamma, w_qkv, heads)
+    b, n, c = x.shape
+    req = _build.require
+    req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous()
+        and tuple(w_out.shape) == (HIDDEN, c) and w_out.device == x.device,
+        "w_out must be contiguous bf16 (hidden, C)")
+    req(out_bias.dtype == torch.float32 and out_bias.is_contiguous()
+        and tuple(out_bias.shape) == (c,) and out_bias.device == x.device,
+        "out_bias must be float32 (C,)")
+    m_c = _check_cond(ek, ev, x)
+    tile = stats_tile(n)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    ws = _build.workspace(lib.vmt_linear_head_workspace(b, n, tile),
+                          x.device)
+    p = _build.ptr
+    err = lib.vmt_linear_head(
+        p(x), p(gamma), p(w_qkv), p(w_out), p(out_bias), p(ek), p(ev),
+        p(out), p(ws), b, n, c, m_c, heads, tile, APPLY_TILE, scale,
+        1.0 / spatial_size, _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "linear_block_head")
+    _build.LAUNCH_COUNTS["linear_head"] += 1
+    return out
+
+
+def bwd_route(n: int, hidden: int = HIDDEN, layout: str = "merged") -> str:
+    """The backward kernel the JAX package takes (_core_bwd, :574-588): for
+    the merged layout 'head' where 12 * N * hidden * 4 B is above 40 MiB
+    (the merged backward is untiled there), else 'merged'; for the head
+    layout 'head' at every N."""
+    if layout == "head":
+        return "head"
     return "head" if 12 * n * hidden * 4 > ROUTE_BYTES else "merged"
 
 
 def linear_block_softmax_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
-                               heads: int, scale: float, spatial_size: int,
-                               clip: bool):
-    """The block in the form the backward kernel differentiates: y rounded
-    to x's dtype, then float32 with a max-shifted token softmax. clip=True:
-    k clamped to +-60 with no gradient where |k| >= 60 (the JAX merged
-    backward's where form, fused_linear_block.py:311, :315); clip=False:
-    the unclamped softmax (the JAX per-head backward)."""
+                               heads: int, scale: float, spatial_size: int):
+    """The block in the form the merged backward kernel differentiates: y
+    rounded to x's dtype, then float32 with a max-shifted token softmax of
+    k clamped to +-60, with no gradient where |k| >= 60 (the JAX merged
+    backward's where form, fused_linear_block.py:311, :315). The per-head
+    backward differentiates the head layout's forward
+    (linear_block_head_plain), as the JAX _bwd_kernel mirrors _kernel."""
     b, n, _ = x.shape
     hidden = w_out.shape[0]
     d = hidden // heads
@@ -236,9 +325,7 @@ def linear_block_softmax_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
     if ek is not None:
         k = torch.cat([ek.float(), k], dim=1)
         v = torch.cat([ev.float(), v], dim=1)
-    if clip:
-        k = torch.where(k.abs() < K_CLAMP, k,
-                        k.detach().clamp(-K_CLAMP, K_CLAMP))
+    k = torch.where(k.abs() < K_CLAMP, k, k.detach().clamp(-K_CLAMP, K_CLAMP))
     m = k.shape[1]
     pk = torch.softmax(k.reshape(b, m, heads, d), dim=1)
     ctx = torch.einsum("bmha,bmhe->bhae", pk,
@@ -252,26 +339,56 @@ def linear_block_softmax_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
 def linear_block_bwd_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
                            heads: int, scale: float, spatial_size: int,
                            route: str):
-    """Plain twin of the backward kernel: autograd through
-    linear_block_softmax_plain, clamped for the merged route and unclamped
-    for the per-head one, at the weights rounded to x's dtype. Returns
-    (dx, dgamma, dw_qkv, dw_out, dout_bias, dek, dev); dx in x's dtype, the
-    rest float32, dek/dev None without conditioning tokens."""
+    """Plain twin of the backward kernel: autograd through the forward it
+    differentiates, linear_block_softmax_plain (clamped) on the merged
+    route and linear_block_head_plain (unclamped) on the per-head one, at
+    the weights rounded to x's dtype. Returns (dx, dgamma, dw_qkv, dw_out,
+    dout_bias, dek, dev); dx in x's dtype, the rest float32, dek/dev None
+    without conditioning tokens."""
     cdt = x.dtype
-    return _build.plain_cotangents(linear_block_softmax_plain, x, g,
+    fwd = (linear_block_softmax_plain if route == "merged"
+           else linear_block_head_plain)
+    return _build.plain_cotangents(fwd, x, g,
                   (gamma, w_qkv.to(cdt), w_out.to(cdt), out_bias,
                    None if ek is None else ek.to(cdt),
                    None if ev is None else ev.to(cdt)),
-                  heads=heads, scale=scale, spatial_size=spatial_size,
-                  clip=route == "merged")
+                  heads=heads, scale=scale, spatial_size=spatial_size)
+
+
+def reference_linear_block(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
+                           heads: int, scale: float, spatial_size: int):
+    """Own copy of the JAX package's reference_linear_block
+    (fused_linear_block.py:518-547), with its roundings: y = one-pass
+    LN(x) gamma in x's dtype, qkv in that dtype, the conditioning K/V
+    stacked in front, linear_attention_tokens_first (max-shifted and
+    unclamped; its out in the compute dtype), the out-projection and
+    out_bias in the compute dtype, then the residual. It is the function
+    the JAX 'recompute' backward differentiates, for both layouts; the
+    forward kernels and their twins keep the stats' +-60 clamp."""
+    b, n, _ = x.shape
+    hidden = w_out.shape[0]
+    d = hidden // heads
+    y = channel_layer_norm(x, gamma)
+    qkv = torch.einsum("bnc,ce->bne", y, w_qkv.to(y.dtype))
+    q, k, v = (t.reshape(b, n, heads, d) for t in qkv.split(hidden, dim=-1))
+    if ek is not None:
+        k = torch.cat([ek.to(k.dtype).reshape(b, -1, heads, d), k], dim=1)
+        v = torch.cat([ev.to(v.dtype).reshape(b, -1, heads, d), v], dim=1)
+    out = linear_attention_tokens_first(q, k, v, scale=scale,
+                                        spatial_size=spatial_size)
+    out = torch.einsum("bnh,hc->bnc", out.reshape(b, n, hidden),
+                       w_out.to(out.dtype))
+    out = out + out_bias.to(out.dtype)
+    return x + out.to(x.dtype)
 
 
 def linear_block_recompute(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
                            heads: int, scale: float, spatial_size: int):
-    """The default backward: autograd through the forward twins (the JAX
-    'recompute' _core_bwd), in linear_block_bwd_plain's result order."""
+    """The default backward: autograd through reference_linear_block, as
+    the JAX 'recompute' _core_bwd (:589-594) takes jax.vjp of it, in
+    linear_block_bwd_plain's result order."""
     cdt = x.dtype
-    return _build.plain_cotangents(linear_block_plain, x, g,
+    return _build.plain_cotangents(reference_linear_block, x, g,
                   (gamma, w_qkv.to(cdt), w_out.to(cdt), out_bias,
                    None if ek is None else ek.to(cdt),
                    None if ev is None else ev.to(cdt)),
@@ -297,15 +414,7 @@ def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
         and w_out.device == x.device, "w_out must be bf16 (hidden, C)")
     req(g.dtype == x.dtype and g.shape == x.shape and g.is_contiguous()
         and g.device == x.device, "g must be contiguous, of x's shape and dtype")
-    req((ek is None) == (ev is None), "ek and ev come together")
-    m_c = 0
-    if ek is not None:
-        m_c = ek.shape[1]
-        for t in (ek, ev):
-            req(t.dtype == torch.bfloat16 and t.is_contiguous()
-                and tuple(t.shape) == (b, m_c, HIDDEN)
-                and t.device == x.device,
-                "ek/ev must be contiguous bf16 (B, Mc, hidden) on x's device")
+    m_c = _check_cond(ek, ev, x)
     tile = stats_tile(n)
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -332,41 +441,49 @@ def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
 
 
 class _FusedLinearBlock(torch.autograd.Function):
-    """The JAX custom VJP (fused_linear_block.py:550-745): stats + apply on
-    the primals, which are saved; the backward recomputes through the plain
-    twins or runs the backward kernel on the JAX route."""
+    """The JAX custom VJP (fused_linear_block.py:550-745): the layout's
+    forward on the primals, which are saved; the backward recomputes
+    through reference_linear_block or runs the backward kernel on the JAX
+    route."""
 
     @staticmethod
     def forward(ctx, x, gamma, w_qkv, w_out, out_bias, ek, ev, heads, scale,
-                spatial_size, bwd):
+                spatial_size, bwd, layout):
         cdt = x.dtype
         w_qkv, w_out = w_qkv.to(cdt).contiguous(), w_out.to(cdt).contiguous()
         ctx.kw = dict(heads=heads, scale=scale, spatial_size=spatial_size)
-        ctx.bwd = bwd
+        ctx.bwd, ctx.layout = bwd, layout
         ctx.save_for_backward(x, gamma, w_qkv, w_out, out_bias, ek, ev)
-        return linear_block_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev,
-                                **ctx.kw)
+        fwd = linear_block_head if layout == "head" else linear_block_fwd
+        return fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, **ctx.kw)
 
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
         if ctx.bwd == "kernel":
+            route = bwd_route(args[0].shape[1], layout=ctx.layout)
             grads = linear_block_bwd(*args, g.contiguous(), **ctx.kw,
-                                     route=bwd_route(args[0].shape[1]))
+                                     route=route)
         else:
             grads = linear_block_recompute(*args, g, **ctx.kw)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
 def fused_linear_block(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
                        heads: int, scale: float, spatial_size: int,
-                       bwd: str = "recompute"):
+                       bwd: str = "recompute", layout: str | None = None):
     """x + block(x), differentiable in every operand. x: (B, N, C) in the
     compute dtype; w_qkv/w_out in any float dtype (cast to x's inside, so
     float32 weights get float32 gradients); bwd: 'recompute' (autograd
-    through the plain twins) or 'kernel' (the backward kernel; its twin on
-    the CPU)."""
+    through reference_linear_block) or 'kernel' (the backward kernel; its
+    twin on the CPU); layout: 'merged' (stats + apply) or 'head' (the
+    head-layout kernel), None resolving VMT_LINEAR_LAYOUT, then 'merged',
+    as the JAX entry point does (fused_linear_block.py:904-906)."""
     if bwd not in ("recompute", "kernel"):
         raise ValueError(f"unknown backward plan {bwd!r}")
+    if layout is None:
+        layout = os.environ.get("VMT_LINEAR_LAYOUT", "merged")
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown linear layout {layout!r}")
     return _FusedLinearBlock.apply(x, gamma, w_qkv, w_out, out_bias, ek, ev,
-                                   heads, scale, spatial_size, bwd)
+                                   heads, scale, spatial_size, bwd, layout)

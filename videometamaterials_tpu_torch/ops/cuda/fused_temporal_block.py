@@ -2,12 +2,16 @@
 and the differentiable entry point.
 
 Replaces videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_kernel
-(split softmax layout; csrc/fused_temporal_block.cu) and _bwd_kernel
-(csrc/fused_temporal_block_bwd.cu); each source note gives the bound and
-the design. `fused_temporal_block` is the JAX package's custom VJP as a
-torch.autograd.Function: the forward kernel, the primal inputs saved, and
-a backward that is autograd through the plain twin ('recompute', the JAX
-default) or the backward kernel ('kernel').
+(the split softmax layout, and the merged layout with emit_p, which also
+writes the softmax weights p; both csrc/fused_temporal_block.cu) and
+_bwd_kernel (csrc/fused_temporal_block_bwd.cu); each source note gives the
+bound and the design. `fused_temporal_block` is the JAX package's custom
+VJP as a torch.autograd.Function: the forward kernel, the primal inputs
+saved, and a backward that is autograd through the plain twin
+('recompute', the JAX default) or the backward kernel ('kernel'); or the
+'saved' plan (the JAX fused_temporal_block_savedp): the forward kernel
+emits p, which is saved with the primals, and temporal_bwd_from_p (plain
+torch, as the JAX function is XLA) backs it through.
 
     out = x + W_out . softmax_j(q_i.k_j + bias_ij || q_i.ek_t + bias_it)
                     . [v_j || ev_t]
@@ -38,6 +42,21 @@ def temporal_block_plain(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     x: (B, F, S, C); gamma (C,); w_all (F, C, 3*hidden); w_out (hidden, C);
     ek/ev (B, T, hidden) or None; bias_all (F, F+T, heads) float32.
     Roundings follow w_all's dtype (none in float32)."""
+    return _plain(x, gamma, w_all, w_out, ek, ev, bias_all, heads=heads)[0]
+
+
+def temporal_block_plain_p(x, gamma, w_all, w_out, ek, ev, bias_all, *,
+                           heads: int):
+    """temporal_block_plain's (out, p): p (B, F, S, (F+T)*heads) holds the
+    softmax weights the value sum consumes, in w_all's dtype, with lanes
+    key-group-major (jg * heads + h), the JAX merged layout's p_all."""
+    out, p = _plain(x, gamma, w_all, w_out, ek, ev, bias_all, heads=heads)
+    b, f, s, _ = x.shape
+    return out, p.permute(0, 1, 3, 2, 4).reshape(b, f, s, -1)
+
+
+def _plain(x, gamma, w_all, w_out, ek, ev, bias_all, *, heads: int):
+    """(out, p) with p (B, F, F+T, S, heads), the twins' one body."""
     b, f, s, c = x.shape
     hidden = w_out.shape[0]
     d = hidden // heads
@@ -55,13 +74,14 @@ def temporal_block_plain(x, gamma, w_all, w_out, ek, ev, bias_all, *,
         sim_c = (torch.einsum("bishd,bthd->bitsh", q, ekh)
                  + bias[None, :, f:, None, :])
         sim = torch.cat([sim, sim_c], dim=2)
-    p = torch.softmax(sim, dim=2).to(cdt).float()
-    out = torch.einsum("bijsh,bjshd->bishd", p[:, :, :f], v)
+    p = torch.softmax(sim, dim=2).to(cdt)
+    pf = p.float()
+    out = torch.einsum("bijsh,bjshd->bishd", pf[:, :, :f], v)
     if ek is not None:
-        out = out + torch.einsum("bitsh,bthd->bishd", p[:, :, f:], evh)
+        out = out + torch.einsum("bitsh,bthd->bishd", pf[:, :, f:], evh)
     out = out.to(cdt).float().reshape(b, f, s, hidden)
     out = torch.einsum("bfsh,hc->bfsc", out, w_out.float())
-    return (x.float() + out).to(x.dtype)
+    return (x.float() + out).to(x.dtype), p
 
 
 def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
@@ -97,24 +117,30 @@ def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
 
 
 def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
-                       heads: int) -> torch.Tensor:
-    """x + block(x). A CPU tensor takes the plain twin; a CUDA tensor
-    launches the kernel or raises."""
+                       heads: int, emit_p: bool = False):
+    """x + block(x), or (out, p) with emit_p (temporal_block_plain_p's p;
+    out bit-equal to the launch without p). A CPU tensor takes the plain
+    twin; a CUDA tensor launches the kernel or raises."""
     if x.device.type == "cpu":
-        return temporal_block_plain(x, gamma, w_all, w_out, ek, ev, bias_all,
-                                    heads=heads)
+        out, p_w = temporal_block_plain_p(x, gamma, w_all, w_out, ek, ev,
+                                          bias_all, heads=heads)
+        return (out, p_w) if emit_p else out
     _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
     lib = _build.load_library()
     out = torch.empty_like(x)
     b, f, s, c = x.shape
+    t_tok = 0 if ek is None else ek.shape[1]
+    p_w = (torch.empty((b, f, s, (f + t_tok) * heads), dtype=x.dtype,
+                       device=x.device) if emit_p else None)
     p = _build.ptr
     err = lib.vmt_temporal_block_fwd(
         p(x), p(gamma), p(w_all), p(w_out), p(bias_all), p(ek), p(ev),
-        p(out), b, f, s, c, 0 if ek is None else ek.shape[1], heads,
+        p(out), p(p_w), b, f, s, c, t_tok, heads,
         _build.stream_handle(x.device))
-    _build.check_launch(lib, err, "fused_temporal_block")
-    _build.LAUNCH_COUNTS["fused_temporal_block"] += 1
-    return out
+    name = "temporal_fwd_p" if emit_p else "fused_temporal_block"
+    _build.check_launch(lib, err, name)
+    _build.LAUNCH_COUNTS[name] += 1
+    return (out, p_w) if emit_p else out
 
 
 def temporal_block_bwd_plain(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
@@ -171,6 +197,78 @@ def temporal_block_bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
     return dx, dgamma, dw_all, dw_out, dek, dev, dbias
 
 
+def temporal_bwd_from_p(x, gamma, w_all, w_out, ek, ev, bias_all, p, g, *,
+                        heads: int):
+    """Own copy of the JAX package's temporal_bwd_from_p
+    (fused_temporal_block.py:591-667), the backward of the 'saved' plan:
+    the block's cotangents from the saved softmax weights p
+    (B, F, S, (F+T)*heads, key-group-major lanes) with only the LN + QKV
+    projection recomputed. It stands in for XLA code, so it is plain torch.
+    `proj` uses the one-pass LN, as the JAX function's default
+    channel_layer_norm does (the forward kernel is two-pass); dx, dgamma
+    and dw_all come from autograd over it. Returns (dx, dgamma, dw_all,
+    dw_out, dek, dev, dbias), dek/dev None without conditioning tokens."""
+    b, f, s, c = x.shape
+    hidden = w_out.shape[0]
+    d = hidden // heads
+    dtype = w_all.dtype
+    f32 = torch.float32
+    has_cond = ek is not None
+
+    def proj(x_, gamma_, w_all_):
+        y = channel_layer_norm(x_, gamma_, one_pass=True).to(dtype)
+        return torch.einsum("bfsc,fch->bfsh", y, w_all_)
+
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, w_all)]
+        qkv = proj(*leaves)
+    q, k, v = (t.detach().reshape(b, f, s, heads, d).to(f32)
+               for t in qkv.split(hidden, dim=-1))
+
+    p_v = p[..., :f * heads].reshape(b, f, s, f, heads).to(f32)
+    g32 = g.to(f32)
+    dout = torch.einsum("bisc,nc->bisn", g32,
+                        w_out.to(f32)).reshape(b, f, s, heads, d)
+
+    # value-side cotangents + out recompute (for dw_out)
+    out_h = torch.einsum("bisjh,bjshd->bishd", p_v, v)
+    dp_v = torch.einsum("bishd,bjshd->bisjh", dout, v)
+    dv = torch.einsum("bisjh,bishd->bjshd", p_v, dout)
+    tsum = torch.einsum("bisjh,bisjh->bish", p_v, dp_v)
+    dek = dev = None
+    if has_cond:
+        t_tok = ek.shape[1]
+        ekh = ek.reshape(b, t_tok, heads, d).to(f32)
+        evh = ev.reshape(b, t_tok, heads, d).to(f32)
+        p_c = p[..., f * heads:].reshape(b, f, s, t_tok, heads).to(f32)
+        out_h = out_h + torch.einsum("bisth,bthd->bishd", p_c, evh)
+        dp_c = torch.einsum("bishd,bthd->bisth", dout, evh)
+        dev = torch.einsum("bisth,bishd->bthd", p_c, dout
+                           ).reshape(b, t_tok, hidden).to(ev.dtype)
+        tsum = tsum + torch.einsum("bisth,bisth->bish", p_c, dp_c)
+    dw_out = torch.einsum("bisn,bisc->nc",
+                          out_h.reshape(b, f, s, hidden).to(dtype).to(f32),
+                          g32).to(w_out.dtype)
+
+    # softmax jacobian + score backward
+    ds_v = p_v * (dp_v - tsum[:, :, :, None, :])
+    dbias = torch.einsum("bisjh->ijh", ds_v)
+    dq = torch.einsum("bisjh,bjshd->bishd", ds_v, k)
+    dk = torch.einsum("bisjh,bishd->bjshd", ds_v, q)
+    if has_cond:
+        ds_c = p_c * (dp_c - tsum[:, :, :, None, :])
+        dbias = torch.cat([dbias, torch.einsum("bisth->ith", ds_c)], dim=1)
+        dq = dq + torch.einsum("bisth,bthd->bishd", ds_c, ekh)
+        dek = torch.einsum("bisth,bishd->bthd", ds_c, q
+                           ).reshape(b, t_tok, hidden).to(ek.dtype)
+
+    dqkv = torch.cat([t.reshape(b, f, s, hidden) for t in (dq, dk, dv)],
+                     dim=-1).to(qkv.dtype)
+    dx, dgamma, dw_all = torch.autograd.grad(qkv, leaves, dqkv)
+    dx = (dx.to(f32) + g32).to(x.dtype)                  # residual path
+    return (dx, dgamma, dw_all, dw_out, dek, dev, dbias.to(bias_all.dtype))
+
+
 class _FusedTemporalBlock(torch.autograd.Function):
     """The JAX custom VJP (fused_temporal_block.py:462-588): the forward
     kernel on the primals, which are saved; the backward recomputes
@@ -195,14 +293,45 @@ class _FusedTemporalBlock(torch.autograd.Function):
         return dx, dgamma, dw_all, dw_out, dek, dev, dbias, None, None
 
 
+class _FusedTemporalBlockSavedP(torch.autograd.Function):
+    """The JAX fused_temporal_block_savedp (fused_temporal_block.py:670-
+    692): the forward kernel emits the softmax weights p, saved with the
+    7 primals; the backward is temporal_bwd_from_p, with all 7 cotangents
+    (the trainable position bias's dbias among them)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, w_all, w_out, ek, ev, bias_all, heads):
+        cdt = x.dtype
+        w_all, w_out = w_all.to(cdt).contiguous(), w_out.to(cdt).contiguous()
+        ctx.heads = heads
+        out, p = temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all,
+                                    heads=heads, emit_p=True)
+        ctx.save_for_backward(x, gamma, w_all, w_out, ek, ev, bias_all, p)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = temporal_bwd_from_p(*ctx.saved_tensors, g, heads=ctx.heads)
+        return (*grads, None)
+
+
+BWD_PLANS = ("recompute", "kernel", "saved")
+
+
 def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
                          heads: int, bwd: str = "recompute") -> torch.Tensor:
     """x + block(x), differentiable in every operand. x: (B, F, S, C) in the
     compute dtype; w_all/w_out in any float dtype (cast to x's inside, so
     float32 weights get float32 gradients); bwd: 'recompute' (autograd
-    through the plain twin) or 'kernel' (the backward kernel; its twin on
-    the CPU)."""
-    if bwd not in ("recompute", "kernel"):
+    through the plain twin), 'kernel' (the backward kernel; its twin on
+    the CPU) or 'saved' (the forward emits p and temporal_bwd_from_p backs
+    it through). Under 'saved' with no operand needing a gradient (sampling
+    under a saved-plan configuration) nothing would read p, so the plain
+    forward kernel runs: its out is bit-equal to the emit_p launch's."""
+    if bwd not in BWD_PLANS:
         raise ValueError(f"unknown backward plan {bwd!r}")
-    return _FusedTemporalBlock.apply(x, gamma, w_all, w_out, ek, ev,
-                                     bias_all, heads, bwd)
+    operands = (x, gamma, w_all, w_out, ek, ev, bias_all)
+    if bwd == "saved" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        return _FusedTemporalBlockSavedP.apply(*operands, heads)
+    return _FusedTemporalBlock.apply(*operands, heads, bwd)

@@ -9,7 +9,8 @@ package's benchmark train workload (bench.py:117-145): each step a batch of
 generator, null-conditioning probability 0.1, Adam and the EMA of the
 train step. The fused blocks run under grad only with
 fused_blocks_in_training in the config (their backward kernels with
-fused_bwd_kernels). Prints each step's loss, then one JSON line with the
+fused_bwd_kernels; the temporal blocks' backward from the saved softmax
+weights with temporal_vjp: saved). Prints each step's loss, then one JSON line with the
 median step time (the device synchronised around each step, which draws
 its batch on the device) and, on a GPU, the peak device memory. Runs on
 the GPU unless --device names another device.
@@ -98,6 +99,7 @@ def main(argv=None) -> dict:
             "peak_mem_bytes": out["peak_mem_bytes"],
             "fused_blocks_in_training": cfg.fused_blocks_in_training,
             "fused_bwd_kernels": cfg.fused_bwd_kernels,
+            "temporal_vjp": cfg.temporal_vjp,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else str(dev))}
     print(json.dumps(meta))
