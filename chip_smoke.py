@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases, each printing its wall time as it finishes:
   0 device   card name and power limit (nvidia-smi), torch/CUDA versions
   1 build    the sm_90a kernels: one nvcc process per source, all started
-             together, and a link (seconds, not minutes)
+             together, and a link (seconds, not minutes); the tensor-core
+             kernels' ptxas registers and spills, dynamic shared memory and
+             SASS HMMA and atomic counts (none without HMMA, no atomic)
   2 kernels  each kernel against its plain PyTorch twin at every shape the
              main path gives it (temporal block at every level with and
              without conditioning tokens, linear stats + apply at every
@@ -148,9 +150,17 @@ TRAIN_BATCH = 4
 TRAIN_TEMPORAL = [(TRAIN_BATCH, s, c, t) for _, s, c, t in TEMPORAL_PATH]
 TRAIN_LINEAR = [(TRAIN_BATCH * 11, n, c) for _, n, c in LINEAR_PATH]
 # device functions of the port's hand-written kernels (profile summary)
-PORTED_KERNELS = ("temporal_fwd_kernel", "temporal_bwd_kernel",
+PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
+                  "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                   "linear_stats_", "linear_apply_kernel", "lin_bwd_",
                   "linear_head_apply", "contract_partial", "colsum_kernel")
+# the device functions of the tensor-core kernels (rows 1-3 of PERF.md's
+# kernel table and the contraction they share with rows 6-7): their ptxas
+# resources are printed and their SASS must hold tensor-core instructions
+# (HMMA) and no atomics
+TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
+                       "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
+                       "contract_partial")
 
 
 def log(msg: str) -> None:
@@ -208,6 +218,79 @@ def check_update(name, got, want, x, out_bias):
             f"{name}: max |update - twin's update| {err:.3e} beyond "
             f"{APPLY_TOL} * max |twin's update| {size:.3e}")
     return err
+
+
+def rate(ms: float, flops: float, bound_ms: float) -> str:
+    """Achieved TFLOP/s and the share of the bound a kernel time reaches."""
+    return (f"{flops / ms * 1e-9:.1f} TFLOP/s, {100 * bound_ms / ms:.1f}% of "
+            "its bound")
+
+
+def kernel_resources(info: dict) -> None:
+    """Print ptxas's registers, static shared memory and spills of the
+    tensor-core kernels (from the build log), the dynamic shared memory
+    their launches ask for, and the HMMA and atomic instructions in their
+    SASS (cuobjdump of the built library). Raises if one of them has no
+    tensor-core instruction or any atomic."""
+    import re
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    def demangle(names):
+        filt = Path(_build._nvcc()).with_name("cu++filt")
+        if not filt.exists():
+            return names
+        out = subprocess.run([str(filt)], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        got = out.stdout.splitlines()
+        return got if len(got) == len(names) else names
+
+    func, res = None, {}
+    for line in info["log"].splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            func = m.group(1)
+            continue
+        if func and any(k in func for k in TENSOR_CORE_KERNELS):
+            if "spill" in line or "Used" in line:
+                res.setdefault(func, []).append(line.split(":", 1)[-1].strip())
+    names = sorted(res)
+    for pretty, name in zip(demangle(names), names):
+        log(f"  ptxas {pretty.split('(')[0]}: {'; '.join(res[name])}")
+    lib = _build.load_library()
+    for c in (64, 128, 256, 512):
+        log(f"  dynamic shared memory at C={c} (T=11 / T=0): forward "
+            f"attention {lib.vmt_temporal_block_fwd_smem(c, 11, 0)} / "
+            f"{lib.vmt_temporal_block_fwd_smem(c, 0, 0)} B, out-projection "
+            f"{lib.vmt_temporal_block_fwd_smem(c, 11, 1)} B; backward "
+            f"attention {lib.vmt_temporal_block_bwd_smem(c, 11, 0)} / "
+            f"{lib.vmt_temporal_block_bwd_smem(c, 0, 0)} B, dy + LN "
+            f"{lib.vmt_temporal_block_bwd_smem(c, 11, 1)} B")
+    dump = Path(_build._nvcc()).with_name("cuobjdump")
+    if not dump.exists():
+        log("  cuobjdump not in the toolkit: SASS not counted")
+        return
+    sass = subprocess.run([str(dump), "-sass", info["path"]],
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            func = m.group(1)
+            counts[func] = [0, 0]
+        elif func:
+            counts[func][0] += bool(re.search(r"\bH(G)?MMA\b", line))
+            counts[func][1] += bool(re.search(r"\b(RED|ATOM|ATOMG|ATOMS)\b",
+                                              line))
+    mine = sorted(f for f in counts if any(k in f for k in TENSOR_CORE_KERNELS))
+    if not mine:
+        raise AssertionError("no tensor-core kernel found in the SASS")
+    for pretty, name in zip(demangle(mine), mine):
+        hmma, atomics = counts[name]
+        log(f"  SASS {pretty.split('(')[0]}: {hmma} HMMA, {atomics} atomic "
+            "instructions")
+        if hmma == 0 or atomics:
+            raise AssertionError(f"{pretty}: {hmma} HMMA, {atomics} atomics")
 
 
 def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -402,8 +485,11 @@ def phase_kernels(report):
         err = check_close(f"temporal {b, s, c, t_tok}", kernel(), plain(),
                           BF16_TOL)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=2, warmup=1)
+        nbytes, flops = temporal_cost(b, s, c, t_tok)
         log(f"  temporal B'={b} S={s} C={c} T={t_tok}: max_abs_err {err:.3e} "
-            f"(tol {BF16_TOL}) kernel {ms:.3f} ms, twin {plain_ms:.3f} ms")
+            f"(tol {BF16_TOL}) kernel {ms:.3f} ms ("
+            f"{rate(ms, flops, bound(nbytes, flops)[0])}), twin "
+            f"{plain_ms:.3f} ms")
         if (b, s, c, t_tok) == (2, 9216, 64, 11):
             report["fused_temporal_block"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -507,13 +593,19 @@ def phase_emit_p(report):
         del want_out, want_p, sums
         ms = cuda_ms(lambda: tmp.temporal_block_fwd(**a, heads=HEADS,
                                                     emit_p=True))
+        fwd_ms = cuda_ms(lambda: tmp.temporal_block_fwd(**a, heads=HEADS))
         plain_ms = cuda_ms(lambda: tmp.temporal_block_plain_p(
             **a, heads=HEADS), reps=2, warmup=1)
-        bms, by = bound(*temporal_p_cost(b, s, c, t_tok))
+        nbytes, flops = temporal_p_cost(b, s, c, t_tok)
+        bms, by = bound(nbytes, flops)
+        fwd_nbytes, fwd_flops = temporal_cost(b, s, c, t_tok)
         log(f"  emit_p B={b} S={s} C={c} T={t_tok}: out bit-equal to the "
             f"plain kernel's; max_abs_err {err:.3e} (tol {BF16_TOL}); p row "
             f"sums within {sum_err:.2e} of 1 (tol {P_SUM_TOL:.2e}); kernel "
-            f"{ms:.3f} ms, twin {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+            f"{ms:.3f} ms ({rate(ms, flops, bms)}), twin {plain_ms:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}); the forward without p at this "
+            f"training shape {fwd_ms:.3f} ms ("
+            f"{rate(fwd_ms, fwd_flops, bound(fwd_nbytes, fwd_flops)[0])})")
         if (b, s, c, t_tok) == (TRAIN_BATCH, 9216, 64, 11):
             report["temporal_fwd_p"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -620,11 +712,12 @@ def phase_bwd_kernels(report):
                      reps=3, warmup=1)
         plain_ms = cuda_ms(lambda: tmp.temporal_block_bwd_plain(
             **a, g=g, heads=HEADS), reps=2, warmup=1)
-        bms, by = bound(*temporal_bwd_cost(b, s, c, t_tok))
+        nbytes, flops = temporal_bwd_cost(b, s, c, t_tok)
+        bms, by = bound(nbytes, flops)
         log(f"  temporal bwd B={b} S={s} C={c} T={t_tok}: max_abs_err "
             f"{err:.3e} (worst {at}, {share:.2e} of its max, tol {GRAD_TOL}) "
-            f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {bms:.4f} ms "
-            f"({by})")
+            f"kernel {ms:.3f} ms ({rate(ms, flops, bms)}), twin "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
         if (b, s, c, t_tok) == (TRAIN_BATCH, 9216, 64, 11):
             report["temporal_bwd"].update(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -647,11 +740,12 @@ def phase_bwd_kernels(report):
                      warmup=1)
         plain_ms = cuda_ms(lambda: lin.linear_block_bwd_plain(**a, g=g, **kw),
                            reps=2, warmup=1)
-        bms, by = bound(*linear_bwd_cost(bf_, n, c))
+        nbytes, flops = linear_bwd_cost(bf_, n, c)
+        bms, by = bound(nbytes, flops)
         log(f"  linear bwd ({route}) BF={bf_} N={n} C={c}: max_abs_err "
             f"{err:.3e} (worst {at}, {share:.2e} of its max, tol {GRAD_TOL}) "
-            f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, bound {bms:.4f} ms "
-            f"({by})")
+            f"kernel {ms:.3f} ms ({rate(ms, flops, bms)}), twin "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
         key = f"linear_bwd_{route}"
         if (n, c) in ((9216, 64), (2304, 128)):
             report[key].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -999,9 +1093,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     info = _build.build_info()
     _build.load_library()
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line and "0 bytes spill" not in line:
-            log(f"  ptxas: {line.strip()}")
+    kernel_resources(info)
     log(f"[1 build] {'built' if info['built'] else 'cached'} "
         f"{info['path']} (nvcc {info['seconds']:.1f}s) | "
         f"{time.perf_counter() - t0:.1f}s")

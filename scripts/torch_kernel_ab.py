@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Time the port's temporal kernels and the linear backward of one tree.
+
+Times, with CUDA events (chip_smoke.py's `cuda_ms`: 2 launches to warm,
+then the mean of 5), every shape that the sampling and training paths give
+to the temporal forward (table row 1), the emit_p forward (row 2), the
+temporal backward (row 3) and the linear backward (rows 6-7, which share
+the split-K contraction of `csrc/reduce.cu`), on chip_smoke.py's seeded
+inputs, through the wrappers of the tree given by --tree. Prints one JSON
+line: the card (nvidia-smi's name and power limit), the tree, and per row
+and shape the ms, the bound ms, the achieved TFLOP/s and the share of the
+bound; with --profile also each CUDA kernel's device time in one launch
+of rows 1-3 at their level-0 shapes.
+
+To compare two versions on one card, unpack the other one's port into a
+gitignored directory that the copy to the card keeps (`git archive
+<commit> videometamaterials_tpu_torch | tar -x -C chip_archive/parent`)
+and run, in one call on the card: parent, this tree, this tree, parent:
+
+    python3 scripts/torch_kernel_ab.py --tree chip_archive/parent
+    python3 scripts/torch_kernel_ab.py --tree .
+
+Each tree builds its own kernels into its own build/ at first use. The
+shapes, inputs, costs and bounds are this tree's chip_smoke.py's.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke_shapes",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="root of the checkout whose kernels to time")
+    ap.add_argument("--out", help="also append the JSON line to this file")
+    ap.add_argument("--profile", action="store_true",
+                    help="also print the device time of each CUDA kernel in "
+                         "one launch of rows 1-3 at their level-0 shapes "
+                         "(torch.profiler)")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_kernel_ab: no CUDA device", flush=True)
+        return 2
+    tree = Path(args.tree).resolve()
+    sys.path.insert(0, str(tree))
+    cs = _chip_smoke()
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    assert Path(tmp.__file__).resolve().is_relative_to(tree), tmp.__file__
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()[0]
+    build_s = _build.build_info()["seconds"]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows: dict[str, list] = {"temporal_fwd": [], "temporal_fwd_p": [],
+                             "temporal_bwd": [], "linear_bwd": []}
+
+    def entry(shape, ms, cost):
+        nbytes, flops = cost
+        bms, by = cs.bound(nbytes, flops)
+        return dict(shape=list(shape), ms=ms, bound_ms=bms, bound_by=by,
+                    tflops=flops / ms * 1e-9, bound_share=bms / ms)
+
+    fwd_shapes = sorted(set(cs.TEMPORAL_PATH) | set(cs.TRAIN_TEMPORAL),
+                        key=lambda v: (-v[1], v[0], v[3]))
+    for b, s, c, t_tok in fwd_shapes:
+        a = cs.temporal_inputs(b, s, c, t_tok, gen)
+        ms = cs.cuda_ms(lambda: tmp.temporal_block_fwd(**a, heads=cs.HEADS))
+        rows["temporal_fwd"].append(entry((b, s, c, t_tok), ms,
+                                          cs.temporal_cost(b, s, c, t_tok)))
+        if (b, s, c, t_tok) in cs.TRAIN_TEMPORAL:
+            ms = cs.cuda_ms(lambda: tmp.temporal_block_fwd(
+                **a, heads=cs.HEADS, emit_p=True))
+            rows["temporal_fwd_p"].append(entry(
+                (b, s, c, t_tok), ms, cs.temporal_p_cost(b, s, c, t_tok)))
+            g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            ms = cs.cuda_ms(lambda: tmp.temporal_block_bwd(
+                **a, g=g, heads=cs.HEADS), reps=3, warmup=1)
+            rows["temporal_bwd"].append(entry(
+                (b, s, c, t_tok), ms, cs.temporal_bwd_cost(b, s, c, t_tok)))
+        del a
+    for bf_, n, c in sorted(set(cs.TRAIN_LINEAR), key=lambda v: -v[1]):
+        a = cs.linear_inputs(bf_, n, c, gen)
+        del a["ctx"], a["z"]
+        g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        route = lin.bwd_route(n)
+        kw = dict(heads=cs.HEADS, scale=32 ** -0.5, spatial_size=n,
+                  route=route)
+        ms = cs.cuda_ms(lambda: lin.linear_block_bwd(**a, g=g, **kw), reps=3,
+                        warmup=1)
+        e = entry((bf_, n, c), ms, cs.linear_bwd_cost(bf_, n, c))
+        e["route"] = route
+        rows["linear_bwd"].append(e)
+        del a
+    stages = {}
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        for name, (b, s, c, t_tok), run in (
+                ("temporal_fwd", (2, 9216, 64, 11), lambda a, g: (
+                    tmp.temporal_block_fwd(**a, heads=cs.HEADS))),
+                ("temporal_fwd_p", (4, 9216, 64, 11), lambda a, g: (
+                    tmp.temporal_block_fwd(**a, heads=cs.HEADS, emit_p=True))),
+                ("temporal_bwd", (4, 9216, 64, 11), lambda a, g: (
+                    tmp.temporal_block_bwd(**a, g=g, heads=cs.HEADS)))):
+            a = cs.temporal_inputs(b, s, c, t_tok, gen)
+            g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            run(a, g)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(a, g)
+                torch.cuda.synchronize()
+            stages[name] = {
+                e.key[:90]: e.self_device_time_total / 1e3
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
+            del a, g
+    line = json.dumps({"card": smi, "tree": str(tree), "nvcc_s": build_s,
+                       "rows": rows, "stages_ms": stages})
+    print(line, flush=True)
+    if args.out:
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        with open(args.out, "a") as fh:
+            fh.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

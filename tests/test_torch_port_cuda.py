@@ -343,3 +343,84 @@ def test_fused_plans_send_gradients_to_every_parameter(cuda, bwd):
         assert a.abs().max() > 0, name
         scale = b_.abs().max().item()
         assert (a - b_).abs().max().item() <= GRAD_TOL * scale, name
+
+
+# ------------------------------------------- the tensor-core temporal tiles
+# The forward's first stage takes 64 positions a block at C <= 128 and 32
+# at C >= 256, the backward 32 at every C: S = 150 and 37 leave a ragged
+# last tile at both, and 37 a grid of one or two position tiles.
+
+
+def _temporal_args(gen, b, s, c, t_tok):
+    bf, f, hd = torch.bfloat16, 11, 256
+    return dict(
+        x=_rnd(gen, b, f, s, c).to(bf), gamma=1 + _rnd(gen, c, scale=0.1),
+        w_all=(_rnd(gen, f, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(gen, hd, c) * hd ** -0.5).to(bf),
+        ek=_rnd(gen, b, t_tok, hd).to(bf) if t_tok else None,
+        ev=_rnd(gen, b, t_tok, hd).to(bf) if t_tok else None,
+        bias_all=_rnd(gen, f, f + t_tok, 8, scale=0.5))
+
+
+def _check_temporal_kernels(args, g):
+    """Forward, emit_p forward and backward against their twins, each
+    launch twice with the same bits, emit_p's out bit-equal to the plain
+    launch's."""
+    out = tmp.temporal_block_fwd(**args, heads=8)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(), tmp.temporal_block_plain(**args, heads=8).float(),
+        **BF16_TOL)
+    assert torch.equal(out, tmp.temporal_block_fwd(**args, heads=8))
+    out_p, p = tmp.temporal_block_fwd(**args, heads=8, emit_p=True)
+    assert torch.equal(out_p, out)
+    _, want_p = tmp.temporal_block_plain_p(**args, heads=8)
+    torch.testing.assert_close(p.float(), want_p.float(), **BF16_TOL)
+    assert torch.equal(p, tmp.temporal_block_fwd(**args, heads=8,
+                                                 emit_p=True)[1])
+    got = tmp.temporal_block_bwd(**args, g=g, heads=8)
+    torch.cuda.synchronize()
+    _assert_cotangents(("dx", "dgamma", "dw_all", "dw_out", "dek", "dev",
+                        "dbias"), got,
+                       tmp.temporal_block_bwd_plain(**args, g=g, heads=8))
+    for a, b_ in zip(got, tmp.temporal_block_bwd(**args, g=g, heads=8)):
+        assert a is None or torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("s,c", [(150, 64), (37, 64), (150, 512), (37, 512)])
+@pytest.mark.parametrize("t_tok", [0, 11])
+def test_temporal_kernels_ragged_position_tiles(cuda, s, c, t_tok):
+    args = _temporal_args(cuda, 2, s, c, t_tok)
+    _check_temporal_kernels(args, _rnd(cuda, *args["x"].shape).to(
+        torch.bfloat16))
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("t_tok", [0, 11])
+def test_temporal_kernels_every_width(cuda, c, t_tok):
+    args = _temporal_args(cuda, 3, 96, c, t_tok)
+    _check_temporal_kernels(args, _rnd(cuda, *args["x"].shape).to(
+        torch.bfloat16))
+
+
+def test_contraction_is_deterministic_through_linear_bwd(cuda):
+    """The split-K contraction (44 chunks of the 32768 rows for dW_qkv,
+    128 for dW_out) gives the same bits on a second launch of the merged
+    linear backward, and the weight gradients match the twin."""
+    bf = torch.bfloat16
+    b, n, c, hd = 8, 4096, 64, 256
+    args = dict(
+        x=_rnd(cuda, b, n, c).to(bf), gamma=1 + _rnd(cuda, c, scale=0.1),
+        w_qkv=(_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        out_bias=_rnd(cuda, c, scale=0.1),
+        ek=(_rnd(cuda, b, 1, hd) + math.log(n) + 0.5).to(bf),
+        ev=_rnd(cuda, b, 1, hd).to(bf))
+    g = _rnd(cuda, b, n, c).to(bf)
+    kw = dict(heads=8, scale=32 ** -0.5, spatial_size=n, route="merged")
+    got = lin.linear_block_bwd(**args, g=g, **kw)
+    torch.cuda.synchronize()
+    for a, b_ in zip(got, lin.linear_block_bwd(**args, g=g, **kw)):
+        assert torch.equal(a, b_)
+    want = lin.linear_block_bwd_plain(**args, g=g, **kw)
+    _assert_cotangents(("dw_qkv", "dw_out"), got[2:4], want[2:4])

@@ -50,18 +50,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # x, gamma, w_all, w_out, bias, ek, ev, out, p (null: no softmax
-    # weights out), B, F, S, C, T, heads, stream
-    "vmt_temporal_block_fwd": [_P] * 9 + [_I] * 6 + [_P],
+    # x, gamma, w_all, w_out, bias, ek, ev, out, acc (scratch), p (null:
+    # no softmax weights out), B, F, S, C, T, heads, stream
+    "vmt_temporal_block_fwd": [_P] * 10 + [_I] * 6 + [_P],
     # x, gamma, w_qkv, ek, ev, part_ctx, part_z, ctx, z,
     # BF, N, C, Mc, heads, tile, inv_hw, stream
     "vmt_linear_stats": [_P] * 9 + [_I] * 6 + [_F, _P],
     # x, gamma, w_qkv, w_out, out_bias, ctx, z, out,
     # BF, N, C, heads, tile, scale, stream
     "vmt_linear_apply": [_P] * 8 + [_I] * 5 + [_F, _P],
-    # x, gamma, w_all, w_allT, w_outT, bias, ek, ev, g, dx, dgamma, dw_all,
-    # dw_out, dbias, dekv, workspace, B, F, S, C, T, heads, stream
-    "vmt_temporal_block_bwd": [_P] * 16 + [_I] * 6 + [_P],
+    # x, gamma, w_all, w_outT, bias, ek, ev, g, dx, dgamma, dw_all, dw_out,
+    # dbias, dekv, workspace, B, F, S, C, T, heads, stream
+    "vmt_temporal_block_bwd": [_P] * 15 + [_I] * 6 + [_P],
     # x, gamma, w_qkv, w_qkvT, w_outT, ek, ev, g, dx, dgamma, dw_qkv, dw_out,
     # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, tile, scale,
     # inv_hw, clip, stream
@@ -70,11 +70,14 @@ _SIGNATURES = {
     # heads, stats tile, apply tile, scale, inv_hw, stream
     "vmt_linear_head": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
 }
-# workspace sizes (bytes) of the entry points that take one
+# sizes in bytes: the workspaces of the entry points that take one, and
+# the dynamic shared memory of the temporal kernels' stages
 _SIZE_SIGNATURES = {
     "vmt_temporal_block_bwd_workspace": [_I] * 5,     # B, F, S, C, T
     "vmt_linear_block_bwd_workspace": [_I] * 4,       # BF, N, C, tile
     "vmt_linear_head_workspace": [_I] * 3,            # BF, N, tile
+    "vmt_temporal_block_fwd_smem": [_I] * 3,         # C, T, stage
+    "vmt_temporal_block_bwd_smem": [_I] * 3,         # C, T, stage
 }
 
 
@@ -108,12 +111,14 @@ def _source_hash() -> str:
 @functools.lru_cache(maxsize=1)
 def build_info() -> dict:
     """Build the library if this checkout has no build of these sources yet.
-    Returns {'path', 'built', 'seconds', 'log'}."""
+    Returns {'path', 'built', 'seconds', 'log'}: nvcc's output, also of the
+    build that a cached library came from."""
     out_dir = BUILD_ROOT / _source_hash()
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
+        log_path = out_dir / "build.log"
         return {"path": str(lib_path), "built": False, "seconds": 0.0,
-                "log": ""}
+                "log": log_path.read_text() if log_path.exists() else ""}
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"tmp{os.getpid()}"
     nvcc = _nvcc()
@@ -196,6 +201,14 @@ def plain_cotangents(fn, x, g, rest, **kw):
         out = fn(*leaves, **kw)
         grads = iter(torch.autograd.grad(out, want, g.to(out.dtype)))
     return tuple(None if t is None else next(grads) for t in leaves)
+
+
+def require_aligned(*tensors) -> None:
+    """The kernels copy and load 16 bytes at a time: every operand must
+    start on a 16-byte boundary (None operands are skipped)."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("operands must start on a 16-byte boundary")
 
 
 def require(cond: bool, what: str) -> None:

@@ -12,15 +12,22 @@
 // Bound: a contraction of R rows into an M x N result reads R (M + N) bf16
 // and does 2 R M N operations; at the flagship level-0 shapes (R = 36864
 // per frame, M = 64, N = 768) the operations bound it at the tensor-core
-// rate. This first version runs its products on the CUDA cores in fp32
-// (a 4 x 4 register tile per thread over 16-row slabs staged in shared
-// memory); wgmma is later work.
+// rate. Each block of 128 threads owns one 64 x 64 output tile of one
+// chunk: 32-row slabs of A and B arrive through a 3-stage cp.async ring
+// (zero-filled past the chunk's end) and the four warps, 32 x 32 each,
+// multiply them on the tensor cores (mma.sync m16n8k16, A^T and B read
+// with ldmatrix.trans from padded tiles, fp32 sums). A block's sum runs
+// over its rows in a fixed order and the chunks are added in order, so two
+// launches give the same bits.
+#include "mma.cuh"
 #include "reduce.cuh"
 
 namespace vmt {
 namespace {
 
-constexpr int kSlab = 16;           // rows per shared-memory stage
+constexpr int kSlab = 32;           // rows per cp.async stage
+constexpr int kRing = 3;            // stages
+constexpr int kTP = kContractTile + 8;  // padded pitch (bf16)
 constexpr int kMaxChunks = 128;     // partial products per output tile
 constexpr int kColsumGroup = 64;    // rows per first-stage group
 
@@ -33,61 +40,81 @@ int contract_chunks(int groups, int rows, int M, int N) {
   return chunks < 1 ? 1 : chunks;
 }
 
-__global__ void __launch_bounds__(256) contract_partial(
+__global__ void __launch_bounds__(128) contract_partial(
     const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
     float* __restrict__ part, int rows, int M, int N, size_t a_group,
     size_t b_group, int rows_per_chunk, int chunks) {
-  __shared__ __align__(16) float As[kSlab][kContractTile];
-  __shared__ __align__(16) float Bs[kSlab][kContractTile];
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;
+  __shared__ __align__(16) __nv_bfloat16 As[kRing][kSlab][kTP];
+  __shared__ __align__(16) __nv_bfloat16 Bs[kRing][kSlab][kTP];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int n0 = blockIdx.x * kContractTile, m0 = blockIdx.y * kContractTile;
   const int g = blockIdx.z / chunks, chunk = blockIdx.z % chunks;
   const int r_begin = chunk * rows_per_chunk;
   const int r_end = min(rows, r_begin + rows_per_chunk);
+  const int slabs = r_end > r_begin ? (r_end - r_begin + kSlab - 1) / kSlab : 0;
   const __nv_bfloat16* a = A + g * a_group;
   const __nv_bfloat16* b = B + g * b_group;
-  float acc[4][4] = {};
-  // loader: thread t stages row t / 16, columns 4 (t % 16) .. + 3
-  const int lr = t / 16, lc = (t % 16) * 4;
-  for (int r0 = r_begin; r0 < r_end; r0 += kSlab) {
-    const int r = r0 + lr;
-    float av[4] = {0.f, 0.f, 0.f, 0.f}, bv[4] = {0.f, 0.f, 0.f, 0.f};
-    if (r < r_end) {
-      const __nv_bfloat16* ar = a + (size_t)r * M + m0 + lc;
-      const __nv_bfloat16* br = b + (size_t)r * N + n0 + lc;
+
+  // slab q: rows r_begin + 32 q .., 64 columns of A and of B (8 pieces of
+  // 16 bytes a row)
+  auto load_slab = [&](int q) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        av[u] = __bfloat162float(ar[u]);
-        bv[u] = __bfloat162float(br[u]);
+    for (int i = t; i < 2 * kSlab * 8; i += 128) {
+      const int which = i / (kSlab * 8), r = (i / 8) % kSlab, o = (i % 8) * 8;
+      const int row = r_begin + q * kSlab + r;
+      const bool valid = row < r_end;
+      const size_t src_row = valid ? row : 0;
+      if (which == 0)
+        cp_async16(&As[q % kRing][r][o], a + src_row * M + m0 + o, valid);
+      else
+        cp_async16(&Bs[q % kRing][r][o], b + src_row * N + n0 + o, valid);
+    }
+  };
+#pragma unroll
+  for (int q = 0; q < kRing - 1; ++q) {
+    if (q < slabs) load_slab(q);
+    cp_async_commit();
+  }
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  float acc[2][4][4] = {};
+  for (int q = 0; q < slabs; ++q) {
+    cp_async_wait<kRing - 2>();
+    __syncthreads();
+    if (q + kRing - 1 < slabs) load_slab(q + kRing - 1);
+    cp_async_commit();
+    const int st = q % kRing;
+#pragma unroll
+    for (int ks = 0; ks < kSlab / 16; ++ks) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        ldsm_x4_t(af[mt], &As[st][ks * 16 + at_row_off(lane)]
+                              [wm + mt * 16 + at_col_off(lane)]);
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, &Bs[st][ks * 16 + bk_row_off(lane)]
+                          [wn + np * 16 + bk_col_off(lane)]);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma_bf16(acc[mt][2 * np], af[mt], bb[0], bb[1]);
+          mma_bf16(acc[mt][2 * np + 1], af[mt], bb[2], bb[3]);
+        }
       }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      As[lr][lc + u] = av[u];
-      Bs[lr][lc + u] = bv[u];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kSlab; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float ar[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float br[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
   }
   float* out = part + ((size_t)g * chunks + chunk) * M * N;
+  const int gq = lane >> 2, tq = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float4 v = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    *reinterpret_cast<float4*>(out + (size_t)(m0 + ty * 4 + i) * N + n0 +
-                               tx * 4) = v;
-  }
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int m = m0 + wm + mt * 16 + gq, n = n0 + wn + nt * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(out + (size_t)m * N + n) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(out + (size_t)(m + 8) * N + n) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
 }
 
 // out[b][rc][c] = sum of rows [rc*group, min(rows, (rc+1)*group)) of
@@ -134,7 +161,7 @@ cudaError_t launch_contract(const __nv_bfloat16* A, const __nv_bfloat16* B,
   int per = (rows + chunks - 1) / chunks;
   per = (per + kSlab - 1) / kSlab * kSlab;
   const dim3 grid(N / kContractTile, M / kContractTile, groups * chunks);
-  contract_partial<<<grid, 256, 0, stream>>>(A, B, ws, rows, M, N, a_group,
+  contract_partial<<<grid, 128, 0, stream>>>(A, B, ws, rows, M, N, a_group,
                                              b_group, per, chunks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;

@@ -56,9 +56,20 @@ def temporal_block_plain_p(x, gamma, w_all, w_out, ek, ev, bias_all, *,
 
 
 def _plain(x, gamma, w_all, w_out, ek, ev, bias_all, *, heads: int):
-    """(out, p) with p (B, F, F+T, S, heads), the twins' one body."""
+    """(out, p) with p (B, F, F+T, S, heads), the twins' one body: the
+    kernel's two stages composed."""
+    acc, p = temporal_attn_plain(x, gamma, w_all, ek, ev, bias_all,
+                                 heads=heads)
+    return temporal_outproj_plain(x, acc, w_out), p
+
+
+def temporal_attn_plain(x, gamma, w_all, ek, ev, bias_all, *, heads: int):
+    """The kernel's first stage in plain PyTorch: (acc, p), acc (B, F, S,
+    hidden) the value sum rounded to w_all's dtype (the JAX kernel's :235,
+    where the CUDA kernel splits into its two launches), p (B, F, F+T, S,
+    heads) the softmax weights the value sum consumes."""
     b, f, s, c = x.shape
-    hidden = w_out.shape[0]
+    hidden = w_all.shape[-1] // 3
     d = hidden // heads
     cdt = w_all.dtype
     y = channel_layer_norm(x, gamma, one_pass=False).to(cdt)
@@ -76,12 +87,17 @@ def _plain(x, gamma, w_all, w_out, ek, ev, bias_all, *, heads: int):
         sim = torch.cat([sim, sim_c], dim=2)
     p = torch.softmax(sim, dim=2).to(cdt)
     pf = p.float()
-    out = torch.einsum("bijsh,bjshd->bishd", pf[:, :, :f], v)
+    acc = torch.einsum("bijsh,bjshd->bishd", pf[:, :, :f], v)
     if ek is not None:
-        out = out + torch.einsum("bitsh,bthd->bishd", pf[:, :, f:], evh)
-    out = out.to(cdt).float().reshape(b, f, s, hidden)
-    out = torch.einsum("bfsh,hc->bfsc", out, w_out.float())
-    return (x.float() + out).to(x.dtype), p
+        acc = acc + torch.einsum("bitsh,bthd->bishd", pf[:, :, f:], evh)
+    return acc.to(cdt).reshape(b, f, s, hidden), p
+
+
+def temporal_outproj_plain(x, acc, w_out) -> torch.Tensor:
+    """The kernel's second stage in plain PyTorch: x + acc @ w_out, summed
+    in float32 and rounded to x's dtype."""
+    out = torch.einsum("bfsh,hc->bfsc", acc.float(), w_out.float())
+    return (x.float() + out).to(x.dtype)
 
 
 def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
@@ -114,6 +130,7 @@ def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
                 "ek/ev must be contiguous bf16 (B, T, hidden)")
     for t in (gamma, w_all, w_out, bias_all, ek, ev):
         req(t is None or t.device == x.device, "all operands on x's device")
+    _build.require_aligned(x, w_all, w_out, ek, ev)
 
 
 def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
@@ -130,12 +147,14 @@ def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     out = torch.empty_like(x)
     b, f, s, c = x.shape
     t_tok = 0 if ek is None else ek.shape[1]
+    # the bf16 value sums between the kernel's two launches
+    acc = torch.empty((b, f, s, HIDDEN), dtype=x.dtype, device=x.device)
     p_w = (torch.empty((b, f, s, (f + t_tok) * heads), dtype=x.dtype,
                        device=x.device) if emit_p else None)
     p = _build.ptr
     err = lib.vmt_temporal_block_fwd(
         p(x), p(gamma), p(w_all), p(w_out), p(bias_all), p(ek), p(ev),
-        p(out), p(p_w), b, f, s, c, t_tok, heads,
+        p(out), p(acc), p(p_w), b, f, s, c, t_tok, heads,
         _build.stream_handle(x.device))
     name = "temporal_fwd_p" if emit_p else "fused_temporal_block"
     _build.check_launch(lib, err, name)
@@ -169,6 +188,7 @@ def temporal_block_bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
     _build.require(g.dtype == x.dtype and g.shape == x.shape
                    and g.is_contiguous() and g.device == x.device,
                    "g must be contiguous, of x's shape and dtype")
+    _build.require_aligned(g)
     b, f, s, c = x.shape
     t_tok = 0 if ek is None else ek.shape[1]
     lib = _build.load_library()
@@ -181,11 +201,10 @@ def temporal_block_bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
     dekv = torch.empty((b, 2, t_tok, HIDDEN), **f32) if t_tok else None
     ws = _build.workspace(
         lib.vmt_temporal_block_bwd_workspace(b, f, s, c, t_tok), x.device)
-    w_all_t = w_all.transpose(1, 2).contiguous()
     w_out_t = w_out.t().contiguous()
     p = _build.ptr
     err = lib.vmt_temporal_block_bwd(
-        p(x), p(gamma), p(w_all), p(w_all_t), p(w_out_t), p(bias_all), p(ek),
+        p(x), p(gamma), p(w_all), p(w_out_t), p(bias_all), p(ek),
         p(ev), p(g), p(dx), p(dgamma), p(dw_all), p(dw_out), p(dbias),
         p(dekv), p(ws), b, f, s, c, t_tok, heads,
         _build.stream_handle(x.device))
