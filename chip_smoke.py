@@ -14,7 +14,9 @@ Phases, each printing its wall time as it finishes:
   2 kernels  each kernel against its plain PyTorch twin at every shape the
              main path gives it (temporal block at every level with and
              without conditioning tokens, linear stats + apply at every
-             level, the per-head-shift NaN case), with kernel/twin times;
+             level and at token counts off their tiles, stats bit-equal
+             over two launches, the per-head-shift NaN case), with
+             kernel/twin times;
              the emit_p temporal forward at every training-path shape (out
              bit-equal to the plain forward kernel's, out and p against the
              twin, p's rows summing to one) and the head-layout linear
@@ -82,6 +84,10 @@ TEMPORAL_PATH = [(1, 9216, 64, 0),
 LINEAR_PATH = [(22, 9216, 64), (22, 2304, 128), (22, 576, 256),
                (22, 144, 512), (22, 144, 256), (22, 576, 128),
                (22, 2304, 64), (22, 9216, 64)]
+# token counts off the kernels' tiles (64 tokens an apply block and a stats
+# sub-tile, 256 a stats block at N >= 4096): a ragged last stats tile and
+# sub-tile, and a frame shorter than two sub-tiles
+LINEAR_RAGGED = [(22, 9191, 64), (22, 100, 512)]
 FRAMES, HIDDEN, HEADS = 11, 256, 8
 # bf16 outputs: one bf16 ulp at |out| ~ 4 is 0.016, and a qkv or weight
 # element that rounds the other way moves an output by about as much --
@@ -154,13 +160,14 @@ PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                   "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                   "linear_stats_", "linear_apply_kernel", "lin_bwd_",
                   "linear_head_apply", "contract_partial", "colsum_kernel")
-# the device functions of the tensor-core kernels (rows 1-3 of PERF.md's
-# kernel table and the contraction they share with rows 6-7): their ptxas
+# the device functions of the tensor-core kernels (rows 1-5 of PERF.md's
+# kernel table and the contraction rows 3, 6 and 7 share): their ptxas
 # resources are printed and their SASS must hold tensor-core instructions
 # (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
-                       "contract_partial")
+                       "contract_partial", "linear_stats_partial",
+                       "linear_apply_kernel")
 
 
 def log(msg: str) -> None:
@@ -265,7 +272,9 @@ def kernel_resources(info: dict) -> None:
             f"{lib.vmt_temporal_block_fwd_smem(c, 11, 1)} B; backward "
             f"attention {lib.vmt_temporal_block_bwd_smem(c, 11, 0)} / "
             f"{lib.vmt_temporal_block_bwd_smem(c, 0, 0)} B, dy + LN "
-            f"{lib.vmt_temporal_block_bwd_smem(c, 11, 1)} B")
+            f"{lib.vmt_temporal_block_bwd_smem(c, 11, 1)} B; linear stats "
+            f"{lib.vmt_linear_block_fwd_smem(c, 0)} B, apply "
+            f"{lib.vmt_linear_block_fwd_smem(c, 1)} B")
     dump = Path(_build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         log("  cuobjdump not in the toolkit: SASS not counted")
@@ -467,10 +476,15 @@ def apply_cost(bf_, n, c):
 def phase_kernels(report):
     import torch
 
-    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    temporal_kernels(report, gen)
+    linear_kernels(report, gen)
+
+
+def temporal_kernels(report, gen):
+    """The temporal forward against its twin at every main-path shape."""
     from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
     shapes = sorted(set(TEMPORAL_PATH), key=lambda s: (-s[1], s[0], s[3]))
     shapes += [(b, s, c, 0) for b, s, c, t in shapes if t]
     for b, s, c, t_tok in shapes:
@@ -497,13 +511,28 @@ def phase_kernels(report):
                            bound(*temporal_cost(b, s, c, t_tok)))),
                 shape=[b, FRAMES, s, c, t_tok])
 
-    for bf_, n, c in sorted(set(LINEAR_PATH), key=lambda s: -s[1]):
+
+def linear_kernels(report, gen):
+    """Linear stats and apply against their twins at every main-path shape
+    and at LINEAR_RAGGED (stats bit-equal over two launches), then the
+    per-head shift case."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    for bf_, n, c in (sorted(set(LINEAR_PATH), key=lambda s: -s[1])
+                      + LINEAR_RAGGED):
         a = linear_inputs(bf_, n, c, gen)
         kw = dict(heads=HEADS, spatial_size=n)
         ctx_p, z_p = lin.linear_stats_plain(a["x"], a["gamma"], a["w_qkv"],
                                             a["ek"], a["ev"], **kw)
         ctx_k, z_k = lin.linear_stats(a["x"], a["gamma"], a["w_qkv"],
                                       a["ek"], a["ev"], **kw)
+        again = lin.linear_stats(a["x"], a["gamma"], a["w_qkv"], a["ek"],
+                                 a["ev"], **kw)
+        if not (torch.equal(ctx_k, again[0]) and torch.equal(z_k, again[1])):
+            raise AssertionError(f"stats {bf_, n, c}: two launches give "
+                                 "different bits")
         mag = lin.linear_stats_magnitude(a["x"], a["gamma"], a["w_qkv"],
                                          a["ek"], a["ev"], **kw)
         err_c, share = check_ctx(f"stats ctx {bf_, n, c}", ctx_k, ctx_p, mag)
@@ -525,7 +554,9 @@ def phase_kernels(report):
         ams = cuda_ms(lambda: lin.linear_apply(*args, **akw))
         aplain = cuda_ms(lambda: lin.linear_apply_plain(*args, **akw),
                          reps=2, warmup=1)
-        log(f"  linear BF={bf_} N={n} C={c}: stats err {err_s:.3e} (ctx "
+        log(f"  linear BF={bf_} N={n} C={c}"
+            f"{' (ragged)' if (bf_, n, c) in LINEAR_RAGGED else ''}: stats "
+            f"bit-equal over two launches, err {err_s:.3e} (ctx "
             f"{share:.2e} of its summands' magnitude, tol {CTX_SHARE:.2e}; z "
             f"tol {STATS_TOL}) {sms:.3f} ms / twin {splain:.3f} ms; apply "
             f"update err {err_a:.3e} (update rms {upd_rms:.3f}, tol "

@@ -1,16 +1,17 @@
 #!/usr/bin/env python3
-"""Time the port's temporal kernels and the linear backward of one tree.
+"""Time the port's temporal kernels and linear kernels of one tree.
 
 Times, with CUDA events (chip_smoke.py's `cuda_ms`: 2 launches to warm,
 then the mean of 5), every shape that the sampling and training paths give
 to the temporal forward (table row 1), the emit_p forward (row 2), the
-temporal backward (row 3) and the linear backward (rows 6-7, which share
-the split-K contraction of `csrc/reduce.cu`), on chip_smoke.py's seeded
-inputs, through the wrappers of the tree given by --tree. Prints one JSON
-line: the card (nvidia-smi's name and power limit), the tree, and per row
-and shape the ms, the bound ms, the achieved TFLOP/s and the share of the
-bound; with --profile also each CUDA kernel's device time in one launch
-of rows 1-3 at their level-0 shapes.
+temporal backward (row 3), the linear stats and apply (rows 4-5) and the
+linear backward (rows 6-7, which share the split-K contraction of
+`csrc/reduce.cu`), on chip_smoke.py's seeded inputs, through the wrappers
+of the tree given by --tree. Prints one JSON line: the card (nvidia-smi's
+name and power limit), the tree, and per row and shape the ms, the bound
+ms, the achieved TFLOP/s and the share of the bound; with --profile also
+each CUDA kernel's device time in one launch of rows 1-5 at their level-0
+shapes.
 
 To compare two versions on one card, unpack the other one's port into a
 gitignored directory that the copy to the card keeps (`git archive
@@ -44,6 +45,15 @@ def _chip_smoke():
     return mod
 
 
+def _device_ms(prof) -> dict:
+    """Device ms of each CUDA kernel in a torch.profiler trace."""
+    import torch
+
+    return {e.key[:90]: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--tree", default=str(ROOT),
@@ -51,8 +61,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also append the JSON line to this file")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time of each CUDA kernel in "
-                         "one launch of rows 1-3 at their level-0 shapes "
+                         "one launch of rows 1-5 at their level-0 shapes "
                          "(torch.profiler)")
+    ap.add_argument("--rows", help="comma-separated rows to time (default "
+                    "all): temporal_fwd, temporal_fwd_p, temporal_bwd, "
+                    "linear_stats, linear_apply, linear_bwd")
     args = ap.parse_args(argv)
 
     import torch
@@ -74,32 +87,52 @@ def main(argv=None) -> int:
     build_s = _build.build_info()["seconds"]
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows: dict[str, list] = {"temporal_fwd": [], "temporal_fwd_p": [],
-                             "temporal_bwd": [], "linear_bwd": []}
+                             "temporal_bwd": [], "linear_stats": [],
+                             "linear_apply": [], "linear_bwd": []}
 
-    def entry(shape, ms, cost):
+    want = set(args.rows.split(",")) if args.rows else set(rows)
+    if want - set(rows):
+        ap.error(f"unknown rows {sorted(want - set(rows))}")
+
+    def timed(name, shape, fn, cost, **kw):
+        """Time fn at shape into rows[name] if that row is asked for."""
+        if name not in want:
+            return None
         nbytes, flops = cost
+        ms = cs.cuda_ms(fn, **kw)
         bms, by = cs.bound(nbytes, flops)
-        return dict(shape=list(shape), ms=ms, bound_ms=bms, bound_by=by,
-                    tflops=flops / ms * 1e-9, bound_share=bms / ms)
+        rows[name].append(dict(shape=list(shape), ms=ms, bound_ms=bms,
+                               bound_by=by, tflops=flops / ms * 1e-9,
+                               bound_share=bms / ms))
+        return rows[name][-1]
 
     fwd_shapes = sorted(set(cs.TEMPORAL_PATH) | set(cs.TRAIN_TEMPORAL),
                         key=lambda v: (-v[1], v[0], v[3]))
     for b, s, c, t_tok in fwd_shapes:
+        shape = (b, s, c, t_tok)
         a = cs.temporal_inputs(b, s, c, t_tok, gen)
-        ms = cs.cuda_ms(lambda: tmp.temporal_block_fwd(**a, heads=cs.HEADS))
-        rows["temporal_fwd"].append(entry((b, s, c, t_tok), ms,
-                                          cs.temporal_cost(b, s, c, t_tok)))
-        if (b, s, c, t_tok) in cs.TRAIN_TEMPORAL:
-            ms = cs.cuda_ms(lambda: tmp.temporal_block_fwd(
-                **a, heads=cs.HEADS, emit_p=True))
-            rows["temporal_fwd_p"].append(entry(
-                (b, s, c, t_tok), ms, cs.temporal_p_cost(b, s, c, t_tok)))
+        timed("temporal_fwd", shape,
+              lambda: tmp.temporal_block_fwd(**a, heads=cs.HEADS),
+              cs.temporal_cost(*shape))
+        if shape in cs.TRAIN_TEMPORAL:
+            timed("temporal_fwd_p", shape, lambda: tmp.temporal_block_fwd(
+                **a, heads=cs.HEADS, emit_p=True), cs.temporal_p_cost(*shape))
             g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
                 torch.bfloat16)
-            ms = cs.cuda_ms(lambda: tmp.temporal_block_bwd(
-                **a, g=g, heads=cs.HEADS), reps=3, warmup=1)
-            rows["temporal_bwd"].append(entry(
-                (b, s, c, t_tok), ms, cs.temporal_bwd_cost(b, s, c, t_tok)))
+            timed("temporal_bwd", shape, lambda: tmp.temporal_block_bwd(
+                **a, g=g, heads=cs.HEADS), cs.temporal_bwd_cost(*shape),
+                reps=3, warmup=1)
+        del a
+    akw = dict(heads=cs.HEADS, scale=32 ** -0.5)
+    for bf_, n, c in sorted(set(cs.LINEAR_PATH) | set(cs.TRAIN_LINEAR),
+                            key=lambda v: (-v[1], v[0])):
+        a = cs.linear_inputs(bf_, n, c, gen)
+        timed("linear_stats", (bf_, n, c), lambda: lin.linear_stats(
+            a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"],
+            heads=cs.HEADS, spatial_size=n), cs.stats_cost(bf_, n, c))
+        timed("linear_apply", (bf_, n, c), lambda: lin.linear_apply(
+            a["x"], a["gamma"], a["w_qkv"], a["w_out"], a["out_bias"],
+            a["ctx"], a["z"], **akw), cs.apply_cost(bf_, n, c))
         del a
     for bf_, n, c in sorted(set(cs.TRAIN_LINEAR), key=lambda v: -v[1]):
         a = cs.linear_inputs(bf_, n, c, gen)
@@ -109,11 +142,11 @@ def main(argv=None) -> int:
         route = lin.bwd_route(n)
         kw = dict(heads=cs.HEADS, scale=32 ** -0.5, spatial_size=n,
                   route=route)
-        ms = cs.cuda_ms(lambda: lin.linear_block_bwd(**a, g=g, **kw), reps=3,
-                        warmup=1)
-        e = entry((bf_, n, c), ms, cs.linear_bwd_cost(bf_, n, c))
-        e["route"] = route
-        rows["linear_bwd"].append(e)
+        e = timed("linear_bwd", (bf_, n, c),
+                  lambda: lin.linear_block_bwd(**a, g=g, **kw),
+                  cs.linear_bwd_cost(bf_, n, c), reps=3, warmup=1)
+        if e is not None:
+            e["route"] = route
         del a
     stages = {}
     if args.profile:
@@ -126,6 +159,8 @@ def main(argv=None) -> int:
                     tmp.temporal_block_fwd(**a, heads=cs.HEADS, emit_p=True))),
                 ("temporal_bwd", (4, 9216, 64, 11), lambda a, g: (
                     tmp.temporal_block_bwd(**a, g=g, heads=cs.HEADS)))):
+            if name not in want:
+                continue
             a = cs.temporal_inputs(b, s, c, t_tok, gen)
             g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
                 torch.bfloat16)
@@ -134,11 +169,25 @@ def main(argv=None) -> int:
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 run(a, g)
                 torch.cuda.synchronize()
-            stages[name] = {
-                e.key[:90]: e.self_device_time_total / 1e3
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA}
+            stages[name] = _device_ms(prof)
             del a, g
+        a = cs.linear_inputs(22, 9216, 64, gen)
+        for name, run in (
+                ("linear_stats", lambda: lin.linear_stats(
+                    a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"],
+                    heads=cs.HEADS, spatial_size=9216)),
+                ("linear_apply", lambda: lin.linear_apply(
+                    a["x"], a["gamma"], a["w_qkv"], a["w_out"],
+                    a["out_bias"], a["ctx"], a["z"], **akw))):
+            if name not in want:
+                continue
+            run()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            stages[name] = _device_ms(prof)
+        del a
     line = json.dumps({"card": smi, "tree": str(tree), "nvcc_s": build_s,
                        "rows": rows, "stages_ms": stages})
     print(line, flush=True)

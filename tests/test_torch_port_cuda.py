@@ -424,3 +424,61 @@ def test_contraction_is_deterministic_through_linear_bwd(cuda):
         assert torch.equal(a, b_)
     want = lin.linear_block_bwd_plain(**args, g=g, **kw)
     _assert_cotangents(("dw_qkv", "dw_out"), got[2:4], want[2:4])
+
+
+# -------------------------------------------- the tensor-core linear tiles
+# The apply kernel takes 64 tokens a block; the stats 64 (N < 4096) or 256
+# tokens a block in sub-tiles of 64, four heads a block. N = 37 is one
+# short tile, 100 a ragged second one, 4100 a ragged 256-token block whose
+# last sub-tile holds 4 tokens.
+
+
+def _linear_args(gen, b, n, c, m_c):
+    bf, hd = torch.bfloat16, 256
+    return dict(
+        x=_rnd(gen, b, n, c).to(bf), gamma=1 + _rnd(gen, c, scale=0.1),
+        w_qkv=(_rnd(gen, c, 3 * hd) * c ** -0.5).to(bf),
+        ek=_rnd(gen, b, m_c, hd).to(bf) if m_c else None,
+        ev=_rnd(gen, b, m_c, hd).to(bf) if m_c else None)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("n", [37, 100, 4100])
+@pytest.mark.parametrize("m_c", [0, 1])
+def test_linear_stats_kernel_every_width(cuda, c, n, m_c):
+    """ctx within 2^-7 of its summands' magnitude, z within 1e-3, one
+    launch counted, and the same bits on a second launch (the ordered
+    reduce has no atomics)."""
+    args = _linear_args(cuda, 2, n, c, m_c)
+    kw = dict(heads=8, spatial_size=n)
+    before = _build.LAUNCH_COUNTS["linear_stats"]
+    ctx_k, z_k = lin.linear_stats(**args, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["linear_stats"] == before + 1
+    ctx_p, z_p = lin.linear_stats_plain(**args, **kw)
+    mag = lin.linear_stats_magnitude(**args, **kw)
+    assert torch.isfinite(ctx_k).all()
+    assert ((ctx_k - ctx_p).abs() <= CTX_SHARE * mag).all()
+    torch.testing.assert_close(z_k, z_p, **STATS_TOL)
+    ctx2, z2 = lin.linear_stats(**args, **kw)
+    assert torch.equal(ctx_k, ctx2) and torch.equal(z_k, z2)
+
+
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+@pytest.mark.parametrize("n", [37, 100])
+def test_linear_apply_kernel_every_width(cuda, c, n):
+    """The update against the twin's at O(1) stats, one launch counted,
+    the same bits on a second launch."""
+    bf, hd, b = torch.bfloat16, 256, 3
+    x = _rnd(cuda, b, n, c).to(bf)
+    gamma = 1 + _rnd(cuda, c, scale=0.1)
+    w_qkv = (_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf)
+    w_out = (_rnd(cuda, hd, c) * hd ** -0.5).to(bf)
+    out_bias = _rnd(cuda, c, scale=0.1)
+    ctx, z = _rnd(cuda, b, 8, 32, 32, scale=32.0), 1 + _rnd(cuda, b, hd).abs()
+    before = _build.LAUNCH_COUNTS["linear_apply"]
+    _assert_apply_matches(x, gamma, w_qkv, w_out, out_bias, ctx, z)
+    assert _build.LAUNCH_COUNTS["linear_apply"] == before + 1
+    args = (x, gamma, w_qkv, w_out, out_bias, ctx, z)
+    assert torch.equal(lin.linear_apply(*args, heads=8, scale=32 ** -0.5),
+                       lin.linear_apply(*args, heads=8, scale=32 ** -0.5))

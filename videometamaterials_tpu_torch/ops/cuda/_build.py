@@ -71,13 +71,14 @@ _SIGNATURES = {
     "vmt_linear_head": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
 }
 # sizes in bytes: the workspaces of the entry points that take one, and
-# the dynamic shared memory of the temporal kernels' stages
+# the dynamic shared memory of the temporal and linear kernels' stages
 _SIZE_SIGNATURES = {
     "vmt_temporal_block_bwd_workspace": [_I] * 5,     # B, F, S, C, T
     "vmt_linear_block_bwd_workspace": [_I] * 4,       # BF, N, C, tile
     "vmt_linear_head_workspace": [_I] * 3,            # BF, N, tile
     "vmt_temporal_block_fwd_smem": [_I] * 3,         # C, T, stage
     "vmt_temporal_block_bwd_smem": [_I] * 3,         # C, T, stage
+    "vmt_linear_block_fwd_smem": [_I] * 2,           # C, stage
 }
 
 

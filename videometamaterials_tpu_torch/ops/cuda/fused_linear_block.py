@@ -44,6 +44,8 @@ K_CLAMP = 60.0
 CHANNELS = (64, 128, 256, 512)
 HEADS = 8
 HIDDEN = 256
+# tokens an apply block (the M of its tensor-core products); the stats
+# tiles are multiples of it, walked in sub-tiles of 64
 APPLY_TILE = 64
 # the JAX _core_bwd route (fused_linear_block.py:580-586): the merged
 # backward is untiled there, so it takes only shapes whose ~12 live
@@ -53,9 +55,9 @@ LAYOUTS = ("merged", "head")
 
 
 def stats_tile(n: int) -> int:
-    """Tokens per block of the stats pass: large tiles keep the partials
-    scratch small at full resolution, small ones give the low-resolution
-    levels enough blocks."""
+    """Tokens per block of the stats pass, a multiple of APPLY_TILE: large
+    tiles keep the partials scratch small at full resolution, small ones
+    give the low-resolution levels enough blocks."""
     return 256 if n >= 4096 else 64
 
 
@@ -168,6 +170,7 @@ def linear_stats(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
     _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
     m_c = _check_cond(ek, ev, x)
+    _build.require_aligned(x, w_qkv)
     tile = stats_tile(n)
     n_tiles = -(-n // tile)
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -208,6 +211,7 @@ def linear_apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
         and tuple(z.shape) == (b, HIDDEN), "z must be float32 (B, hidden)")
     for t in (w_out, out_bias, ctx, z):
         req(t.device == x.device, "all operands on x's device")
+    _build.require_aligned(x, w_qkv, w_out, out_bias, ctx, z)
     out = torch.empty_like(x)
     lib = _build.load_library()
     p = _build.ptr
