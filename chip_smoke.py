@@ -24,7 +24,11 @@ Phases, each printing its wall time as it finishes:
              |k| across the merged stats' clamp
   2b backward  each backward kernel against its twin at every shape of the
              training path (batch 4, 44 folded frames): every cotangent,
-             with kernel/twin times and bounds
+             with kernel/twin times and bounds, the linear backward
+             bit-equal over two launches; then the linear backward at a
+             ragged N with |k| across 60 on both routes (the merged one
+             against its clamped twin, the per-head one against its
+             unclamped twin)
   3 model    one guided forward of the flagship UNet3D, fused plans against
              the unfused plans, on the same input
   3b model   the same with the linear blocks on the head layout
@@ -158,16 +162,17 @@ TRAIN_LINEAR = [(TRAIN_BATCH * 11, n, c) for _, n, c in LINEAR_PATH]
 # device functions of the port's hand-written kernels (profile summary)
 PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                   "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
-                  "linear_stats_", "linear_apply_kernel", "lin_bwd_",
+                  "linear_stats_", "linear_apply_kernel", "linear_bwd_",
                   "linear_head_apply", "contract_partial", "colsum_kernel")
-# the device functions of the tensor-core kernels (rows 1-5 of PERF.md's
-# kernel table and the contraction rows 3, 6 and 7 share): their ptxas
-# resources are printed and their SASS must hold tensor-core instructions
-# (HMMA) and no atomics
+# the device functions of the tensor-core kernels (rows 1-7 of PERF.md's
+# kernel table, the contraction of rows 3, 6 and 7, and the stats pass that
+# row 8 shares with rows 6-7): their ptxas resources are printed and their SASS
+# must hold tensor-core instructions (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                        "contract_partial", "linear_stats_partial",
-                       "linear_apply_kernel")
+                       "linear_apply_kernel", "linear_bwd_stats_kernel",
+                       "linear_bwd_dx_kernel")
 
 
 def log(msg: str) -> None:
@@ -261,9 +266,15 @@ def kernel_resources(info: dict) -> None:
         if func and any(k in func for k in TENSOR_CORE_KERNELS):
             if "spill" in line or "Used" in line:
                 res.setdefault(func, []).append(line.split(":", 1)[-1].strip())
+    def short(pretty):
+        """The demangled name with its template arguments, without its
+        parameter list."""
+        return pretty[:pretty.rfind(">") + 1] if "<" in pretty else (
+            pretty.split("(")[0])
+
     names = sorted(res)
     for pretty, name in zip(demangle(names), names):
-        log(f"  ptxas {pretty.split('(')[0]}: {'; '.join(res[name])}")
+        log(f"  ptxas {short(pretty)}: {'; '.join(res[name])}")
     lib = _build.load_library()
     for c in (64, 128, 256, 512):
         log(f"  dynamic shared memory at C={c} (T=11 / T=0): forward "
@@ -274,7 +285,10 @@ def kernel_resources(info: dict) -> None:
             f"{lib.vmt_temporal_block_bwd_smem(c, 0, 0)} B, dy + LN "
             f"{lib.vmt_temporal_block_bwd_smem(c, 11, 1)} B; linear stats "
             f"{lib.vmt_linear_block_fwd_smem(c, 0)} B, apply "
-            f"{lib.vmt_linear_block_fwd_smem(c, 1)} B")
+            f"{lib.vmt_linear_block_fwd_smem(c, 1)} B; linear backward stats "
+            f"{lib.vmt_linear_block_bwd_smem(c, 0)} B (head layout "
+            f"{lib.vmt_linear_block_bwd_smem(c, 2)} B), dx "
+            f"{lib.vmt_linear_block_bwd_smem(c, 1)} B")
     dump = Path(_build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         log("  cuobjdump not in the toolkit: SASS not counted")
@@ -296,7 +310,7 @@ def kernel_resources(info: dict) -> None:
         raise AssertionError("no tensor-core kernel found in the SASS")
     for pretty, name in zip(demangle(mine), mine):
         hmma, atomics = counts[name]
-        log(f"  SASS {pretty.split('(')[0]}: {hmma} HMMA, {atomics} atomic "
+        log(f"  SASS {short(pretty)}: {hmma} HMMA, {atomics} atomic "
             "instructions")
         if hmma == 0 or atomics:
             raise AssertionError(f"{pretty}: {hmma} HMMA, {atomics} atomics")
@@ -417,14 +431,15 @@ def temporal_p_cost(b, s, c, t_tok):
 
 def head_cost(bf_, n, c, m_c=1):
     """(bytes, bf16 flops, fp32 flops): x read and out written once, the
-    weights and cond tokens read once; the QKV projection on bf16 operands,
-    and the products the layout keeps in float32: ctx and Q ctx (2 x 2 H d
-    a token) and the out-projection (2 H C a token)."""
+    weights and cond tokens read once; on bf16 operands the QKV projection
+    and ctx = P^T v (2 H d a token; the stats pass shared with the linear
+    backward), and the products the apply keeps in float32: Q ctx (2 H d a
+    token) and the out-projection (2 H C a token)."""
     rows = bf_ * n
     nbytes = (2 * rows * c * 2 + (c * 3 * HIDDEN + HIDDEN * c) * 2
               + 2 * bf_ * m_c * HIDDEN * 2 + c * 8)
-    return (nbytes, 2 * rows * c * 3 * HIDDEN,
-            rows * (2 * 2 * HIDDEN * 32 + 2 * HIDDEN * c))
+    return (nbytes, rows * (2 * c * 3 * HIDDEN + 2 * HIDDEN * 32),
+            rows * (2 * HIDDEN * 32 + 2 * HIDDEN * c))
 
 
 def stats_cost(bf_, n, c):
@@ -754,6 +769,17 @@ def phase_bwd_kernels(report):
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                 bound_by=by, shape=[b, FRAMES, s, c, t_tok])
 
+    linear_bwd_kernels(report, gen)
+
+
+def linear_bwd_kernels(report, gen):
+    """The linear backward (rows 6-7) against its twin at every training-path
+    shape on the route bwd_route gives it, bit-equal over two launches;
+    then |k| across the merged route's clamp at a ragged N on both routes."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
     l_names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
     for bf_, n, c in sorted(set(TRAIN_LINEAR), key=lambda v: -v[1]):
         a = linear_inputs(bf_, n, c, gen)
@@ -763,10 +789,15 @@ def phase_bwd_kernels(report):
             torch.bfloat16)
         route = lin.bwd_route(n)
         kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n, route=route)
+        got = lin.linear_block_bwd(**a, g=g, **kw)
         err, share, at = check_cotangents(
-            f"linear bwd {route} {bf_, n, c}", l_names,
-            lin.linear_block_bwd(**a, g=g, **kw),
+            f"linear bwd {route} {bf_, n, c}", l_names, got,
             lin.linear_block_bwd_plain(**a, g=g, **kw))
+        if not all(torch.equal(u, v) for u, v in zip(
+                got, lin.linear_block_bwd(**a, g=g, **kw)) if u is not None):
+            raise AssertionError(f"linear bwd {route} {bf_, n, c}: two launches "
+                                 "differ")
+        del got
         ms = cuda_ms(lambda: lin.linear_block_bwd(**a, g=g, **kw), reps=3,
                      warmup=1)
         plain_ms = cuda_ms(lambda: lin.linear_block_bwd_plain(**a, g=g, **kw),
@@ -781,6 +812,53 @@ def phase_bwd_kernels(report):
         if (n, c) in ((9216, 64), (2304, 128)):
             report[key].update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                bound_ms=bms, bound_by=by, shape=[bf_, n, c])
+
+    # |k| across 60: N = 100 (a ragged last tile), head 0's key columns
+    # times HEAD_CLAMP_K_SCALE and its conditioning keys ~ 60 N(0, 1). The
+    # merged route must follow its clamped twin (dk, dek zero where
+    # |k| >= 60), the per-head route its unclamped twin, and the twins must
+    # differ by more than the tolerance, or the case could not see a clamp
+    n = 100
+    a = linear_inputs(TRAIN_BATCH * FRAMES, n, 64, gen)
+    del a["ctx"], a["z"]
+    w = a["w_qkv"].float()
+    w[:, HIDDEN:HIDDEN + 32] *= HEAD_CLAMP_K_SCALE
+    a["w_qkv"] = w.to(torch.bfloat16)
+    ek = a["ek"].float() + cond_key_shift(n)
+    ek[..., :32] = torch.randn(ek[..., :32].shape, generator=gen,
+                               device="cuda") * 60.0
+    a["ek"] = ek.to(torch.bfloat16)
+    from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
+    keys = (channel_layer_norm(a["x"], a["gamma"], one_pass=False).float()
+            @ a["w_qkv"][:, HIDDEN:HIDDEN + 32].float())
+    if not ((keys.abs() > 60).any() and (keys.abs() < 60).any()
+            and (a["ek"][..., :32].float().abs() > 60).any()):
+        raise AssertionError("the backward clamp case has no |k| on both "
+                             "sides of 60")
+    g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    twins = {}
+    for route in ("merged", "head"):
+        kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n, route=route)
+        twins[route] = lin.linear_block_bwd_plain(**a, g=g, **kw)
+        err, share, at = check_cotangents(
+            f"linear bwd {route}, |k| across 60", l_names,
+            lin.linear_block_bwd(**a, g=g, **kw), twins[route])
+        log(f"  linear bwd ({route}) BF={TRAIN_BATCH * FRAMES} N={n} C=64, "
+            f"keys x{HEAD_CLAMP_K_SCALE:g} (|k| across 60): max_abs_err "
+            f"{err:.3e} (worst {at}, {share:.2e} of its max, tol {GRAD_TOL}) "
+            f"against its {'clamped' if route == 'merged' else 'unclamped'} "
+            "twin")
+    gaps = {name: (u - v).abs().max().item() / v.abs().max().item()
+            for name, u, v in zip(l_names, twins["merged"], twins["head"])
+            if name in ("dw_qkv", "dek")}
+    if not gaps["dw_qkv"] > GRAD_TOL:
+        raise AssertionError(f"linear bwd, |k| across 60: the routes' twins "
+                             f"differ by {gaps} of their max, inside "
+                             f"{GRAD_TOL}: the case cannot tell a clamp")
+    log("  linear bwd, |k| across 60: the clamped and unclamped twins differ "
+        "by " + ", ".join(f"{k} {v:.3f}" for k, v in gaps.items())
+        + " of their max")
 
 
 def phase_model(diffusion, cfg):
@@ -1013,6 +1091,16 @@ def profile_steps(run, what: str, out_path: str | None) -> None:
     device_us = sum(e.self_device_time_total for e in rows)
     ported_us = sum(e.self_device_time_total for e in rows
                     if any(k in e.key for k in PORTED_KERNELS))
+    by_kernel = {k: sum(e.self_device_time_total for e in rows if k in e.key)
+                 for k in PORTED_KERNELS}
+    # the host's side: aten operator calls and their own CPU time
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::")]
+    # each fused block's backward with every kernel its autograd node
+    # launches (the contraction and column sums it shares included)
+    node = "autograd::engine::evaluate_function: "
+    by_node = {e.key[len(node):]: e.device_time_total for e in events
+               if e.key.startswith(node) and "Fused" in e.key}
     table = events.table(sort_by="self_device_time_total", row_limit=40,
                          max_name_column_width=60)
     if out_path:
@@ -1022,7 +1110,15 @@ def profile_steps(run, what: str, out_path: str | None) -> None:
     log(f"[profile] {what}: wall {wall_ms:.1f} ms, device busy "
         f"{device_us / 1e3:.1f} ms ({100 * device_us / 1e3 / wall_ms:.1f}%), "
         f"of which the port's kernels {ported_us / 1e3:.1f} ms "
-        f"({100 * ported_us / max(device_us, 1):.1f}%)")
+        f"({100 * ported_us / max(device_us, 1):.1f}%): " + ", ".join(
+            f"{k} {v / 1e3:.2f}" for k, v in by_kernel.items() if v)
+        + f" ms; host: {sum(e.count for e in ops)} aten operator calls, "
+        f"{sum(e.self_cpu_time_total for e in ops) / 1e3:.1f} ms of their own "
+        "CPU time")
+    if by_node:
+        log(f"[profile] {what}, device ms by fused backward node, all its "
+            "kernels: " + ", ".join(f"{k} {v / 1e3:.2f}"
+                                    for k, v in sorted(by_node.items())))
 
 
 @contextlib.contextmanager

@@ -4,14 +4,15 @@
 Times, with CUDA events (chip_smoke.py's `cuda_ms`: 2 launches to warm,
 then the mean of 5), every shape that the sampling and training paths give
 to the temporal forward (table row 1), the emit_p forward (row 2), the
-temporal backward (row 3), the linear stats and apply (rows 4-5) and the
-linear backward (rows 6-7, which share the split-K contraction of
-`csrc/reduce.cu`), on chip_smoke.py's seeded inputs, through the wrappers
-of the tree given by --tree. Prints one JSON line: the card (nvidia-smi's
-name and power limit), the tree, and per row and shape the ms, the bound
-ms, the achieved TFLOP/s and the share of the bound; with --profile also
-each CUDA kernel's device time in one launch of rows 1-5 at their level-0
-shapes.
+temporal backward (row 3), the linear stats and apply (rows 4-5), the
+linear backward (rows 6-7) and the head-layout linear forward (row 8), on
+chip_smoke.py's seeded inputs, through the wrappers of the tree given by
+--tree. Prints one JSON line: the card (nvidia-smi's name and power
+limit), the tree, and per row and shape the ms, the bound ms, the
+achieved TFLOP/s and the share of the bound; with --profile also each CUDA
+kernel's device time in one launch of each row at its level-0 shape (row
+6 per-head at (44, 9216, 64), row 7 merged at (44, 2304, 128), row 8 at
+(22, 9216, 64)).
 
 To compare two versions on one card, unpack the other one's port into a
 gitignored directory that the copy to the card keeps (`git archive
@@ -61,11 +62,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", help="also append the JSON line to this file")
     ap.add_argument("--profile", action="store_true",
                     help="also print the device time of each CUDA kernel in "
-                         "one launch of rows 1-5 at their level-0 shapes "
+                         "one launch of each row at its level-0 shape "
                          "(torch.profiler)")
     ap.add_argument("--rows", help="comma-separated rows to time (default "
                     "all): temporal_fwd, temporal_fwd_p, temporal_bwd, "
-                    "linear_stats, linear_apply, linear_bwd")
+                    "linear_stats, linear_apply, linear_bwd, linear_head")
     args = ap.parse_args(argv)
 
     import torch
@@ -88,7 +89,8 @@ def main(argv=None) -> int:
     gen = torch.Generator(device="cuda").manual_seed(11)
     rows: dict[str, list] = {"temporal_fwd": [], "temporal_fwd_p": [],
                              "temporal_bwd": [], "linear_stats": [],
-                             "linear_apply": [], "linear_bwd": []}
+                             "linear_apply": [], "linear_bwd": [],
+                             "linear_head": []}
 
     want = set(args.rows.split(",")) if args.rows else set(rows)
     if want - set(rows):
@@ -98,11 +100,10 @@ def main(argv=None) -> int:
         """Time fn at shape into rows[name] if that row is asked for."""
         if name not in want:
             return None
-        nbytes, flops = cost
         ms = cs.cuda_ms(fn, **kw)
-        bms, by = cs.bound(nbytes, flops)
+        bms, by = cs.bound(*cost)
         rows[name].append(dict(shape=list(shape), ms=ms, bound_ms=bms,
-                               bound_by=by, tflops=flops / ms * 1e-9,
+                               bound_by=by, tflops=sum(cost[1:]) / ms * 1e-9,
                                bound_share=bms / ms))
         return rows[name][-1]
 
@@ -133,6 +134,10 @@ def main(argv=None) -> int:
         timed("linear_apply", (bf_, n, c), lambda: lin.linear_apply(
             a["x"], a["gamma"], a["w_qkv"], a["w_out"], a["out_bias"],
             a["ctx"], a["z"], **akw), cs.apply_cost(bf_, n, c))
+        del a
+        a = cs.head_inputs(bf_, n, c, gen)
+        timed("linear_head", (bf_, n, c), lambda: lin.linear_block_head(
+            **a, **akw, spatial_size=n), cs.head_cost(bf_, n, c))
         del a
     for bf_, n, c in sorted(set(cs.TRAIN_LINEAR), key=lambda v: -v[1]):
         a = cs.linear_inputs(bf_, n, c, gen)
@@ -172,14 +177,33 @@ def main(argv=None) -> int:
             stages[name] = _device_ms(prof)
             del a, g
         a = cs.linear_inputs(22, 9216, 64, gen)
-        for name, run in (
-                ("linear_stats", lambda: lin.linear_stats(
+        h = cs.head_inputs(22, 9216, 64, gen)
+        b6 = cs.linear_inputs(44, 9216, 64, gen)
+        b7 = cs.linear_inputs(44, 2304, 128, gen)
+        g6 = torch.randn(b6["x"].shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        g7 = torch.randn(b7["x"].shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for t in (b6, b7):
+            del t["ctx"], t["z"]
+
+        def bwd(t, g, n):
+            kw = dict(heads=cs.HEADS, scale=32 ** -0.5, spatial_size=n,
+                      route=lin.bwd_route(n))
+            return lambda: lin.linear_block_bwd(**t, g=g, **kw)
+
+        for name, row, run in (
+                ("linear_stats", "linear_stats", lambda: lin.linear_stats(
                     a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"],
                     heads=cs.HEADS, spatial_size=9216)),
-                ("linear_apply", lambda: lin.linear_apply(
+                ("linear_apply", "linear_apply", lambda: lin.linear_apply(
                     a["x"], a["gamma"], a["w_qkv"], a["w_out"],
-                    a["out_bias"], a["ctx"], a["z"], **akw))):
-            if name not in want:
+                    a["out_bias"], a["ctx"], a["z"], **akw)),
+                ("linear_bwd_head", "linear_bwd", bwd(b6, g6, 9216)),
+                ("linear_bwd_merged", "linear_bwd", bwd(b7, g7, 2304)),
+                ("linear_head", "linear_head", lambda: lin.linear_block_head(
+                    **h, **akw, spatial_size=9216))):
+            if row not in want:
                 continue
             run()
             torch.cuda.synchronize()
@@ -187,7 +211,7 @@ def main(argv=None) -> int:
                 run()
                 torch.cuda.synchronize()
             stages[name] = _device_ms(prof)
-        del a
+        del a, h, b6, b7, g6, g7
     line = json.dumps({"card": smi, "tree": str(tree), "nvcc_s": build_s,
                        "rows": rows, "stages_ms": stages})
     print(line, flush=True)

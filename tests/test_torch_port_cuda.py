@@ -288,6 +288,141 @@ def test_linear_bwd_kernel_matches_twin(cuda, route, n, c):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("c", [64, 512])
+def test_linear_bwd_kernel_clamp_routes(cuda, c):
+    """N = 100 (a ragged tile), head 0's key columns times 40 and its
+    conditioning keys ~ 60 N(0, 1), so |k| lies on both sides of 60: the
+    merged route follows its clamped twin (dk, dek zero where |k| >= 60),
+    the per-head route its unclamped twin, and the twins differ."""
+    bf, b, n, hd = torch.bfloat16, 6, 100, 256
+    w_qkv = _rnd(cuda, c, 3 * hd) * c ** -0.5
+    w_qkv[:, hd:hd + 32] *= 40.0
+    ek = _rnd(cuda, b, 1, hd) + math.log(n) + 0.5
+    ek[..., :32] = _rnd(cuda, b, 1, 32) * 60.0
+    args = dict(
+        x=_rnd(cuda, b, n, c).to(bf), gamma=1 + _rnd(cuda, c, scale=0.1),
+        w_qkv=w_qkv.to(bf), w_out=(_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        out_bias=_rnd(cuda, c, scale=0.1), ek=ek.to(bf),
+        ev=_rnd(cuda, b, 1, hd).to(bf))
+    from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
+    k = (channel_layer_norm(args["x"], args["gamma"], one_pass=False).float()
+         @ args["w_qkv"][:, hd:hd + 32].float())
+    assert (k.abs() > 60).any() and (k.abs() < 60).any()
+    g = _rnd(cuda, b, n, c).to(bf)
+    names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    twins = {}
+    for route in ("merged", "head"):
+        kw = dict(heads=8, scale=32 ** -0.5, spatial_size=n, route=route)
+        twins[route] = lin.linear_block_bwd_plain(**args, g=g, **kw)
+        _assert_cotangents(names, lin.linear_block_bwd(**args, g=g, **kw),
+                           twins[route])
+    gap = (twins["merged"][2] - twins["head"][2]).abs().max()
+    assert gap > GRAD_TOL * twins["head"][2].abs().max()
+
+
+# the kernels against the plain versions that round where they round
+# (tests/test_torch_port_linear_bwd_rounding.py): what is left is the
+# order of the f32 sums, which can move a bf16 rounding by one ulp (dek,
+# whose P (dP - S) cancels, shows it most). The f32 cotangents within
+# MODEL_TOL of their max, a tenth of the twins' GRAD_TOL, and nearer the
+# rounded version than MODEL_NEAR times the unrounded one's largest share;
+# bf16 outputs (dx, the head layout's out) in at most MODEL_BITS of their
+# elements different
+MODEL_TOL = 5e-3
+MODEL_NEAR = 0.5
+MODEL_BITS = 0.03
+
+
+def _model_args(gen, b, n, c, n_cond):
+    bf, hd = torch.bfloat16, 256
+    return dict(
+        x=_rnd(gen, b, n, c).to(bf), gamma=1 + _rnd(gen, c, scale=0.1),
+        w_qkv=(_rnd(gen, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(gen, hd, c) * hd ** -0.5).to(bf),
+        out_bias=_rnd(gen, c, scale=0.1),
+        ek=_rnd(gen, b, n_cond, hd).to(bf) if n_cond else None,
+        ev=_rnd(gen, b, n_cond, hd).to(bf) if n_cond else None)
+
+
+def _cpu(t):
+    return None if t is None else t.float().cpu()
+
+
+@pytest.mark.parametrize("n_cond", [0, 6])
+@pytest.mark.parametrize("route", ["head", "merged"])
+def test_linear_bwd_kernel_matches_its_rounding_model(cuda, route, n_cond):
+    """N = 1100 at C = 64: 18 of the stats pass's 64-token sub-tiles and
+    two of its 1024-token chunks. Each f32 cotangent within MODEL_TOL of
+    its max of the plain version rounding where the kernel rounds, and
+    nearer it than the version without the roundings (shares printed); dx
+    in at most MODEL_BITS of its elements different."""
+    from test_torch_port_linear_bwd_rounding import kernel_rounding_bwd
+
+    b, n, c = 2, 1100, 64
+    a = _model_args(cuda, b, n, c, n_cond)
+    g = _rnd(cuda, b, n, c).to(torch.bfloat16)
+    got = lin.linear_block_bwd(**a, g=g, heads=8, scale=32 ** -0.5,
+                               spatial_size=n, route=route)
+    names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    args = [_cpu(a[k]) for k in ("x", "gamma", "w_qkv", "w_out", "ek", "ev")]
+    shares, bits = {}, {}
+    for rounded in (True, False):
+        want = kernel_rounding_bwd(*args, _cpu(g), heads=8, scale=32 ** -0.5,
+                                   spatial_size=n, clip=route == "merged",
+                                   rounded=rounded)
+        shares[rounded] = {
+            name: ((u.float().cpu() - w).abs().max() / w.abs().max()).item()
+            for name, u, w in zip(names, got, want) if w is not None}
+        bits[rounded] = (got[0].float().cpu() != want[0]).float().mean().item()
+    print(f"\n{route} route, {n_cond} cond tokens: share of the model's max, "
+          "rounded as the kernel / unrounded: " + ", ".join(
+              f"{k} {v:.2e} / {shares[False][k]:.2e}"
+              for k, v in shares[True].items())
+          + f"; dx elements different {bits[True]:.2e} / {bits[False]:.2e}")
+    f32 = [name for name in shares[True] if name != "dx"]
+    for name in f32:
+        assert shares[True][name] <= MODEL_TOL, (name, shares[True][name])
+    assert (max(shares[True][k] for k in f32)
+            <= MODEL_NEAR * max(shares[False][k] for k in f32)), shares
+    assert bits[True] <= MODEL_BITS, bits
+
+
+@pytest.mark.parametrize("k_scale", [1.0, 40.0])
+def test_linear_head_kernel_matches_its_rounding_model(cuda, k_scale):
+    """The head-layout forward at N = 1100, C = 64, one cond token, v times
+    HW * 32 (an O(1) update, as chip_smoke.py's head inputs), head 0's keys
+    times k_scale, x times 0.01 (the LN output does not change; the bf16
+    output then resolves the update): at most MODEL_BITS of the outputs
+    differ from the plain version whose stats round as the kernel's. The
+    share against the unrounded version is printed beside it."""
+    from test_torch_port_linear_bwd_rounding import kernel_rounding_head_fwd
+
+    b, n, c, hd = 2, 1100, 64, 256
+    a = _model_args(cuda, b, n, c, 1)
+    w = a["w_qkv"].float()
+    w[:, hd:hd + 32] *= k_scale
+    w[:, 2 * hd:] *= n * 32.0
+    a["w_qkv"] = w.to(torch.bfloat16)
+    a["x"] = (a["x"].float() * 0.01).to(torch.bfloat16)
+    got = lin.linear_block_head(**a, heads=8, scale=32 ** -0.5,
+                                spatial_size=n).float().cpu()
+    x = _cpu(a["x"])
+    args = [_cpu(a[k]) for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
+                                 "ek", "ev")]
+    shares, bits = {}, {}
+    for rounded in (True, False):
+        want = kernel_rounding_head_fwd(*args, heads=8, scale=32 ** -0.5,
+                                        spatial_size=n, rounded=rounded)
+        shares[rounded] = ((got - want).abs().max()
+                           / (want - x).abs().max()).item()
+        bits[rounded] = (got != want).float().mean().item()
+    print(f"\nhead layout, keys x{k_scale:g}: outputs different "
+          f"{bits[True]:.2e} / {bits[False]:.2e}, update within "
+          f"{shares[True]:.2e} / {shares[False]:.2e} of its max (the model "
+          "rounded as the kernel / unrounded)")
+    assert bits[True] <= MODEL_BITS, bits
+
+
 @pytest.mark.parametrize("bwd", ["recompute", "kernel", "saved"])
 def test_fused_plans_send_gradients_to_every_parameter(cuda, bwd):
     """On the card with grad on, the fused plans keep the graph: every

@@ -62,23 +62,24 @@ _SIGNATURES = {
     # x, gamma, w_all, w_outT, bias, ek, ev, g, dx, dgamma, dw_all, dw_out,
     # dbias, dekv, workspace, B, F, S, C, T, heads, stream
     "vmt_temporal_block_bwd": [_P] * 15 + [_I] * 6 + [_P],
-    # x, gamma, w_qkv, w_qkvT, w_outT, ek, ev, g, dx, dgamma, dw_qkv, dw_out,
-    # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, tile, scale,
-    # inv_hw, clip, stream
-    "vmt_linear_block_bwd": [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
+    # x, gamma, w_qkv, w_outT, ek, ev, g, dx, dgamma, dw_qkv, dw_out,
+    # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, scale, inv_hw,
+    # clip, stream
+    "vmt_linear_block_bwd": [_P] * 15 + [_I] * 5 + [_F, _F, _I, _P],
     # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace, BF, N, C, Mc,
-    # heads, stats tile, apply tile, scale, inv_hw, stream
-    "vmt_linear_head": [_P] * 9 + [_I] * 7 + [_F, _F, _P],
+    # heads, apply tile, scale, inv_hw, stream
+    "vmt_linear_head": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
 }
 # sizes in bytes: the workspaces of the entry points that take one, and
 # the dynamic shared memory of the temporal and linear kernels' stages
 _SIZE_SIGNATURES = {
     "vmt_temporal_block_bwd_workspace": [_I] * 5,     # B, F, S, C, T
-    "vmt_linear_block_bwd_workspace": [_I] * 4,       # BF, N, C, tile
-    "vmt_linear_head_workspace": [_I] * 3,            # BF, N, tile
+    "vmt_linear_block_bwd_workspace": [_I] * 3,       # BF, N, C
+    "vmt_linear_head_workspace": [_I] * 2,            # BF, N
     "vmt_temporal_block_fwd_smem": [_I] * 3,         # C, T, stage
     "vmt_temporal_block_bwd_smem": [_I] * 3,         # C, T, stage
     "vmt_linear_block_fwd_smem": [_I] * 2,           # C, stage
+    "vmt_linear_block_bwd_smem": [_I] * 2,           # C, stage
 }
 
 

@@ -14,24 +14,28 @@
 //                                              clamp k at +-60 instead)
 //   ctx_h = P_h^T [ev || v]_h / HW             (d x d) per head
 //   out  = bf16(x + out_bias + sum_h (Q_h ctx_h) W_out_h)
-// One rounding, at out; W_out holds the bf16 weight the JAX model casts
+// Roundings: at out, and the stats pass's bf16 operands of ctx (1. below;
+// tests/test_torch_port_linear_bwd_rounding.py holds them against the JAX
+// kernel); W_out holds the bf16 weight the JAX model casts
 // for the kernel, read in float32 as the TPU kernel reads it.
 //
 // What bounds it on an H100, at the sampling level-0 shape (BF = 22,
 // N = 9216, C = 64): it reads x and writes out (52 MB, 15.5 us at
-// 3.35 TB/s); its operations are the QKV projection, 2 N C 3H a frame on
-// bf16 operands (19.9 GFLOP, 20 us at the 989 TFLOP/s bf16 tensor-core
-// rate), and the float32 products the TPU kernel keeps in float32: ctx and
-// Q ctx, 2 x 2 N H d, and the out-projection, 2 N H C (13.3 GFLOP, 199 us
-// at the 67 TFLOP/s fp32 rate). The operations bound it; this first kernel
-// runs every product on the CUDA cores in fp32.
+// 3.35 TB/s); its operations are, on bf16 operands, the QKV projection,
+// 2 N C 3H a frame, and the stats pass's ctx, 2 N H d (23.3 GFLOP, 24 us
+// at the 989 TFLOP/s bf16 tensor-core rate), and the products the apply
+// keeps in float32: Q ctx, 2 N H d, and the out-projection, 2 N H C
+// (10.0 GFLOP, 149 us at the 67 TFLOP/s fp32 rate). The operations bound
+// it (172 us); the apply runs its products on the CUDA cores in fp32.
 //
 // Design. The TPU runs one grid cell per folded frame with all N tokens
 // in VMEM: 22-44 blocks would leave most of the 132 SMs idle and hold far
 // more than a block's shared memory. Here the token softmax is split:
-//   1. online stats (linear_stats.cuh, shared with the backward kernel's
-//      clip = 0 recompute): per (frame, token tile) an online max and the
-//      rescaled partial sums of exp(k - m) and exp(k - m) v / HW, then an
+//   1. stats (linear_stats.cuh, the backward kernel's first pass without
+//      g, clip = 0): per (frame, 1024-token chunk, head pair) on the tensor
+//      cores, each 64-token sub-tile exponentiating against the running
+//      column max, the partial sums of exp(k - m) and bf16(exp(k - m))
+//      bf16(v / HW) (two roundings the TPU kernel does not make), then an
 //      ordered merge per frame with the cond tokens folded in once: the
 //      normalised ctx, deterministic (no atomics);
 //   2. apply (this file): per (frame, 64-token tile), thread t = hidden
@@ -166,18 +170,22 @@ __global__ void __launch_bounds__(kThreads) linear_head_apply(
 }
 
 // the stats buffers carved from one workspace
-vmt::OnlineStats carve(void* base, int BF, int N, int tile, size_t* total) {
-  size_t bytes[6];
-  vmt::online_stats_sizes(BF, N, tile, bytes);
-  float* ptrs[6];
+vmt::OnlineStats carve(void* base, int BF, int N, size_t* total) {
+  size_t bytes[9];
+  vmt::online_stats_sizes(BF, N, bytes);
+  char* ptrs[9];
   size_t off = 0;
-  for (int i = 0; i < 6; ++i) {
-    ptrs[i] = base ? reinterpret_cast<float*>(static_cast<char*>(base) + off)
-                   : nullptr;
+  for (int i = 0; i < 9; ++i) {
+    ptrs[i] = base ? static_cast<char*>(base) + off : nullptr;
     off += (bytes[i] + 255) & ~(size_t)255;
   }
   if (total) *total = off;
-  return vmt::OnlineStats{ptrs[0], ptrs[1], ptrs[2], ptrs[3], ptrs[4], ptrs[5]};
+  vmt::OnlineStats s;
+  float** fp[7] = {&s.pctx, &s.pdctx, &s.pz, &s.pm, &s.ctxn, &s.m, &s.zinv};
+  for (int i = 0; i < 7; ++i) *fp[i] = reinterpret_cast<float*>(ptrs[i]);
+  s.ctx_b = reinterpret_cast<__nv_bfloat16*>(ptrs[7]);
+  s.dctx_b = reinterpret_cast<__nv_bfloat16*>(ptrs[8]);
+  return s;
 }
 
 template <int kC>
@@ -197,36 +205,35 @@ cudaError_t apply_c(const void* x, const void* gamma, const void* w_qkv,
 
 }  // namespace
 
-// Workspace bytes of vmt_linear_head for these sizes (stats tile).
-extern "C" size_t vmt_linear_head_workspace(int BF, int N, int tile) {
+// Workspace bytes of vmt_linear_head for these sizes.
+extern "C" size_t vmt_linear_head_workspace(int BF, int N) {
   size_t total = 0;
-  carve(nullptr, BF, N, tile, &total);
+  carve(nullptr, BF, N, &total);
   return total;
 }
 
-// ek/ev: (BF, Mc, H) bf16, or null when Mc == 0. stats_tile, apply_tile:
-// tokens per block of the two passes, multiples of 8.
+// ek/ev: (BF, Mc, H) bf16, or null when Mc == 0. apply_tile: tokens per
+// block of the apply pass, a multiple of 8.
 extern "C" int vmt_linear_head(const void* x, const void* gamma,
                                const void* w_qkv, const void* w_out,
                                const void* out_bias, const void* ek,
                                const void* ev, void* out, void* workspace,
                                int BF, int N, int C, int Mc, int heads,
-                               int stats_tile, int apply_tile, float scale,
-                               float inv_hw, void* stream) {
-  if (heads != kHeads || stats_tile <= 0 || stats_tile % kR ||
-      apply_tile <= 0 || apply_tile % kR || Mc < 0 ||
-      (Mc > 0 && (ek == nullptr || ev == nullptr)))
+                               int apply_tile, float scale, float inv_hw,
+                               void* stream) {
+  if (heads != kHeads || BF <= 0 || N <= 0 || apply_tile <= 0 ||
+      apply_tile % kR || Mc < 0 || (Mc > 0 && (ek == nullptr || ev == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (C != 64 && C != 128 && C != 256 && C != 512)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const vmt::OnlineStats s = carve(workspace, BF, N, stats_tile, nullptr);
+  const vmt::OnlineStats s = carve(workspace, BF, N, nullptr);
   cudaError_t err = vmt::launch_online_stats(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const __nv_bfloat16*>(w_qkv),
+      static_cast<const __nv_bfloat16*>(w_qkv), nullptr, nullptr,
       static_cast<const __nv_bfloat16*>(ek),
-      static_cast<const __nv_bfloat16*>(ev), s, BF, N, C, Mc, stats_tile,
-      inv_hw, /*clip=*/0, st);
+      static_cast<const __nv_bfloat16*>(ev), s, BF, N, C, Mc, inv_hw,
+      /*scale=*/1.f, /*clip=*/0, st);
   if (err != cudaSuccess) return (int)err;
   switch (C) {
     case 64: return (int)apply_c<64>(x, gamma, w_qkv, w_out, out_bias, s.ctxn, out, BF, N, apply_tile, scale, st);

@@ -288,15 +288,14 @@ def linear_block_head(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
         and tuple(out_bias.shape) == (c,) and out_bias.device == x.device,
         "out_bias must be float32 (C,)")
     m_c = _check_cond(ek, ev, x)
-    tile = stats_tile(n)
+    _build.require_aligned(x, w_qkv, ek, ev)
     lib = _build.load_library()
     out = torch.empty_like(x)
-    ws = _build.workspace(lib.vmt_linear_head_workspace(b, n, tile),
-                          x.device)
+    ws = _build.workspace(lib.vmt_linear_head_workspace(b, n), x.device)
     p = _build.ptr
     err = lib.vmt_linear_head(
         p(x), p(gamma), p(w_qkv), p(w_out), p(out_bias), p(ek), p(ev),
-        p(out), p(ws), b, n, c, m_c, heads, tile, APPLY_TILE, scale,
+        p(out), p(ws), b, n, c, m_c, heads, APPLY_TILE, scale,
         1.0 / spatial_size, _build.stream_handle(x.device))
     _build.check_launch(lib, err, "linear_block_head")
     _build.LAUNCH_COUNTS["linear_head"] += 1
@@ -419,7 +418,6 @@ def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
     req(g.dtype == x.dtype and g.shape == x.shape and g.is_contiguous()
         and g.device == x.device, "g must be contiguous, of x's shape and dtype")
     m_c = _check_cond(ek, ev, x)
-    tile = stats_tile(n)
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -429,15 +427,15 @@ def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
     dout_bias = torch.empty((c,), **f32)
     dek = torch.empty((b, m_c, HIDDEN), **f32) if m_c else None
     dev = torch.empty((b, m_c, HIDDEN), **f32) if m_c else None
-    ws = _build.workspace(
-        lib.vmt_linear_block_bwd_workspace(b, n, c, tile), x.device)
-    w_qkv_t = w_qkv.t().contiguous()
+    ws = _build.workspace(lib.vmt_linear_block_bwd_workspace(b, n, c),
+                          x.device)
     w_out_t = w_out.t().contiguous()
+    _build.require_aligned(x, w_qkv, w_out_t, g, ek, ev)
     p = _build.ptr
     err = lib.vmt_linear_block_bwd(
-        p(x), p(gamma), p(w_qkv), p(w_qkv_t), p(w_out_t), p(ek), p(ev), p(g),
-        p(dx), p(dgamma), p(dw_qkv), p(dw_out), p(dout_bias), p(dek), p(dev),
-        p(ws), b, n, c, m_c, heads, tile, scale, 1.0 / spatial_size,
+        p(x), p(gamma), p(w_qkv), p(w_out_t), p(ek), p(ev), p(g), p(dx),
+        p(dgamma), p(dw_qkv), p(dw_out), p(dout_bias), p(dek), p(dev), p(ws),
+        b, n, c, m_c, heads, scale, 1.0 / spatial_size,
         int(route == "merged"), _build.stream_handle(x.device))
     _build.check_launch(lib, err, f"linear_block_bwd ({route})")
     _build.LAUNCH_COUNTS[f"linear_bwd_{route}"] += 1
