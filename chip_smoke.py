@@ -70,12 +70,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate, the dense bf16
-# tensor-core rate (the type of the kernels' operands) and the fp32 rate
-# outside the tensor cores (the head-layout kernel's float32 products)
+# H100 SXM peaks (NVIDIA data sheet): HBM rate and the dense bf16
+# tensor-core rate (the type of the kernels' operands)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOP_PER_S = 989e12
-PEAK_FP32_FLOP_PER_S = 67e12
 
 # main-path shapes per guided step at batch 1 (the CFG pair is batch 2):
 # temporal (batch, spatial, channels, cond tokens) in path order
@@ -160,14 +158,16 @@ TRAIN_BATCH = 4
 TRAIN_TEMPORAL = [(TRAIN_BATCH, s, c, t) for _, s, c, t in TEMPORAL_PATH]
 TRAIN_LINEAR = [(TRAIN_BATCH * 11, n, c) for _, n, c in LINEAR_PATH]
 # device functions of the port's hand-written kernels (profile summary)
+# (linear_apply_kernel<C, true> is the head layout's apply, row 8)
 PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                   "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                   "linear_stats_", "linear_apply_kernel", "linear_bwd_",
-                  "linear_head_apply", "contract_partial", "colsum_kernel")
-# the device functions of the tensor-core kernels (rows 1-7 of PERF.md's
-# kernel table, the contraction of rows 3, 6 and 7, and the stats pass that
-# row 8 shares with rows 6-7): their ptxas resources are printed and their SASS
-# must hold tensor-core instructions (HMMA) and no atomics
+                  "contract_partial", "colsum_kernel")
+# the device functions of the tensor-core kernels (rows 1-8 of PERF.md's
+# kernel table: linear_apply_kernel<C, false> row 5, <C, true> row 8's
+# apply, whose stats pass it shares with rows 6-7; and the contraction of
+# rows 3, 6 and 7): their ptxas resources are printed and their SASS must
+# hold tensor-core instructions (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                        "contract_partial", "linear_stats_partial",
@@ -285,7 +285,8 @@ def kernel_resources(info: dict) -> None:
             f"{lib.vmt_temporal_block_bwd_smem(c, 0, 0)} B, dy + LN "
             f"{lib.vmt_temporal_block_bwd_smem(c, 11, 1)} B; linear stats "
             f"{lib.vmt_linear_block_fwd_smem(c, 0)} B, apply "
-            f"{lib.vmt_linear_block_fwd_smem(c, 1)} B; linear backward stats "
+            f"{lib.vmt_linear_block_fwd_smem(c, 1)} B, head-layout apply "
+            f"{lib.vmt_linear_block_fwd_smem(c, 2)} B; linear backward stats "
             f"{lib.vmt_linear_block_bwd_smem(c, 0)} B (head layout "
             f"{lib.vmt_linear_block_bwd_smem(c, 2)} B), dx "
             f"{lib.vmt_linear_block_bwd_smem(c, 1)} B")
@@ -331,14 +332,11 @@ def cuda_ms(fn, reps: int = 5, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float,
-          fp32_flops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
     """The least time for the work: its bytes at the HBM rate against its
-    operations at the peak rate of their type (bf16 tensor cores; fp32
-    outside them for `fp32_flops`)."""
+    operations at the bf16 tensor-core rate."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = (flops / PEAK_BF16_FLOP_PER_S
-             + fp32_flops / PEAK_FP32_FLOP_PER_S) * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -430,16 +428,17 @@ def temporal_p_cost(b, s, c, t_tok):
 
 
 def head_cost(bf_, n, c, m_c=1):
-    """(bytes, bf16 flops, fp32 flops): x read and out written once, the
-    weights and cond tokens read once; on bf16 operands the QKV projection
-    and ctx = P^T v (2 H d a token; the stats pass shared with the linear
-    backward), and the products the apply keeps in float32: Q ctx (2 H d a
-    token) and the out-projection (2 H C a token)."""
+    """(bytes, flops): x read and out written once, the weights and cond
+    tokens read once; on the tensor cores, in bf16 products: the QKV
+    projection and ctx = P^T v (2 H d a token; the stats pass shared with
+    the linear backward), and the apply's float32 products, each operand
+    split into bf16 hi + lo: Q ctx as three products (3 x 2 H d a token)
+    and the out-projection as two (2 x 2 H C)."""
     rows = bf_ * n
     nbytes = (2 * rows * c * 2 + (c * 3 * HIDDEN + HIDDEN * c) * 2
               + 2 * bf_ * m_c * HIDDEN * 2 + c * 8)
-    return (nbytes, rows * (2 * c * 3 * HIDDEN + 2 * HIDDEN * 32),
-            rows * (2 * HIDDEN * 32 + 2 * HIDDEN * c))
+    return nbytes, rows * (2 * c * 3 * HIDDEN + 2 * HIDDEN * 32
+                           + 3 * 2 * HIDDEN * 32 + 2 * 2 * HIDDEN * c)
 
 
 def stats_cost(bf_, n, c):
@@ -684,9 +683,9 @@ def phase_head(report):
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     kw = dict(heads=HEADS, scale=32 ** -0.5)
-    log("  head layout bounds: the bf16 QKV projection at the tensor-core "
-        "rate plus the float32 products (ctx, Q ctx, out-projection) at the "
-        "fp32 rate")
+    log("  head layout bounds: bf16 products at the tensor-core rate, the "
+        "float32 ones as the kernel takes them, split into bf16 hi + lo: the "
+        "QKV projection, ctx, Q ctx three times, the out-projection twice")
     for bf_, n, c in sorted(set(LINEAR_PATH) | set(TRAIN_LINEAR),
                             key=lambda v: (-v[1], v[0])):
         a = head_inputs(bf_, n, c, gen)
@@ -699,8 +698,7 @@ def phase_head(report):
         ms = cuda_ms(lambda: lin.linear_block_head(**a, **kw, spatial_size=n))
         plain_ms = cuda_ms(lambda: lin.linear_block_head_plain(
             **a, **kw, spatial_size=n), reps=2, warmup=1)
-        nbytes, flops, fp32 = head_cost(bf_, n, c)
-        bms, by = bound(nbytes, flops, fp32)
+        bms, by = bound(*head_cost(bf_, n, c))
         log(f"  head BF={bf_} N={n} C={c}: update err {err:.3e} (update rms "
             f"{upd_rms:.3f}, tol {APPLY_TOL} of its max) kernel {ms:.3f} ms, "
             f"twin {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
@@ -1182,12 +1180,13 @@ def main(argv=None) -> int:
     ap.add_argument("--train-steps", type=int, default=20,
                     help="timed train steps under each plan (phase 5)")
     ap.add_argument("--profile", type=int, default=0, metavar="STEPS",
-                    help="after the checks, trace STEPS guided steps and "
-                         "STEPS train steps (kernel plan) with "
-                         "torch.profiler and print device time by kernel")
+                    help="after the checks, trace STEPS guided steps on "
+                         "each linear layout and STEPS train steps (kernel "
+                         "plan) with torch.profiler and print device time "
+                         "by kernel")
     ap.add_argument("--profile-out", metavar="PATH",
                     help="also write the whole profile tables to PATH "
-                         "(.sample and .train suffixes)")
+                         "(.sample, .sample_head and .train suffixes)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1250,7 +1249,7 @@ def main(argv=None) -> int:
         source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_temporal_block.cu",
         replaces="videometamaterials_tpu/ops/pallas/fused_temporal_block.py:150")
     report["linear_head"].update(
-        source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block_head.cu",
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block.cu",
         replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:336")
     phase_kernels(report)
     phase_emit_p(report)
@@ -1315,6 +1314,11 @@ def main(argv=None) -> int:
                                                num_steps=args.profile),
                       f"{args.profile} guided steps",
                       args.profile_out and args.profile_out + ".sample")
+        with linear_layout("head"):
+            profile_steps(lambda: diffusion.sample(
+                cond, 5.0, generator=gen, num_steps=args.profile),
+                f"{args.profile} guided steps, head layout",
+                args.profile_out and args.profile_out + ".sample_head")
     del diffusion
     torch.cuda.empty_cache()
 

@@ -12,7 +12,11 @@ limit), the tree, and per row and shape the ms, the bound ms, the
 achieved TFLOP/s and the share of the bound; with --profile also each CUDA
 kernel's device time in one launch of each row at its level-0 shape (row
 6 per-head at (44, 9216, 64), row 7 merged at (44, 2304, 128), row 8 at
-(22, 9216, 64)).
+(22, 9216, 64): its stats, merge and apply) and rows 5 and 8's device
+time a launch at every path shape. With row 5 it also digests
+row 5's output at every path shape on one input seeded per shape
+(`apply_digests`); --against FILE compares them with the last line of an
+earlier run's --out FILE and prints whether each is bit-equal.
 
 To compare two versions on one card, unpack the other one's port into a
 gitignored directory that the copy to the card keeps (`git archive
@@ -29,6 +33,7 @@ shapes, inputs, costs and bounds are this tree's chip_smoke.py's.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib.util
 import json
 import subprocess
@@ -64,6 +69,9 @@ def main(argv=None) -> int:
                     help="also print the device time of each CUDA kernel in "
                          "one launch of each row at its level-0 shape "
                          "(torch.profiler)")
+    ap.add_argument("--against", help="a JSON-lines file of an earlier run "
+                    "(--out): print whether row 5's outputs are bit-equal "
+                    "to its last line's")
     ap.add_argument("--rows", help="comma-separated rows to time (default "
                     "all): temporal_fwd, temporal_fwd_p, temporal_bwd, "
                     "linear_stats, linear_apply, linear_bwd, linear_head")
@@ -125,8 +133,18 @@ def main(argv=None) -> int:
                 reps=3, warmup=1)
         del a
     akw = dict(heads=cs.HEADS, scale=32 ** -0.5)
+    digests = {}
     for bf_, n, c in sorted(set(cs.LINEAR_PATH) | set(cs.TRAIN_LINEAR),
                             key=lambda v: (-v[1], v[0])):
+        if "linear_apply" in want:
+            a = cs.linear_inputs(bf_, n, c, torch.Generator(
+                device="cuda").manual_seed(5))
+            out = lin.linear_apply(a["x"], a["gamma"], a["w_qkv"],
+                                   a["w_out"], a["out_bias"], a["ctx"],
+                                   a["z"], **akw)
+            digests[str((bf_, n, c))] = hashlib.sha256(
+                out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            del a, out
         a = cs.linear_inputs(bf_, n, c, gen)
         timed("linear_stats", (bf_, n, c), lambda: lin.linear_stats(
             a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"],
@@ -212,8 +230,46 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
             stages[name] = _device_ms(prof)
         del a, h, b6, b7, g6, g7
+        # rows 5 and 8 at every path shape: the device time of a launch,
+        # which at the small shapes the host's launch overhead hides from
+        # the event times
+        by_shape = {}
+        for bf_, n, c in sorted(set(cs.LINEAR_PATH) | set(cs.TRAIN_LINEAR),
+                                key=lambda v: (-v[1], v[0])):
+            for row, make, run in (
+                    ("linear_apply", cs.linear_inputs, lambda: lin.linear_apply(
+                        a["x"], a["gamma"], a["w_qkv"], a["w_out"],
+                        a["out_bias"], a["ctx"], a["z"], **akw)),
+                    ("linear_head", cs.head_inputs,
+                     lambda: lin.linear_block_head(**a, **akw,
+                                                   spatial_size=n))):
+                if row not in want:
+                    continue
+                a = make(bf_, n, c, gen)
+                run()
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        run()
+                    torch.cuda.synchronize()
+                by_shape.setdefault(row, {})[str((bf_, n, c))] = sum(
+                    e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                ) / 5e3
+                del a
+        stages["device_ms_a_launch"] = by_shape
+    equal = None
+    if args.against:
+        lines = Path(args.against).read_text().splitlines()
+        then = json.loads(lines[-1])
+        equal = {k: then["apply_digests"].get(k) == v
+                 for k, v in digests.items()}
+        print(f"row 5 (linear_apply) outputs bit-equal to {then['tree']}'s "
+              f"at {sum(equal.values())} of {len(equal)} path shapes: "
+              + ", ".join(f"{k} {v}" for k, v in equal.items()), flush=True)
     line = json.dumps({"card": smi, "tree": str(tree), "nvcc_s": build_s,
-                       "rows": rows, "stages_ms": stages})
+                       "rows": rows, "stages_ms": stages,
+                       "apply_digests": digests, "apply_bit_equal": equal})
     print(line, flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

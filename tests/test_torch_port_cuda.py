@@ -167,7 +167,8 @@ def _update_err(got, want, x, out_bias):
     return ((upd_k - upd_p).abs().max() / upd_p.abs().max()).item()
 
 
-@pytest.mark.parametrize("n,c", [(100, 64), (144, 512)])
+@pytest.mark.parametrize("n,c", [(100, 64), (144, 512), (37, 128),
+                                 (100, 256)])
 def test_linear_head_kernel_matches_twin(cuda, n, c):
     args = _head_args(cuda, 6, n, c, 8.0)
     kw = dict(heads=8, scale=32 ** -0.5, spatial_size=n)
@@ -393,8 +394,10 @@ def test_linear_head_kernel_matches_its_rounding_model(cuda, k_scale):
     HW * 32 (an O(1) update, as chip_smoke.py's head inputs), head 0's keys
     times k_scale, x times 0.01 (the LN output does not change; the bf16
     output then resolves the update): at most MODEL_BITS of the outputs
-    differ from the plain version whose stats round as the kernel's. The
-    share against the unrounded version is printed beside it."""
+    differ from the plain version whose stats round as the kernel's and
+    whose apply splits Q, ctxn and oh into bf16 hi + lo as the kernel's.
+    The shares against that version with a float32 apply and against the
+    unrounded version are printed beside it."""
     from test_torch_port_linear_bwd_rounding import kernel_rounding_head_fwd
 
     b, n, c, hd = 2, 1100, 64, 256
@@ -410,17 +413,21 @@ def test_linear_head_kernel_matches_its_rounding_model(cuda, k_scale):
     args = [_cpu(a[k]) for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
                                  "ek", "ev")]
     shares, bits = {}, {}
-    for rounded in (True, False):
+    for name, rounded, parts in (("split", True, 2), ("f32", True, None),
+                                 ("unrounded", False, None)):
         want = kernel_rounding_head_fwd(*args, heads=8, scale=32 ** -0.5,
-                                        spatial_size=n, rounded=rounded)
-        shares[rounded] = ((got - want).abs().max()
-                           / (want - x).abs().max()).item()
-        bits[rounded] = (got != want).float().mean().item()
+                                        spatial_size=n, rounded=rounded,
+                                        parts=parts)
+        shares[name] = ((got - want).abs().max()
+                        / (want - x).abs().max()).item()
+        bits[name] = (got != want).float().mean().item()
     print(f"\nhead layout, keys x{k_scale:g}: outputs different "
-          f"{bits[True]:.2e} / {bits[False]:.2e}, update within "
-          f"{shares[True]:.2e} / {shares[False]:.2e} of its max (the model "
-          "rounded as the kernel / unrounded)")
-    assert bits[True] <= MODEL_BITS, bits
+          + ", ".join(f"{bits[k]:.2e}" for k in bits)
+          + "; update within "
+          + ", ".join(f"{shares[k]:.2e}" for k in shares)
+          + " of its max (the model rounded as the kernel with the apply "
+          "split / with a float32 apply / unrounded)")
+    assert bits["split"] <= MODEL_BITS, bits
 
 
 @pytest.mark.parametrize("bwd", ["recompute", "kernel", "saved"])

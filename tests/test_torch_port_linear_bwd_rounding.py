@@ -4,8 +4,9 @@ the CPU: a plain version that rounds where the CUDA backward kernel
 backward kernels in interpret mode, _bwd_kernel (the per-head route,
 unclamped) and _bwd_kernel_merged (the merged route, k clamped at +-60),
 on the same bf16 inputs and cotangent made with numpy. The same for the
-head-layout forward (csrc/fused_linear_block_head.cu), whose stats are the
-backward's stats pass: against the JAX head-layout _kernel.
+head-layout forward (vmt_linear_head in csrc/fused_linear_block.cu), whose
+stats are the backward's stats pass and whose apply splits its float32
+operands into bf16 hi + lo parts: against the JAX head-layout _kernel.
 
 The kernel gives every product bf16 operands and f32 sums. The merged JAX
 kernel rounds at nearly the same points; the per-head JAX kernel keeps
@@ -239,14 +240,30 @@ def kernel_rounding_bwd(x, gamma, w_qkv, w_out, ek, ev, g, *, heads, scale,
     return dx, dgamma, dw_qkv, dw_out, g.sum(dim=(0, 1)), dek, dev
 
 
+def bf16_parts(t, k):
+    """The first k bf16 parts of a float32 tensor: bf16(t), then
+    bf16(t - bf16(t)), ...; two parts keep about 16 of its 24 significant
+    bits (the kernels' hi + lo split, csrc/temporal_tile.cuh frag_a)."""
+    parts = []
+    for _ in range(k):
+        parts.append(t.to(torch.bfloat16).float())
+        t = t - parts[-1]
+    return parts
+
+
 def kernel_rounding_head_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
-                             heads, scale, spatial_size, rounded=True):
+                             heads, scale, spatial_size, rounded=True,
+                             parts=2):
     """The CUDA head-layout forward's arithmetic: the stats pass as
     kernel_rounding_stats on the unclamped keys (bf16 operands of ctx with
-    rounded=True), then its apply in float32 as the JAX head kernel
-    computes it: Q = scale softmax_head(q), oh = Q ctx, x + out_bias +
-    oh W_out, rounded to bf16 once. Inputs: float32 tensors holding bf16
-    values (gamma, out_bias float32). Returns the bf16 output as float32."""
+    rounded=True), then its apply: Q = scale softmax_head(q), oh = Q ctx,
+    x + out_bias + oh W_out, rounded to bf16 once. parts=2: Q, ctxn and oh
+    as the kernel takes them on the tensor cores, as bf16 hi + lo, with the
+    products it keeps (Q_hi c_hi + Q_hi c_lo + Q_lo c_hi; oh_hi W +
+    oh_lo W, W bf16-valued); parts=1 the bf16 parts alone; parts=None
+    float32 throughout, as the JAX head kernel computes it. Inputs: float32
+    tensors holding bf16 values (gamma, out_bias float32). Returns the bf16
+    output as float32."""
     b, n, _ = x.shape
     hd = w_out.shape[0]
     d = hd // heads
@@ -259,8 +276,14 @@ def kernel_rounding_head_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
     q = q.reshape(b, n, heads, d)
     e = torch.exp(q - q.amax(dim=-1, keepdim=True))
     Q = e * (scale / e.sum(dim=-1, keepdim=True))
-    oh = torch.einsum("bnha,bhae->bnhe", Q, ctxn).reshape(b, n, hd)
-    out = x + out_bias + oh @ w_out
+    if parts is None:
+        oh = torch.einsum("bnha,bhae->bnhe", Q, ctxn)
+    else:
+        qs, cs = bf16_parts(Q, parts), bf16_parts(ctxn, parts)
+        oh = sum(torch.einsum("bnha,bhae->bnhe", qs[i], cs[j])
+                 for i in range(parts) for j in range(parts - i))
+        oh = sum(bf16_parts(oh, parts))
+    out = x + out_bias + oh.reshape(b, n, hd) @ w_out
     return out.to(torch.bfloat16).float()
 
 
@@ -358,6 +381,26 @@ def _jax_head(a):
     return np.asarray(out, np.float32)
 
 
+def _head_inputs(b, n, k_scale):
+    """_inputs with 6 cond tokens, x scaled to 0.01 (the LN output does not
+    change) so that the bf16 output resolves the update, head 0's keys
+    times k_scale and v times HW (an O(1) update, as chip_smoke.py's
+    phase_head)."""
+    a = _inputs(6, b=b, n=n)
+    a["x"] = _bf16(a["x"] * 0.01)
+    w = a["w_qkv"].copy()
+    w[:, HD:HD + D] *= k_scale
+    w[:, 2 * HD:] *= n
+    a["w_qkv"] = _bf16(w)
+    return a
+
+
+def _head_args(a):
+    t = {k: None if v is None else torch.tensor(v) for k, v in a.items()}
+    return (t["x"], t["gamma"], t["w_qkv"], t["w_out"], t["out_bias"],
+            t["ek"], t["ev"])
+
+
 @pytest.mark.parametrize("k_scale", [1.0, 40.0])
 @pytest.mark.parametrize("b,n", [(B, N), (LONG_B, LONG_N)])
 def test_head_layout_rounded_stats_match_the_jax_head_kernel(b, n, k_scale):
@@ -365,28 +408,58 @@ def test_head_layout_rounded_stats_match_the_jax_head_kernel(b, n, k_scale):
     (two roundings the JAX head kernel does not make) against the JAX
     head-layout _kernel on bf16 inputs, 6 cond tokens, head 0's keys times
     k_scale (x40: the unclamped keys of chip_smoke.py's phase_head): the
-    update out - x within 3e-2 of the JAX update's max. x is scaled to
-    0.01 (the LN output does not change) so that the bf16 output resolves
-    the update; v times HW keeps the update O(1) as in phase_head. The
-    shares with and without the roundings are printed."""
-    a = _inputs(6, b=b, n=n)
-    a["x"] = _bf16(a["x"] * 0.01)
-    w = a["w_qkv"].copy()
-    w[:, HD:HD + D] *= k_scale
-    w[:, 2 * HD:] *= n
-    a["w_qkv"] = _bf16(w)
+    update out - x within 3e-2 of the JAX update's max, with the apply's
+    products as the kernel splits them (bf16 hi + lo) and in float32. The
+    shares of both, and of the version without any rounding, are
+    printed."""
+    a = _head_inputs(b, n, k_scale)
     want = _jax_head(a) - a["x"]
-    t = {k: None if v is None else torch.tensor(v) for k, v in a.items()}
-    args = (t["x"], t["gamma"], t["w_qkv"], t["w_out"], t["out_bias"],
-            t["ek"], t["ev"])
+    args = _head_args(a)
     kw = dict(heads=HEADS, scale=SCALE, spatial_size=n)
     scale = np.abs(want).max()
     shares = {}
-    for rounded in (True, False):
-        got = kernel_rounding_head_fwd(*args, **kw, rounded=rounded).numpy()
-        shares[rounded] = float(np.abs(got - a["x"] - want).max() / scale)
+    for name, rounded, parts in (("split", True, 2), ("f32", True, None),
+                                 ("unrounded", False, None)):
+        got = kernel_rounding_head_fwd(*args, **kw, rounded=rounded,
+                                       parts=parts).numpy()
+        shares[name] = float(np.abs(got - a["x"] - want).max() / scale)
     print(f"\nhead layout, N = {n}, keys x{k_scale:g}: update within "
-          f"{shares[True]:.2e} of the JAX one's max rounded as the kernel, "
-          f"{shares[False]:.2e} unrounded")
+          f"{shares['split']:.2e} of the JAX one's max rounded as the kernel "
+          f"(apply split), {shares['f32']:.2e} with a float32 apply, "
+          f"{shares['unrounded']:.2e} unrounded")
     assert scale > 0.1
-    assert shares[True] <= APPLY_TOL, shares
+    assert shares["split"] <= APPLY_TOL, shares
+    assert shares["f32"] <= APPLY_TOL, shares
+
+
+# the card test's bound on the share of outputs that differ from the
+# rounding model (tests/test_torch_port_cuda.py MODEL_BITS)
+MODEL_BITS = 0.03
+
+
+@pytest.mark.parametrize("k_scale", [1.0, 40.0])
+def test_head_apply_split_resolves_float32(k_scale):
+    """The apply's hi + lo split against its float32 apply on the card
+    test's inputs (tests/test_torch_port_cuda.py
+    test_linear_head_kernel_matches_its_rounding_model: N = 1100, C = 64,
+    8 heads, one cond token, v times HW * 32, x times 0.01): at most
+    MODEL_BITS of the bf16 outputs differ, so the card test can hold the
+    kernel to either; with the bf16 parts alone (what a kernel computes
+    that drops the lo terms) more than MODEL_BITS differ, so that test
+    sees such a kernel. The shares are printed."""
+    b, n, c, hd = LONG_B, LONG_N, 64, 256
+    w = _rand((c, 3 * hd), 2, c ** -0.5)
+    w[:, hd:hd + D] *= k_scale
+    w[:, 2 * hd:] *= n * 32.0
+    args = [torch.tensor(v) for v in (
+        _bf16(_rand((b, n, c), 0) * 0.01), _rand((c,), 1, 0.1) + 1.0,
+        _bf16(w), _bf16(_rand((hd, c), 3, hd ** -0.5)), _rand((c,), 4, 0.1),
+        _bf16(_rand((b, 1, hd), 5)), _bf16(_rand((b, 1, hd), 6)))]
+    kw = dict(heads=8, scale=SCALE, spatial_size=n)
+    f32 = kernel_rounding_head_fwd(*args, **kw, parts=None)
+    bits = {p: (kernel_rounding_head_fwd(*args, **kw, parts=p) != f32)
+            .float().mean().item() for p in (2, 1)}
+    print(f"\nkeys x{k_scale:g}: outputs different from the float32 apply "
+          f"{bits[2]:.2e} (hi + lo), {bits[1]:.2e} (bf16 alone)")
+    assert bits[2] <= MODEL_BITS, bits
+    assert bits[1] > MODEL_BITS, bits

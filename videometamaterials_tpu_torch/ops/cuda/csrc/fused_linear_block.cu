@@ -1,9 +1,13 @@
 // Fused spatial linear-attention block, forward, for sm_90a: a stats kernel
-// and an apply kernel.
+// and an apply kernel with two modes, merged and head layout.
 //
 // Replaces videometamaterials_tpu/ops/pallas/fused_linear_block.py:
 //   _merged_stats_kernel (pallas_call in _run_kernel_merged) -> vmt_linear_stats
 //   _merged_apply_kernel (pallas_call in _run_kernel_merged) -> vmt_linear_apply
+//   _kernel, layout "head" (pallas_call in _run_kernel, which
+//     VMT_LINEAR_LAYOUT=head selects) -> vmt_linear_head: the stats pass of
+//     the linear backward (linear_stats.cuh, without g, unclamped) and the
+//     apply kernel's head mode (below the merged notes)
 //
 // Per folded frame (b*f) over N tokens, heads = 8 of d = 32, hidden H = 256:
 //   y    = bf16(LN(x) * gamma)                 two-pass, eps 1e-5
@@ -64,9 +68,48 @@
 //  - C = 64, the full-resolution levels that take most of the time, fits
 //    two blocks an SM in both kernels (88 and 92 KB of shared memory, at
 //    most 128 registers a thread).
+//
+// The head layout (vmt_linear_head), per folded frame, unclamped and with
+// the context normalised by the stats pass:
+//   P      = softmax_tok([ek || k])            per feature, max-shifted
+//   ctxn_h = P_h^T [ev || v]_h / HW            float32 (BF, heads, d, d)
+//   Q      = scale softmax_head(q)             float32
+//   out    = bf16(x + out_bias + sum_h (Q_h ctxn_h) W_out_h)
+// The JAX head kernel keeps Q, ctxn and oh = Q ctxn in float32 and reads
+// W_out (the bf16 weight) in float32. The head mode runs those two
+// products on the tensor cores through the bf16 hi + lo split of
+// temporal_tile.cuh (X = bf16(X) + bf16(X - bf16(X)), about 16 of f32's 24
+// significant bits, f32 sums): oh = Q_hi c_hi + Q_hi c_lo + Q_lo c_hi
+// (the lo x lo term is below 2^-16 of the product) and oh_hi W + oh_lo W
+// (W holds bf16 values exactly). The stats pass rounds exp(k - m) and
+// v / HW to bf16 before ctx (linear_stats.cuh); those and out are the
+// head layout's only roundings besides the split's
+// (tests/test_torch_port_linear_bwd_rounding.py models both against the
+// JAX kernel). The apply's work at the level-0 shape (22, 9216, 64): reads
+// x and writes out (52 MB, 15.5 us at 3.35 TB/s); the q projection 2 C H,
+// Q ctxn 3 x 2 H d and the out-projection 2 x 2 H C a token (29.9
+// GFLOP, 30 us at 989 TFLOP/s): bounded by operations. With the stats
+// pass's QKV projection and ctx the whole forward is 46.5 GFLOP, 47 us.
+//
+// Head mode, the same tiles as the merged apply up to q; then per head the
+// softmax on the fragments, Q split into hi and lo A fragments, against
+// the context's hi and lo blocks (shared, bf16, [h][a][e]); oh stays in
+// the warp's accumulators and is split into the out-projection's A
+// fragments (hi and lo, 64 registers for the warp's four heads) without a
+// shared tile. The out-projection is a split K over the hidden axis: warp
+// (rg, cg) multiplies its heads' oh (hidden rows 128 cg..) by W_out for
+// all 64 columns of a W_out block, writes the 32 columns its partner warp
+// (rg, 1 - cg) stores into a shared f32 exchange tile (over the spent
+// context blocks), and adds the partner's partial to its own 32 columns
+// after one barrier (two terms: the same bits whichever warp adds them).
+// Shared memory, bytes, at C = 64 / 128 / 256 / 512: 87,040 / 182,784 /
+// 199,168 / 231,936 (the merged apply's 92,160 / ... / 212,480 less its
+// oh tile and 1/z, plus the context's lo block); C = 64 fits two blocks an
+// SM (<= 113 KB each).
 #include <math_constants.h>
 
-#include "mma.cuh"
+#include "linear_stats.cuh"
+#include "temporal_tile.cuh"
 
 namespace {
 
@@ -128,10 +171,11 @@ __host__ __device__ constexpr bool apply_wout_over_wq() {
   return kC / kWN == 1;
 }
 
-// apply's y tile, later its oh tile
-template <int kC>
+// apply's y tile; in the merged mode later its oh tile (the head mode keeps
+// oh in registers)
+template <int kC, bool kHead>
 __host__ __device__ constexpr int apply_y_elems() {
-  return kM * ((kC + 8) > kBP ? (kC + 8) : kBP);
+  return kM * ((kC + 8) > kBP || kHead ? (kC + 8) : kBP);
 }
 
 // apply's W_q chunks (and, over them, W_out at C = 64)
@@ -146,12 +190,20 @@ __host__ __device__ constexpr int apply_wout_elems() {
   return apply_wout_over_wq<kC>() ? 0 : 2 * kH * kWP;
 }
 
-template <int kC>
+// the bf16 context blocks [h][a][e]: bf16(ctx), or in the head mode the hi
+// block and then the lo block
+constexpr int kCtxElems = kHeads * kD * kCtxP;
+// the head mode's exchange of out-projection partials, f32 [kM][kXP], over
+// the spent context blocks
+constexpr int kXP = kWN + 8;
+static_assert(kM * kXP * 4 <= 2 * kCtxElems * 2, "exchange over the context");
+
+template <int kC, bool kHead>
 constexpr size_t apply_smem() {
-  return ((size_t)apply_y_elems<kC>() + apply_wq_elems<kC>() +
-          apply_wout_elems<kC>() + (size_t)kHeads * kD * kCtxP) *
+  return ((size_t)apply_y_elems<kC, kHead>() + apply_wq_elems<kC>() +
+          apply_wout_elems<kC>() + (size_t)(kHead ? 2 : 1) * kCtxElems) *
              2 +
-         (size_t)kH * 4;
+         (kHead ? 0 : (size_t)kH * 4);
 }
 
 template <int kC>
@@ -434,7 +486,73 @@ __global__ void __launch_bounds__(kThreads) linear_stats_reduce(
 
 // ---- apply: per (64 tokens, frame)
 
-template <int kC>
+// the per-head softmax's exp on the q fragments of head hh, in place (a
+// row of the head is one quad, so its max and sum take two shuffles);
+// r0, r1: scale / the sums of the lane's two rows
+__device__ __forceinline__ void head_exp(float (&acc)[16][4], int hh,
+                                         float scale, float& r0, float& r1) {
+  float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const float (&q)[4] = acc[hh * 4 + n];
+    mx0 = fmaxf(mx0, fmaxf(q[0], q[1]));
+    mx1 = fmaxf(mx1, fmaxf(q[2], q[3]));
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+  }
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    float (&e)[4] = acc[hh * 4 + n];
+    e[0] = expf(e[0] - mx0);
+    e[1] = expf(e[1] - mx0);
+    e[2] = expf(e[2] - mx1);
+    e[3] = expf(e[3] - mx1);
+    s0 += e[0] + e[1];
+    s1 += e[2] + e[3];
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  r0 = scale / s0;
+  r1 = scale / s1;
+}
+
+// The head mode's partial out-projection of a warp: d (16 rows x 32
+// columns) = oh W over the warp's 128 hidden rows, oh as its hi and lo A
+// fragments oa[head][k-step][hi, lo]; wb: the W_out block's row of the
+// warp's first hidden row, col0 the first of the 32 columns
+__device__ __forceinline__ void head_out_partial(
+    float (&d)[4][4], const uint32_t (&oa)[4][2][2][4],
+    const __nv_bfloat16* wb, int col0, int lane) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+#pragma unroll
+  for (int hh = 0; hh < 4; ++hh)
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bb[4];
+        vmt::ldsm_x4_t(bb, wb + (hh * kD + ks * 16 + vmt::bk_row_off(lane)) * kWP +
+                               col0 + np * 16 + vmt::bk_col_off(lane));
+#pragma unroll
+        for (int lo = 0; lo < 2; ++lo) {
+          vmt::mma_bf16(d[2 * np], oa[hh][ks][lo], bb[0], bb[1]);
+          vmt::mma_bf16(d[2 * np + 1], oa[hh][ks][lo], bb[2], bb[3]);
+        }
+      }
+}
+
+// kHead false: the merged apply (ctx unnormalised, z its sums). kHead
+// true: the head layout's apply (ctx the stats pass's normalised ctxn, z
+// unused), every product past q f32-exact to the hi + lo split
+template <int kC, bool kHead>
 __global__ void __launch_bounds__(kThreads, kC == 64 ? 2 : 1) linear_apply_kernel(
     const __nv_bfloat16* __restrict__ x,      // (BF, N, C)
     const float* __restrict__ gamma,          // (C)
@@ -454,10 +572,10 @@ __global__ void __launch_bounds__(kThreads, kC == 64 ? 2 : 1) linear_apply_kerne
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kM][kYP]
   __nv_bfloat16* oh = ys;                            // [kM][kBP], over spent y
-  __nv_bfloat16* ws = ys + apply_y_elems<kC>();      // [kS][kKC][kBP]
+  __nv_bfloat16* ws = ys + apply_y_elems<kC, kHead>();  // [kS][kKC][kBP]
   __nv_bfloat16* wo = kOver ? ws : ws + apply_wq_elems<kC>();  // [bufs][kH][kWP]
   __nv_bfloat16* cs = ws + apply_wq_elems<kC>() + apply_wout_elems<kC>();
-  float* inv_z = reinterpret_cast<float*>(cs + kHeads * kD * kCtxP);  // [kH]
+  float* inv_z = reinterpret_cast<float*>(cs + kCtxElems);  // [kH]
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int g = lane >> 2, tq = lane & 3;
@@ -493,7 +611,7 @@ __global__ void __launch_bounds__(kThreads, kC == 64 ? 2 : 1) linear_apply_kerne
     }
   }
   // this frame's bf16 context blocks ([h][a][e], all loads in flight at
-  // once) and 1/z
+  // once) and 1/z; the head mode: the hi blocks, then the lo blocks
   {
     const float4* cf = reinterpret_cast<const float4*>(
         ctx + (size_t)bf * kHeads * kD * kD);
@@ -507,9 +625,15 @@ __global__ void __launch_bounds__(kThreads, kC == 64 ? 2 : 1) linear_apply_kerne
       *reinterpret_cast<uint2*>(cs + (i >> 5) * kCtxP + (i & 31)) =
           make_uint2(vmt::pack_bf16x2(cv[u].x, cv[u].y),
                      vmt::pack_bf16x2(cv[u].z, cv[u].w));
+      if (kHead) {
+        const float4 v = cv[u];
+        *reinterpret_cast<uint2*>(cs + kCtxElems + (i >> 5) * kCtxP + (i & 31)) =
+            make_uint2(vmt::pack_bf16x2(v.x - round_bf16(v.x), v.y - round_bf16(v.y)),
+                       vmt::pack_bf16x2(v.z - round_bf16(v.z), v.w - round_bf16(v.w)));
+      }
     }
   }
-  inv_z[t] = 1.f / z[(size_t)bf * kH + t];
+  if (!kHead) inv_z[t] = 1.f / z[(size_t)bf * kH + t];
 
   float acc[16][4];
 #pragma unroll
@@ -539,120 +663,185 @@ __global__ void __launch_bounds__(kThreads, kC == 64 ? 2 : 1) linear_apply_kerne
                          cg * (kNP / 2), lane);
     }
   }
-  __syncthreads();  // every warp is done with y and W_q: y's rows become oh
+  __syncthreads();  // every warp is done with y and W_q (the merged mode's
+                    // oh goes over y's rows)
   if (kOver) {
     load_wout(0);  // over the spent W_q chunks, during the softmax
     vmt::cp_async_commit();
   }
 
-  // per head: the feature softmax on the fragments (a row of the head is
-  // one quad), qn straight into A fragments, oh = qn_h @ bf16(ctx_h)
+  if constexpr (kHead) {
+    // per head: Q = scale softmax_head(q), oh = Q ctxn as Q_hi c_hi +
+    // Q_hi c_lo + Q_lo c_hi, kept as the out-projection's A fragments
+    uint32_t oa[kGroupHeads][2][2][4];  // [head][k-step][hi, lo]
 #pragma unroll
-  for (int hh = 0; hh < kGroupHeads; ++hh) {
-    const int h = cg * kGroupHeads + hh;
-    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const float (&q)[4] = acc[hh * 4 + n];
-      mx0 = fmaxf(mx0, fmaxf(q[0], q[1]));
-      mx1 = fmaxf(mx1, fmaxf(q[2], q[3]));
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-    }
-    float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      float (&e)[4] = acc[hh * 4 + n];
-      e[0] = expf(e[0] - mx0);
-      e[1] = expf(e[1] - mx0);
-      e[2] = expf(e[2] - mx1);
-      e[3] = expf(e[3] - mx1);
-      s0 += e[0] + e[1];
-      s1 += e[2] + e[3];
-    }
-#pragma unroll
-    for (int o = 1; o < 4; o <<= 1) {
-      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-    }
-    const float r0 = scale / s0, r1 = scale / s1;
-    // qn = bf16(e * (scale / s_h) * (1 / z)); the A fragment of k-step kk
-    // is n8 tiles 2 kk (a0, a1) and 2 kk + 1 (a2, a3)
-    uint32_t af[2][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const float (&e)[4] = acc[hh * 4 + n];
-      const int col = h * kD + n * 8 + 2 * tq;
-      const float iz0 = inv_z[col], iz1 = inv_z[col + 1];
-      af[n >> 1][(n & 1) * 2] = vmt::pack_bf16x2(e[0] * r0 * iz0, e[1] * r0 * iz1);
-      af[n >> 1][(n & 1) * 2 + 1] = vmt::pack_bf16x2(e[2] * r1 * iz0, e[3] * r1 * iz1);
-    }
-    float o[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-    const __nv_bfloat16* cb = cs + h * kD * kCtxP;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks)
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bb[4];
-        vmt::ldsm_x4_t(bb, cb + (ks * 16 + vmt::bk_row_off(lane)) * kCtxP +
-                               np * 16 + vmt::bk_col_off(lane));
-        vmt::mma_bf16(o[2 * np], af[ks], bb[0], bb[1]);
-        vmt::mma_bf16(o[2 * np + 1], af[ks], bb[2], bb[3]);
-      }
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int col = h * kD + n * 8 + 2 * tq;
-      *reinterpret_cast<uint32_t*>(oh + (m0 + g) * kBP + col) =
-          vmt::pack_bf16x2(o[n][0], o[n][1]);
-      *reinterpret_cast<uint32_t*>(oh + (m0 + g + 8) * kBP + col) =
-          vmt::pack_bf16x2(o[n][2], o[n][3]);
-    }
-  }
-
-  // out = bf16(x + out_bias + oh @ W_out), 64 columns a block: warp (rg,
-  // cg) rows 16 rg.., columns 32 cg.. of the block
-  const int wn0 = cg * 32;
-  for (int nb = 0; nb < kNB; ++nb) {
-    vmt::cp_async_wait<0>();
-    __syncthreads();  // W_out block nb and oh visible; the other buffer free
-    if (nb + 1 < kNB) load_wout(nb + 1);
-    vmt::cp_async_commit();
-    const __nv_bfloat16* wb = wo + (nb & 1) * kH * kWP;
-    float d[4][4];
-#pragma unroll
-    for (int n = 0; n < 4; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
-#pragma unroll 4
-    for (int ks = 0; ks < kH / 16; ++ks) {
-      uint32_t a[4];
-      vmt::ldsm_x4(a, oh + (m0 + vmt::a_row_off(lane)) * kBP + ks * 16 +
-                          vmt::a_col_off(lane));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bb[4];
-        vmt::ldsm_x4_t(bb, wb + (ks * 16 + vmt::bk_row_off(lane)) * kWP + wn0 +
-                               np * 16 + vmt::bk_col_off(lane));
-        vmt::mma_bf16(d[2 * np], a, bb[0], bb[1]);
-        vmt::mma_bf16(d[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int r = m0 + g + 8 * half;
-      if (r >= valid_rows) continue;
-      const size_t row = ((size_t)bf * N + n0 + r) * kC;
+    for (int hh = 0; hh < kGroupHeads; ++hh) {
+      const int h = cg * kGroupHeads + hh;
+      float r0, r1;
+      head_exp(acc, hh, scale, r0, r1);
+      float qf[4][4];
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
-        const int c = nb * kWN + wn0 + n * 8 + 2 * tq;
-        const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + row + c);
-        const float2 bv = *reinterpret_cast<const float2*>(out_bias + c);
-        *reinterpret_cast<uint32_t*>(out + row + c) = vmt::pack_bf16x2(
-            __low2float(xv) + bv.x + d[n][2 * half],
-            __high2float(xv) + bv.y + d[n][2 * half + 1]);
+        qf[n][0] = acc[hh * 4 + n][0] * r0;
+        qf[n][1] = acc[hh * 4 + n][1] * r0;
+        qf[n][2] = acc[hh * 4 + n][2] * r1;
+        qf[n][3] = acc[hh * 4 + n][3] * r1;
+      }
+      float o[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+      const __nv_bfloat16* cb = cs + h * kD * kCtxP;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t qh[4], ql[4];
+        vmt::frag_a<false>(qh, qf, ks);
+        vmt::frag_a<true>(ql, qf, ks);
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          const int off = (ks * 16 + vmt::bk_row_off(lane)) * kCtxP + np * 16 +
+                          vmt::bk_col_off(lane);
+          uint32_t bh[4], bl[4];
+          vmt::ldsm_x4_t(bh, cb + off);
+          vmt::ldsm_x4_t(bl, cb + kCtxElems + off);
+          vmt::mma_bf16(o[2 * np], qh, bh[0], bh[1]);
+          vmt::mma_bf16(o[2 * np + 1], qh, bh[2], bh[3]);
+          vmt::mma_bf16(o[2 * np], qh, bl[0], bl[1]);
+          vmt::mma_bf16(o[2 * np + 1], qh, bl[2], bl[3]);
+          vmt::mma_bf16(o[2 * np], ql, bh[0], bh[1]);
+          vmt::mma_bf16(o[2 * np + 1], ql, bh[2], bh[3]);
+        }
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        vmt::frag_a<false>(oa[hh][ks][0], o, ks);
+        vmt::frag_a<true>(oa[hh][ks][1], o, ks);
+      }
+    }
+
+    // out = bf16(x + out_bias + oh W_out), 64 columns a block: warp (rg,
+    // cg) the split K over its hidden rows 128 cg.. for all 64 columns;
+    // the partner's 32 columns (32 (1 - cg)..) through the exchange tile,
+    // its own (32 cg..) kept and stored
+    float* xch = reinterpret_cast<float*>(cs);  // [kM][kXP]
+    const int own = cg * 32, other = 32 - own;
+    for (int nb = 0; nb < kNB; ++nb) {
+      vmt::cp_async_wait<0>();
+      __syncthreads();  // W_out block nb visible; the other buffer, the
+                        // context blocks (nb = 0) and the exchange free
+      if (nb + 1 < kNB) load_wout(nb + 1);
+      vmt::cp_async_commit();
+      const __nv_bfloat16* wb = wo + (nb & 1) * kH * kWP + cg * 128 * kWP;
+      float d[4][4];
+      head_out_partial(d, oa, wb, other, lane);
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int c = other + n * 8 + 2 * tq;
+        *reinterpret_cast<float2*>(xch + (m0 + g) * kXP + c) = make_float2(d[n][0], d[n][1]);
+        *reinterpret_cast<float2*>(xch + (m0 + g + 8) * kXP + c) =
+            make_float2(d[n][2], d[n][3]);
+      }
+      head_out_partial(d, oa, wb, own, lane);
+      __syncthreads();  // the partners' partials visible
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half;
+        if (r >= valid_rows) continue;
+        const size_t row = ((size_t)bf * N + n0 + r) * kC;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int cl = own + n * 8 + 2 * tq, c = nb * kWN + cl;
+          const float2 p = *reinterpret_cast<const float2*>(xch + r * kXP + cl);
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + row + c);
+          const float2 bv = *reinterpret_cast<const float2*>(out_bias + c);
+          *reinterpret_cast<uint32_t*>(out + row + c) = vmt::pack_bf16x2(
+              __low2float(xv) + bv.x + (d[n][2 * half] + p.x),
+              __high2float(xv) + bv.y + (d[n][2 * half + 1] + p.y));
+        }
+      }
+    }
+  } else {
+    // per head: the feature softmax on the fragments (a row of the head is
+    // one quad), qn straight into A fragments, oh = qn_h @ bf16(ctx_h)
+#pragma unroll
+    for (int hh = 0; hh < kGroupHeads; ++hh) {
+      const int h = cg * kGroupHeads + hh;
+      float r0, r1;
+      head_exp(acc, hh, scale, r0, r1);
+      // qn = bf16(e * (scale / s_h) * (1 / z)); the A fragment of k-step kk
+      // is n8 tiles 2 kk (a0, a1) and 2 kk + 1 (a2, a3)
+      uint32_t af[2][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const float (&e)[4] = acc[hh * 4 + n];
+        const int col = h * kD + n * 8 + 2 * tq;
+        const float iz0 = inv_z[col], iz1 = inv_z[col + 1];
+        af[n >> 1][(n & 1) * 2] = vmt::pack_bf16x2(e[0] * r0 * iz0, e[1] * r0 * iz1);
+        af[n >> 1][(n & 1) * 2 + 1] = vmt::pack_bf16x2(e[2] * r1 * iz0, e[3] * r1 * iz1);
+      }
+      float o[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+      const __nv_bfloat16* cb = cs + h * kD * kCtxP;
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bb[4];
+          vmt::ldsm_x4_t(bb, cb + (ks * 16 + vmt::bk_row_off(lane)) * kCtxP +
+                                 np * 16 + vmt::bk_col_off(lane));
+          vmt::mma_bf16(o[2 * np], af[ks], bb[0], bb[1]);
+          vmt::mma_bf16(o[2 * np + 1], af[ks], bb[2], bb[3]);
+        }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        const int col = h * kD + n * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(oh + (m0 + g) * kBP + col) =
+            vmt::pack_bf16x2(o[n][0], o[n][1]);
+        *reinterpret_cast<uint32_t*>(oh + (m0 + g + 8) * kBP + col) =
+            vmt::pack_bf16x2(o[n][2], o[n][3]);
+      }
+    }
+
+    // out = bf16(x + out_bias + oh @ W_out), 64 columns a block: warp (rg,
+    // cg) rows 16 rg.., columns 32 cg.. of the block
+    const int wn0 = cg * 32;
+    for (int nb = 0; nb < kNB; ++nb) {
+      vmt::cp_async_wait<0>();
+      __syncthreads();  // W_out block nb and oh visible; the other buffer free
+      if (nb + 1 < kNB) load_wout(nb + 1);
+      vmt::cp_async_commit();
+      const __nv_bfloat16* wb = wo + (nb & 1) * kH * kWP;
+      float d[4][4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+#pragma unroll 4
+      for (int ks = 0; ks < kH / 16; ++ks) {
+        uint32_t a[4];
+        vmt::ldsm_x4(a, oh + (m0 + vmt::a_row_off(lane)) * kBP + ks * 16 +
+                            vmt::a_col_off(lane));
+#pragma unroll
+        for (int np = 0; np < 2; ++np) {
+          uint32_t bb[4];
+          vmt::ldsm_x4_t(bb, wb + (ks * 16 + vmt::bk_row_off(lane)) * kWP + wn0 +
+                                 np * 16 + vmt::bk_col_off(lane));
+          vmt::mma_bf16(d[2 * np], a, bb[0], bb[1]);
+          vmt::mma_bf16(d[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + g + 8 * half;
+        if (r >= valid_rows) continue;
+        const size_t row = ((size_t)bf * N + n0 + r) * kC;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int c = nb * kWN + wn0 + n * 8 + 2 * tq;
+          const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + row + c);
+          const float2 bv = *reinterpret_cast<const float2*>(out_bias + c);
+          *reinterpret_cast<uint32_t*>(out + row + c) = vmt::pack_bf16x2(
+              __low2float(xv) + bv.x + d[n][2 * half],
+              __high2float(xv) + bv.y + d[n][2 * half + 1]);
+        }
       }
     }
   }
@@ -683,13 +872,13 @@ cudaError_t stats_c(const void* x, const void* gamma, const void* w_qkv,
   return cudaGetLastError();
 }
 
-template <int kC>
+template <int kC, bool kHead>
 cudaError_t apply_c(const void* x, const void* gamma, const void* w_qkv,
                     const void* w_out, const void* out_bias, const void* ctx,
                     const void* z, void* out, int BF, int N, float scale,
                     cudaStream_t stream) {
-  constexpr size_t smem = apply_smem<kC>();
-  auto kern = linear_apply_kernel<kC>;
+  constexpr size_t smem = apply_smem<kC, kHead>();
+  auto kern = linear_apply_kernel<kC, kHead>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -700,6 +889,39 @@ cudaError_t apply_c(const void* x, const void* gamma, const void* w_qkv,
       static_cast<const float*>(out_bias), static_cast<const float*>(ctx),
       static_cast<const float*>(z), static_cast<__nv_bfloat16*>(out), N, scale);
   return cudaGetLastError();
+}
+
+template <bool kHead>
+cudaError_t apply_any_c(const void* x, const void* gamma, const void* w_qkv,
+                        const void* w_out, const void* out_bias,
+                        const void* ctx, const void* z, void* out, int BF,
+                        int N, int C, float scale, cudaStream_t stream) {
+  switch (C) {
+    case 64: return apply_c<64, kHead>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, stream);
+    case 128: return apply_c<128, kHead>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, stream);
+    case 256: return apply_c<256, kHead>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, stream);
+    case 512: return apply_c<512, kHead>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// the head layout's stats buffers carved from one workspace
+vmt::OnlineStats carve(void* base, int BF, int N, size_t* total) {
+  size_t bytes[9];
+  vmt::online_stats_sizes(BF, N, bytes);
+  char* ptrs[9];
+  size_t off = 0;
+  for (int i = 0; i < 9; ++i) {
+    ptrs[i] = base ? static_cast<char*>(base) + off : nullptr;
+    off += (bytes[i] + 255) & ~(size_t)255;
+  }
+  if (total) *total = off;
+  vmt::OnlineStats s;
+  float** fp[7] = {&s.pctx, &s.pdctx, &s.pz, &s.pm, &s.ctxn, &s.m, &s.zinv};
+  for (int i = 0; i < 7; ++i) *fp[i] = reinterpret_cast<float*>(ptrs[i]);
+  s.ctx_b = reinterpret_cast<__nv_bfloat16*>(ptrs[7]);
+  s.dctx_b = reinterpret_cast<__nv_bfloat16*>(ptrs[8]);
+  return s;
 }
 
 }  // namespace
@@ -732,21 +954,55 @@ extern "C" int vmt_linear_apply(const void* x, const void* gamma,
                                 int heads, int tile, float scale,
                                 void* stream) {
   if (heads != kHeads || N <= 0 || tile != kM) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 64: return (int)apply_c<64>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, st);
-    case 128: return (int)apply_c<128>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, st);
-    case 256: return (int)apply_c<256>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, st);
-    case 512: return (int)apply_c<512>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out, BF, N, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)apply_any_c<false>(x, gamma, w_qkv, w_out, out_bias, ctx, z, out,
+                                 BF, N, C, scale,
+                                 static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of the stats (stage 0) and apply (stage 1) kernels
-// at C; 0 for a C the kernels do not take.
+// Workspace bytes of vmt_linear_head for these sizes.
+extern "C" size_t vmt_linear_head_workspace(int BF, int N) {
+  size_t total = 0;
+  carve(nullptr, BF, N, &total);
+  return total;
+}
+
+// The head layout: the stats pass (unclamped, normalised ctx) and the
+// apply's head mode. ek/ev: (BF, Mc, H) bf16, or null when Mc == 0.
+// apply_tile: tokens an apply block, 64.
+extern "C" int vmt_linear_head(const void* x, const void* gamma,
+                               const void* w_qkv, const void* w_out,
+                               const void* out_bias, const void* ek,
+                               const void* ev, void* out, void* workspace,
+                               int BF, int N, int C, int Mc, int heads,
+                               int apply_tile, float scale, float inv_hw,
+                               void* stream) {
+  if (heads != kHeads || BF <= 0 || N <= 0 || apply_tile != kM || Mc < 0 ||
+      (Mc > 0 && (ek == nullptr || ev == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (C != 64 && C != 128 && C != 256 && C != 512)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const vmt::OnlineStats s = carve(workspace, BF, N, nullptr);
+  cudaError_t err = vmt::launch_online_stats(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+      static_cast<const __nv_bfloat16*>(w_qkv), nullptr, nullptr,
+      static_cast<const __nv_bfloat16*>(ek),
+      static_cast<const __nv_bfloat16*>(ev), s, BF, N, C, Mc, inv_hw,
+      /*scale=*/1.f, /*clip=*/0, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)apply_any_c<true>(x, gamma, w_qkv, w_out, out_bias, s.ctxn,
+                                nullptr, out, BF, N, C, scale, st);
+}
+
+// Dynamic shared memory of the stats (stage 0), apply (stage 1) and
+// head-layout apply (stage 2) kernels at C; 0 for a C the kernels do not
+// take.
 extern "C" size_t vmt_linear_block_fwd_smem(int C, int stage) {
-#define VMT_CASE(CC) \
-  case CC: return stage == 0 ? stats_smem<CC>() : apply_smem<CC>();
+#define VMT_CASE(CC)                                     \
+  case CC:                                               \
+    return stage == 0   ? stats_smem<CC>()               \
+           : stage == 1 ? apply_smem<CC, false>()        \
+                        : apply_smem<CC, true>();
   switch (C) {
     VMT_CASE(64)
     VMT_CASE(128)

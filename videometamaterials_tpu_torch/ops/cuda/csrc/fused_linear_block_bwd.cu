@@ -63,7 +63,7 @@
 //      accumulators, P, v / HW, Q and g_oh staged in a [token][256] tile,
 //      and ctx = P^T v and dctx = Q^T g_oh contracted over the tokens with
 //      ldmatrix .trans; partial ctx, dctx, z, m. The head-layout forward
-//      (fused_linear_block_head.cu) runs it without g.
+//      (vmt_linear_head, fused_linear_block.cu) runs it without g.
 //      merge (linear_bwd_merge, a block per (context column, frame)): the
 //      max-merged, normalised ctx with the cond tokens once, the chunks in
 //      order; dctx; their bf16 copies. finish (linear_bwd_finish): S and

@@ -1,6 +1,6 @@
 // The linear block's unclamped-capable token-softmax statistics, shared by
 // the backward kernel (fused_linear_block_bwd.cu, where they are defined)
-// and the head-layout forward (fused_linear_block_head.cu).
+// and the head-layout forward (vmt_linear_head, fused_linear_block.cu).
 //
 // Per folded frame over its N tokens (+ Mc conditioning tokens), with
 // y = bf16(LN(x) gamma), k = y Wk, v = y Wv, kk = clip ? clip(k, +-60) : k:

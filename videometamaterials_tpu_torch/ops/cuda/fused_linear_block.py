@@ -3,8 +3,9 @@ backward kernel wrappers, their plain twins and the differentiable entry
 point.
 
 Replaces videometamaterials_tpu/ops/pallas/fused_linear_block.py:
-_merged_stats_kernel and _merged_apply_kernel (csrc/fused_linear_block.cu),
-_kernel, the "head" layout (csrc/fused_linear_block_head.cu), and both
+_merged_stats_kernel and _merged_apply_kernel, and _kernel, the "head"
+layout (csrc/fused_linear_block.cu, the apply's head mode after the
+backward's stats pass), and both
 backward kernels, _bwd_kernel (per-head) and _bwd_kernel_merged
 (csrc/fused_linear_block_bwd.cu, one source with a clip flag); each source
 note gives the bounds and the design. `fused_linear_block` is the JAX
@@ -22,7 +23,8 @@ backward kernel ('kernel'), routed per-head or merged by the JAX rule
             qn = bf16(softmax_head(q) * scale / z) (per-head max shift)
     head:   out = bf16(x + out_bias + sum_h (softmax_d(q_h) scale)
                   (softmax_tok(k_h)^T v_h / HW) W_out_h), unclamped and
-            max-shifted, float32 after the bf16 LN output
+            max-shifted, float32 after the bf16 LN output (the kernel's
+            products past q on the tensor cores to a bf16 hi + lo split)
 
 Only the eight diagonal (32 x 32) blocks of the TPU kernel's masked
 (256 x 256) context are computed: ctx is (B, heads, d, d).
@@ -272,8 +274,10 @@ def linear_block_head(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
     """x + block(x) through the head-layout kernel (its operands as
     linear_block_fwd's). A CPU tensor takes the plain twin; a CUDA tensor
     launches the kernel (online-max stats, ordered merge, apply) or
-    raises. W_out is bf16 here: the JAX model hands the kernel a weight
-    cast to the compute dtype, which the kernel then reads in float32."""
+    raises. W_out is bf16 here: the JAX model hands its kernel a weight
+    cast to the compute dtype, which it then reads in float32; the
+    kernel's out-projection takes those bf16 values exactly against the hi
+    and lo bf16 parts of the float32 oh."""
     if x.device.type == "cpu":
         return linear_block_head_plain(x, gamma, w_qkv, w_out, out_bias, ek,
                                        ev, heads=heads, scale=scale,
@@ -288,7 +292,7 @@ def linear_block_head(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
         and tuple(out_bias.shape) == (c,) and out_bias.device == x.device,
         "out_bias must be float32 (C,)")
     m_c = _check_cond(ek, ev, x)
-    _build.require_aligned(x, w_qkv, ek, ev)
+    _build.require_aligned(x, w_qkv, w_out, out_bias, ek, ev)
     lib = _build.load_library()
     out = torch.empty_like(x)
     ws = _build.workspace(lib.vmt_linear_head_workspace(b, n), x.device)
