@@ -48,6 +48,17 @@ Phases, each printing its wall time as it finishes:
              rule, launch counters 10/10/8/8/2/6 per kernel-plan step and
              10 emit_p forwards, no temporal backward kernel, 8/8/2/6 per
              saved-plan step)
+  6 eval     the checkpoint-to-artifacts path: the flagship's seeded
+             weights written as a run checkpoint (flax's msgpack format,
+             bf16 leaves where the committed trees have them) and read
+             back bit for bit, a seeded data folder and two target curves,
+             one guided eps at the eval chunk of 4 videos (CFG 8) against
+             the unfused plans, then the eval CLI in-process
+             (videometamaterials_tpu_torch.main --skip-train: 2 targets x
+             2 predictions, --test-batch-size 8 = one chunk of 4, w = 5,
+             the full chain; counters 10/8/8 a step), its GIFs decoded and
+             held to the returned videos, geometries.csv's 4 rows, and a
+             second run writing eval_target_w_5.0_1
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -859,17 +870,18 @@ def linear_bwd_kernels(report, gen):
         + " of their max")
 
 
-def phase_model(diffusion, cfg):
-    """One guided forward: the fused plans (the kernels) against the
-    unfused plans on the same weights and input."""
+def phase_model(diffusion, cfg, batch: int = 1):
+    """One guided forward of `batch` latents (the CFG pair doubles it):
+    the fused plans (the kernels) against the unfused plans on the same
+    weights and input."""
     import torch
 
     model = diffusion.model
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn((1, FRAMES, cfg.image_size, cfg.image_size, 3),
+    x = torch.randn((batch, FRAMES, cfg.image_size, cfg.image_size, 3),
                     generator=gen, device="cuda")
-    t = torch.full((1,), 128, device="cuda")
-    cond = torch.rand((1, FRAMES), generator=gen, device="cuda") * 2 - 1
+    t = torch.full((batch,), 128, device="cuda")
+    cond = torch.rand((batch, FRAMES), generator=gen, device="cuda") * 2 - 1
     with torch.no_grad():
         fused = diffusion.guided_eps(x, t, cond, 5.0)
         blocks = [m for m in model.modules() if hasattr(m, "use_fused_block")]
@@ -1065,6 +1077,175 @@ def phase_train(cfg, train_steps: int, report, profile: int = 0,
         del diff, model, trainer, start, shadow
         torch.cuda.empty_cache()
     return out
+
+
+EVAL_CHUNK = 4          # videos a sampling call takes in phase 6
+EVAL_PER_STEP = dict(fused_temporal_block=10, linear_stats=8, linear_apply=8)
+
+
+def eval_data(root: Path, seed: int = 6) -> Path:
+    """A seeded data root of the eval path: lagrangian/training with
+    16 51-point stress-strain curves and 8-column frame ranges (u_2
+    through zero), and two target curves."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    train = root / "lagrangian" / "training"
+    train.mkdir(parents=True)
+    strains = np.linspace(0.0, 0.2, 51)
+    slopes = rng.uniform(0.5, 2.0, 18)
+    curves = slopes[:, None] * strains * (1 + rng.uniform(-1, 1, (18, 1))
+                                          * strains)
+    np.savetxt(train / "stress_strain_data.csv", curves[:16], delimiter=",")
+    ranges = np.stack([-rng.uniform(0.01, 0.05, 16),
+                       rng.uniform(0.01, 0.05, 16),
+                       -rng.uniform(0.1, 0.3, 16),
+                       rng.uniform(0.0, 0.02, 16),
+                       rng.uniform(0.5, 2.0, 16),
+                       -rng.uniform(0.5, 2.0, 16),
+                       rng.uniform(0.0, 0.5, 16),
+                       rng.uniform(0.1, 1.0, 16)], axis=1)
+    np.savetxt(train / "frame_range_data.csv", ranges, delimiter=",")
+    np.savetxt(root / "target_responses.csv", curves[16:], delimiter=",")
+    return root
+
+
+def phase_eval(smi: str, report: dict) -> dict:
+    """6 eval: checkpoint -> bit-equal state dict -> the kernels at the
+    eval chunk -> the eval CLI -> GIFs and geometries.csv."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videometamaterials_tpu_torch import main as cli
+    from videometamaterials_tpu_torch.config import (
+        ModelConfig,
+        snapshot_run_config,
+    )
+    from videometamaterials_tpu_torch.convert import (
+        flax_to_torch_state_dict,
+        torch_to_flax_tree,
+    )
+    from videometamaterials_tpu_torch.data.gif_io import gif_to_array
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.sample import build_sampler
+    from videometamaterials_tpu_torch.training import checkpoint as ckpt
+    from videometamaterials_tpu_torch.training import msgpack_io
+    from videometamaterials_tpu_torch.training.artifacts import (
+        make_grid_video,
+    )
+    from videometamaterials_tpu_torch.utils import inference_cast_keys
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_eval_", dir=ROOT / "build"))
+    try:
+        # (a) the flagship's seeded weights as a run checkpoint
+        t0 = time.perf_counter()
+        cfg = ModelConfig()
+        model = build_unet(cfg, device="cpu", seed=5)
+        state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        bf16 = inference_cast_keys(model)
+        del model
+        tree = torch_to_flax_tree(state, bf16)
+        run_dir = tmp / "runs" / "smoke"
+        snapshot_run_config(cfg, run_dir)
+        path = ckpt.save_checkpoint(run_dir, 0, {
+            "step": np.asarray(0, np.int32), "params": tree,
+            "ema_params": tree}, aux={"step": 0})
+        # (b) the data folder and the targets
+        data = eval_data(tmp / "data")
+        # (c) read back: the bf16-rounded weights, bit for bit
+        back = flax_to_torch_state_dict(
+            msgpack_io.read_msgpack(path)["ema_params"])
+        for k, v in state.items():
+            want = v.to(torch.bfloat16).float() if k in bf16 else v
+            if not torch.equal(back[k], want):
+                raise AssertionError(f"checkpoint round trip: {k} differs")
+        log(f"  checkpoint {path.stat().st_size / 1e6:.1f} MB, {len(state)} "
+            f"tensors ({len(bf16)} bf16) read back bit-equal | "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        # (d) the kernels at the eval chunk: one guided eps against the
+        # unfused plans
+        t0 = time.perf_counter()
+        diffusion = build_sampler(cfg, device="cuda", weights=back)
+        _build.reset_launch_counts()
+        rel = phase_model(diffusion, cfg, batch=EVAL_CHUNK)
+        counts = dict(_build.LAUNCH_COUNTS)
+        want = {k: EVAL_PER_STEP.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"eval-chunk eps: launch counts {counts}")
+        del diffusion, back
+        torch.cuda.empty_cache()
+        log(f"  guided eps at {EVAL_CHUNK} videos (CFG {2 * EVAL_CHUNK}), "
+            f"fused vs unfused plans: relative error {rel:.3e} (limit "
+            f"{MODEL_TOL}) | {time.perf_counter() - t0:.1f}s")
+
+        # (e) the CLI: 2 targets x 2 predictions, one chunk of 4
+        argv = ["--run-name", "smoke", "--runs-root", str(tmp / "runs"),
+                "--data-root", str(data), "--config", str(ROOT / "model.yaml"),
+                "--load-model-step", "0", "--skip-train",
+                "--guidance-scale", "5", "--device", "cuda"]
+        _build.reset_launch_counts()
+        out = cli.main(argv + ["--num-preds", "2", "--test-batch-size",
+                               str(2 * EVAL_CHUNK)])
+        counts = dict(_build.LAUNCH_COUNTS)
+        steps = cfg.train_timesteps
+        want = {k: EVAL_PER_STEP.get(k, 0) * steps for k in counts}
+        if counts != want:
+            raise AssertionError(f"eval CLI: launch counts {counts}, "
+                                 f"expected {want}")
+        for k, v in counts.items():
+            report[k]["eval_launches"] = v
+
+        # (f) the artifacts
+        videos, eval_dir = out["videos"], out["eval_dir"]
+        if eval_dir != run_dir / "eval_target_w_5.0_0" / "step_0":
+            raise AssertionError(f"eval directory {eval_dir}")
+        if videos.shape != (4, FRAMES, cfg.image_size, cfg.image_size, 3) \
+                or not np.isfinite(videos).all() or videos.min() < 0 \
+                or videos.max() > 1:
+            raise AssertionError(f"eval videos {videos.shape} in "
+                                 f"[{videos.min()}, {videos.max()}]")
+        grid = make_grid_video(videos, rows=2)
+        side = 2 * (cfg.image_size + 4)
+        for j, ch in enumerate(cfg.selected_channels):
+            frames = gif_to_array(eval_dir / "gifs"
+                                  / f"prediction_channel_{ch}.gif")
+            quant = np.clip(np.round(grid[j] * 255.0), 0, 255
+                            ).astype(np.uint8)
+            if frames.shape != (FRAMES, side, side) or not np.array_equal(
+                    frames, quant):
+                raise AssertionError(f"prediction_channel_{ch}.gif: "
+                                     f"{frames.shape} differs from the "
+                                     "videos")
+        geoms = np.loadtxt(eval_dir / "geometries.csv", delimiter=",")
+        half = cfg.image_size // 2
+        if geoms.shape != (4, half * half) or not np.isin(geoms,
+                                                          (0, 1)).all():
+            raise AssertionError(f"geometries.csv: {geoms.shape}")
+        one = tmp / "one_target.csv"
+        one.write_text((data / "target_responses.csv").read_text()
+                       .splitlines()[0] + "\n")
+        again = cli.main(argv + ["--target-labels", str(one)])
+        if again["eval_dir"] != run_dir / "eval_target_w_5.0_1" / "step_0":
+            raise AssertionError(f"second eval directory "
+                                 f"{again['eval_dir']}")
+        # (g) the chain at the eval chunk
+        secs = out["sample_seconds"]
+        log(f"[6 eval] eval CLI, 2 targets x 2 predictions, chunk "
+            f"{EVAL_CHUNK} (CFG {2 * EVAL_CHUNK}), w=5, DDPM-{steps}: "
+            f"chain {secs:.2f}s, {4 * 60.0 / secs:.3f} videos/min on {smi}; "
+            f"launches {counts}; 3 GIFs {FRAMES}x{side}x{side} equal to the "
+            f"videos, geometries.csv {geoms.shape[0]} rows of "
+            f"{geoms.shape[1]} (solid share {geoms.mean():.3f}); second run "
+            f"{again['eval_dir'].parent.name}")
+        return {"chain_s": secs, "rel": rel, "counts": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def profile_steps(run, what: str, out_path: str | None) -> None:
@@ -1335,6 +1516,12 @@ def main(argv=None) -> int:
             f"{k} {v['peak_bytes'] / 2 ** 30:.2f} GiB"
             for k, v in train.items())
         + f" on {smi} | {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    # ---- 6 eval: checkpoint -> CLI -> GIFs and geometries.csv
+    t0 = time.perf_counter()
+    phase_eval(smi, report)
+    log(f"[6 eval] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

@@ -624,3 +624,29 @@ def test_linear_apply_kernel_every_width(cuda, c, n):
     args = (x, gamma, w_qkv, w_out, out_bias, ctx, z)
     assert torch.equal(lin.linear_apply(*args, heads=8, scale=32 ** -0.5),
                        lin.linear_apply(*args, heads=8, scale=32 ** -0.5))
+
+
+def test_guided_eps_at_the_eval_chunk(cuda):
+    """chip_smoke.py phase 6's kernel check: the flagship's guided eps at
+    the eval CLI's chunk of 4 videos (CFG 8: temporal batch 8, 88 linear
+    frames) through the kernels, 10/8/8 launches, within 0.15 relative L2
+    of the unfused plans (chip_smoke.MODEL_TOL)."""
+    from videometamaterials_tpu_torch.config import ModelConfig
+    from videometamaterials_tpu_torch.sample import build_sampler
+
+    diffusion = build_sampler(ModelConfig(), device="cuda", seed=0)
+    x = _rnd(cuda, 4, 11, 96, 96, 3)
+    t = torch.full((4,), 128, device="cuda")
+    cond = torch.rand((4, 11), generator=cuda, device="cuda") * 2 - 1
+    before = dict(_build.LAUNCH_COUNTS)
+    with torch.no_grad():
+        fused = diffusion.guided_eps(x, t, cond, 5.0)
+        torch.cuda.synchronize()
+        launched = {k: _build.LAUNCH_COUNTS[k] - before[k] for k in before}
+        with diffusion.model.fused_plans(False):
+            unfused = diffusion.guided_eps(x, t, cond, 5.0)
+    assert launched == {**dict.fromkeys(before, 0), "fused_temporal_block": 10,
+                        "linear_stats": 8, "linear_apply": 8}
+    assert torch.isfinite(fused).all()
+    rel = ((fused - unfused).norm() / unfused.norm()).item()
+    assert rel <= 0.15, rel

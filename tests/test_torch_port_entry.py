@@ -1,7 +1,7 @@
 """PyTorch port, entry points and package rules: the GPU is the default
 device (no quiet CPU fallback), the sampler CLI runs end to end on the CPU
-when asked to, and no source of the port imports JAX, flax, yaml (outside
-the lazy model.yaml reader), msgpack, PIL, imageio or the JAX package."""
+when asked to, and no source of the port imports JAX, flax, yaml, msgpack,
+PIL, imageio or the JAX package."""
 
 import ast
 import json
@@ -119,9 +119,6 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     sources.append(ROOT / "chip_smoke.py")
     assert len(sources) > 15
     for path in sources:
-        for module, func in _imports(path):
+        for module, _ in _imports(path):
             top = module.split(".")[0]
-            if top == "yaml" and path.name == "config.py" \
-                    and func == "load_model_yaml":
-                continue        # the lazy reader of model.yaml (CPU tests)
             assert top not in FORBIDDEN, f"{path}: imports {module}"

@@ -2,17 +2,25 @@
 the JAX package).
 
 The fields of videometamaterials_tpu/config.py:ModelConfig (:23-113) that
-sampling and the train step read, and the port's TrainerConfig (:123-160,
-the fields the train step reads). The defaults are the flagship
-`model.yaml`: dim 64, mults (1, 2, 4, 8), 8 heads x 32, per-frame
-self-stacked conditioning, 3 channels x 11 frames x 96 x 96, bf16
-activations over fp32 parameters, both fused kernel families on at every
-level, and training on the unfused plans.
+sampling, the train step and the artifact export read, and the port's
+TrainerConfig (:123-160, the fields the train step reads). The defaults
+are the flagship `model.yaml`: dim 64, mults (1, 2, 4, 8), 8 heads x 32,
+per-frame self-stacked conditioning, 3 channels x 11 frames x 96 x 96,
+bf16 activations over fp32 parameters, both fused kernel families on at
+every level, and training on the unfused plans.
+
+model.yaml is read and written by a reader and writer of the YAML subset
+that model.yaml, model_euler.yaml and `yaml.safe_dump` of a config use
+(`load_yaml`, `dump_yaml`; no yaml package): top-level `key: value` lines,
+plain and quoted scalars resolved as PyYAML's safe loader resolves them,
+block and flow lists of scalars, and comments. Anything else raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import re
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Sequence
@@ -26,6 +34,7 @@ class ModelConfig:
     train_timesteps: int = 256
     sampling_timesteps: int = 256             # < train_timesteps = DDIM
     use_dynamic_thres: bool = True
+    reference_frame: str = "lagrangian"       # 'lagrangian' | 'eulerian'
     padding_mode: str = "zeros"
     unet_dim: int = 64
     unet_attn_dim_head: int = 32
@@ -119,22 +128,170 @@ class TrainerConfig:
         return dataclasses.replace(self, **kw)
 
 
-# Keys of model.yaml the port does not read (data and artifacts, DDIM, the
-# TPU scan chunking and temporal tiling, remat, the conditioning modes that
-# per-frame conditioning overrides): accepted by the reader and dropped.
+# Keys of model.yaml the port does not read (DDIM, the TPU scan chunking
+# and temporal tiling, remat, the conditioning modes that per-frame
+# conditioning overrides): accepted by the reader and dropped.
 _UNREAD_KEYS = frozenset((
-    "reference_frame", "ddim_sampling_eta", "unet_cond_attention",
-    "unet_cond_att_GRU", "unet_cond_attention_tokens", "sample_scan_chunk",
-    "temporal_s_tile", "remat_blocks",
+    "ddim_sampling_eta", "unet_cond_attention", "unet_cond_att_GRU",
+    "unet_cond_attention_tokens", "sample_scan_chunk", "temporal_s_tile",
+    "remat_blocks",
 ))
+
+# ------------------------------------------------------ the YAML subset
+
+# PyYAML's YAML 1.1 resolver for plain scalars, on the forms the subset
+# takes (decimal ints, floats with a dot, .inf and .nan)
+_INT = re.compile(r"[-+]?(?:0|[1-9][0-9_]*)$")
+_FLOAT = re.compile(r"[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+][0-9]+)?$"
+                    r"|\.[0-9_]+(?:[eE][-+][0-9]+)?$"
+                    r"|[-+]?\.(?:inf|Inf|INF)$|\.(?:nan|NaN|NAN)$")
+_NULL = ("", "~", "null", "Null", "NULL")
+_BOOL = {"true": True, "True": True, "TRUE": True,
+         "false": False, "False": False, "FALSE": False}
+# plain scalars PyYAML resolves to something the subset does not take
+# (YAML 1.1 booleans, other int bases, sexagesimal numbers)
+_UNSUPPORTED = re.compile(
+    r"(?:y|Y|yes|Yes|YES|n|N|no|No|NO|on|On|ON|off|Off|OFF)$"
+    r"|[-+]?0[0-9bxo_]|[-+]?[0-9][0-9_]*(?::[0-5]?[0-9])+")
+_KEY = re.compile(r"([A-Za-z_][A-Za-z0-9_]*):(?:[ \t]+(.*))?$")
+
+
+def _strip_comment(line: str) -> str:
+    """The line without its comment: a '#' at the start or after a space,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i].rstrip()
+    return line.rstrip()
+
+
+def _scalar(text: str, where: str):
+    text = text.strip()
+    if text[:1] == "'":
+        if len(text) < 2 or text[-1] != "'" or "'" in text[1:-1].replace(
+                "''", ""):
+            raise ValueError(f"{where}: bad single-quoted scalar {text!r}")
+        return text[1:-1].replace("''", "'")
+    if text[:1] == '"':
+        if len(text) < 2 or text[-1] != '"' or any(
+                c in text[1:-1] for c in '"\\'):
+            raise ValueError(f"{where}: unsupported double-quoted scalar "
+                             f"{text!r}")
+        return text[1:-1]
+    if text in _NULL:
+        return None
+    if text in _BOOL:
+        return _BOOL[text]
+    if _INT.match(text):
+        return int(text.replace("_", ""))
+    if _FLOAT.match(text):
+        low = text.replace("_", "").lower()
+        if low.endswith("inf"):
+            return -math.inf if low.startswith("-") else math.inf
+        return math.nan if low == ".nan" else float(low)
+    if _UNSUPPORTED.match(text) or text[0] in "[]{},&*!|>%@`-?:" \
+            or ": " in text or " #" in text:
+        raise ValueError(f"{where}: unsupported YAML scalar {text!r}")
+    return text
+
+
+def load_yaml(text: str, source: str = "<yaml>") -> dict:
+    """A mapping of scalars and lists of scalars from the YAML subset
+    (equal to what yaml.safe_load gives for it); raises on the rest."""
+    out: dict = {}
+    pending = None                  # key whose block list is open
+    blocks = set()                  # keys with no value on their line
+    for n, raw in enumerate(text.splitlines(), 1):
+        where = f"{source}:{n}"
+        line = _strip_comment(raw)
+        if not line.strip():
+            continue
+        if "\t" in raw[:len(raw) - len(raw.lstrip())]:
+            raise ValueError(f"{where}: tab indentation")
+        item = re.match(r"([ ]*)- (.*)$|([ ]*)-$", line)
+        if item:
+            if pending is None:
+                raise ValueError(f"{where}: list item outside a list")
+            value = item.group(2) or ""
+            if value.lstrip()[:1] in ("[", "{") or re.match(
+                    r"-( |$)", value.lstrip()) or _KEY.match(value.strip()):
+                raise ValueError(f"{where}: nested collections are not "
+                                 "supported")
+            out[pending].append(_scalar(value, where))
+            continue
+        if line[0] in " \t":
+            raise ValueError(f"{where}: nested mappings are not supported")
+        m = _KEY.match(line)
+        if not m:
+            raise ValueError(f"{where}: not a 'key: value' line: {line!r}")
+        key, value = m.group(1), (m.group(2) or "").strip()
+        if key in out:
+            raise ValueError(f"{where}: duplicate key {key!r}")
+        pending = None
+        if not value:
+            out[key] = []
+            pending = key
+            blocks.add(key)
+        elif value[0] == "[":
+            if value[-1] != "]" or "[" in value[1:] or "{" in value:
+                raise ValueError(f"{where}: unsupported flow list {value!r}")
+            body = value[1:-1].strip()
+            out[key] = [_scalar(v, where) for v in body.split(",")] \
+                if body else []
+        else:
+            out[key] = _scalar(value, where)
+    # a key with neither a value nor list items is null, as in YAML
+    return {k: None if k in blocks and not v else v for k, v in out.items()}
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v).lower()
+        if "." not in text and "e" in text:
+            text = text.replace("e", ".0e", 1)      # YAML 1.1 needs the dot
+        return text
+    if isinstance(v, str):
+        if "\n" in v:
+            raise ValueError(f"multi-line string {v!r}")
+        return "'" + v.replace("'", "''") + "'"
+    raise TypeError(f"cannot write {type(v).__name__} as a YAML scalar")
+
+
+def dump_yaml(d: dict) -> str:
+    """The YAML subset's text of a mapping of scalars and lists of scalars
+    (block lists, quoted strings), which yaml.safe_load reads back equal."""
+    lines = []
+    for k, v in d.items():
+        if not _KEY.match(f"{k}:"):
+            raise ValueError(f"bad key {k!r}")
+        if isinstance(v, (list, tuple)):
+            lines.append(f"{k}: []" if not v else f"{k}:")
+            lines.extend(f"- {_dump_scalar(x)}" for x in v)
+        else:
+            lines.append(f"{k}: {_dump_scalar(v)}")
+    return "\n".join(lines) + "\n"
 
 
 def load_model_yaml(path: str | Path) -> ModelConfig:
-    """Read a model.yaml. `yaml` is imported here only: the tests read the
-    repo's model.yaml with it; nothing on the GPU path calls this."""
-    import yaml
-
-    raw = yaml.safe_load(Path(path).read_text()) or {}
+    """Read a model.yaml (the JAX package's keys; those the port does not
+    read are dropped, unknown keys raise)."""
+    raw = load_yaml(Path(path).read_text(), str(path)) or {}
     known = {f.name for f in dataclasses.fields(ModelConfig)}
     unknown = set(raw) - known - _UNREAD_KEYS
     if unknown:
@@ -146,6 +303,27 @@ def load_model_yaml(path: str | Path) -> ModelConfig:
         if key in kw:
             kw[key] = tuple(kw[key])
     return ModelConfig(**kw)
+
+
+def save_model_yaml(cfg: ModelConfig, path: str | Path) -> None:
+    """Snapshot a config (every field, in field order)."""
+    d = dataclasses.asdict(cfg)
+    for key in ("selected_channels", "dim_mults"):
+        d[key] = list(d[key])
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Path(path).write_text(dump_yaml(d))
+
+
+def snapshot_run_config(cfg: ModelConfig, run_dir: str | Path) -> Path:
+    """Create runs/<name>/model/model.yaml once; an existing snapshot is
+    kept (it is re-read on resume), as the JAX package does."""
+    run_dir = Path(run_dir)
+    yaml_path = run_dir / "model" / "model.yaml"
+    if yaml_path.exists():
+        return yaml_path
+    (run_dir / "training").mkdir(parents=True, exist_ok=True)
+    save_model_yaml(cfg, yaml_path)
+    return yaml_path
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:

@@ -1,18 +1,18 @@
-"""Weight bridge: the JAX package's flax parameter tree -> this port's
-state dict (reference names and layouts).
+"""Weight bridge between the JAX package's flax parameter tree and this
+port's state dict (reference names and layouts), both ways.
 
-The tree is nested dicts of numpy arrays, as
-`flax.serialization.msgpack_restore` gives it from `ckpt_cache/*.msgpack`
-(pass the variables dict `{'params': ...}` or the params dict itself). The
-key map is this port's own copy of the inverse of the JAX package's
-`training/torch_import.py:build_key_map` for the configurations the port
-builds (zeros padding, per-frame conditioning), with its own copies of the
-layout transforms. Every leaf of the tree must be placed, and the result
-loads into the model with `load_state_dict(strict=True)`.
+The tree is nested dicts of numpy arrays, as `training/msgpack_io.py` (or
+`flax.serialization.msgpack_restore`) gives it from a run checkpoint or a
+`ckpt_cache/*.msgpack` tree (pass the variables dict `{'params': ...}` or
+the params dict itself). The key map is this port's own copy of the
+inverse of the JAX package's `training/torch_import.py:build_key_map` for
+the configurations the port builds (zeros padding, per-frame
+conditioning), with its own copies of the layout transforms and their
+inverses. Every leaf of the tree must be placed, and the result loads
+into the model with `load_state_dict(strict=True)`.
 
-No flax or msgpack here: reading a `.msgpack` file without flax is a later
-slice. `save_state_dict_npz` / `load_state_dict_npz` carry a converted
-state dict to the sampler as one numpy file.
+`load_msgpack_tree` reads a checkpoint's EMA tree; `save_state_dict_npz` /
+`load_state_dict_npz` carry a converted state dict as one numpy file.
 """
 
 from __future__ import annotations
@@ -21,6 +21,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from videometamaterials_tpu_torch.training.msgpack_io import (
+    bfloat16,
+    read_msgpack,
+)
 
 # ------------------------------------------- flax layout -> torch layout
 
@@ -47,6 +52,17 @@ def _gamma(a):            # (C,) -> (1, C, 1, 1, 1)
 
 def _same(a):
     return a
+
+
+# the inverse of each transform: torch layout -> flax layout
+_INVERSE = {
+    _linear: lambda t: t.T,
+    _conv_spatial: lambda t: t[:, :, 0].transpose(2, 3, 1, 0),
+    _conv1x1: lambda t: t[:, :, 0, 0, 0].T,
+    _conv_transpose: lambda t: t[:, :, 0, ::-1, ::-1].transpose(2, 3, 0, 1),
+    _gamma: lambda t: t.reshape(-1),
+    _same: lambda t: t,
+}
 
 
 # ------------------------------------------------------------ name map
@@ -166,6 +182,44 @@ def flax_to_torch_state_dict(tree: dict) -> dict[str, torch.Tensor]:
         raise KeyError(f"flax leaves with no place in the port: "
                        f"{unplaced[:10]}")
     return state
+
+
+def torch_to_flax_tree(state: dict[str, torch.Tensor],
+                       bf16_keys=frozenset()) -> dict:
+    """The inverse of flax_to_torch_state_dict: the variables dict
+    `{'params': ...}` of a port state dict, float32 numpy leaves, and
+    bfloat16 (`msgpack_io.bfloat16`, rounded to nearest even) for the torch
+    keys in bf16_keys (the leaves the JAX inference cast makes bf16:
+    `utils.inference_cast_keys`). Keys sorted, as flax writes them."""
+    num_res = sum(1 for k in state if k.startswith("downs.")
+                  and k.endswith(".0.block1.proj.weight"))
+    mapping = key_map(num_res)
+    unknown = sorted(set(state) - set(mapping))
+    if unknown:
+        raise KeyError(f"state dict keys with no flax leaf: {unknown[:10]}")
+    params: dict = {}
+    for key, tensor in state.items():
+        path, transform = mapping[key]
+        arr = np.ascontiguousarray(_INVERSE[transform](
+            tensor.detach().cpu().float().numpy()))
+        node = params
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        node[path[-1]] = bfloat16(arr) if key in bf16_keys else arr
+    return {"params": _sorted(params)}
+
+
+def _sorted(tree: dict) -> dict:
+    """Keys in sorted order at every level, as flax writes a tree."""
+    return {k: _sorted(v) if isinstance(v, dict) else v
+            for k, v in sorted(tree.items())}
+
+
+def load_msgpack_tree(path) -> dict:
+    """The EMA parameter tree of a `.msgpack` checkpoint: a run checkpoint
+    (`runs/<name>/model/step_<N>/checkpoint.msgpack`: step, params,
+    opt_state, ema_params) or a `ckpt_cache` tree (step, ema_params)."""
+    return read_msgpack(path)["ema_params"]
 
 
 def save_state_dict_npz(state: dict[str, torch.Tensor], path) -> None:

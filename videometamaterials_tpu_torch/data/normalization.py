@@ -1,6 +1,7 @@
 """Column-wise label normalizer (numpy), the port's own copy of
 videometamaterials_tpu/data/normalization.py: target curves are normalised
-with the checkpoint's `labels_scaling` (`ckpt_cache/*.aux.json`).
+with the `labels_scaling` fitted on the training folder's curves
+(`data/dataset.py`), which checkpoints carry in aux.json.
 
 Strategies: min-max-1, min-max-2, global-min-max-1, global-min-max-2 (the
 stress-strain labels), mean-std (std with ddof=1), none.
@@ -25,6 +26,18 @@ class Normalization:
     globalmin: float
     globalmax: float
     strategy: str
+
+    @classmethod
+    def fit(cls, data, strategy: str = "global-min-max-2") -> "Normalization":
+        """Column statistics of (N, L) data, in float32 as the JAX package
+        fits them (std with ddof=1)."""
+        if strategy not in STRATEGIES:
+            raise ValueError(f"Incorrect normalization strategy: {strategy}")
+        data = np.asarray(data, dtype=np.float32)
+        return cls(mu=data.mean(axis=0), std=data.std(axis=0, ddof=1),
+                   min=data.min(axis=0), max=data.max(axis=0),
+                   globalmin=float(data.min()), globalmax=float(data.max()),
+                   strategy=strategy)
 
     def normalize(self, data):
         s = self.strategy
@@ -55,6 +68,12 @@ class Normalization:
         if s == "mean-std":
             return data * self.std + self.mu
         return data
+
+    def to_dict(self) -> dict:
+        return {"mu": self.mu.tolist(), "std": self.std.tolist(),
+                "min": self.min.tolist(), "max": self.max.tolist(),
+                "globalmin": self.globalmin, "globalmax": self.globalmax,
+                "strategy": self.strategy}
 
     @classmethod
     def from_dict(cls, d: dict) -> "Normalization":

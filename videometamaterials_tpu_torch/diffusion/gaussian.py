@@ -57,7 +57,8 @@ class GaussianDiffusion:
     @classmethod
     def from_config(cls, model, cfg, device) -> "GaussianDiffusion":
         if cfg.sampling_timesteps < cfg.train_timesteps:
-            raise NotImplementedError("DDIM sampling is not ported yet")
+            raise NotImplementedError("DDIM sampling is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 5)")
         return cls(model, image_size=cfg.image_size,
                    num_frames=cfg.num_frames, channels=cfg.channels,
                    timesteps=cfg.train_timesteps,

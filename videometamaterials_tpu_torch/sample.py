@@ -1,19 +1,22 @@
 """Guided sampling entry point of the port.
 
-    python -m videometamaterials_tpu_torch.sample --out-dir OUT [--weights W.npz]
+    python -m videometamaterials_tpu_torch.sample --out-dir OUT
+        [--config model.yaml] [--checkpoint X.msgpack | --weights W.npz]
         [--targets T.csv --labels-scaling CKPT.aux.json] [--batch B]
         [--guidance-scale 5] [--seed 0] [--num-steps N] [--device cuda]
 
-Builds the flagship UNet3D (model.yaml), with weights from a converted
-state dict (`convert.save_state_dict_npz`) or seeded random weights, and
-samples one video per conditioning curve under classifier-free guidance on
-the full DDPM chain with dynamic thresholding. Conditioning is a CSV of
-target stress-strain curves (normalised with the checkpoint's
-labels_scaling; 51-point curves are interpolated to the frame count) or,
-without targets, B seeded uniform curves in [-1, 1] (the JAX bench's
-conditioning). Writes videos.npy (B, F, H, W, C) in [0, 1], cond.npy and
-sample.json into OUT. GIF and geometries.csv export waits for a later
-slice. Runs on the GPU unless --device names another device.
+Builds the UNet3D of the config (the flagship model.yaml by default), with
+the EMA weights of a `.msgpack` checkpoint (a run checkpoint or a
+`ckpt_cache` tree), a converted state dict (`convert.save_state_dict_npz`)
+or seeded random weights, and samples one video per conditioning curve
+under classifier-free guidance on the full DDPM chain with dynamic
+thresholding. Conditioning is a CSV of target stress-strain curves
+(normalised with the checkpoint's labels_scaling; 51-point curves are
+interpolated to the frame count) or, without targets, B seeded uniform
+curves in [-1, 1] (the JAX bench's conditioning). Writes videos.npy (B, F,
+H, W, C) in [0, 1], cond.npy and sample.json into OUT; the GIFs and
+geometries.csv of a run come from `videometamaterials_tpu_torch.main`.
+Runs on the GPU unless --device names another device.
 """
 
 from __future__ import annotations
@@ -26,8 +29,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from videometamaterials_tpu_torch.config import ModelConfig, resolve_device
-from videometamaterials_tpu_torch.convert import load_state_dict_npz
+from videometamaterials_tpu_torch.config import (
+    ModelConfig,
+    load_model_yaml,
+    resolve_device,
+)
+from videometamaterials_tpu_torch.convert import (
+    flax_to_torch_state_dict,
+    load_msgpack_tree,
+    load_state_dict_npz,
+)
 from videometamaterials_tpu_torch.data.normalization import (
     Normalization,
     interpolate_labels,
@@ -65,7 +76,12 @@ def target_cond(targets_csv, labels_scaling: dict,
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out-dir", required=True)
-    ap.add_argument("--weights", help="converted state dict (.npz)")
+    ap.add_argument("--config", help="model.yaml (default: the flagship)")
+    weights_arg = ap.add_mutually_exclusive_group()
+    weights_arg.add_argument("--checkpoint",
+                             help="run checkpoint or ckpt_cache tree "
+                                  "(.msgpack): its EMA weights")
+    weights_arg.add_argument("--weights", help="converted state dict (.npz)")
     ap.add_argument("--targets", help="CSV of target stress-strain curves")
     ap.add_argument("--labels-scaling",
                     help="checkpoint aux.json holding labels_scaling")
@@ -78,9 +94,13 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None)
     args = ap.parse_args(argv)
 
-    cfg = ModelConfig()
+    cfg = load_model_yaml(args.config) if args.config else ModelConfig()
     dev = resolve_device(args.device)
-    weights = load_state_dict_npz(args.weights) if args.weights else None
+    weights = None
+    if args.checkpoint:
+        weights = flax_to_torch_state_dict(load_msgpack_tree(args.checkpoint))
+    elif args.weights:
+        weights = load_state_dict_npz(args.weights)
     diffusion = build_sampler(cfg, device=dev, weights=weights,
                               seed=args.seed)
     if args.targets:
@@ -111,7 +131,8 @@ def main(argv=None) -> dict:
             "num_steps": args.num_steps or cfg.train_timesteps,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else str(dev)),
-            "weights": args.weights or f"seed {args.seed}"}
+            "weights": (args.checkpoint or args.weights
+                        or f"seed {args.seed}")}
     (out / "sample.json").write_text(json.dumps(meta, indent=1))
     print(json.dumps(meta))
     return meta

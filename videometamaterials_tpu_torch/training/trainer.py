@@ -10,13 +10,20 @@ on the updated parameters.
 The plan split of the JAX Trainer (:76-95): unless the model config sets
 fused_blocks_in_training, the loss runs every attention block on its
 unfused plan, on the same parameters (UNet3D.fused_plans); sampling keeps
-the fused plans. Folders of GIFs, checkpoints and milestones wait for the
-data and checkpoint slice.
+the fused plans.
+
+Target evaluation (JAX trainer.py:456-570): `sample_videos` samples a
+conditioning batch in chunks under CFG, `eval_target` samples every target
+curve num_preds times and writes the artifacts under
+runs/<name>/eval_target_w_<w>[_phi_<phi>]_<i>/step_<step>/. Folders of
+GIFs, milestones and the training loop wait for the training slice.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
@@ -24,7 +31,12 @@ import torch
 
 from videometamaterials_tpu_torch.config import ModelConfig, TrainerConfig
 from videometamaterials_tpu_torch.data.loader import InfiniteBatchSampler
+from videometamaterials_tpu_torch.data.normalization import (
+    Normalization,
+    interpolate_labels,
+)
 from videometamaterials_tpu_torch.diffusion.gaussian import GaussianDiffusion
+from videometamaterials_tpu_torch.training.artifacts import save_preds
 from videometamaterials_tpu_torch.training.optim import (
     clip_by_global_norm_,
     make_adam,
@@ -131,3 +143,94 @@ class Trainer:
             labels.to(self.device), self.tcfg,
             fused_in_training=self.mcfg.fused_blocks_in_training,
             generator=self.generator)
+
+
+# ----------------------------------------------------------- target eval
+
+
+def sampling_chunk(test_batch_size: int) -> int:
+    """Videos a sampling call takes: half the test batch, as the JAX
+    trainer (and the reference, vddp.py:1460) halves it on one device."""
+    return max(test_batch_size // 2, 1)
+
+
+def chunk_generator(seed: int, index: int, device) -> torch.Generator:
+    """The random stream of sampling chunk `index` under `seed`."""
+    state = np.random.SeedSequence([seed, index]).generate_state(2)
+    return torch.Generator(device=device).manual_seed(
+        int(state[0]) << 32 | int(state[1]))
+
+
+def sample_videos(diffusion: GaussianDiffusion, cond: np.ndarray,
+                  guidance_scale: float, *, chunk: int, seed: int = 0,
+                  cfg_rescale: float | None = None) -> np.ndarray:
+    """Guided DDPM samples (n, F, H, W, C) in [0, 1] of a conditioning batch
+    (n, F): chunks of `chunk` curves (the last padded by repeating its last
+    curve, the padding dropped), each from its own generator."""
+    cond = np.asarray(cond, np.float32)
+    n = len(cond)
+    rem = (-n) % chunk
+    if rem:
+        cond = np.concatenate([cond, np.repeat(cond[-1:], rem, axis=0)])
+    outs = []
+    for i in range(0, len(cond), chunk):
+        gen = chunk_generator(seed, i // chunk, diffusion.device)
+        videos = diffusion.sample(torch.from_numpy(cond[i:i + chunk]),
+                                  guidance_scale, generator=gen,
+                                  cfg_rescale=cfg_rescale)
+        outs.append(videos.float().cpu().numpy())
+    return np.concatenate(outs)[:n]
+
+
+def eval_target_dir(results_folder: str | Path, step: int,
+                    guidance_scale: float, cfg_rescale: float) -> Path:
+    """runs/<name>/eval_target_w_<w>[_phi_<phi>]_<i>/step_<step> with the
+    first index i whose step directory does not exist yet (phi in the name
+    only when it is not 0)."""
+    mode = f"eval_target_w_{guidance_scale}"
+    phi = float(f"{float(cfg_rescale):.6g}")
+    if phi != 0.0:
+        mode += f"_phi_{phi}"
+    i = 0
+    while (Path(results_folder) / f"{mode}_{i}" / f"step_{step}").exists():
+        i += 1
+    return Path(results_folder) / f"{mode}_{i}" / f"step_{step}"
+
+
+def eval_target(diffusion: GaussianDiffusion, cfg: ModelConfig,
+                results_folder: str | Path, step: int,
+                target_labels: str | Path, labels_scaling: Normalization,
+                zero_u_2: float | None, *, guidance_scale: float,
+                num_preds: int, chunk: int, seed: int = 0,
+                cfg_rescale: float | None = None):
+    """Guided generation for the target curves of a CSV (one 51-point
+    curve a row, or one value a frame): each curve num_preds times,
+    artifacts (gifs/prediction_channel_<c>.gif, geometries.csv) written to
+    a new eval_target directory. Returns (that directory, the videos, the
+    sampling seconds), or None when the targets cannot be read."""
+    phi = diffusion.cfg_rescale if cfg_rescale is None else cfg_rescale
+    mode_dir = eval_target_dir(results_folder, step, guidance_scale, phi)
+    (mode_dir / "gifs").mkdir(parents=True, exist_ok=True)
+    try:
+        targets = np.genfromtxt(target_labels, delimiter=",")
+    except OSError:
+        print("Could not load target labels.")
+        return None
+    if targets.ndim == 1:
+        targets = targets[None, :]
+    if cfg.per_frame_cond:
+        if targets.shape[1] != cfg.num_frames:
+            targets = interpolate_labels(targets, cfg.num_frames)
+    else:
+        targets = targets[:, 1:]
+    cond = labels_scaling.normalize(targets.astype(np.float32)
+                                    ).astype(np.float32)
+    t0 = time.perf_counter()
+    videos = sample_videos(diffusion, np.repeat(cond, num_preds, axis=0),
+                           guidance_scale, chunk=chunk, seed=seed,
+                           cfg_rescale=cfg_rescale)
+    seconds = time.perf_counter() - t0
+    save_preds(videos, mode_dir, list(cfg.selected_channels),
+               num_samples=len(cond), reference_frame=cfg.reference_frame,
+               num_frames=cfg.num_frames, zero_u_2=zero_u_2)
+    return mode_dir, videos, seconds

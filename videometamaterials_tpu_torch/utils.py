@@ -25,14 +25,27 @@ from videometamaterials_tpu_torch.models.unet3d import (
 _CAST_LINEARS = frozenset(("to_q", "to_k", "to_v", "to_out"))
 
 
+def _cast_modules(model: nn.Module):
+    """(name, module) of the modules whose parameters the cast covers."""
+    for name, module in model.named_modules():
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(module, (SpatialConv, SpatialConvTranspose, Conv1x1)) \
+                or (isinstance(module, nn.Linear) and leaf in _CAST_LINEARS):
+            yield name, module
+
+
 @torch.no_grad()
 def cast_params_for_inference(model: nn.Module,
                               dtype: torch.dtype = torch.bfloat16) -> nn.Module:
     """Cast the allowlisted parameters of `model` to `dtype` in place (for
     a model that only samples) and return it."""
-    for name, module in model.named_modules():
-        leaf = name.rsplit(".", 1)[-1]
-        if isinstance(module, (SpatialConv, SpatialConvTranspose, Conv1x1)) \
-                or (isinstance(module, nn.Linear) and leaf in _CAST_LINEARS):
-            module.to(dtype)
+    for _, module in _cast_modules(model):
+        module.to(dtype)
     return model
+
+
+def inference_cast_keys(model: nn.Module) -> frozenset[str]:
+    """The state-dict keys cast_params_for_inference casts: the leaves the
+    committed `ckpt_cache` trees hold in bfloat16."""
+    return frozenset(f"{name}.{p}" for name, module in _cast_modules(model)
+                     for p, _ in module.named_parameters())
