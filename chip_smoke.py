@@ -77,6 +77,20 @@ Phases, each printing its wall time as it finishes:
              RESUME_TOL of run A's; and a cache-restored step refused.
              Prints step ms, the milestone's parts and the checkpoint's
              seconds, and peak memory
+  8 ddim     the flagship's seeded weights written as the reference's
+             checkpoint.pt (denoise_fn. keys, 4-d Conv2d weights, the
+             schedule buffers, online and EMA weights) and imported bit
+             for bit; the eval CLI in-process on it (--skip-train
+             --torch-checkpoint --sampling-timesteps 64 --guidance-arms
+             5,2:0.7, 2 targets x 2 predictions, one chunk of 4): each
+             arm one sampling call of exactly 64 DDIM steps at 10/8/8
+             launches a step, its sampler the imported EMA (bf16 where
+             the inference cast casts), eval_target_w_5.0_0 and
+             eval_target_w_2.0_phi_0.7_0 with GIFs equal to the videos
+             and 4-row geometries.csv, each arm's chain seconds beside
+             phase 6's DDPM-256; then interpolate at batch 2 from t = 32
+             on that sampler (32 steps of 10/8/8 launches, finite, the
+             right shape)
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -1525,6 +1539,222 @@ def phase_train_cli(smi: str, report: dict, step_ms_phase5: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+DDIM_STEPS = 64         # phase 8's DDIM chain
+INTERP_T = 32           # phase 8's interpolate: noised to t, t steps back
+# the reference's SpatialLinearAttention holds its 1x1 projections as
+# Conv2d weights (O, I, 1, 1); the port's are (O, I, 1, 1, 1)
+_CONV2D_KEY = r"(downs|ups)\.\d+\.2\.fn\.fn\.to_(qkv|out)\.weight"
+
+
+def reference_checkpoint(path: Path, cfg, seed: int = 9) -> dict:
+    """Write the flagship's seeded weights as the reference's
+    checkpoint.pt ({model, ema, optimizer, steps}; keys under denoise_fn.,
+    the Conv2d weights 4-d, the diffusion's schedule buffers beside them;
+    the online weights the EMA's negated) and return the EMA's state
+    dict."""
+    import re
+
+    import torch
+
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.schedules import make_schedule
+
+    model = build_unet(cfg, device="cpu", seed=seed)
+    ema = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    schedule = make_schedule(cfg.train_timesteps, "cpu")
+    buffers = {f"denoise_fn.{k}": v for k, v in vars(schedule).items()}
+
+    def reference(state):
+        out = {}
+        for k, v in state.items():
+            if re.fullmatch(_CONV2D_KEY, k):
+                v = v.reshape(v.shape[:4])
+            out[f"denoise_fn.{k}"] = v
+        return {**out, **buffers}
+
+    torch.save({"model": reference({k: -v for k, v in ema.items()}),
+                "ema": reference(ema),
+                "optimizer": {"state": {}, "param_groups": []},
+                "steps": 0}, path)
+    return ema
+
+
+def phase_ddim(smi: str, report: dict, ddpm_chain_s: float) -> dict:
+    """8 ddim: a reference checkpoint.pt imported bit for bit, the eval
+    CLI on it with two guidance arms of the DDIM-64 chain, then
+    interpolate on its bf16 sampler."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videometamaterials_tpu_torch import main as cli
+    from videometamaterials_tpu_torch.config import ModelConfig
+    from videometamaterials_tpu_torch.data.gif_io import gif_to_array
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.models.unet3d import (
+        state_dict_template,
+    )
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.training.artifacts import (
+        make_grid_video,
+    )
+    from videometamaterials_tpu_torch.training.torch_import import (
+        load_reference_weights,
+    )
+    from videometamaterials_tpu_torch.utils import inference_cast_keys
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_ddim_", dir=ROOT / "build"))
+    cfg = ModelConfig()
+    calls, samplers, step_log = [], [], []
+    ddim_sample, ddim_step = GaussianDiffusion.ddim_sample, \
+        GaussianDiffusion.ddim_step
+    build = cli.build_sampler
+
+    def counted_sample(self, *a, **kw):
+        steps0, before = len(step_log), dict(_build.LAUNCH_COUNTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ddim_sample(self, *a, **kw)
+        torch.cuda.synchronize()
+        calls.append({"seconds": time.perf_counter() - t0,
+                      "steps": len(step_log) - steps0,
+                      "launches": {k: _build.LAUNCH_COUNTS[k] - before[k]
+                                   for k in before}})
+        return out
+
+    def counted_step(self, *a, **kw):
+        step_log.append(a[1:3])
+        return ddim_step(self, *a, **kw)
+
+    GaussianDiffusion.ddim_sample = counted_sample
+    GaussianDiffusion.ddim_step = counted_step
+    cli.build_sampler = lambda *a, **kw: samplers.append(build(*a, **kw)) \
+        or samplers[-1]
+    try:
+        # (a) the reference checkpoint.pt, imported bit for bit
+        t0 = time.perf_counter()
+        path = tmp / "checkpoint.pt"
+        ema = reference_checkpoint(path, cfg)
+        got = load_reference_weights(path, state_dict_template(cfg), "ema")
+        if got.keys() != ema.keys() or not all(
+                torch.equal(got[k], v) for k, v in ema.items()):
+            raise AssertionError("checkpoint.pt import differs from the "
+                                 "weights written")
+        online = load_reference_weights(path, state_dict_template(cfg),
+                                        "model")
+        if not all(torch.equal(online[k], -v) for k, v in ema.items()):
+            raise AssertionError("checkpoint.pt's online weights differ")
+        log(f"  checkpoint.pt {path.stat().st_size / 1e6:.1f} MB, "
+            f"{len(ema)} tensors a state dict, imported bit-equal | "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        # (b) the eval CLI: two arms of DDIM-64, 2 targets x 2 predictions
+        t0 = time.perf_counter()
+        data = eval_data(tmp / "data", seed=10)
+        argv = ["--run-name", "ddim", "--runs-root", str(tmp / "runs"),
+                "--data-root", str(data), "--config", str(ROOT / "model.yaml"),
+                "--skip-train", "--torch-checkpoint", str(path),
+                "--sampling-timesteps", str(DDIM_STEPS),
+                "--guidance-arms", "5,2:0.7", "--num-preds", "2",
+                "--test-batch-size", str(2 * EVAL_CHUNK), "--device", "cuda"]
+        _build.reset_launch_counts()
+        out = cli.main(argv)
+        counts = dict(_build.LAUNCH_COUNTS)
+        per_call = {k: EVAL_PER_STEP.get(k, 0) * DDIM_STEPS for k in counts}
+        if len(calls) != 2 or any(c["steps"] != DDIM_STEPS
+                                  or c["launches"] != per_call
+                                  for c in calls):
+            raise AssertionError(f"DDIM sampling calls {calls}, expected "
+                                 f"2 of {DDIM_STEPS} steps with {per_call}")
+        if counts != {k: 2 * v for k, v in per_call.items()}:
+            raise AssertionError(f"DDIM eval CLI: launch counts {counts}")
+        for k, v in per_call.items():
+            report[k]["ddim_launches"] = v
+        sampler = samplers[0]
+        cast = inference_cast_keys(sampler.model)
+        weights = sampler.model.state_dict()
+        for k, v in ema.items():
+            want = v.to(torch.bfloat16) if k in cast else v
+            if not torch.equal(weights[k].cpu(), want):
+                raise AssertionError(f"the CLI's sampler: {k} is not the "
+                                     "imported EMA")
+        run_dir = tmp / "runs" / "ddim"
+        names = ["eval_target_w_5.0_0", "eval_target_w_2.0_phi_0.7_0"]
+        side = 2 * (cfg.image_size + 4)
+        for arm, name in zip(out["arms"], names):
+            d, videos = arm["eval_dir"], arm["videos"]
+            if d != run_dir / name / "step_0":
+                raise AssertionError(f"arm directory {d}")
+            if videos.shape != (4, FRAMES, cfg.image_size, cfg.image_size,
+                                3) or not np.isfinite(videos).all():
+                raise AssertionError(f"arm videos {videos.shape}")
+            grid = make_grid_video(videos, rows=2)
+            for j, ch in enumerate(cfg.selected_channels):
+                frames = gif_to_array(d / "gifs"
+                                      / f"prediction_channel_{ch}.gif")
+                quant = np.clip(np.round(grid[j] * 255.0), 0, 255
+                                ).astype(np.uint8)
+                if frames.shape != (FRAMES, side, side) or \
+                        not np.array_equal(frames, quant):
+                    raise AssertionError(f"{name}: prediction_channel_{ch}"
+                                         ".gif differs from the videos")
+            geoms = np.loadtxt(d / "geometries.csv", delimiter=",")
+            if geoms.shape != (4, (cfg.image_size // 2) ** 2):
+                raise AssertionError(f"{name}: geometries.csv {geoms.shape}")
+        chain = [c["seconds"] for c in calls]
+        log(f"  eval CLI, --guidance-arms 5,2:0.7, DDIM-{DDIM_STEPS} (eta "
+            f"{cfg.ddim_sampling_eta}), chunk {EVAL_CHUNK} (CFG "
+            f"{2 * EVAL_CHUNK}): chains " + " / ".join(
+                f"{s:.2f}s ({4 * 60.0 / s:.3f} videos/min)" for s in chain)
+            + f" against phase 6's DDPM-{cfg.train_timesteps} "
+            f"{ddpm_chain_s:.2f}s ({chain[0] / ddpm_chain_s:.3f} of it) on "
+            f"{smi}; {DDIM_STEPS} steps and {per_call} launches a call; "
+            f"{', '.join(names)} with GIFs equal to the videos | "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        # (c) interpolate on the CLI's bf16 sampler, batch 2, from t = 32
+        t0 = time.perf_counter()
+        videos = torch.from_numpy(out["arms"][0]["videos"]).cuda() * 2 - 1
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        cond = torch.rand((2, FRAMES), generator=gen, device="cuda") * 2 - 1
+        steps0 = len(step_log)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        mixed = sampler.interpolate(videos[:2], videos[2:], t=INTERP_T,
+                                    lam=0.5, guidance_scale=5.0, cond=cond,
+                                    generator=gen)
+        torch.cuda.synchronize()
+        interp_s = time.perf_counter() - t0
+        counts = dict(_build.LAUNCH_COUNTS)
+        want = {k: EVAL_PER_STEP.get(k, 0) * INTERP_T for k in counts}
+        if counts != want or len(step_log) != steps0:
+            raise AssertionError(f"interpolate: launch counts {counts}, "
+                                 f"expected {want}")
+        if tuple(mixed.shape) != (2, FRAMES, cfg.image_size, cfg.image_size,
+                                  3) or not torch.isfinite(mixed).all():
+            raise AssertionError(f"interpolate: {tuple(mixed.shape)}, "
+                                 "finite values expected")
+        log(f"  interpolate, batch 2 (CFG 4), from t = {INTERP_T}: "
+            f"{INTERP_T} steps in {interp_s:.2f}s, launches {counts}, "
+            f"values in [{mixed.min().item():.3f}, {mixed.max().item():.3f}]")
+        log(f"[8 ddim] checkpoint.pt import, DDIM-{DDIM_STEPS} arms "
+            f"{chain[0]:.2f} / {chain[1]:.2f}s against DDPM-"
+            f"{cfg.train_timesteps} {ddpm_chain_s:.2f}s, interpolate "
+            f"{interp_s:.2f}s on {smi}")
+        return {"chain_s": chain, "interp_s": interp_s}
+    finally:
+        GaussianDiffusion.ddim_sample = ddim_sample
+        GaussianDiffusion.ddim_step = ddim_step
+        cli.build_sampler = build
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _flat(tree, prefix=()):
     """(path, float64 array) of every leaf of a nested dict."""
     import numpy as np
@@ -1808,7 +2038,7 @@ def main(argv=None) -> int:
 
     # ---- 6 eval: checkpoint -> CLI -> GIFs and geometries.csv
     t0 = time.perf_counter()
-    phase_eval(smi, report)
+    evaluated = phase_eval(smi, report)
     log(f"[6 eval] passed | {time.perf_counter() - t0:.1f}s")
     torch.cuda.empty_cache()
 
@@ -1816,6 +2046,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_train_cli(smi, report, train["kernel"]["median_ms"])
     log(f"[7 train] passed | {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    # ---- 8 ddim: checkpoint.pt import, DDIM arms, interpolate
+    t0 = time.perf_counter()
+    phase_ddim(smi, report, evaluated["chain_s"])
+    log(f"[8 ddim] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

@@ -5,7 +5,8 @@ predictions, best-of-10 NRMSE).
 
     python scripts/torch_eval_demo.py --cache ckpt_cache/demo4x_step_8000.msgpack
         --data-root data_demo4x --out OUT [--guidance-scale 1]
-        [--num-preds 10] [--test-batch-size 40] [--seed 0] [--device cuda]
+        [--num-preds 10] [--test-batch-size 40] [--seed 0]
+        [--sampling-timesteps S] [--device cuda]
 
 Restores the tree into <work>/runs/<run>/model/step_<N>/ (params := EMA,
 no optimizer state; checkpoint.restore_from_cache), runs the port's eval
@@ -13,10 +14,12 @@ CLI on it (`videometamaterials_tpu_torch.main --skip-train` with the
 flagship model.yaml; labels_scaling and zero_u_2 from
 <data-root>/lagrangian/training), and copies the eval directory's gifs/ and
 geometries.csv to OUT with a summary.json (chain seconds, videos, the
-card's name and power limit). The data root needs only the training
-folder's stress_strain_data.csv and frame_range_data.csv and
-target_responses.csv. Score OUT with scripts/eval_demo_quality.py
---eval-dir OUT --num-preds 10 (it needs the JAX package).
+card's name and power limit); --sampling-timesteps S below the config's
+train_timesteps samples with the S-step DDIM chain. The data root needs
+only the training folder's stress_strain_data.csv and
+frame_range_data.csv and target_responses.csv. Score OUT with
+scripts/eval_demo_quality.py --eval-dir OUT --num-preds 10 (it needs the
+JAX package).
 """
 
 import argparse
@@ -48,6 +51,7 @@ def main() -> dict:
     p.add_argument("--num-preds", type=int, default=10)
     p.add_argument("--test-batch-size", type=int, default=40)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--sampling-timesteps", type=int, default=None)
     p.add_argument("--device", default=None)
     args = p.parse_args()
 
@@ -69,6 +73,8 @@ def main() -> dict:
             "--num-preds", str(args.num_preds),
             "--test-batch-size", str(args.test_batch_size),
             "--seed", str(args.seed)]
+            + (["--sampling-timesteps", str(args.sampling_timesteps)]
+               if args.sampling_timesteps else [])
             + (["--device", args.device] if args.device else []))
         total = time.perf_counter() - t0
         dest = Path(args.out)
@@ -84,6 +90,7 @@ def main() -> dict:
         timeout=60).stdout.strip() if shutil.which("nvidia-smi") else "no GPU"
     summary = {"cache": cache.name, "step": out["step"],
                "guidance_scale": args.guidance_scale,
+               "sampling_timesteps": args.sampling_timesteps,
                "num_preds": args.num_preds,
                "chunk": cli.sampling_chunk(args.test_batch_size),
                "videos": list(out["videos"].shape),

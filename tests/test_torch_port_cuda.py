@@ -652,6 +652,70 @@ def test_guided_eps_at_the_eval_chunk(cuda):
     assert rel <= 0.15, rel
 
 
+def test_ddim_and_interpolate_steps_on_the_kernels(cuda):
+    """The flagship's DDIM-64 steps (the second pair and the last, whose
+    t_next is -1) and a 3-step interpolate at batch 2 through the kernels,
+    10/8/8 launches a step, against the same steps on the unfused plans
+    with the same noise, at phase 3's bound (0.15 relative L2): a DDIM
+    step is linear in the guided eps, so its difference over |d img /
+    d eps| is the eps difference; interpolate's steps are DDPM steps,
+    held on their result."""
+    from videometamaterials_tpu_torch.config import ModelConfig
+    from videometamaterials_tpu_torch.sample import build_sampler
+
+    diffusion = build_sampler(ModelConfig(sampling_timesteps=64,
+                                          ddim_sampling_eta=0.5),
+                              device="cuda", seed=0)
+    assert diffusion.is_ddim_sampling
+    pairs = diffusion.ddim_pairs()
+    assert len(pairs) == 64 and pairs[-1][1] == -1
+    x = _rnd(cuda, 1, 11, 96, 96, 3)
+    noise = _rnd(cuda, 1, 11, 96, 96, 3)
+    cond = torch.rand((1, 11), generator=cuda, device="cuda") * 2 - 1
+    per_step = {"fused_temporal_block": 10, "linear_stats": 8,
+                "linear_apply": 8}
+    for t, t_next in (pairs[1], pairs[-1]):
+        before = dict(_build.LAUNCH_COUNTS)
+        with torch.no_grad():
+            fused = diffusion.ddim_step(x, t, t_next, cond, 5.0, noise)
+            torch.cuda.synchronize()
+            launched = {k: _build.LAUNCH_COUNTS[k] - before[k]
+                        for k in before}
+            with diffusion.model.fused_plans(False):
+                unfused = diffusion.ddim_step(x, t, t_next, cond, 5.0, noise)
+                eps = diffusion.guided_eps(x, torch.full((1,), t,
+                                                         device="cuda"),
+                                           cond, 5.0).float()
+        assert launched == {**dict.fromkeys(before, 0), **per_step}
+        assert torch.isfinite(fused).all()
+        root = math.sqrt(1.0 / float(diffusion._abar[t]) - 1.0)
+        if t_next < 0:
+            gain = root
+        else:
+            sqrt_next, c, _ = diffusion.ddim_coeffs(t, t_next)
+            gain = abs(c - sqrt_next * root)
+        rel = ((fused - unfused).norm() / (gain * eps.norm())).item()
+        assert rel <= 0.15, (t, t_next, rel)
+
+    x1, x2 = _rnd(cuda, 2, 11, 96, 96, 3), _rnd(cuda, 2, 11, 96, 96, 3)
+    noises = [_rnd(cuda, 2, 11, 96, 96, 3) for _ in range(5)]
+    kw = dict(t=3, lam=0.3, guidance_scale=5.0,
+              cond=torch.rand((2, 11), generator=cuda, device="cuda") * 2 - 1,
+              noise1=noises[3], noise2=noises[4], noise_fn=noises.__getitem__)
+    before = dict(_build.LAUNCH_COUNTS)
+    fused = diffusion.interpolate(x1.clamp(-1, 1), x2.clamp(-1, 1), **kw)
+    torch.cuda.synchronize()
+    launched = {k: _build.LAUNCH_COUNTS[k] - before[k] for k in before}
+    assert launched == {**dict.fromkeys(before, 0),
+                        **{k: 3 * v for k, v in per_step.items()}}
+    with diffusion.model.fused_plans(False):
+        unfused = diffusion.interpolate(x1.clamp(-1, 1), x2.clamp(-1, 1),
+                                        **kw)
+    assert torch.isfinite(fused).all()
+    rel = ((fused - unfused).norm() / unfused.norm()).item()
+    assert rel <= 0.15, rel
+
+
 @pytest.mark.parametrize("op", ["conv2d_spatial", "conv_transpose2d_spatial"])
 def test_bf16_convolution_rounds_once_on_the_card(cuda, op):
     """torch's bf16 conv2d on the card rounds the product to bf16 before

@@ -5,7 +5,9 @@ JAX save_checkpoint): the model it samples with gives the JAX model's eps
 on the checkpoint's EMA weights, it writes the eval_target directory
 contract (the index counting up), the same videos give the same files
 through the JAX save_preds, the kernels' plain versions run (no launch),
-and the options it does not port raise."""
+and bad values of the sampler's options are refused."""
+
+import shutil
 
 import jax
 import numpy as np
@@ -171,19 +173,26 @@ def test_cache_restored_run_loads_strictly(run, tmp_path):
                    for p in (tmp_path / "runs" / "wider").iterdir())
 
 
-@pytest.mark.parametrize("extra,match", [
-    (("--torch-checkpoint", "c.pt"), "Queue 1 item 5"),
-    (("--skip-train", "--guidance-arms", "5,2"), "Queue 1 item 5"),
-    (("--skip-train", "--sampling-timesteps", "4"), "Queue 1 item 5"),
-    (("--sampling-timesteps", "4"), "Queue 1 item 5"),
-    (("--skip-train", "--torch-checkpoint", "c.pt"), "Queue 1 item 5"),
+@pytest.mark.parametrize("extra,error,match", [
+    (("--torch-checkpoint", "c.pt"), FileNotFoundError, "c.pt"),
+    (("--skip-train", "--guidance-arms", "5,x"), ValueError, "guidance arm"),
+    (("--skip-train", "--guidance-arms", "5:0.1:2"), ValueError,
+     "guidance arm"),
+    (("--skip-train", "--sampling-timesteps", "9"), ValueError,
+     "sampling_timesteps"),
+    (("--sampling-timesteps", "0"), ValueError, "sampling_timesteps"),
+    (("--skip-train", "--torch-checkpoint", "c.pt"), FileNotFoundError,
+     "c.pt"),
 ])
-def test_unported_options_raise(run, extra, match, tmp_path):
+def test_unported_options_raise(run, extra, error, match, tmp_path):
+    """The sampler's and the import's options refuse a bad value (a
+    missing checkpoint.pt, an arm that is not w or w:phi, more DDIM steps
+    than train steps) before anything is written."""
     root, *_ = run
     argv = ["--run-name", "new", "--runs-root", str(tmp_path / "runs"),
             "--config", str(root / "runs" / "tiny" / "model" / "model.yaml"),
             "--device", "cpu", *extra]
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         cli.main(argv)
     assert not (tmp_path / "runs").exists()
 
@@ -241,3 +250,144 @@ def test_sample_videos_chunks_with_a_stream_each(first_eval):
                                       want.numpy()[:len(got) - 2 * i])
     other = sample_videos(diffusion, cond, 5.0, chunk=2, seed=5)
     assert not np.array_equal(got, other)
+
+
+def test_arm_directories_are_named_as_the_jax_trainer_names_them(tmp_path):
+    """The JAX Trainer's eval_target names an arm's directory from its
+    traced float32 (w, phi) before it reads the targets."""
+    from types import SimpleNamespace
+
+    import jax.numpy as jnp
+
+    from videometamaterials_tpu.training.trainer import Trainer as JTrainer
+    from videometamaterials_tpu_torch.training.trainer import eval_target_dir
+
+    spec = "5,2:0.7,1.5,0.1:0.05"
+    for w, phi, label in cli.parse_arms(spec):
+        fake = SimpleNamespace(
+            tcfg=SimpleNamespace(guidance_scale=5.0),
+            state=SimpleNamespace(step=STEP),
+            diffusion=SimpleNamespace(cfg_rescale=0.3),
+            results_folder=tmp_path / "jax")
+        assert JTrainer.eval_target(
+            fake, tmp_path / "missing.csv", guidance_scale=jnp.float32(w),
+            cfg_rescale=jnp.float32(phi)) is None
+        eval_target_dir(tmp_path / "port", STEP, label, phi).mkdir(
+            parents=True)
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert names == ["eval_target_w_0.1_phi_0.05_0", "eval_target_w_1.5_0",
+                     "eval_target_w_2.0_phi_0.7_0", "eval_target_w_5.0_0"]
+
+
+def test_ddim_arms_write_the_jax_named_directories(run, monkeypatch,
+                                                   capsys):
+    """--guidance-arms 5,2:0.7 --sampling-timesteps 4 on the tiny config
+    (8 train steps): each arm samples the 4-step DDIM chain (2 chunks of
+    2 videos) from the same seed and writes its directory; phi is the
+    arm's, not the config's."""
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+
+    root, *_ = run
+    calls = []
+    step = GaussianDiffusion.ddim_step
+
+    def counted(self, x, t, t_next, cond, w, noise, cfg_rescale=None):
+        calls.append((t, t_next, w, cfg_rescale))
+        return step(self, x, t, t_next, cond, w, noise, cfg_rescale)
+
+    monkeypatch.setattr(GaussianDiffusion, "ddim_step", counted)
+    monkeypatch.setattr(GaussianDiffusion, "p_sample", None)
+    run_dir = root / "runs" / "tiny"
+    index = len(list(run_dir.glob("eval_target_w_5.0_*")))
+    out = cli.main(_argv(root, "--load-model-step", str(STEP),
+                         "--skip-train", "--guidance-arms", "5,2:0.7",
+                         "--sampling-timesteps", "4", "--cfg-rescale",
+                         "0.3"))
+    assert [a["eval_dir"] for a in out["arms"]] == [
+        run_dir / f"eval_target_w_5.0_{index}" / f"step_{STEP}",
+        run_dir / "eval_target_w_2.0_phi_0.7_0" / f"step_{STEP}"]
+    assert out["eval_dir"] == out["arms"][1]["eval_dir"]
+    pairs = [(7, 5), (5, 3), (3, 1), (1, -1)]
+    want = [(t, n, 5.0, 0.0) for _ in range(2) for t, n in pairs] + \
+        [(t, n, 2.0, float(np.float32(0.7))) for _ in range(2)
+         for t, n in pairs]
+    assert calls == want
+    for arm in out["arms"]:
+        d = arm["eval_dir"]
+        assert arm["videos"].shape == (4, 11, 16, 16, 3)
+        assert np.isfinite(arm["videos"]).all()
+        np.testing.assert_array_equal(
+            gif_io.gif_to_array(d / "gifs" / "prediction_channel_0.gif")
+            .shape, (11, 2 * 20, 2 * 20))
+        assert np.genfromtxt(d / "geometries.csv",
+                             delimiter=",").shape == (4, 64)
+    printed = capsys.readouterr().out
+    assert "guidance arm w=5.0 phi=0.0 -> " in printed
+    assert "guidance arm w=2.0 phi=0.7 -> " in printed
+
+
+def _reference_checkpoint(path, model_sd, ema_sd):
+    """checkpoint.pt as the reference writes it: {model, ema, optimizer,
+    steps}, keys under denoise_fn., the schedule buffers beside them."""
+    def ref(sd):
+        out = {f"denoise_fn.{k}": v.clone() for k, v in sd.items()}
+        out["betas"] = torch.linspace(1e-4, 0.02, 8)
+        return out
+
+    torch.save({"model": ref(model_sd), "ema": ref(ema_sd),
+                "optimizer": {"state": {}, "param_groups": []},
+                "steps": 11}, path)
+    return path
+
+
+def test_torch_checkpoint_reaches_the_sampler_and_the_trainer(run, tmp_path):
+    """--skip-train samples from the imported EMA; without it the trainer
+    takes the online weights and the EMA, keeping Adam's state and the
+    step; --load-model-step given as well overrides the import."""
+    root, cfg, _, ema = run
+    rng = np.random.default_rng(9)
+    sd = flax_to_torch_state_dict(jax.device_get(ema))
+    online = {k: v + torch.tensor(rng.standard_normal(v.shape) * 0.01,
+                                  dtype=torch.float32)
+              for k, v in sd.items()}
+    imported = {k: v * 1.5 for k, v in sd.items()}
+    path = _reference_checkpoint(tmp_path / "checkpoint.pt", online,
+                                 imported)
+    samplers = []
+    build = cli.build_sampler
+    cli.build_sampler = lambda *a, **kw: samplers.append(build(*a, **kw)) \
+        or samplers[-1]
+    try:
+        out = cli.main(_argv(root, "--skip-train", "--torch-checkpoint",
+                             str(path), "--skip-eval-target")
+                       [2:] + ["--run-name", "imported", "--config",
+                               str(root / "runs" / "tiny" / "model"
+                                   / "model.yaml")])
+        over = cli.main(_argv(root, "--skip-train", "--torch-checkpoint",
+                              str(path), "--load-model-step", str(STEP),
+                              "--skip-eval-target"))
+    finally:
+        cli.build_sampler = build
+    assert out["step"] == 0 and over["step"] == STEP
+    for sampler, want in ((samplers[0], imported), (samplers[1], sd)):
+        got = sampler.model.state_dict()
+        assert all(torch.equal(got[k], want[k]) for k in want)
+
+    data = tmp_path / "data"
+    shutil.copytree(root / "data", data)
+    shutil.copytree(data / "lagrangian" / "training",
+                    data / "lagrangian" / "validation")
+    out = cli.main(["--run-name", "t", "--runs-root", str(tmp_path / "runs"),
+                    "--data-root", str(data), "--config",
+                    str(root / "runs" / "tiny" / "model" / "model.yaml"),
+                    "--torch-checkpoint", str(path), "--train-num-steps",
+                    "0", "--skip-eval-target", "--device", "cpu"])
+    state = out["trainer"].state
+    assert state.step == 0 and not state.optimizer.state
+    params = dict(state.model.named_parameters())
+    assert all(torch.equal(params[k], online[k]) for k in online)
+    assert all(torch.equal(e, imported[k])
+               for k, e in state.ema_state_dict().items())

@@ -49,6 +49,7 @@ class ModelConfig:
     dim_mults: Sequence[int] = (1, 2, 4, 8)
     init_kernel_size: int = 7
     dynamic_thres_percentile: float = 0.9
+    ddim_sampling_eta: float = 0.0            # DDIM's noise share (0 = DDIM)
     compute_dtype: str = "bfloat16"           # activations; params fp32
     dynamic_thres_method: str = "bisect"      # 'bisect' | 'sort'
     cfg_rescale: float = 0.0                  # CFG-rescale phi, 0 = off
@@ -122,7 +123,7 @@ class TrainerConfig:
     log: bool = True                          # the JAX wandb switch: no wandb
                                               # here, metrics.jsonl either way
     prob_focus_present: float = 0.0
-    checkpoint_backend: str = "msgpack"       # 'orbax' is not ported
+    checkpoint_backend: str = "msgpack"       # 'orbax' needs orbax
     keep_last_checkpoints: int | None = None  # None = keep every milestone
     # the milestone fidelity probe: a target CSV, its first n targets, the
     # predictions per target (best-of-N pixel-curve NRMSE)
@@ -142,18 +143,19 @@ class TrainerConfig:
         if self.checkpoint_backend != "msgpack":
             raise NotImplementedError(
                 f"checkpoint backend {self.checkpoint_backend!r}: only "
-                "'msgpack' is ported (the orbax backend waits for "
-                "ROADMAP.md Queue 1 item 5)")
+                "'msgpack' is ported. The orbax backend needs the orbax "
+                "and tensorstore packages, which the port's installation "
+                "(torch, numpy, scipy) does not have")
 
     def replace(self, **kw) -> "TrainerConfig":
         return dataclasses.replace(self, **kw)
 
 
-# Keys of model.yaml the port does not read (DDIM, the TPU scan chunking
-# and temporal tiling, remat, the conditioning modes that per-frame
+# Keys of model.yaml the port does not read (the TPU scan chunking and
+# temporal tiling, remat, the conditioning modes that per-frame
 # conditioning overrides): accepted by the reader and dropped.
 _UNREAD_KEYS = frozenset((
-    "ddim_sampling_eta", "unet_cond_attention", "unet_cond_att_GRU",
+    "unet_cond_attention", "unet_cond_att_GRU",
     "unet_cond_attention_tokens", "sample_scan_chunk", "temporal_s_tile",
     "remat_blocks",
 ))

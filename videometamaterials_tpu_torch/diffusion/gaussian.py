@@ -1,19 +1,26 @@
 """Gaussian diffusion: classifier-free guidance, dynamic thresholding, the
-DDPM ancestral chain and the training loss.
+DDPM ancestral chain, the DDIM chain, latent interpolation and the
+training loss.
 
-Port of videometamaterials_tpu/diffusion/gaussian.py:132-364 and :491-539.
-The chain is a plain Python loop over timesteps; randomness comes from an
-explicit `torch.Generator`, or is injected (x_T and per-step noise; the
-loss's t, noise and null-conditioning mask) so that a test can drive the
-JAX functions with the same numbers. Videos are (B, F, H, W, C), [0, 1] at
-the API and [-1, 1] inside. DDIM and latent interpolation wait for later
-slices.
+Port of videometamaterials_tpu/diffusion/gaussian.py. The chains are plain
+Python loops over timesteps; randomness comes from an explicit
+`torch.Generator`, or is injected (x_T and per-step noise; the loss's t,
+noise and null-conditioning mask; interpolate's two noises) so that a test
+can drive the JAX functions with the same numbers. Videos are (B, F, H, W,
+C), [0, 1] at the sampling API and [-1, 1] inside.
+
+`sample` runs DDIM when sampling_timesteps is below the train timesteps
+(vddp.py:909-911), as the JAX package does: its DDIM step takes the raw x0
+of the guided eps (no thresholding), steps between the timesteps numpy's
+float64 linspace gives, draws a noise every step (eta = 0 included) and
+returns x0 at the last step.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from videometamaterials_tpu_torch.ops.schedules import extract, make_schedule
@@ -34,7 +41,14 @@ class GaussianDiffusion:
                  dynamic_thres_percentile: float = 0.9,
                  dynamic_thres_method: str = "bisect",
                  cfg_rescale: float = 0.0, cfg_shared_init: bool = True,
-                 loss_type: str = "l1", device: torch.device | str = "cpu"):
+                 loss_type: str = "l1",
+                 sampling_timesteps: Optional[int] = None,
+                 ddim_sampling_eta: float = 0.0,
+                 device: torch.device | str = "cpu"):
+        sampling_timesteps = sampling_timesteps or timesteps
+        if not 0 < sampling_timesteps <= timesteps:
+            raise ValueError(f"sampling_timesteps {sampling_timesteps} not "
+                             f"in [1, {timesteps}]")
         if dynamic_thres_method not in ("bisect", "sort"):
             raise ValueError(f"unknown threshold method "
                              f"{dynamic_thres_method!r}")
@@ -51,14 +65,15 @@ class GaussianDiffusion:
         self.dynamic_thres_method = dynamic_thres_method
         self.cfg_rescale = cfg_rescale
         self.cfg_shared_init = cfg_shared_init
+        self.sampling_timesteps = sampling_timesteps
+        self.ddim_sampling_eta = ddim_sampling_eta
         self.device = torch.device(device)
         self.schedule = make_schedule(timesteps, self.device)
+        # the float32 alphas_cumprod on the host, for the DDIM coefficients
+        self._abar = self.schedule.alphas_cumprod.cpu().numpy()
 
     @classmethod
     def from_config(cls, model, cfg, device) -> "GaussianDiffusion":
-        if cfg.sampling_timesteps < cfg.train_timesteps:
-            raise NotImplementedError("DDIM sampling is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 5)")
         return cls(model, image_size=cfg.image_size,
                    num_frames=cfg.num_frames, channels=cfg.channels,
                    timesteps=cfg.train_timesteps,
@@ -67,7 +82,13 @@ class GaussianDiffusion:
                    dynamic_thres_method=cfg.dynamic_thres_method,
                    cfg_rescale=cfg.cfg_rescale,
                    cfg_shared_init=cfg.cfg_shared_init,
-                   loss_type=cfg.loss_type, device=device)
+                   loss_type=cfg.loss_type,
+                   sampling_timesteps=cfg.sampling_timesteps,
+                   ddim_sampling_eta=cfg.ddim_sampling_eta, device=device)
+
+    @property
+    def is_ddim_sampling(self) -> bool:
+        return self.sampling_timesteps < self.timesteps
 
     def video_shape(self, batch: int) -> tuple:
         return (batch, self.num_frames, self.image_size, self.image_size,
@@ -80,6 +101,14 @@ class GaussianDiffusion:
         nd = x_start.ndim
         return (extract(s.sqrt_alphas_cumprod, t, nd) * x_start
                 + extract(s.sqrt_one_minus_alphas_cumprod, t, nd) * noise)
+
+    def q_mean_variance(self, x_start, t):
+        """Mean, variance and log variance of q(x_t | x_0)."""
+        s = self.schedule
+        nd = x_start.ndim
+        return (extract(s.sqrt_alphas_cumprod, t, nd) * x_start,
+                extract(1.0 - s.alphas_cumprod, t, nd),
+                extract(s.log_one_minus_alphas_cumprod, t, nd))
 
     def predict_start_from_noise(self, x_t, t, noise):
         s = self.schedule
@@ -179,6 +208,19 @@ class GaussianDiffusion:
         drawn from `generator`; step i's noise is noise_fn(i), or drawn.
         num_steps runs only the first steps of the same chain (a partial
         chain for time-bounded checks). Returns videos in [0, 1]."""
+        def step(img, t, noise):
+            t = torch.full((img.shape[0],), t, dtype=torch.long,
+                           device=self.device)
+            return self.p_sample(img, t, cond, guidance_scale, noise,
+                                 cfg_rescale)
+
+        return self._chain(cond, range(self.timesteps - 1, -1, -1), step,
+                           generator, x_T, noise_fn, num_steps)
+
+    def _chain(self, cond, steps, step, generator, x_T, noise_fn, num_steps):
+        """img <- step(img, s, noise) over the first num_steps of `steps`
+        (all without it), from x_T or a drawn start; step i's noise is
+        noise_fn(i) or drawn from `generator`. Returns videos in [0, 1]."""
         shape = self.video_shape(cond.shape[0])
 
         def draw():
@@ -186,21 +228,104 @@ class GaussianDiffusion:
                                device=self.device, dtype=torch.float32)
 
         img = draw() if x_T is None else x_T.to(self.device, torch.float32)
-        steps = range(self.timesteps - 1, -1, -1)
         if num_steps is not None:
             steps = steps[:num_steps]
-        for i, t_scalar in enumerate(steps):
-            t = torch.full((shape[0],), t_scalar, dtype=torch.long,
-                           device=self.device)
-            noise = draw() if noise_fn is None else noise_fn(i)
-            img = self.p_sample(img, t, cond, guidance_scale, noise,
-                                cfg_rescale)
+        for i, s in enumerate(steps):
+            img = step(img, s, draw() if noise_fn is None else noise_fn(i))
         return unnormalize_img(img)
 
+    def ddim_pairs(self) -> list[tuple[int, int]]:
+        """The DDIM chain's (t, t_next) pairs: sampling_timesteps + 1 times
+        from numpy's float64 linspace over [-1, T - 1], truncated toward
+        zero, reversed; the last pair's t_next is -1."""
+        times = np.linspace(-1, self.timesteps - 1,
+                            num=self.sampling_timesteps + 1).astype(np.int64)
+        times = list(reversed(times.tolist()))
+        return list(zip(times[:-1], times[1:]))
+
+    def ddim_coeffs(self, t: int, t_next: int) -> tuple[float, float, float]:
+        """(sqrt(alpha_next), c, sigma) of one DDIM step, in float32 as the
+        JAX step computes them (alpha_next = 1 past the end)."""
+        alpha = self._abar[t]
+        alpha_next = self._abar[t_next] if t_next >= 0 else np.float32(1.0)
+        one = np.float32(1.0)
+        sigma = np.float32(self.ddim_sampling_eta) * np.sqrt(
+            (one - alpha / alpha_next) * (one - alpha_next) / (one - alpha))
+        c = np.sqrt(np.maximum(one - alpha_next - sigma * sigma,
+                               np.float32(0.0)))
+        return float(np.sqrt(alpha_next)), float(c), float(sigma)
+
+    def ddim_step(self, x, t: int, t_next: int, cond, guidance_scale: float,
+                  noise, cfg_rescale: Optional[float] = None):
+        """One DDIM step from t to t_next (x0 at t_next < 0) with the given
+        standard-normal noise; x0 is not thresholded."""
+        b = x.shape[0]
+        t_vec = torch.full((b,), t, dtype=torch.long, device=x.device)
+        eps = self.guided_eps(x, t_vec, cond, guidance_scale,
+                              cfg_rescale).float()
+        x_start = self.predict_start_from_noise(x, t_vec, eps)
+        if t_next < 0:
+            return x_start
+        sqrt_next, c, sigma = self.ddim_coeffs(t, t_next)
+        return x_start * sqrt_next + c * eps + sigma * noise
+
+    @torch.no_grad()
+    def ddim_sample(self, cond, guidance_scale: float, *,
+                    generator: Optional[torch.Generator] = None,
+                    x_T: Optional[torch.Tensor] = None,
+                    noise_fn: Optional[Callable[[int], torch.Tensor]] = None,
+                    num_steps: Optional[int] = None,
+                    cfg_rescale: Optional[float] = None):
+        """The DDIM chain over ddim_pairs(), with the hooks of
+        p_sample_loop (x_T, noise_fn(i) of step i, num_steps). Returns
+        videos in [0, 1]."""
+        def step(img, pair, noise):
+            return self.ddim_step(img, *pair, cond, guidance_scale, noise,
+                                  cfg_rescale)
+
+        return self._chain(cond, self.ddim_pairs(), step, generator, x_T,
+                           noise_fn, num_steps)
+
     def sample(self, cond, guidance_scale: float = 1.0, **kw):
-        """Guided DDPM sampling of len(cond) videos in [0, 1]."""
-        return self.p_sample_loop(cond.to(self.device, torch.float32),
-                                  guidance_scale, **kw)
+        """Guided sampling of len(cond) videos in [0, 1]: DDIM when
+        sampling_timesteps is below the train timesteps, else DDPM."""
+        fn = self.ddim_sample if self.is_ddim_sampling else self.p_sample_loop
+        return fn(cond.to(self.device, torch.float32), guidance_scale, **kw)
+
+    @torch.no_grad()
+    def interpolate(self, x1, x2, t: Optional[int] = None, lam: float = 0.5,
+                    guidance_scale: float = 1.0, cond=None, *,
+                    generator: Optional[torch.Generator] = None,
+                    noise1=None, noise2=None,
+                    noise_fn: Optional[Callable[[int], torch.Tensor]] = None):
+        """Latent interpolation (vddp.py:1020-1034): x1 and x2 (in the
+        model's [-1, 1] space) noised to step t (default T - 1) with noise1
+        and noise2, mixed as (1 - lam) x1_t + lam x2_t, then t ancestral
+        steps from t - 1 down (step i's noise noise_fn(i)); the noises are
+        drawn from `generator` unless given. cond defaults to zeros (b, F),
+        as in the JAX package. Returns the result in [-1, 1]."""
+        t = self.timesteps - 1 if t is None else t
+        b = x1.shape[0]
+        x1 = x1.to(self.device, torch.float32)
+        x2 = x2.to(self.device, torch.float32)
+
+        def draw():
+            return torch.randn(x1.shape, generator=generator,
+                               device=self.device, dtype=torch.float32)
+
+        t_b = torch.full((b,), t, dtype=torch.long, device=self.device)
+        xt1 = self.q_sample(x1, t_b, draw() if noise1 is None else noise1)
+        xt2 = self.q_sample(x2, t_b, draw() if noise2 is None else noise2)
+        img = (1 - lam) * xt1 + lam * xt2
+        if cond is None:
+            cond = torch.zeros((b, self.num_frames), device=self.device)
+        cond = cond.to(self.device, torch.float32)
+        for i, t_scalar in enumerate(range(t - 1, -1, -1)):
+            t_vec = torch.full((b,), t_scalar, dtype=torch.long,
+                               device=self.device)
+            noise = draw() if noise_fn is None else noise_fn(i)
+            img = self.p_sample(img, t_vec, cond, guidance_scale, noise)
+        return img
 
     # ----------------------------------------------------------------- loss
     def p_losses(self, x_start, t, cond, noise, null_cond_mask,

@@ -9,6 +9,8 @@ evaluation.
          [--fidelity-probe-preds Q]] [--load-model-step STEP]
         [--skip-train] [--skip-eval-target] [--target-labels T.csv]
         [--cfg-rescale PHI] [--dynamic-thres-method bisect|sort]
+        [--sampling-timesteps S] [--guidance-arms W[:PHI],...]
+        [--torch-checkpoint checkpoint.pt]
         [--test-batch-size B] [--seed 0] [--no-log] [--device cuda]
 
 The JAX package's main.py (:57-187): the run directory runs/NAME with its
@@ -21,16 +23,21 @@ the validation loss, the fidelity probe on the first K curves of T.csv
 (Q predictions each) and P samples of S validation curves
 (training/step_<k>/), with the losses in metrics.jsonl; the last step is
 saved once. With --skip-train the EMA weights of model/step_STEP are read
-strictly (or seeded weights without a step). Then, unless
+strictly (or seeded weights without a step). --torch-checkpoint imports a
+reference checkpoint.pt first: its online and EMA weights into the
+trainer, or with --skip-train its EMA weights into the sampler; a
+--load-model-step given as well overrides it. Then, unless
 --skip-eval-target, every target curve is sampled P times under
 classifier-free guidance with the fused kernels, in chunks of B // 2
 videos, from a bf16 copy of the EMA weights, and the artifacts are written
-to runs/NAME/eval_target_w_<W>_<i>/step_<k>/ (gifs/prediction_channel_<c>.gif,
-geometries.csv). Runs on the GPU unless --device names another device.
-
---guidance-arms, DDIM (--sampling-timesteps below the train steps),
---torch-checkpoint and the orbax checkpoints raise: they are not ported
-yet (ROADMAP.md Queue 1 item 5).
+to runs/NAME/eval_target_w_<W>[_phi_<PHI>]_<i>/step_<k>/
+(gifs/prediction_channel_<c>.gif, geometries.csv). --sampling-timesteps S
+below the config's train_timesteps samples with the S-step DDIM chain
+(eta = the config's ddim_sampling_eta), milestones included.
+--guidance-arms '5,2:0.7' evaluates each (w, phi) arm in turn (phi 0
+where not given, not the config's cfg_rescale), one directory and one
+printed line an arm, every arm from the same seed. Runs on the GPU unless
+--device names another device.
 """
 
 from __future__ import annotations
@@ -57,21 +64,38 @@ from videometamaterials_tpu_torch.data.dataset import (
     zero_u_2,
 )
 from videometamaterials_tpu_torch.diffusion.gaussian import GaussianDiffusion
-from videometamaterials_tpu_torch.models.unet3d import build_unet
+from videometamaterials_tpu_torch.models.unet3d import (
+    build_unet,
+    state_dict_template,
+)
 from videometamaterials_tpu_torch.sample import build_sampler
 from videometamaterials_tpu_torch.training import checkpoint as ckpt
+from videometamaterials_tpu_torch.training.torch_import import (
+    load_reference_weights,
+)
 from videometamaterials_tpu_torch.training.trainer import (
     Trainer,
     eval_target,
     sampling_chunk,
 )
 
-_NOT_PORTED = {
-    "guidance_arms": "--guidance-arms (several (w, phi) arms of one "
-                     "program): ROADMAP.md Queue 1 item 5",
-    "torch_checkpoint": "--torch-checkpoint (reference checkpoint.pt "
-                        "import): ROADMAP.md Queue 1 item 5",
-}
+
+def parse_arms(spec: str) -> list[tuple[float, float, float]]:
+    """--guidance-arms 'w[:phi],...' -> [(w, phi, w_label)]: w and phi
+    rounded to float32 (the JAX CLI's traced operands), phi 0 where not
+    given, and the directory's w as the JAX Trainer writes it (6
+    significant digits)."""
+    arms = []
+    for arm in spec.split(","):
+        try:
+            values = [float(np.float32(float(v))) for v in arm.split(":")]
+        except ValueError:
+            values = []
+        if not 1 <= len(values) <= 2:
+            raise ValueError(f"guidance arm {arm!r}: not w or w:phi")
+        w, phi = values[0], values[1] if len(values) == 2 else 0.0
+        arms.append((w, phi, float(f"{w:.6g}")))
+    return arms
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -114,12 +138,15 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     """Run the CLI; returns {'eval_dir', 'videos', 'step',
-    'sample_seconds', 'trainer'} (the trainer None with --skip-train; the
-    eval keys None with --skip-eval-target)."""
+    'sample_seconds', 'trainer', 'arms'}: 'arms' a dict an evaluated arm
+    (guidance_scale, cfg_rescale, eval_dir, videos, sample_seconds), the
+    eval keys the last arm's (None with --skip-eval-target), the trainer
+    None with --skip-train."""
     args = _parser().parse_args(argv)
-    for name, what in _NOT_PORTED.items():
-        if getattr(args, name):
-            raise NotImplementedError(f"{what} is not ported yet")
+    arms = parse_arms(args.guidance_arms) if args.guidance_arms else None
+    if args.torch_checkpoint and not Path(args.torch_checkpoint).is_file():
+        raise FileNotFoundError(f"--torch-checkpoint {args.torch_checkpoint}"
+                                ": no such file")
     dev = resolve_device(args.device)
 
     run_dir = Path(args.runs_root) / args.run_name
@@ -135,10 +162,9 @@ def main(argv=None) -> dict:
         ("sampling_timesteps", args.sampling_timesteps),
         ("dynamic_thres_method", args.dynamic_thres_method)) if v is not None}
     cfg = dataclasses.replace(config, **overrides)
-    if cfg.sampling_timesteps < cfg.train_timesteps:
-        raise NotImplementedError(
-            "DDIM sampling (sampling_timesteps below train_timesteps) is "
-            "not ported yet: ROADMAP.md Queue 1 item 5")
+    if not 0 < cfg.sampling_timesteps <= cfg.train_timesteps:
+        raise ValueError(f"sampling_timesteps {cfg.sampling_timesteps} not "
+                         f"in [1, {cfg.train_timesteps}]")
     tcfg = TrainerConfig(
         train_num_steps=args.train_num_steps,
         save_and_sample_every=args.save_and_sample_every,
@@ -154,7 +180,7 @@ def main(argv=None) -> dict:
     data_root = Path(args.data_root)
     data_dir = data_root / cfg.reference_frame / "training"
     out = {"eval_dir": None, "videos": None, "step": 0,
-           "sample_seconds": None, "trainer": None}
+           "sample_seconds": None, "trainer": None, "arms": []}
     if args.skip_train:
         labels_scaling = fit_labels_scaling(data_dir, cfg.num_frames,
                                             cfg.per_frame_cond)
@@ -162,6 +188,10 @@ def main(argv=None) -> dict:
         write_min_max_values(data_dir, ranges)
         zero = zero_u_2(ranges)
         weights = None
+        if args.torch_checkpoint:
+            weights = load_reference_weights(args.torch_checkpoint,
+                                             state_dict_template(cfg), "ema")
+            print(f"imported torch checkpoint from {args.torch_checkpoint}")
         if args.load_model_step is not None:
             raw = ckpt.read_checkpoint(run_dir, args.load_model_step)
             out["step"] = int(np.asarray(raw["step"]))
@@ -177,6 +207,8 @@ def main(argv=None) -> dict:
                           cfg, tcfg, data_dir,
                           data_root / cfg.reference_frame / "validation",
                           results_folder=run_dir)
+        if args.torch_checkpoint:
+            trainer.load_torch_checkpoint(args.torch_checkpoint)
         trainer.train(load_model_step=args.load_model_step,
                       num_samples=args.num_samples,
                       num_preds=args.num_preds)
@@ -188,17 +220,25 @@ def main(argv=None) -> dict:
     if not args.skip_eval_target:
         targets = args.target_labels or str(data_root /
                                             "target_responses.csv")
-        result = eval_target(
-            diffusion, cfg, run_dir, out["step"], targets, labels_scaling,
-            zero, guidance_scale=args.guidance_scale,
-            num_preds=args.num_preds,
-            chunk=sampling_chunk(args.test_batch_size), seed=args.seed)
-        if result is not None:
+        for w, phi, w_label in arms or [(args.guidance_scale, None, None)]:
+            result = eval_target(
+                diffusion, cfg, run_dir, out["step"], targets, labels_scaling,
+                zero, guidance_scale=w, num_preds=args.num_preds,
+                chunk=sampling_chunk(args.test_batch_size), seed=args.seed,
+                cfg_rescale=phi, w_label=w_label)
+            if result is None:
+                break
+            eval_dir, videos, seconds = result
+            if arms:
+                print(f"guidance arm w={w_label} phi={float(f'{phi:.6g}')} "
+                      f"-> {eval_dir}")
+            out["arms"].append({"guidance_scale": w, "cfg_rescale": phi,
+                                "eval_dir": eval_dir, "videos": videos,
+                                "sample_seconds": seconds})
             out["eval_dir"], out["videos"], out["sample_seconds"] = result
             print(json.dumps({
-                "eval_dir": str(out["eval_dir"]), "step": out["step"],
-                "videos": list(out["videos"].shape),
-                "sample_seconds": out["sample_seconds"],
+                "eval_dir": str(eval_dir), "step": out["step"],
+                "videos": list(videos.shape), "sample_seconds": seconds,
                 "device": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else str(dev))}))
     return out

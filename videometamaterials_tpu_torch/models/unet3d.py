@@ -783,3 +783,10 @@ def build_unet(cfg: ModelConfig, *, device=None,
     if seed is not None:
         model.init_weights(torch.Generator().manual_seed(seed))
     return model.to(dev).eval()
+
+
+def state_dict_template(cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The state dict of cfg's model on the meta device: its names and
+    shapes, no data."""
+    with torch.device("meta"):
+        return UNet3D.from_config(cfg).state_dict()

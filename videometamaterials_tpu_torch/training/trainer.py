@@ -26,9 +26,11 @@ Milestones sample from a bf16 copy of the EMA weights; the trained
 parameters stay float32.
 
 Target evaluation (JAX trainer.py:456-570): `sample_videos` samples a
-conditioning batch in chunks under CFG, `eval_target` samples every target
-curve num_preds times and writes the artifacts under
+conditioning batch in chunks under CFG (DDPM or DDIM, as the sampler's
+config says; milestones and the probe too), `eval_target` samples every
+target curve num_preds times and writes the artifacts under
 runs/<name>/eval_target_w_<w>[_phi_<phi>]_<i>/step_<step>/.
+`Trainer.load_torch_checkpoint` imports a reference checkpoint.pt.
 """
 
 from __future__ import annotations
@@ -60,6 +62,9 @@ from videometamaterials_tpu_torch.training.fidelity import score_gifs_dir
 from videometamaterials_tpu_torch.training.optim import (
     clip_by_global_norm_,
     make_adam,
+)
+from videometamaterials_tpu_torch.training.torch_import import (
+    load_reference_weights,
 )
 
 # streams of seeded_generator besides the eval's sampling chunks
@@ -417,6 +422,28 @@ class Trainer(StepTrainer):
         return path
 
     @torch.no_grad()
+    def load_torch_checkpoint(self, path: str | Path,
+                              which: str = "both") -> None:
+        """Import a reference checkpoint.pt: its online weights ('model')
+        into the trained parameters and its EMA ('ema') into the EMA, or
+        one of them; Adam's state and the step are kept."""
+        if which not in ("both", "model", "ema"):
+            raise ValueError(f"which must be 'both', 'model' or 'ema', not "
+                             f"{which!r}")
+        model = self.state.model
+        template = model.state_dict()
+        if which in ("both", "model"):
+            model.load_state_dict(load_reference_weights(path, template,
+                                                         "model"),
+                                  strict=True)
+        if which in ("both", "ema"):
+            ema = load_reference_weights(path, template, "ema")
+            for (name, _), e in zip(model.named_parameters(),
+                                    self.state.ema):
+                e.copy_(ema[name])
+        print(f"imported torch checkpoint from {path}")
+
+    @torch.no_grad()
     def load(self, step: int) -> None:
         """Resume from runs/<name>/model/step_<step>: parameters, Adam
         state, EMA and step, strictly (a tree that does not fit the model
@@ -459,9 +486,10 @@ def chunk_generator(seed, index: int, device) -> torch.Generator:
 def sample_videos(diffusion: GaussianDiffusion, cond: np.ndarray,
                   guidance_scale: float, *, chunk: int, seed=0,
                   cfg_rescale: float | None = None) -> np.ndarray:
-    """Guided DDPM samples (n, F, H, W, C) in [0, 1] of a conditioning batch
-    (n, F): chunks of `chunk` curves (the last padded by repeating its last
-    curve, the padding dropped), each from its own generator."""
+    """Guided samples (n, F, H, W, C) in [0, 1] of a conditioning batch
+    (n, F), DDPM or DDIM as `diffusion.sample` dispatches: chunks of
+    `chunk` curves (the last padded by repeating its last curve, the
+    padding dropped), each from its own generator."""
     cond = np.asarray(cond, np.float32)
     n = len(cond)
     rem = (-n) % chunk
@@ -497,14 +525,18 @@ def eval_target(diffusion: GaussianDiffusion, cfg: ModelConfig,
                 target_labels: str | Path, labels_scaling: Normalization,
                 zero_u_2: float | None, *, guidance_scale: float,
                 num_preds: int, chunk: int, seed: int = 0,
-                cfg_rescale: float | None = None):
+                cfg_rescale: float | None = None,
+                w_label: float | None = None):
     """Guided generation for the target curves of a CSV (one 51-point
     curve a row, or one value a frame): each curve num_preds times,
     artifacts (gifs/prediction_channel_<c>.gif, geometries.csv) written to
-    a new eval_target directory. Returns (that directory, the videos, the
-    sampling seconds), or None when the targets cannot be read."""
+    a new eval_target directory, named by w_label (default the guidance
+    scale). Returns (that directory, the videos, the sampling seconds), or
+    None when the targets cannot be read."""
     phi = diffusion.cfg_rescale if cfg_rescale is None else cfg_rescale
-    mode_dir = eval_target_dir(results_folder, step, guidance_scale, phi)
+    mode_dir = eval_target_dir(results_folder, step,
+                               guidance_scale if w_label is None else w_label,
+                               phi)
     (mode_dir / "gifs").mkdir(parents=True, exist_ok=True)
     try:
         targets = np.genfromtxt(target_labels, delimiter=",")
