@@ -91,6 +91,25 @@ Phases, each printing its wall time as it finishes:
              phase 6's DDPM-256; then interpolate at batch 2 from t = 32
              on that sampler (32 steps of 10/8/8 launches, finite, the
              right shape)
+  9 ablations  the paper's conditioning ablations (per_frame_cond: false,
+             model.yaml:27-29) at the flagship's widths, seeded weights:
+             (a) rows 1-3 at T = 6, 16 and 50 conditioning tokens at every
+             level shape of both paths and at the largest count the
+             kernels take, rows 4-7 at Mc = 16 and 50 (the training
+             shapes and N = 100 on both backward routes), row 8 at Mc =
+             16, each against its twin, with kernel and twin ms and the
+             bound; row 1 at T = 11 bit-equal to phase 2's launch;
+             (b) one guided eps of each arm (ablation-CNN: 16 tokens of
+             the CNN hidden; ablation-GRU: 50 GRU tokens; no-cond; and
+             cross-attention, unfused only), fused plans against unfused
+             at 10/8/8 launches; (c) the ablation-CNN's guided DDPM-256
+             chain through `sample()` at 10/8/8 launches a step, its
+             seconds beside phase 4's; (d) 5 kernel-plan train steps of
+             ablation-CNN at batch 4 (10/10/8/8/2/6 a step, finite losses,
+             the CNN embedder's parameters moved); (e) the eval CLI on an
+             ablation-GRU checkpoint it writes, whole-curve targets, one
+             chunk of 4, the full chain (10/8/8 a step), GIFs equal to
+             the videos and geometries.csv
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -404,7 +423,7 @@ def temporal_inputs(b, s, c, t_tok, gen):
         bias_all=rnd(FRAMES, FRAMES + t_tok, HEADS, scale=0.5))
 
 
-def linear_inputs(bf_, n, c, gen):
+def linear_inputs(bf_, n, c, gen, m_c=1):
     import torch
 
     dev, bf = "cuda", torch.bfloat16
@@ -416,8 +435,8 @@ def linear_inputs(bf_, n, c, gen):
         x=rnd(bf_, n, c).to(bf), gamma=1 + rnd(c, scale=0.1),
         w_qkv=rnd(c, 3 * HIDDEN, scale=c ** -0.5).to(bf),
         w_out=rnd(HIDDEN, c, scale=HIDDEN ** -0.5).to(bf),
-        out_bias=rnd(c, scale=0.1), ek=rnd(bf_, 1, HIDDEN).to(bf),
-        ev=rnd(bf_, 1, HIDDEN).to(bf),
+        out_bias=rnd(c, scale=0.1), ek=rnd(bf_, m_c, HIDDEN).to(bf),
+        ev=rnd(bf_, m_c, HIDDEN).to(bf),
         ctx=rnd(bf_, HEADS, 32, 32, scale=APPLY_CTX_SCALE),
         z=1 + rnd(bf_, HIDDEN).abs())
 
@@ -484,10 +503,10 @@ def head_cost(bf_, n, c, m_c=1):
                            + 3 * 2 * HIDDEN * 32 + 2 * 2 * HIDDEN * c)
 
 
-def stats_cost(bf_, n, c):
-    nbytes = (bf_ * n * c * 2 + c * 2 * HIDDEN * 2 + 2 * bf_ * HIDDEN * 2
+def stats_cost(bf_, n, c, m_c=1):
+    nbytes = (bf_ * n * c * 2 + c * 2 * HIDDEN * 2 + 2 * bf_ * m_c * HIDDEN * 2
               + bf_ * (HEADS * 32 * 32 + HIDDEN) * 4)
-    flops = 2 * bf_ * n * (c * 2 * HIDDEN + HEADS * 32 * 32)
+    flops = 2 * bf_ * (n * c * 2 * HIDDEN + (n + m_c) * HEADS * 32 * 32)
     return nbytes, flops
 
 
@@ -506,17 +525,20 @@ def temporal_bwd_cost(b, s, c, t_tok):
     return 3 * rows * c * 2 + weights + grads, flops
 
 
-def linear_bwd_cost(bf_, n, c):
+def linear_bwd_cost(bf_, n, c, m_c=1):
     """(bytes, flops): x and g read, dx written, weights and cond tokens
     read, the f32 cotangents written; the QKV projection, dy and dW_qkv
     (3 x 2 C 3H a token), g_oh and dW_out (2 x 2 H C), and six per-head
-    32 x 32 products (stats, oh, dQ, dctx, dP, dV)."""
+    32 x 32 products (stats, oh, dQ, dctx, dP, dV), the cond tokens in the
+    stats and key-side ones."""
     rows = bf_ * n
     nbytes = (3 * rows * c * 2 + (c * 3 * HIDDEN + HIDDEN * c) * 2
-              + 2 * bf_ * HIDDEN * 2 + c * 8
-              + (c * 3 * HIDDEN + HIDDEN * c + 2 * c + 2 * bf_ * HIDDEN) * 4)
-    flops = rows * (3 * 2 * c * 3 * HIDDEN + 2 * 2 * HIDDEN * c
-                    + 6 * 2 * HIDDEN * 32)
+              + 2 * bf_ * m_c * HIDDEN * 2 + c * 8
+              + (c * 3 * HIDDEN + HIDDEN * c + 2 * c
+                 + 2 * bf_ * m_c * HIDDEN) * 4)
+    flops = (rows * (3 * 2 * c * 3 * HIDDEN + 2 * 2 * HIDDEN * c
+                     + 6 * 2 * HIDDEN * 32)
+             + bf_ * m_c * 3 * 2 * HIDDEN * 32)
     return nbytes, flops
 
 
@@ -530,16 +552,18 @@ def apply_cost(bf_, n, c):
 # ----------------------------------------------------------------- phases
 
 
-def phase_kernels(report):
+def phase_kernels(report, keep=None):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    temporal_kernels(report, gen)
+    temporal_kernels(report, gen, keep)
     linear_kernels(report, gen)
 
 
-def temporal_kernels(report, gen):
-    """The temporal forward against its twin at every main-path shape."""
+def temporal_kernels(report, gen, keep=None):
+    """The temporal forward against its twin at every main-path shape;
+    `keep` (a dict), if given, takes the inputs and the output of each
+    shape with 11 conditioning tokens."""
     from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
 
     shapes = sorted(set(TEMPORAL_PATH), key=lambda s: (-s[1], s[0], s[3]))
@@ -553,7 +577,10 @@ def temporal_kernels(report, gen):
         def plain():
             return tmp.temporal_block_plain(**a, heads=HEADS)
 
-        err = check_close(f"temporal {b, s, c, t_tok}", kernel(), plain(),
+        out = kernel()
+        if keep is not None and t_tok == FRAMES:
+            keep[(b, s, c, t_tok)] = (a, out)
+        err = check_close(f"temporal {b, s, c, t_tok}", out, plain(),
                           BF16_TOL)
         ms, plain_ms = cuda_ms(kernel), cuda_ms(plain, reps=2, warmup=1)
         nbytes, flops = temporal_cost(b, s, c, t_tok)
@@ -700,12 +727,12 @@ def phase_emit_p(report):
                 bound_by=by, shape=[b, FRAMES, s, c, t_tok])
 
 
-def head_inputs(bf_, n, c, gen, k_scale=HEAD_K_SCALE):
+def head_inputs(bf_, n, c, gen, k_scale=HEAD_K_SCALE, m_c=1):
     """linear_inputs with an O(1) update: the v columns of w_qkv times
     HW * HEAD_V_SCALE, the key columns times k_scale."""
     import torch
 
-    a = linear_inputs(bf_, n, c, gen)
+    a = linear_inputs(bf_, n, c, gen, m_c=m_c)
     del a["ctx"], a["z"]
     w = a["w_qkv"].float()
     w[:, HIDDEN:2 * HIDDEN] *= k_scale
@@ -902,6 +929,251 @@ def linear_bwd_kernels(report, gen):
         + " of their max")
 
 
+# ------------------------------------------------------- phase 9 ablations
+
+# conditioning tokens of the paper's ablation (model.yaml:26-29): the JAX
+# UNet3D's default 6, model.yaml's cond_attention_tokens 16 (the CNN arm,
+# its hidden broadcast), and the GRU arm's token a curve point (the 50 of
+# the 51-point curves' tail)
+ABLATION_T = (6, 16, 50)
+ABLATION_MC = (16, 50)
+ABLATION_TRAIN_STEPS = 5
+# the level shapes (spatial, channels) of both paths
+LEVELS = sorted({(s, c) for _, s, c, _ in TEMPORAL_PATH},
+                key=lambda v: (-v[0], v[1]))
+
+
+def ablation_kernels(report, kept=None):
+    """9 (a): rows 1-3 at every level shape of the sampling (batch 2) and
+    training (batch 4) paths at ABLATION_T tokens, each against its twin
+    (row 2's out bit-equal to row 1's); rows 4-7 at ABLATION_MC
+    conditioning tokens (the training shapes on their backward route, and
+    N = 100 on both routes), row 8 at 16, against their twins; and, with
+    `kept` (phase 2's T = 11 inputs and outputs), row 1 at T = 11
+    bit-equal to phase 2's launch. The level-0 numbers go to the report's
+    `ablation` entries."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    lib = _build.load_library()
+    for t_tok in ABLATION_T + (tmp.MAX_COND_TOKENS,):
+        log(f"  T={t_tok}: dynamic shared memory, forward attention "
+            + ", ".join(f"C={c} {lib.vmt_temporal_block_fwd_smem(c, t_tok, 0)}"
+                        for c in (64, 128, 256, 512))
+            + " B; backward attention "
+            + ", ".join(f"C={c} {lib.vmt_temporal_block_bwd_smem(c, t_tok, 0)}"
+                        for c in (64, 128, 256, 512)) + " B")
+    for shape, (a, out) in (kept or {}).items():
+        if not torch.equal(tmp.fused_temporal_block(**a, heads=HEADS), out):
+            raise AssertionError(f"temporal {shape}: T = 11 output is not "
+                                 "bit-equal to phase 2's")
+    if kept:
+        log(f"  row 1 at T=11: bit-equal to phase 2's launch at {len(kept)} "
+            "shapes")
+
+    def entry(name, key, **kw):
+        report[name].setdefault("ablation", {})[key] = kw
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    t_names = ("dx", "dgamma", "dw_all", "dw_out", "dek", "dev", "dbias")
+    for t_tok in ABLATION_T + (tmp.MAX_COND_TOKENS,):
+        for s, c in LEVELS:
+            for b in (2, TRAIN_BATCH):
+                if t_tok == tmp.MAX_COND_TOKENS and (b, s) != (TRAIN_BATCH,
+                                                                576):
+                    continue          # the largest count: one shape
+                a = temporal_inputs(b, s, c, t_tok, gen)
+                shape = (b, s, c, t_tok)
+                out = tmp.fused_temporal_block(**a, heads=HEADS)
+                err = check_close(f"temporal {shape}", out,
+                                  tmp.temporal_block_plain(**a, heads=HEADS),
+                                  BF16_TOL)
+                ms = cuda_ms(lambda: tmp.temporal_block_fwd(**a, heads=HEADS),
+                             reps=3, warmup=1)
+                plain_ms = cuda_ms(lambda: tmp.temporal_block_plain(
+                    **a, heads=HEADS), reps=1, warmup=0)
+                bms, by = bound(*temporal_cost(*shape))
+                msg = (f"  T={t_tok} B={b} S={s} C={c}: row 1 err {err:.3e} "
+                       f"(tol {BF16_TOL}) {ms:.3f} ms, twin {plain_ms:.3f} ms,"
+                       f" bound {bms:.4f} ms ({by})")
+                if (b, s, c) == (2, 9216, 64):
+                    entry("fused_temporal_block", f"T={t_tok}",
+                          shape=[b, FRAMES, s, c, t_tok], max_abs_err=err,
+                          ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                if b == TRAIN_BATCH:
+                    o_p, p_w = tmp.temporal_block_fwd(**a, heads=HEADS,
+                                                      emit_p=True)
+                    if not torch.equal(o_p, out):
+                        raise AssertionError(f"emit_p {shape}: out is not "
+                                             "bit-equal to row 1's")
+                    want_out, want_p = tmp.temporal_block_plain_p(**a,
+                                                                  heads=HEADS)
+                    err_p = max(check_close(f"emit_p {shape} out", o_p,
+                                            want_out, BF16_TOL),
+                                check_close(f"emit_p {shape} p", p_w, want_p,
+                                            BF16_TOL))
+                    sums = p_w.float().reshape(b, FRAMES, s, FRAMES + t_tok,
+                                               HEADS).sum(dim=3)
+                    sum_err = (sums - 1).abs().max().item()
+                    if not sum_err <= P_SUM_TOL:
+                        raise AssertionError(f"emit_p {shape}: p sums to one "
+                                             f"within {sum_err:.3e}")
+                    del o_p, p_w, want_out, want_p, sums
+                    ms_p = cuda_ms(lambda: tmp.temporal_block_fwd(
+                        **a, heads=HEADS, emit_p=True), reps=3, warmup=1)
+                    plain_p = cuda_ms(lambda: tmp.temporal_block_plain_p(
+                        **a, heads=HEADS), reps=1, warmup=0)
+                    bms_p, by_p = bound(*temporal_p_cost(*shape))
+                    g = torch.randn(a["x"].shape, generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    err_b, share, at = check_cotangents(
+                        f"temporal bwd {shape}", t_names,
+                        tmp.temporal_block_bwd(**a, g=g, heads=HEADS),
+                        tmp.temporal_block_bwd_plain(**a, g=g, heads=HEADS))
+                    ms_b = cuda_ms(lambda: tmp.temporal_block_bwd(
+                        **a, g=g, heads=HEADS), reps=3, warmup=1)
+                    plain_b = cuda_ms(lambda: tmp.temporal_block_bwd_plain(
+                        **a, g=g, heads=HEADS), reps=1, warmup=0)
+                    bms_b, by_b = bound(*temporal_bwd_cost(*shape))
+                    msg += (f"; row 2 err {err_p:.3e}, p sums {sum_err:.1e}, "
+                            f"{ms_p:.3f} ms, twin {plain_p:.3f} ms, bound "
+                            f"{bms_p:.4f} ms ({by_p}); row 3 err {err_b:.3e} "
+                            f"(worst {at}, {share:.2e} of its max, tol "
+                            f"{GRAD_TOL}) {ms_b:.3f} ms, twin {plain_b:.3f} "
+                            f"ms, bound {bms_b:.4f} ms ({by_b})")
+                    if (s, c) == (9216, 64):
+                        entry("temporal_fwd_p", f"T={t_tok}",
+                              shape=[b, FRAMES, s, c, t_tok],
+                              max_abs_err=err_p, ms=ms_p, plain_ms=plain_p,
+                              bound_ms=bms_p, bound_by=by_p)
+                        entry("temporal_bwd", f"T={t_tok}",
+                              shape=[b, FRAMES, s, c, t_tok],
+                              max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                              bound_ms=bms_b, bound_by=by_b)
+                    del g
+                log(msg)
+                del a, out
+
+    akw = dict(heads=HEADS, scale=32 ** -0.5)
+    for m_c in ABLATION_MC:
+        for bf_, n, c in (sorted(set(LINEAR_PATH), key=lambda v: -v[1])
+                          + LINEAR_RAGGED):
+            a = linear_inputs(bf_, n, c, gen, m_c=m_c)
+            kw = dict(heads=HEADS, spatial_size=n)
+            stats = (a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"])
+            ctx_k, z_k = lin.linear_stats(*stats, **kw)
+            again = lin.linear_stats(*stats, **kw)
+            if not (torch.equal(ctx_k, again[0])
+                    and torch.equal(z_k, again[1])):
+                raise AssertionError(f"stats {bf_, n, c} Mc={m_c}: two "
+                                     "launches differ")
+            ctx_p, z_p = lin.linear_stats_plain(*stats, **kw)
+            err_c, share = check_ctx(f"stats ctx {bf_, n, c} Mc={m_c}", ctx_k,
+                                     ctx_p, lin.linear_stats_magnitude(
+                                         *stats, **kw))
+            err_s = max(err_c, check_close(f"stats z {bf_, n, c} Mc={m_c}",
+                                           z_k, z_p, STATS_TOL))
+            args = (a["x"], a["gamma"], a["w_qkv"], a["w_out"],
+                    a["out_bias"], a["ctx"], a["z"])
+            err_a = check_update(f"apply {bf_, n, c} Mc={m_c}",
+                                 lin.linear_apply(*args, **akw),
+                                 lin.linear_apply_plain(*args, **akw),
+                                 a["x"], a["out_bias"])
+            sms = cuda_ms(lambda: lin.linear_stats(*stats, **kw), reps=3,
+                          warmup=1)
+            splain = cuda_ms(lambda: lin.linear_stats_plain(*stats, **kw),
+                             reps=1, warmup=0)
+            ams = cuda_ms(lambda: lin.linear_apply(*args, **akw), reps=3,
+                          warmup=1)
+            aplain = cuda_ms(lambda: lin.linear_apply_plain(*args, **akw),
+                             reps=1, warmup=0)
+            sb, sby = bound(*stats_cost(bf_, n, c, m_c))
+            ab, aby = bound(*apply_cost(bf_, n, c))
+            log(f"  Mc={m_c} BF={bf_} N={n} C={c}: stats (row 4) bit-equal "
+                f"over two launches, err {err_s:.3e} (ctx {share:.2e} of its "
+                f"summands' magnitude) {sms:.3f} ms, twin {splain:.3f} ms, "
+                f"bound {sb:.4f} ms ({sby}); apply (row 5, O(1) stats) update"
+                f" err {err_a:.3e} {ams:.3f} ms, twin {aplain:.3f} ms, bound "
+                f"{ab:.4f} ms ({aby})")
+            if (bf_, n, c) == (22, 9216, 64):
+                entry("linear_stats", f"Mc={m_c}", shape=[bf_, n, c, m_c],
+                      max_abs_err=err_s, ms=sms, plain_ms=splain, bound_ms=sb,
+                      bound_by=sby)
+                entry("linear_apply", f"Mc={m_c}", shape=[bf_, n, c, m_c],
+                      max_abs_err=err_a, ms=ams, plain_ms=aplain, bound_ms=ab,
+                      bound_by=aby)
+            del a, ctx_p, z_p, ctx_k, z_k, again
+
+    l_names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    for m_c in ABLATION_MC:
+        shapes = [(bf_, n, c, lin.bwd_route(n))
+                  for bf_, n, c in sorted(set(TRAIN_LINEAR),
+                                          key=lambda v: -v[1])]
+        shapes += [(TRAIN_BATCH * FRAMES, 100, 64, r)
+                   for r in ("merged", "head")]
+        for bf_, n, c, route in shapes:
+            a = linear_inputs(bf_, n, c, gen, m_c=m_c)
+            del a["ctx"], a["z"]
+            # the Mc tokens together take about half of each feature's
+            # token softmax (cond_key_shift's rule over N / Mc)
+            a["ek"] = (a["ek"].float() + cond_key_shift(max(n // m_c, 1))
+                       ).to(torch.bfloat16)
+            g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n,
+                      route=route)
+            got = lin.linear_block_bwd(**a, g=g, **kw)
+            err, share, at = check_cotangents(
+                f"linear bwd {route} {bf_, n, c} Mc={m_c}", l_names, got,
+                lin.linear_block_bwd_plain(**a, g=g, **kw))
+            if not all(torch.equal(u, v) for u, v in zip(
+                    got, lin.linear_block_bwd(**a, g=g, **kw))
+                    if u is not None):
+                raise AssertionError(f"linear bwd {route} {bf_, n, c} "
+                                     f"Mc={m_c}: two launches differ")
+            del got
+            ms = cuda_ms(lambda: lin.linear_block_bwd(**a, g=g, **kw), reps=3,
+                         warmup=1)
+            plain_ms = cuda_ms(lambda: lin.linear_block_bwd_plain(
+                **a, g=g, **kw), reps=1, warmup=0)
+            bms, by = bound(*linear_bwd_cost(bf_, n, c, m_c))
+            log(f"  Mc={m_c} linear bwd (row {6 if route == 'head' else 7}, "
+                f"{route}) BF={bf_} N={n} C={c}: max_abs_err {err:.3e} (worst"
+                f" {at}, {share:.2e} of its max, tol {GRAD_TOL}) bit-equal "
+                f"over two launches, {ms:.3f} ms, twin {plain_ms:.3f} ms, "
+                f"bound {bms:.4f} ms ({by})")
+            if (n, c) in ((9216, 64), (2304, 128)):
+                entry(f"linear_bwd_{route}", f"Mc={m_c}",
+                      shape=[bf_, n, c, m_c], max_abs_err=err, ms=ms,
+                      plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            del a, g
+
+    m_c = ABLATION_MC[0]
+    for bf_, n, c in sorted(set(LINEAR_PATH), key=lambda v: -v[1]):
+        a = head_inputs(bf_, n, c, gen, m_c=m_c)
+        want = lin.linear_block_head_plain(**a, **akw, spatial_size=n)
+        err = check_update(f"head {bf_, n, c} Mc={m_c}",
+                           lin.linear_block_head(**a, **akw, spatial_size=n),
+                           want, a["x"], a["out_bias"])
+        ms = cuda_ms(lambda: lin.linear_block_head(**a, **akw,
+                                                   spatial_size=n),
+                     reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: lin.linear_block_head_plain(
+            **a, **akw, spatial_size=n), reps=1, warmup=0)
+        bms, by = bound(*head_cost(bf_, n, c, m_c))
+        log(f"  Mc={m_c} head layout (row 8) BF={bf_} N={n} C={c}: update "
+            f"err {err:.3e} (tol {APPLY_TOL} of its max) {ms:.3f} ms, twin "
+            f"{plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+        if (bf_, n, c) == (22, 9216, 64):
+            entry("linear_head", f"Mc={m_c}", shape=[bf_, n, c, m_c],
+                  max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                  bound_by=by)
+        del a, want
+
+
 def phase_model(diffusion, cfg, batch: int = 1):
     """One guided forward of `batch` latents (the CFG pair doubles it):
     the fused plans (the kernels) against the unfused plans on the same
@@ -913,17 +1185,12 @@ def phase_model(diffusion, cfg, batch: int = 1):
     x = torch.randn((batch, FRAMES, cfg.image_size, cfg.image_size, 3),
                     generator=gen, device="cuda")
     t = torch.full((batch,), 128, device="cuda")
-    cond = torch.rand((batch, FRAMES), generator=gen, device="cuda") * 2 - 1
+    cond = torch.rand((batch, cfg.cond_length), generator=gen,
+                      device="cuda") * 2 - 1
     with torch.no_grad():
         fused = diffusion.guided_eps(x, t, cond, 5.0)
-        blocks = [m for m in model.modules() if hasattr(m, "use_fused_block")]
-        for m in blocks:
-            m.use_fused_block = False
-        try:
+        with model.fused_plans(False):
             unfused = diffusion.guided_eps(x, t, cond, 5.0)
-        finally:
-            for m in blocks:
-                m.use_fused_block = True
     if not torch.isfinite(fused).all():
         raise AssertionError("fused-plan eps is not finite")
     rel = ((fused - unfused).norm() / unfused.norm()).item()
@@ -1834,18 +2101,18 @@ def linear_layout(layout: str):
 
 
 def run_chain(diffusion, cfg, steps: int, per_step: dict, smi: str,
-              what: str) -> dict:
+              what: str) -> tuple[dict, float]:
     """The guided DDPM chain of one video from the counters at zero;
     checks the launch counters against per_step (launches a step, absent
     ones 0), the videos' shape, finiteness and range. Returns the
-    counters."""
+    counters and the chain's seconds."""
     import torch
 
     from videometamaterials_tpu_torch.ops.cuda import _build
 
     t0 = time.perf_counter()
-    cond = torch.rand((1, FRAMES), generator=torch.Generator().manual_seed(2)
-                      ) * 2 - 1
+    cond = torch.rand((1, cfg.cond_length),
+                      generator=torch.Generator().manual_seed(2)) * 2 - 1
     gen = torch.Generator(device="cuda").manual_seed(3)
     _build.reset_launch_counts()
     videos = diffusion.sample(cond, 5.0, generator=gen, num_steps=steps)
@@ -1869,7 +2136,192 @@ def run_chain(diffusion, cfg, steps: int, per_step: dict, smi: str,
     log(f"[{what}] guided DDPM, {steps} steps, batch 1 (CFG pair 2), w=5: "
         f"{chain_s:.2f}s, {rate} on {smi}; launches {counts}; videos "
         f"{tuple(videos.shape)} in [{lo:.3f}, {hi:.3f}]")
-    return counts
+    return counts, chain_s
+
+
+def ablation_configs() -> dict:
+    """The paper's conditioning ablations at the flagship's widths:
+    model.yaml with per_frame_cond: false and the conditioning keys of
+    each arm (model.yaml:19-29), seeded weights (no trained ablation
+    checkpoint exists)."""
+    from videometamaterials_tpu_torch.config import load_model_yaml
+
+    base = load_model_yaml(ROOT / "model.yaml").replace(per_frame_cond=False)
+    cnn = base.replace(unet_cond_attention="self-stacked",
+                       unet_cond_attention_tokens=16, unet_cond_att_GRU=False)
+    return {"ablation-CNN": cnn,
+            "ablation-GRU": cnn.replace(unet_cond_att_GRU=True),
+            "no-cond": base.replace(unet_cond_attention="none"),
+            "cross-attention": cnn.replace(
+                unet_cond_attention="cross-attention")}
+
+
+def ablation_models(arms: dict) -> None:
+    """9 (b): one guided forward of each arm, the fused plans (10/8/8
+    launches) against the unfused plans on the same input; the
+    cross-attention arm has only the unfused plans (no launch)."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.sample import build_sampler
+
+    for name, cfg in arms.items():
+        t0 = time.perf_counter()
+        diffusion = build_sampler(cfg, device="cuda", seed=0)
+        _build.reset_launch_counts()
+        rel = phase_model(diffusion, cfg)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCH_COUNTS)
+        cross = cfg.unet_cond_attention == "cross-attention"
+        want = {k: 0 if cross else EVAL_PER_STEP.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{name} eps: launch counts {counts}, "
+                                 f"expected {want}")
+        model = diffusion.model
+        log(f"  {name}: {model.num_tokens} conditioning tokens "
+            f"({'the GRU' if model.cond_att_GRU else 'the CNN hidden'}"
+            f"{', none' if not model.num_tokens else ''}), guided eps "
+            + ("unfused plans only (cross-attention), finite"
+               if cross else f"fused vs unfused plans: relative error "
+               f"{rel:.3e} (limit {MODEL_TOL}); launches {counts}")
+            + f" | {time.perf_counter() - t0:.1f}s")
+        del diffusion, model
+        torch.cuda.empty_cache()
+
+
+def ablation_train(cfg, steps: int, kernel_ms: float) -> float:
+    """9 (d): `steps` kernel-plan train steps of the CNN arm at batch 4:
+    10/10/8/8/2/6 launches a step, finite losses, moved parameters (the
+    CNN embedder's among them). Returns the median step ms."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import TrainerConfig
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.train import bench_batches
+    from videometamaterials_tpu_torch.training.trainer import StepTrainer
+
+    cfg = cfg.replace(fused_blocks_in_training=True, fused_bwd_kernels=True)
+    diff = GaussianDiffusion.from_config(build_unet(cfg, device="cuda",
+                                                    seed=0), cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    trainer = StepTrainer(diff, cfg, TrainerConfig(),
+                          bench_batches(cfg, gen, "cuda"), generator=gen)
+    start = {n: p.detach().clone() for n, p in diff.model.named_parameters()}
+    _build.reset_launch_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step().item())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = dict(_build.LAUNCH_COUNTS)
+    want = {k: TRAIN_PER_STEP.get(k, 0) * steps for k in counts}
+    if counts != want:
+        raise AssertionError(f"ablation train: launch counts {counts}, "
+                             f"expected {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"ablation train: losses {losses}")
+    moved = {n for n, p in diff.model.named_parameters()
+             if not torch.equal(p, start[n])}
+    cnn = {n for n in start if n.startswith("sign_emb_CNN.")}
+    if not cnn or not cnn <= moved:
+        raise AssertionError(f"ablation train: the CNN embedder's "
+                             f"parameters {sorted(cnn - moved)} did not move")
+    med = statistics.median(times) * 1e3
+    log(f"  ablation-CNN train, kernel plan, batch {cfg.batch_size}: "
+        f"{steps} steps, median {med:.1f} ms a step (phase 5's flagship "
+        f"kernel plan {kernel_ms:.1f}), loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; {len(moved)} of {len(start)} parameters moved "
+        f"(all {len(cnn)} of sign_emb_CNN); launches {counts}")
+    del diff, trainer, start
+    return med
+
+
+def ablation_eval(cfg, smi: str, phase6_s: float) -> dict:
+    """9 (e): the eval CLI on the GRU arm: a run checkpoint of its seeded
+    weights and its config snapshot, two whole-curve targets x 2
+    predictions in one chunk of 4, w = 5, the full DDPM chain: 10/8/8
+    launches a step, the GIFs equal to the videos, geometries.csv."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videometamaterials_tpu_torch import main as cli
+    from videometamaterials_tpu_torch.config import snapshot_run_config
+    from videometamaterials_tpu_torch.convert import torch_to_flax_tree
+    from videometamaterials_tpu_torch.data.gif_io import gif_to_array
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.training import checkpoint as ckpt
+    from videometamaterials_tpu_torch.training.artifacts import (
+        make_grid_video,
+    )
+    from videometamaterials_tpu_torch.utils import inference_cast_keys
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_ablation_", dir=ROOT / "build"))
+    try:
+        model = build_unet(cfg, device="cpu", seed=11)
+        tree = torch_to_flax_tree(model.state_dict(),
+                                  inference_cast_keys(model))
+        del model
+        run_dir = tmp / "runs" / "gru"
+        snapshot_run_config(cfg, run_dir)
+        ckpt.save_checkpoint(run_dir, 0, {
+            "step": np.asarray(0, np.int32), "params": tree,
+            "ema_params": tree}, aux={"step": 0})
+        data = eval_data(tmp / "data")
+        _build.reset_launch_counts()
+        out = cli.main(["--run-name", "gru", "--runs-root", str(tmp / "runs"),
+                        "--data-root", str(data), "--load-model-step", "0",
+                        "--skip-train", "--guidance-scale", "5",
+                        "--num-preds", "2", "--test-batch-size",
+                        str(2 * EVAL_CHUNK), "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCH_COUNTS)
+        steps = cfg.train_timesteps
+        want = {k: EVAL_PER_STEP.get(k, 0) * steps for k in counts}
+        if counts != want:
+            raise AssertionError(f"ablation eval CLI: launch counts {counts},"
+                                 f" expected {want}")
+        videos, eval_dir = out["videos"], out["eval_dir"]
+        if eval_dir != run_dir / "eval_target_w_5.0_0" / "step_0":
+            raise AssertionError(f"eval directory {eval_dir}")
+        if videos.shape != (4, FRAMES, cfg.image_size, cfg.image_size, 3) \
+                or not np.isfinite(videos).all():
+            raise AssertionError(f"ablation eval videos {videos.shape}")
+        grid = make_grid_video(videos, rows=2)
+        side = 2 * (cfg.image_size + 4)
+        for j, ch in enumerate(cfg.selected_channels):
+            frames = gif_to_array(eval_dir / "gifs"
+                                  / f"prediction_channel_{ch}.gif")
+            quant = np.clip(np.round(grid[j] * 255.0), 0, 255
+                            ).astype(np.uint8)
+            if not np.array_equal(frames, quant):
+                raise AssertionError(f"prediction_channel_{ch}.gif differs "
+                                     "from the videos")
+        geoms = np.loadtxt(eval_dir / "geometries.csv", delimiter=",")
+        half = cfg.image_size // 2
+        if geoms.shape != (4, half * half):
+            raise AssertionError(f"geometries.csv: {geoms.shape}")
+        secs = out["sample_seconds"]
+        log(f"  ablation-GRU eval CLI (--skip-train), 2 whole-curve targets "
+            f"x 2 predictions, chunk {EVAL_CHUNK} "
+            f"(CFG {2 * EVAL_CHUNK}), w=5, DDPM-{steps}: chain {secs:.2f}s "
+            f"(phase 6's flagship {phase6_s:.2f}s), {4 * 60.0 / secs:.3f} "
+            f"videos/min on {smi}; launches {counts}; GIFs equal to the "
+            f"videos, geometries.csv {geoms.shape[0]} rows of "
+            f"{geoms.shape[1]}")
+        return {"chain_s": secs, "counts": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -1950,7 +2402,8 @@ def main(argv=None) -> int:
     report["linear_head"].update(
         source="videometamaterials_tpu_torch/ops/cuda/csrc/fused_linear_block.cu",
         replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:336")
-    phase_kernels(report)
+    phase2_t11 = {}
+    phase_kernels(report, phase2_t11)
     phase_emit_p(report)
     phase_head(report)
     torch.cuda.synchronize()
@@ -1992,18 +2445,18 @@ def main(argv=None) -> int:
     if steps != cfg.train_timesteps:
         log(f"  running the first {steps} steps of the DDPM-"
             f"{cfg.train_timesteps} chain")
-    counts = run_chain(diffusion, cfg, steps,
-                       dict(fused_temporal_block=10, linear_stats=8,
-                            linear_apply=8), smi, "4 chain")
+    counts, chain4_s = run_chain(diffusion, cfg, steps,
+                                 dict(fused_temporal_block=10, linear_stats=8,
+                                      linear_apply=8), smi, "4 chain")
     for k in report:
         report[k]["launches"] = counts[k]
         report[k]["library_ms"] = None
 
     # ---- 4b the chain with the linear blocks on the head layout
     with linear_layout("head"):
-        counts = run_chain(diffusion, cfg, steps,
-                           dict(fused_temporal_block=10, linear_head=8),
-                           smi, "4b chain, head layout")
+        counts, _ = run_chain(diffusion, cfg, steps,
+                              dict(fused_temporal_block=10, linear_head=8),
+                              smi, "4b chain, head layout")
     report["linear_head"]["launches"] = counts["linear_head"]
 
     if args.profile:
@@ -2052,6 +2505,44 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_ddim(smi, report, evaluated["chain_s"])
     log(f"[8 ddim] passed | {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    # ---- 9 ablations: the conditioning ablations' kernels and paths
+    t0 = time.perf_counter()
+    ablation_kernels(report, phase2_t11)
+    del phase2_t11
+    torch.cuda.synchronize()
+    log(f"[9a kernels] rows 1-3 at T in {ABLATION_T} and the largest "
+        f"count, rows 4-7 at Mc in {ABLATION_MC}, row 8 at Mc = "
+        f"{ABLATION_MC[0]}: all match their twins | "
+        f"{time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    arms = ablation_configs()
+    ablation_models(arms)
+    log(f"[9b model] guided eps of the four arms | "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    cnn = arms["ablation-CNN"]
+    diffusion = build_sampler(cnn, device="cuda", seed=0)
+    counts, chain9_s = run_chain(diffusion, cnn, steps,
+                                 dict(fused_temporal_block=10,
+                                      linear_stats=8, linear_apply=8),
+                                 smi, "9c chain, ablation-CNN")
+    for k in report:
+        report[k]["launches_ablation_chain"] = counts[k]
+    del diffusion
+    torch.cuda.empty_cache()
+    log(f"[9c chain] ablation-CNN (16 tokens) chain {chain9_s:.2f}s beside "
+        f"phase 4's flagship {chain4_s:.2f}s | "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ablation_train(cnn, ABLATION_TRAIN_STEPS, train["kernel"]["median_ms"])
+    torch.cuda.empty_cache()
+    log(f"[9d train] passed | {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ablation_eval(arms["ablation-GRU"], smi, evaluated["chain_s"])
+    log(f"[9e eval] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

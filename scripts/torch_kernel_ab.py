@@ -15,8 +15,10 @@ kernel's device time in one launch of each row at its level-0 shape (row
 (22, 9216, 64): its stats, merge and apply) and rows 5 and 8's device
 time a launch at every path shape. With row 5 it also digests
 row 5's output at every path shape on one input seeded per shape
-(`apply_digests`); --against FILE compares them with the last line of an
-earlier run's --out FILE and prints whether each is bit-equal.
+(`apply_digests`), and with rows 1-3 their outputs (row 2: out and p; row
+3: every cotangent) at every path shape (`temporal_digests`); --against
+FILE compares them with the last line of an earlier run's --out FILE and
+prints whether each is bit-equal.
 
 To compare two versions on one card, unpack the other one's port into a
 gitignored directory that the copy to the card keeps (`git archive
@@ -70,8 +72,8 @@ def main(argv=None) -> int:
                          "one launch of each row at its level-0 shape "
                          "(torch.profiler)")
     ap.add_argument("--against", help="a JSON-lines file of an earlier run "
-                    "(--out): print whether row 5's outputs are bit-equal "
-                    "to its last line's")
+                    "(--out): print whether the digested outputs (rows 1-3 "
+                    "and 5) are bit-equal to its last line's")
     ap.add_argument("--rows", help="comma-separated rows to time (default "
                     "all): temporal_fwd, temporal_fwd_p, temporal_bwd, "
                     "linear_stats, linear_apply, linear_bwd, linear_head")
@@ -115,10 +117,35 @@ def main(argv=None) -> int:
                                bound_share=bms / ms))
         return rows[name][-1]
 
+    def digest(*tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            if t is not None:
+                h.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+        return h.hexdigest()
+
     fwd_shapes = sorted(set(cs.TEMPORAL_PATH) | set(cs.TRAIN_TEMPORAL),
                         key=lambda v: (-v[1], v[0], v[3]))
+    t_digests: dict[str, str] = {}
     for b, s, c, t_tok in fwd_shapes:
         shape = (b, s, c, t_tok)
+        d = cs.temporal_inputs(b, s, c, t_tok, torch.Generator(
+            device="cuda").manual_seed(7))
+        if "temporal_fwd" in want:
+            t_digests[f"temporal_fwd {shape}"] = digest(
+                tmp.temporal_block_fwd(**d, heads=cs.HEADS))
+        if shape in cs.TRAIN_TEMPORAL and "temporal_fwd_p" in want:
+            t_digests[f"temporal_fwd_p {shape}"] = digest(
+                *tmp.temporal_block_fwd(**d, heads=cs.HEADS, emit_p=True))
+        if shape in cs.TRAIN_TEMPORAL and "temporal_bwd" in want:
+            g = torch.randn(d["x"].shape, generator=torch.Generator(
+                device="cuda").manual_seed(8), device="cuda").to(
+                torch.bfloat16)
+            t_digests[f"temporal_bwd {shape}"] = digest(
+                *tmp.temporal_block_bwd(**d, g=g, heads=cs.HEADS))
+            del g
+        del d
         a = cs.temporal_inputs(b, s, c, t_tok, gen)
         timed("temporal_fwd", shape,
               lambda: tmp.temporal_block_fwd(**a, heads=cs.HEADS),
@@ -258,18 +285,25 @@ def main(argv=None) -> int:
                 ) / 5e3
                 del a
         stages["device_ms_a_launch"] = by_shape
-    equal = None
+    equal = t_equal = None
     if args.against:
         lines = Path(args.against).read_text().splitlines()
         then = json.loads(lines[-1])
         equal = {k: then["apply_digests"].get(k) == v
                  for k, v in digests.items()}
+        t_equal = {k: then.get("temporal_digests", {}).get(k) == v
+                   for k, v in t_digests.items()}
         print(f"row 5 (linear_apply) outputs bit-equal to {then['tree']}'s "
               f"at {sum(equal.values())} of {len(equal)} path shapes: "
               + ", ".join(f"{k} {v}" for k, v in equal.items()), flush=True)
+        print(f"rows 1-3 outputs bit-equal to {then['tree']}'s at "
+              f"{sum(t_equal.values())} of {len(t_equal)} row shapes: "
+              + ", ".join(f"{k} {v}" for k, v in t_equal.items()), flush=True)
     line = json.dumps({"card": smi, "tree": str(tree), "nvcc_s": build_s,
                        "rows": rows, "stages_ms": stages,
-                       "apply_digests": digests, "apply_bit_equal": equal})
+                       "apply_digests": digests, "apply_bit_equal": equal,
+                       "temporal_digests": t_digests,
+                       "temporal_bit_equal": t_equal})
     print(line, flush=True)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)

@@ -743,3 +743,100 @@ def test_bf16_convolution_rounds_once_on_the_card(cuda, op):
     share = (got != want).float().mean().item()
     print(f"{op}: {share:.4f} of outputs off one rounding (limit 0.02)")
     assert share <= 0.02
+
+
+# ------------------------------ the conditioning ablations' token counts
+# The temporal kernels pad a position's F + T keys to 32, 64 or 80: T = 16
+# (the CNN arm, model.yaml's cond_attention_tokens) stays in the 32-key
+# instance that takes T at run time, T = 50 (the GRU arm, a token a curve
+# point) takes the 64-key one. The linear kernels take the T tokens as Mc
+# conditioning tokens of every folded frame.
+
+
+@pytest.mark.parametrize("s,c", [(150, 64), (37, 512)])
+@pytest.mark.parametrize("t_tok", [16, 50])
+def test_temporal_kernels_at_the_ablation_token_counts(cuda, s, c, t_tok):
+    """Rows 1-3 at T = 16 and 50 against their twins (the bias of the
+    conditioning columns random, as a per-frame count would set it, so a
+    kernel that drops or misplaces it misses), one launch counted each."""
+    args = _temporal_args(cuda, 2, s, c, t_tok)
+    before = dict(_build.LAUNCH_COUNTS)
+    _check_temporal_kernels(args, _rnd(cuda, *args["x"].shape).to(
+        torch.bfloat16))
+    assert _build.LAUNCH_COUNTS["fused_temporal_block"] == \
+        before["fused_temporal_block"] + 2
+    assert _build.LAUNCH_COUNTS["temporal_fwd_p"] == \
+        before["temporal_fwd_p"] + 2
+    assert _build.LAUNCH_COUNTS["temporal_bwd"] == before["temporal_bwd"] + 2
+
+
+def test_temporal_kernels_refuse_a_count_above_the_maximum(cuda):
+    args = _temporal_args(cuda, 1, 37, 64, tmp.MAX_COND_TOKENS + 1)
+    with pytest.raises(ValueError, match="conditioning tokens"):
+        tmp.temporal_block_fwd(**args, heads=8)
+
+
+@pytest.mark.parametrize("c", [64, 512])
+@pytest.mark.parametrize("n", [100, 4100])
+def test_linear_stats_kernel_at_16_cond_tokens(cuda, c, n):
+    """Row 4 with Mc = 16 conditioning tokens: ctx within 2^-7 of its
+    summands' magnitude, z within 1e-3, the same bits on a second launch."""
+    args = _linear_args(cuda, 2, n, c, 16)
+    kw = dict(heads=8, spatial_size=n)
+    ctx_k, z_k = lin.linear_stats(**args, **kw)
+    torch.cuda.synchronize()
+    ctx_p, z_p = lin.linear_stats_plain(**args, **kw)
+    mag = lin.linear_stats_magnitude(**args, **kw)
+    assert ((ctx_k - ctx_p).abs() <= CTX_SHARE * mag).all()
+    torch.testing.assert_close(z_k, z_p, **STATS_TOL)
+    ctx2, z2 = lin.linear_stats(**args, **kw)
+    assert torch.equal(ctx_k, ctx2) and torch.equal(z_k, z2)
+
+
+def test_linear_stats_and_apply_at_16_cond_tokens_through_the_block(cuda):
+    """Rows 4-5 chained as the block runs them, Mc = 16: the kernels'
+    (ctx, z) into the apply kernel against the twins' into the apply twin
+    (the update at O(1) stats: the v columns times HW)."""
+    bf, hd, b, n, c = torch.bfloat16, 256, 2, 100, 64
+    args = _linear_args(cuda, b, n, c, 16)
+    w = args["w_qkv"].float()
+    w[:, 2 * hd:] *= n * 32.0
+    args["w_qkv"] = w.to(bf)
+    w_out = (_rnd(cuda, hd, c) * hd ** -0.5).to(bf)
+    out_bias = _rnd(cuda, c, scale=0.1)
+    kw = dict(heads=8, spatial_size=n)
+    ctx, z = lin.linear_stats(**args, **kw)
+    got = lin.linear_apply(args["x"], args["gamma"], args["w_qkv"], w_out,
+                           out_bias, ctx, z, heads=8, scale=32 ** -0.5)
+    ctx_p, z_p = lin.linear_stats_plain(**args, **kw)
+    want = lin.linear_apply_plain(args["x"], args["gamma"], args["w_qkv"],
+                                  w_out, out_bias, ctx_p, z_p, heads=8,
+                                  scale=32 ** -0.5)
+    base = args["x"].float() + out_bias
+    upd, upd_p = got.float() - base, want.float() - base
+    assert (upd - upd_p).abs().max() <= APPLY_TOL * upd_p.abs().max()
+
+
+@pytest.mark.parametrize("route", ["head", "merged"])
+@pytest.mark.parametrize("n,c", [(100, 64), (144, 512)])
+def test_linear_bwd_kernel_at_16_cond_tokens(cuda, route, n, c):
+    """Rows 6 (per-head) and 7 (merged) with Mc = 16 conditioning tokens
+    that together take about half of each feature's token softmax: every
+    cotangent within 5e-2 of the twin's max, the same bits twice."""
+    bf, hd, b, m_c = torch.bfloat16, 256, 3, 16
+    args = dict(
+        x=_rnd(cuda, b, n, c).to(bf), gamma=1 + _rnd(cuda, c, scale=0.1),
+        w_qkv=(_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(cuda, hd, c) * hd ** -0.5).to(bf),
+        out_bias=_rnd(cuda, c, scale=0.1),
+        ek=(_rnd(cuda, b, m_c, hd) + math.log(n / m_c) + 0.5).to(bf),
+        ev=_rnd(cuda, b, m_c, hd).to(bf))
+    g = _rnd(cuda, b, n, c).to(bf)
+    kw = dict(heads=8, scale=32 ** -0.5, spatial_size=n, route=route)
+    got = lin.linear_block_bwd(**args, g=g, **kw)
+    torch.cuda.synchronize()
+    _assert_cotangents(("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias",
+                        "dek", "dev"), got,
+                       lin.linear_block_bwd_plain(**args, g=g, **kw))
+    for a, b_ in zip(got, lin.linear_block_bwd(**args, g=g, **kw)):
+        assert torch.equal(a, b_)

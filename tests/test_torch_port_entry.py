@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from videometamaterials_tpu_torch import config, sample
-from videometamaterials_tpu_torch.config import ModelConfig
+from videometamaterials_tpu_torch.config import (
+    ModelConfig,
+    TrainerConfig,
+    load_model_yaml,
+)
 from videometamaterials_tpu_torch.convert import (
     load_state_dict_npz,
     save_state_dict_npz,
@@ -87,12 +91,27 @@ def test_sample_cli_on_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("per_frame_cond", False), ("unet_use_sparse_linear_attn", False),
-    ("unet_cond_to_time", "concat"), ("padding_mode", "circular")])
-def test_unported_variants_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        build_unet(ModelConfig().replace(**{field: value}), device="cpu",
-                   seed=None)
+    ("remat_blocks", True), ("temporal_s_tile", 128),
+    ("prob_focus_present", 0.1), ("gradient_accumulate_every", 2)])
+def test_unported_variants_raise(field, value, tmp_path):
+    """The training-side variants not ported yet (ROADMAP.md Queue 1
+    item 8) raise, from model.yaml or the trainer's config; the model
+    variants of the conditioning ablation build (tests/
+    test_torch_port_variants.py holds them against the JAX model)."""
+    if field in ("prob_focus_present", "gradient_accumulate_every"):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            TrainerConfig(**{field: value})
+    else:
+        path = tmp_path / "model.yaml"
+        path.write_text(f"{field}: {str(value).lower()}\n")
+        with pytest.raises(NotImplementedError, match="item 8"):
+            load_model_yaml(path)
+    for variant in (dict(per_frame_cond=False),
+                    dict(unet_use_sparse_linear_attn=False),
+                    dict(unet_cond_to_time="concat"),
+                    dict(padding_mode="circular")):
+        build_unet(ModelConfig().replace(unet_dim=8, dim_mults=(1, 2),
+                                         **variant), device="cpu", seed=None)
 
 
 def _imports(path: Path):

@@ -5,8 +5,9 @@ tables, the reference's unused to_q and CNN tensors, a Conv2d 1x1 in its
 4-d layout) goes through the JAX importer into the JAX UNet and through
 the port's into the port's UNet: the same eps, and the port's state dict
 equal to the JAX tree's converted. The port's key map is the composition
-of the JAX build_key_map with convert.key_map. Unknown, missing, GRU and
-misshapen keys raise."""
+of the JAX build_key_map with convert.key_map. Unknown, missing and
+misshapen keys raise; the GRU embedder's, which a per-frame model does
+not have, are skipped like the CNN's."""
 
 import jax
 import jax.numpy as jnp
@@ -156,10 +157,13 @@ def test_bad_checkpoints_raise(setup):
         # to_q of an attention the model does not have
         torch_import.import_state_dict(
             {**ema, "nowhere.fn.fn.to_q.weight": torch.zeros(1)}, template)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        torch_import.import_state_dict(
-            {**ema, "denoise_fn.sign_emb_GRU.emb_model.weight_ih_l0":
-             torch.zeros(3, 2)}, template)
+    # the reference's GRU embedder beside per-frame conditioning: skipped
+    with_gru = torch_import.import_state_dict(
+        {**ema, "denoise_fn.sign_emb_GRU.emb_model.weight_ih_l0":
+         torch.zeros(3, 2)}, template)
+    plain = torch_import.import_state_dict(ema, template)
+    assert with_gru.keys() == plain.keys()
+    assert all(torch.equal(with_gru[k], plain[k]) for k in plain)
     missing = {k: v for k, v in ema.items()
                if not k.endswith("final_conv.1.bias")}
     with pytest.raises(KeyError, match="lacks"):

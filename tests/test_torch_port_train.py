@@ -244,7 +244,11 @@ def test_bf16_block_gradients_match_jax(block):
     for key, (path, fn) in names.items():
         leaf, gleaf = variables["params"], gv["params"]
         for part in path:
+            if part not in leaf:
+                break       # a projection of another conditioning mode
             leaf, gleaf = leaf[part], gleaf[part]
+        if isinstance(leaf, dict):
+            continue
         name = key.removeprefix("blk.")
         state[name] = torch.tensor(np.ascontiguousarray(fn(np.asarray(leaf))))
         want[name] = np.ascontiguousarray(fn(np.asarray(gleaf, np.float32)))

@@ -1,5 +1,6 @@
 """PyTorch port, the GIF-folder Trainer on the CPU: the validation loss
-against the JAX Trainer's (converted weights, the JAX draws handed over),
+against the JAX Trainer's (converted weights, the JAX draws handed over;
+the flagship and the conditioning ablation's GRU arm),
 checkpoints both ways with the JAX package (the optax state of adam and of
 clip + adam), resume (4 steps equal 2 steps and a resume of 2, bit for
 bit), the refusal of a cache-restored step, and a single final save.
@@ -247,3 +248,36 @@ def test_refuses_a_cache_restored_step(data, tmp_path):
                                "restored_from_cache": True}))
     with pytest.raises(ValueError, match="step 1 .*restored_from_cache"):
         t.train(load_model_step=1)
+
+
+def test_validation_loss_of_the_gru_arm_equals_jax(tmp_path):
+    """The conditioning ablation's GRU arm (per_frame_cond: false) through
+    both Trainers: the dataset's labels are the curves' tails (50 points),
+    and the validation loss on the JAX Trainer's weights and draws equals
+    the JAX Trainer's (rtol 1e-5, as above)."""
+    root = tmp_path / "data"
+    make_consistent_dataset(root / "training", num_samples=5, image_size=16,
+                            num_frames=11, seed=0)
+    make_consistent_dataset(root / "validation", num_samples=3,
+                            image_size=16, num_frames=11, seed=1)
+    j_cfg = tiny_config(per_frame_cond=False, unet_cond_att_GRU=True)
+    jt = JTrainer(JDiffusion.from_config(JUNet3D.from_config(j_cfg), j_cfg),
+                  j_cfg, JTrainerConfig(seed=SEED, test_batch_size=4,
+                                        log=False),
+                  root / "training", root / "validation",
+                  results_folder=tmp_path / "jax",
+                  mesh=make_mesh(jax.devices()[:1]))
+    cfg = t_config.ModelConfig(**{
+        f.name: getattr(j_cfg, f.name)
+        for f in dataclasses.fields(t_config.ModelConfig)})
+    pt = Trainer(GaussianDiffusion.from_config(
+        build_unet(cfg, device="cpu", seed=0), cfg, "cpu"), cfg,
+        t_config.TrainerConfig(seed=SEED, test_batch_size=4),
+        root / "training", root / "validation",
+        results_folder=tmp_path / "port")
+    assert pt.ds.labels.shape[1] == 50
+    np.testing.assert_allclose(pt.ds.labels, jt.ds.labels, rtol=1e-6)
+    pt.state.model.load_state_dict(flax_to_torch_state_dict(
+        jax.device_get(jt.state.params)), strict=True)
+    got = pt.validation_loss(draws=_jax_validation_draws(jt))
+    np.testing.assert_allclose(got, jt.validation_loss(), rtol=1e-5)

@@ -7,7 +7,10 @@ TrainerConfig (:123-160). The defaults
 are the flagship `model.yaml`: dim 64, mults (1, 2, 4, 8), 8 heads x 32,
 per-frame self-stacked conditioning, 3 channels x 11 frames x 96 x 96,
 bf16 activations over fp32 parameters, both fused kernel families on at
-every level, and training on the unfused plans.
+every level, and training on the unfused plans. The conditioning ablation
+keys of model.yaml (`unet_cond_attention`, `unet_cond_attention_tokens`,
+`unet_cond_att_GRU`) are read; `per_frame_cond: true` overrides the first
+two, as in the JAX package.
 
 model.yaml is read and written by a reader and writer of the YAML subset
 that model.yaml, model_euler.yaml and `yaml.safe_dump` of a config use
@@ -40,10 +43,18 @@ class ModelConfig:
     unet_attn_dim_head: int = 32
     unet_attn_heads: int = 8
     unet_resnet_groups: int = 8
-    unet_cond_to_time: str = "add"
+    unet_cond_attention: str = "self-stacked"  # 'none' | 'self-stacked' |
+                                              # 'cross-attention'
+    unet_cond_to_time: str = "add"            # 'add' | 'concat'
     unet_temporal_att_cond: bool = True
     unet_use_sparse_linear_attn: bool = True
     per_frame_cond: bool = True               # forces self-stacked cond
+                                              # with one token a frame
+    # the whole-curve conditioning of per_frame_cond: false (the ablation
+    # study, model.yaml:27-29): tokens = the CNN hidden broadcast to
+    # unet_cond_attention_tokens, or the GRU's token a curve point
+    unet_cond_att_GRU: bool = False
+    unet_cond_attention_tokens: int = 16
     image_size: int = 96
     num_frames: int = 11
     dim_mults: Sequence[int] = (1, 2, 4, 8)
@@ -74,11 +85,26 @@ class ModelConfig:
     def __post_init__(self):
         if self.loss_type not in ("l1", "l2"):
             raise ValueError(f"unknown loss_type {self.loss_type!r}")
+        for key, value, allowed in (
+                ("unet_cond_attention", self.unet_cond_attention,
+                 COND_ATTENTIONS),
+                ("unet_cond_to_time", self.unet_cond_to_time, ("add",
+                                                               "concat")),
+                ("padding_mode", self.padding_mode, PADDING_MODES)):
+            if value not in allowed:
+                raise ValueError(f"unknown {key} {value!r}: one of "
+                                 f"{allowed}")
         temporal_bwd_mode(self.temporal_vjp, self.fused_bwd_kernels)
 
     @property
     def channels(self) -> int:
         return len(self.selected_channels)
+
+    @property
+    def cond_length(self) -> int:
+        """The model's conditioning width: one stress a frame, or the
+        curve's tail without its first point (data/dataset.py)."""
+        return self.num_frames if self.per_frame_cond else CURVE_POINTS - 1
 
     @property
     def torch_dtype(self) -> torch.dtype:
@@ -87,6 +113,12 @@ class ModelConfig:
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+COND_ATTENTIONS = ("none", "self-stacked", "cross-attention")
+PADDING_MODES = ("zeros", "circular", "circular_1d")
+# points of a stress-strain curve in the data's CSVs
+CURVE_POINTS = 51
 
 
 def temporal_bwd_mode(temporal_vjp: str | None,
@@ -152,13 +184,12 @@ class TrainerConfig:
 
 
 # Keys of model.yaml the port does not read (the TPU scan chunking and
-# temporal tiling, remat, the conditioning modes that per-frame
-# conditioning overrides): accepted by the reader and dropped.
-_UNREAD_KEYS = frozenset((
-    "unet_cond_attention", "unet_cond_att_GRU",
-    "unet_cond_attention_tokens", "sample_scan_chunk", "temporal_s_tile",
-    "remat_blocks",
-))
+# temporal tiling, remat): accepted by the reader and dropped. The
+# ones that change the model (a temporal_s_tile, remat_blocks: true) wait
+# for ROADMAP.md Queue 1 item 8 and are refused when set.
+_UNREAD_KEYS = frozenset(("sample_scan_chunk", "temporal_s_tile",
+                          "remat_blocks"))
+_UNPORTED_VALUES = {"temporal_s_tile": (None,), "remat_blocks": (False,)}
 
 # ------------------------------------------------------ the YAML subset
 
@@ -319,6 +350,11 @@ def load_model_yaml(path: str | Path) -> ModelConfig:
     unknown = set(raw) - known - _UNREAD_KEYS
     if unknown:
         raise ValueError(f"unknown config keys in {path}: {sorted(unknown)}")
+    for key, accepted in _UNPORTED_VALUES.items():
+        if key in raw and raw[key] not in accepted:
+            raise NotImplementedError(
+                f"{path}: {key}: {raw[key]!r} is not ported yet (ROADMAP.md "
+                "Queue 1 item 8)")
     kw = {k: v for k, v in raw.items() if k in known}
     if "learning_rate" in kw:
         kw["learning_rate"] = float(kw["learning_rate"])

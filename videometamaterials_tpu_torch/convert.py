@@ -6,10 +6,17 @@ The tree is nested dicts of numpy arrays, as `training/msgpack_io.py` (or
 `ckpt_cache/*.msgpack` tree (pass the variables dict `{'params': ...}` or
 the params dict itself). The key map is this port's own copy of the
 inverse of the JAX package's `training/torch_import.py:build_key_map` for
-the configurations the port builds (zeros padding, per-frame
-conditioning), with its own copies of the layout transforms and their
-inverses. Every leaf of the tree must be placed, and the result loads
-into the model with `load_state_dict(strict=True)`.
+the configurations the port builds (every padding mode, per-frame and
+whole-curve conditioning: to_q, the CNN and GRU embedders), with its own
+copies of the layout transforms and their inverses. The GRU is the one
+place where leaves do not map one to one: flax's GRUCell keeps a kernel
+(and for ir, iz, in, hn a bias) a gate, nn.GRU stacks the gates r|z|n and
+has an input and a hidden bias for each. flax -> torch puts the fused r
+and z biases in bias_ih and zeros in bias_hh's r and z thirds; torch ->
+flax sums them back (the JAX importer's split, read in reverse), so a
+state dict whose bias_hh has nonzero r or z thirds comes back with them
+moved into bias_ih, the same GRU. Every leaf of the tree must be placed,
+and the result loads into the model with `load_state_dict(strict=True)`.
 
 `load_msgpack_tree` reads a checkpoint's EMA tree; `save_state_dict_npz` /
 `load_state_dict_npz` carry a converted state dict as one numpy file.
@@ -46,6 +53,10 @@ def _conv_transpose(a):   # flipped (kh, kw, I, O) -> (I, O, 1, kh, kw)
     return a.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1][:, :, None]
 
 
+def _conv1d(a):           # (k, I, O) -> (O, I, k)
+    return a.transpose(2, 1, 0)
+
+
 def _gamma(a):            # (C,) -> (1, C, 1, 1, 1)
     return a.reshape(1, -1, 1, 1, 1)
 
@@ -60,6 +71,7 @@ _INVERSE = {
     _conv_spatial: lambda t: t[:, :, 0].transpose(2, 3, 1, 0),
     _conv1x1: lambda t: t[:, :, 0, 0, 0].T,
     _conv_transpose: lambda t: t[:, :, 0, ::-1, ::-1].transpose(2, 3, 0, 1),
+    _conv1d: lambda t: t.transpose(2, 1, 0),
     _gamma: lambda t: t.reshape(-1),
     _same: lambda t: t,
 }
@@ -71,7 +83,7 @@ _INVERSE = {
 def _attention(tk: str, fp: tuple) -> dict:
     """Residual(PreNorm(EinopsToAndFrom(Attention)))."""
     e = {f"{tk}.fn.norm.gamma": (fp + ("norm_gamma",), _gamma)}
-    for name in ("to_qkv", "to_k", "to_v", "to_out"):
+    for name in ("to_qkv", "to_q", "to_k", "to_v", "to_out"):
         e[f"{tk}.fn.fn.fn.{name}.weight"] = (
             fp + ("attn", f"{name}_kernel"), _linear)
     return e
@@ -84,6 +96,7 @@ def _linear_attention(tk: str, fp: tuple) -> dict:
         f"{tk}.fn.norm.gamma": (fp + ("norm_gamma",), _gamma),
         f"{inner}.to_qkv.weight": (fp + ("attn", "to_qkv", "kernel"),
                                    _conv1x1),
+        f"{inner}.to_q.weight": (fp + ("attn", "to_q", "kernel"), _conv1x1),
         f"{inner}.to_k.weight": (fp + ("attn", "to_k", "kernel"), _linear),
         f"{inner}.to_v.weight": (fp + ("attn", "to_v", "kernel"), _linear),
         f"{inner}.to_out.weight": (fp + ("attn", "to_out_kernel"), _conv1x1),
@@ -132,6 +145,12 @@ def key_map(num_resolutions: int) -> dict:
         "final_conv.1.weight": (("final_conv_kernel",), _conv1x1),
         "final_conv.1.bias": (("final_conv_bias",), _same),
     }
+    # the whole-curve CNN: five Conv1d at Sequential indices 0, 2, 4, 6, 8
+    for i in range(5):
+        m[f"sign_emb_CNN.emb_model.{2 * i}.weight"] = (
+            ("sign_emb_CNN", f"conv1d_{i}", "kernel"), _conv1d)
+        m[f"sign_emb_CNN.emb_model.{2 * i}.bias"] = (
+            ("sign_emb_CNN", f"conv1d_{i}", "bias"), _same)
     m.update(_attention("init_temporal_attn", ("init_temporal_attn",)))
     for i in range(num_resolutions):
         for stage, side in (("downs", "down"), ("ups", "up")):
@@ -153,6 +172,71 @@ def key_map(num_resolutions: int) -> dict:
     final = _resnet("final_conv.0", ("final_block",))
     m.update({k: v for k, v in final.items() if ".mlp." not in k})
     return m
+
+
+# ------------------------------------------------------------------ GRU
+
+GRU_LAYERS = 3
+_GRU = "sign_emb_GRU"
+_GRU_TORCH = ("weight_ih_l{k}", "weight_hh_l{k}", "bias_ih_l{k}",
+              "bias_hh_l{k}")
+
+
+def _gru_cell(k: int) -> tuple:
+    return (_GRU, f"gru_cell_{k}")
+
+
+def _gru_paths(k: int):
+    """The flax leaves of GRU layer k: kernels of the six gates, biases of
+    ir, iz, in, hn."""
+    cell = _gru_cell(k)
+    yield from (cell + (g, "kernel") for g in ("ir", "iz", "in",
+                                                "hr", "hz", "hn"))
+    yield from (cell + (g, "bias") for g in ("ir", "iz", "in", "hn"))
+
+
+def gru_flax_to_torch(leaves: dict, k: int) -> dict[str, np.ndarray]:
+    """nn.GRU's four tensors of layer k from the flax leaves {path: array}
+    (gates stacked r|z|n; the fused r, z biases in bias_ih, zeros in
+    bias_hh's r and z thirds)."""
+    cell = _gru_cell(k)
+
+    def get(gate, leaf):
+        return np.asarray(leaves[cell + (gate, leaf)], np.float32)
+
+    zeros = np.zeros_like(get("hn", "bias"))
+    names = [f"{_GRU}.emb_model.{n.format(k=k)}" for n in _GRU_TORCH]
+    return dict(zip(names, (
+        np.concatenate([get(g, "kernel").T for g in ("ir", "iz", "in")]),
+        np.concatenate([get(g, "kernel").T for g in ("hr", "hz", "hn")]),
+        np.concatenate([get(g, "bias") for g in ("ir", "iz", "in")]),
+        np.concatenate([zeros, zeros, get("hn", "bias")]))))
+
+
+def gru_torch_to_flax(state: dict, k: int) -> dict[tuple, np.ndarray]:
+    """The flax leaves of layer k from nn.GRU's tensors {name: array}
+    (the JAX importer's _expand_gru_keys): the input and hidden biases of
+    r and z summed."""
+    w_ih, w_hh, b_ih, b_hh = (
+        np.asarray(state[f"{_GRU}.emb_model.{n.format(k=k)}"], np.float32)
+        for n in _GRU_TORCH)
+    h = w_hh.shape[1]
+    cell = _gru_cell(k)
+    out = {}
+    for gi, gate in enumerate("rzn"):
+        sl = slice(gi * h, (gi + 1) * h)
+        out[cell + (f"i{gate}", "kernel")] = w_ih[sl].T
+        out[cell + (f"h{gate}", "kernel")] = w_hh[sl].T
+    out[cell + ("ir", "bias")] = b_ih[:h] + b_hh[:h]
+    out[cell + ("iz", "bias")] = b_ih[h:2 * h] + b_hh[h:2 * h]
+    out[cell + ("in", "bias")] = b_ih[2 * h:]
+    out[cell + ("hn", "bias")] = b_hh[2 * h:]
+    return out
+
+
+def _gru_keys() -> frozenset[str]:
+    return frozenset(f"{_GRU}.emb_model.{n.format(k=k)}"
+                     for k in range(GRU_LAYERS) for n in _GRU_TORCH)
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -177,6 +261,12 @@ def flax_to_torch_state_dict(tree: dict) -> dict[str, torch.Tensor]:
         arr = transform(np.asarray(leaves[path], dtype=np.float32))
         state[key] = torch.tensor(np.ascontiguousarray(arr))
         placed.add(path)
+    for k in range(GRU_LAYERS):
+        if _gru_cell(k) + ("ir", "kernel") not in leaves:
+            continue
+        for key, arr in gru_flax_to_torch(leaves, k).items():
+            state[key] = torch.tensor(np.ascontiguousarray(arr))
+        placed.update(_gru_paths(k))
     unplaced = sorted("/".join(p) for p in set(leaves) - placed)
     if unplaced:
         raise KeyError(f"flax leaves with no place in the port: "
@@ -194,18 +284,30 @@ def torch_to_flax_tree(state: dict[str, torch.Tensor],
     num_res = sum(1 for k in state if k.startswith("downs.")
                   and k.endswith(".0.block1.proj.weight"))
     mapping = key_map(num_res)
-    unknown = sorted(set(state) - set(mapping))
+    gru = _gru_keys()
+    unknown = sorted(set(state) - set(mapping) - gru)
     if unknown:
         raise KeyError(f"state dict keys with no flax leaf: {unknown[:10]}")
-    params: dict = {}
+    leaves = {}
     for key, tensor in state.items():
+        if key in gru:
+            continue
         path, transform = mapping[key]
         arr = np.ascontiguousarray(_INVERSE[transform](
             tensor.detach().cpu().float().numpy()))
+        leaves[path] = bfloat16(arr) if key in bf16_keys else arr
+    gru_state = {n: t.detach().cpu().float().numpy()
+                 for n, t in state.items() if n in gru}
+    for k in range(GRU_LAYERS):
+        if f"{_GRU}.emb_model.weight_ih_l{k}" in gru_state:
+            leaves.update((path, np.ascontiguousarray(arr)) for path, arr
+                          in gru_torch_to_flax(gru_state, k).items())
+    params: dict = {}
+    for path, arr in leaves.items():
         node = params
         for name in path[:-1]:
             node = node.setdefault(name, {})
-        node[path[-1]] = bfloat16(arr) if key in bf16_keys else arr
+        node[path[-1]] = arr
     return {"params": _sorted(params)}
 
 

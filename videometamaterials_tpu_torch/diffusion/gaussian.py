@@ -23,6 +23,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from videometamaterials_tpu_torch.config import CURVE_POINTS
 from videometamaterials_tpu_torch.ops.schedules import extract, make_schedule
 
 
@@ -302,8 +303,10 @@ class GaussianDiffusion:
         model's [-1, 1] space) noised to step t (default T - 1) with noise1
         and noise2, mixed as (1 - lam) x1_t + lam x2_t, then t ancestral
         steps from t - 1 down (step i's noise noise_fn(i)); the noises are
-        drawn from `generator` unless given. cond defaults to zeros (b, F),
-        as in the JAX package. Returns the result in [-1, 1]."""
+        drawn from `generator` unless given. cond defaults to zeros of the
+        model's conditioning width: (b, F) as in the JAX package, or the
+        curve tail's (b, 50) for a whole-curve model. Returns the result in
+        [-1, 1]."""
         t = self.timesteps - 1 if t is None else t
         b = x1.shape[0]
         x1 = x1.to(self.device, torch.float32)
@@ -318,7 +321,10 @@ class GaussianDiffusion:
         xt2 = self.q_sample(x2, t_b, draw() if noise2 is None else noise2)
         img = (1 - lam) * xt1 + lam * xt2
         if cond is None:
-            cond = torch.zeros((b, self.num_frames), device=self.device)
+            width = (self.num_frames if getattr(self.model, "per_frame_cond",
+                                                True)
+                     else CURVE_POINTS - 1)
+            cond = torch.zeros((b, width), device=self.device)
         cond = cond.to(self.device, torch.float32)
         for i, t_scalar in enumerate(range(t - 1, -1, -1)):
             t_vec = torch.full((b,), t_scalar, dtype=torch.long,

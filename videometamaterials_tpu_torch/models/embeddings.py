@@ -1,8 +1,10 @@
 """Timestep and relative-position embeddings.
 
-Port of videometamaterials_tpu/models/embeddings.py (SinusoidalPosEmb,
-RelativePositionBias). The whole-signal CNN/GRU embedders are ablation-only
-and wait for a later slice.
+Port of videometamaterials_tpu/models/embeddings.py: SinusoidalPosEmb,
+RelativePositionBias, and SignalEmbedding, the whole-curve CNN/GRU encoder
+of the conditioning ablation (per_frame_cond: false; the reference's
+vddp.py:538-572). The embedders run in PyTorch's own Conv1d and GRU: the
+JAX package runs them in XLA, with no kernel of its own.
 """
 
 from __future__ import annotations
@@ -50,3 +52,40 @@ class RelativePositionBias(nn.Module):
             device=self.relative_attention_bias.weight.device)
         values = self.relative_attention_bias.weight.float()[buckets]
         return values.permute(2, 0, 1)
+
+
+class SignalEmbedding(nn.Module):
+    """The whole-curve encoder of a (B, L) signal, float32.
+
+    'CNN': five stride-2 Conv1d(k=4, p=1) + SiLU stages (1 -> 16 -> 32 ->
+    64 -> 128 -> out channels), which take the 50-point curve tail to
+    length 1; returns (B, out), the mean over the length if more than one
+    position is left. 'GRU': a 3-layer GRU of `out` features; returns the
+    top layer's sequence (B, L, out), one token a curve point. Parameters
+    carry the reference's names: `emb_model.{0,2,4,6,8}.*` (CNN),
+    `emb_model.weight_ih_l{k}` etc. (GRU)."""
+
+    def __init__(self, cond_arch: str, init_channel: int = 1,
+                 channel_upsamplings=(16, 32, 64, 128, 256)):
+        super().__init__()
+        self.cond_arch = cond_arch
+        chans = [init_channel, *channel_upsamplings]
+        if cond_arch == "CNN":
+            layers = []
+            for cin, cout in zip(chans[:-1], chans[1:]):
+                layers += [nn.Conv1d(cin, cout, 4, stride=2, padding=1),
+                           nn.SiLU()]
+            self.emb_model = nn.Sequential(*layers)
+        elif cond_arch == "GRU":
+            self.emb_model = nn.GRU(init_channel, channel_upsamplings[-1],
+                                    num_layers=3, batch_first=True)
+        else:
+            raise ValueError(f"unknown architecture {cond_arch!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.float()[:, None, :] if self.cond_arch == "CNN" \
+            else x.float()[..., None]
+        if self.cond_arch == "CNN":
+            h = self.emb_model(h)                      # (B, out, L')
+            return h.mean(dim=-1) if h.shape[-1] > 1 else h[..., 0]
+        return self.emb_model(h)[0]

@@ -26,10 +26,17 @@ from the softmax weights the forward kernel saved ('saved'). The linear
 blocks take the JAX package's `VMT_LINEAR_LAYOUT` switch ('merged' stats
 + apply, or the 'head' kernel) inside `fused_linear_block`;
 `UNet3D.fused_plans(False)` runs every block on its
-unfused plan over the same parameters (the JAX Trainer's plan split). The
-focus-present mask,
-cross-attention conditioning, the CNN/GRU signal embedders and the circular
-padding modes are off the sampling path and wait for later slices.
+unfused plan over the same parameters (the JAX Trainer's plan split).
+
+The conditioning ablation of the paper (per_frame_cond: false) is built
+as the JAX model builds it: the whole curve through the CNN embedder (its
+hidden joins the time embedding, added or concatenated), and conditioning
+tokens that are the hidden broadcast to `cond_attention_tokens`, the GRU's
+token a curve point, or none; the tokens enter the blocks stacked in front
+of the keys ('self-stacked', on the fused kernels at any token count up to
+MAX_COND_TOKENS) or as the keys of a cross-attention (the generic plan).
+The circular padding modes and `use_sparse_linear_attn: false` are built
+too. The focus-present mask is not ported (ROADMAP.md Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from videometamaterials_tpu_torch.config import (
+    COND_ATTENTIONS,
+    CURVE_POINTS,
     ModelConfig,
     resolve_device,
     set_precision,
@@ -51,6 +60,7 @@ from videometamaterials_tpu_torch.config import (
 )
 from videometamaterials_tpu_torch.models.embeddings import (
     RelativePositionBias,
+    SignalEmbedding,
     SinusoidalPosEmb,
 )
 from videometamaterials_tpu_torch.ops.attention import (
@@ -66,6 +76,7 @@ from videometamaterials_tpu_torch.ops.cuda.fused_linear_block import (
     fused_linear_block,
 )
 from videometamaterials_tpu_torch.ops.cuda.fused_temporal_block import (
+    check_cond_tokens,
     fused_temporal_block,
 )
 from videometamaterials_tpu_torch.ops.norms import (
@@ -86,28 +97,32 @@ class SpatialConv(nn.Module):
     """Reference Conv3d with a (1, k, k) kernel: weight (O, I, 1, k, k)."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: int | None = None):
+                 padding: int | None = None, padding_mode: str = "zeros"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(cout, cin, 1, k, k))
         self.bias = nn.Parameter(torch.zeros(cout))
         self.stride, self.padding = stride, padding
+        self.padding_mode = padding_mode
 
     def forward(self, x):
         return conv2d_spatial(x, self.weight[:, :, 0], self.bias,
-                              stride=self.stride, padding=self.padding)
+                              stride=self.stride, padding=self.padding,
+                              padding_mode=self.padding_mode)
 
 
 class SpatialConvTranspose(nn.Module):
     """Reference ConvTranspose3d (1, 4, 4) / stride (1, 2, 2): weight
     (I, O, 1, 4, 4)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, padding_mode: str = "zeros"):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(dim, dim, 1, 4, 4))
         self.bias = nn.Parameter(torch.zeros(dim))
+        self.padding_mode = padding_mode
 
     def forward(self, x):
-        return conv_transpose2d_spatial(x, self.weight[:, :, 0], self.bias)
+        return conv_transpose2d_spatial(x, self.weight[:, :, 0], self.bias,
+                                        padding_mode=self.padding_mode)
 
 
 class Conv1x1(nn.Module):
@@ -181,7 +196,8 @@ def _inference_cache(module: nn.Module, key, params, build):
     their weights once per model instead of once per forward. A load, a
     cast or an optimizer step changes a parameter's storage, dtype or
     version counter and so rebuilds. With autograd on it builds afresh, so
-    gradients still reach the parameters."""
+    gradients still reach the parameters. The cache lives on the module,
+    so two models (two variants of the config) never share an entry."""
     if torch.is_grad_enabled():
         return build()
     stamp = tuple((p.device, p.data_ptr(), p.dtype, p._version)
@@ -195,9 +211,10 @@ def _inference_cache(module: nn.Module, key, params, build):
 class Block(nn.Module):
     """Conv(1,3,3) + GroupNorm + optional FiLM + SiLU."""
 
-    def __init__(self, dim: int, dim_out: int, groups: int, dtype):
+    def __init__(self, dim: int, dim_out: int, groups: int, dtype,
+                 padding_mode: str = "zeros"):
         super().__init__()
-        self.proj = SpatialConv(dim, dim_out, 3)
+        self.proj = SpatialConv(dim, dim_out, 3, padding_mode=padding_mode)
         self.norm = _GroupNormParams(dim_out)
         self.groups = groups
         self.dtype = dtype
@@ -217,13 +234,13 @@ class ResnetBlock(nn.Module):
     embedding."""
 
     def __init__(self, dim: int, dim_out: int, time_emb_dim: int | None,
-                 groups: int, dtype):
+                 groups: int, dtype, padding_mode: str = "zeros"):
         super().__init__()
         self.mlp = (nn.Sequential(nn.SiLU(), nn.Linear(time_emb_dim,
                                                        dim_out * 2))
                     if time_emb_dim is not None else None)
-        self.block1 = Block(dim, dim_out, groups, dtype)
-        self.block2 = Block(dim_out, dim_out, groups, dtype)
+        self.block1 = Block(dim, dim_out, groups, dtype, padding_mode)
+        self.block2 = Block(dim_out, dim_out, groups, dtype, padding_mode)
         self.res_conv = Conv1x1(dim, dim_out) if dim != dim_out else None
         self.dtype = dtype
 
@@ -240,49 +257,92 @@ class ResnetBlock(nn.Module):
 
 class Attention(nn.Module):
     """Full softmax attention shared by the temporal blocks and the mid
-    spatial block, with per-frame conditioning tokens stacked in front of
-    the keys and values (self-stacked). Projections are bias-free Linears
-    in the reference layout (out, in)."""
+    spatial block. Conditioning: 'self-stacked' (the tokens' keys and
+    values stacked in front of the block's own), 'cross-attention' (queries
+    from `to_q` against the tokens alone) or 'none'. Projections are
+    bias-free Linears in the reference layout (out, in); to_k/to_v exist
+    with a conditioning mode, to_q with cross-attention (the JAX
+    Attention.setup)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype):
+                 dtype, cond_attention: str = "self-stacked",
+                 per_frame_cond: bool = True):
         super().__init__()
         hidden = heads * dim_head
         self.heads, self.dim_head = heads, dim_head
         self.dtype = dtype
+        self.cond_attention = cond_attention
+        self.per_frame_cond = per_frame_cond
         self.to_qkv = nn.Linear(dim, hidden * 3, bias=False)
         self.to_out = nn.Linear(hidden, dim, bias=False)
-        self.to_k = nn.Linear(cond_dim, hidden, bias=False)
-        self.to_v = nn.Linear(cond_dim, hidden, bias=False)
+        if cond_attention != "none":
+            self.to_k = nn.Linear(cond_dim, hidden, bias=False)
+            self.to_v = nn.Linear(cond_dim, hidden, bias=False)
+        if cond_attention == "cross-attention":
+            self.to_q = nn.Linear(dim, hidden, bias=False)
         self._kernel_weights = {}
 
     def _cond_kv(self, label_emb):
         le = label_emb.to(self.dtype)
         return conv1x1(le, self.to_k.weight), conv1x1(le, self.to_v.weight)
 
-    def forward(self, x, label_emb=None):
-        """Generic plan on (b, s, n, c) with s the frame axis and n the
-        pixels (the mid spatial block: no rotary, no position bias); one
-        conditioning token per frame."""
+    def forward(self, x, pos_bias=None, label_emb=None,
+                use_rotary: bool = False):
+        """Generic plan (the JAX Attention.__call__) on (b, s, n, c), n the
+        token axis: the mid spatial block (s frames, n pixels, no rotary,
+        no position bias) and the temporal blocks under cross-attention (s
+        pixels, n frames, rotary and the position bias). Conditioning
+        tokens (b, T, cond_dim): per-frame ones (T = s, one in front of
+        each frame's keys, the mid block), else shared by every s."""
         b, s, n, _ = x.shape
         heads, dh = self.heads, self.dim_head
         hidden = heads * dh
-        qkv = conv1x1(x.to(self.dtype), self.to_qkv.weight)
+        x = x.to(self.dtype)
+        freqs = (torch.as_tensor(rotary_frequencies(n, min(32, dh)),
+                                 device=x.device) if use_rotary else None)
+        cond_used = self.cond_attention != "none" and label_emb is not None
+
+        def split_heads(t):       # (b, s', m, hidden) -> (b, s', heads, m, d)
+            return t.reshape(t.shape[0], t.shape[1], t.shape[2], heads,
+                             dh).permute(0, 1, 3, 2, 4)
+
+        if self.cond_attention == "cross-attention" and cond_used:
+            q = conv1x1(x, self.to_q.weight)
+            if freqs is not None:
+                q = apply_rotary_heads(q, freqs, heads)
+            ek, ev = self._cond_kv(label_emb)        # (b, T, hidden)
+            out = stacked_softmax_attention(
+                split_heads(q), split_heads(ek[:, None]),
+                split_heads(ev[:, None]), scale=dh ** -0.5,
+                num_video_tokens=n)
+            out = out.permute(0, 1, 3, 2, 4).reshape(b, s, n, hidden)
+            return conv1x1(out, self.to_out.weight)
+
+        qkv = conv1x1(x, self.to_qkv.weight)
         q, k, v = qkv.chunk(3, dim=-1)
-        if label_emb is not None:
+        if freqs is not None:
+            q = apply_rotary_heads(q, freqs, heads)
+            k = apply_rotary_heads(k, freqs, heads)
+        if cond_used:                                 # 'self-stacked'
             ek, ev = self._cond_kv(label_emb)
-            if ek.shape[1] != s:
-                raise ValueError("per-frame cond tokens must align with the "
-                                 "frame axis")
-            k = torch.cat([ek[:, :, None, :], k], dim=-2)
-            v = torch.cat([ev[:, :, None, :], v], dim=-2)
-
-        def split_heads(t):       # (b, s, m, hidden) -> (b, s, heads, m, d)
-            return t.reshape(b, s, t.shape[2], heads, dh).permute(0, 1, 3, 2, 4)
-
+            if pos_bias is None and self.per_frame_cond:
+                # one token per frame in front of that frame's keys
+                if ek.shape[1] != s:
+                    raise ValueError("per-frame cond tokens must align with "
+                                     "the frame axis")
+                ek, ev = ek[:, :, None, :], ev[:, :, None, :]
+            else:
+                t_tok = ek.shape[1]
+                if freqs is not None and self.per_frame_cond:
+                    ek = apply_rotary_heads(ek, freqs, heads)
+                ek = ek[:, None].expand(b, s, t_tok, hidden)
+                ev = ev[:, None].expand(b, s, t_tok, hidden)
+            k = torch.cat([ek, k], dim=-2)
+            v = torch.cat([ev, v], dim=-2)
         out = stacked_softmax_attention(
             split_heads(q), split_heads(k), split_heads(v), scale=dh ** -0.5,
-            num_video_tokens=n)
+            num_video_tokens=n, pos_bias=pos_bias,
+            pos_bias_on_cond=self.per_frame_cond and cond_used)
         out = out.permute(0, 1, 3, 2, 4).reshape(b, s, n, hidden)
         return conv1x1(out, self.to_out.weight)
 
@@ -306,18 +366,32 @@ class Attention(nn.Module):
         return torch.cat([w_qf, w_kf, w_vf], dim=-1), freqs
 
     def _temporal_cond(self, label_emb, freqs):
-        """Conditioning K/V (b, T, hidden) with rotary on the keys (time is
-        encoded into the per-frame cond keys), or (None, None)."""
+        """Conditioning K/V (b, T, hidden) of the frames-major temporal
+        plans (self-stacked tokens), with rotary on the keys under
+        per-frame conditioning (time is encoded into the per-frame cond
+        keys), or (None, None)."""
         if label_emb is None:
             return None, None
         ek, ev = self._cond_kv(label_emb)
-        return apply_rotary_heads(ek, freqs, self.heads), ev
+        if self.per_frame_cond:
+            ek = apply_rotary_heads(ek, freqs, self.heads)
+        return ek, ev
+
+    def _cond_block_biased(self, f, t_tok) -> bool:
+        """The position bias lands on the cond block only with per-frame
+        tokens, one a frame (vddp.py:502-512)."""
+        return self.per_frame_cond and t_tok == f
 
     def _temporal_bias_all(self, f, t_tok, pos_bias):
         """(f, f+T, heads) float32: the position bias on the video block
-        and, with per-frame cond tokens, on the cond block too."""
+        and, with per-frame cond tokens, on the cond block too (zeros
+        there otherwise)."""
         bias_v = pos_bias.float().permute(1, 2, 0)
-        return torch.cat([bias_v] * (2 if t_tok else 1), dim=1).contiguous()
+        if not t_tok:
+            return bias_v.contiguous()
+        bias_c = (bias_v if self._cond_block_biased(f, t_tok)
+                  else bias_v.new_zeros((f, t_tok, bias_v.shape[-1])))
+        return torch.cat([bias_v, bias_c], dim=1).contiguous()
 
     def temporal_fused(self, x_bfsc, norm_gamma, pos_bias, label_emb=None,
                        bwd: str = "recompute"):
@@ -370,7 +444,9 @@ class Attention(nn.Module):
             t_tok = ek.shape[1]
             ekh = ek.reshape(b, t_tok, heads, dh).float()
             evh = ev.reshape(b, t_tok, heads, dh).float()
-            sim_c = torch.einsum("bishd,bthd->bitsh", q, ekh).to(dt) + bias
+            sim_c = torch.einsum("bishd,bthd->bitsh", q, ekh).to(dt)
+            if self._cond_block_biased(f, t_tok):
+                sim_c = sim_c + bias
             mx = torch.maximum(sim_v.amax(dim=2, keepdim=True),
                                sim_c.amax(dim=2, keepdim=True)).float()
             e_v = torch.exp(sim_v.float() - mx)
@@ -391,32 +467,48 @@ class Attention(nn.Module):
 
 
 class SpatialLinearAttention(nn.Module):
-    """Linear attention over the pixels of each frame, one conditioning
-    token per frame stacked in front. to_qkv/to_out are 1x1 convs, to_k/to_v
-    Linears (the reference's layouts)."""
+    """Linear attention over the pixels of each frame, conditioning tokens
+    stacked in front ('self-stacked': one a frame, or T shared by the
+    frames) or alone as the keys ('cross-attention', queries from to_q).
+    to_qkv/to_q/to_out are 1x1 convs, to_k/to_v Linears (the reference's
+    layouts); to_k/to_v exist with a conditioning mode, to_q in place of
+    to_qkv under cross-attention (the JAX module's parameters)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype):
+                 dtype, cond_attention: str = "self-stacked",
+                 per_frame_cond: bool = True):
         super().__init__()
         hidden = heads * dim_head
         self.dim, self.heads, self.dim_head = dim, heads, dim_head
         self.dtype = dtype
-        self.to_qkv = Conv1x1(dim, hidden * 3, bias=False)
-        self.to_k = nn.Linear(cond_dim, hidden, bias=False)
-        self.to_v = nn.Linear(cond_dim, hidden, bias=False)
+        self.cond_attention = cond_attention
+        self.per_frame_cond = per_frame_cond
+        if cond_attention == "cross-attention":
+            self.to_q = Conv1x1(dim, hidden, bias=False)
+        else:
+            self.to_qkv = Conv1x1(dim, hidden * 3, bias=False)
+        if cond_attention != "none":
+            self.to_k = nn.Linear(cond_dim, hidden, bias=False)
+            self.to_v = nn.Linear(cond_dim, hidden, bias=False)
         self.to_out = Conv1x1(hidden, dim)
         self._kernel_weights = {}
 
     def _cond_kv(self, label_emb, b, f):
-        """Conditioning K/V on the folded frame axis: (b*f, 1, hidden)."""
+        """Conditioning K/V on the folded frame axis: (b*f, 1, hidden) with
+        per-frame tokens, else the T tokens shared by the frames
+        (b*f, T, hidden) (the JAX _fused_cond_kv)."""
         hidden = self.heads * self.dim_head
         le = label_emb.to(self.dtype)
         ek = conv1x1(le, self.to_k.weight)
         ev = conv1x1(le, self.to_v.weight)
-        if ek.shape[1] != f:
-            raise ValueError("per-frame cond tokens must align with the "
-                             "frame axis")
-        return ek.reshape(b * f, 1, hidden), ev.reshape(b * f, 1, hidden)
+        if self.per_frame_cond:
+            if ek.shape[1] != f:
+                raise ValueError("per-frame cond tokens must align with the "
+                                 "frame axis")
+            return ek.reshape(b * f, 1, hidden), ev.reshape(b * f, 1, hidden)
+        t_tok = ek.shape[1]
+        return tuple(t[:, None].expand(b, f, t_tok, hidden).reshape(
+            b * f, t_tok, hidden) for t in (ek, ev))
 
     def forward(self, x, label_emb=None):
         """Unfused plan on the normed input; returns the block's update
@@ -424,13 +516,19 @@ class SpatialLinearAttention(nn.Module):
         b, f, h, w, c = x.shape
         heads, dh = self.heads, self.dim_head
         xf = x.reshape(b * f, h * w, c).to(self.dtype)
-        qkv = conv1x1(xf, self.to_qkv.matrix)
-        q, k, v = (t.reshape(b * f, h * w, heads, dh)
-                   for t in qkv.chunk(3, dim=-1))
-        if label_emb is not None:
-            ek, ev = self._cond_kv(label_emb, b, f)
-            k = torch.cat([ek.reshape(b * f, 1, heads, dh), k], dim=1)
-            v = torch.cat([ev.reshape(b * f, 1, heads, dh), v], dim=1)
+        cond_used = self.cond_attention != "none" and label_emb is not None
+        if self.cond_attention == "cross-attention" and cond_used:
+            q = conv1x1(xf, self.to_q.matrix).reshape(b * f, h * w, heads, dh)
+            k, v = (t.reshape(b * f, -1, heads, dh)
+                    for t in self._cond_kv(label_emb, b, f))
+        else:
+            qkv = conv1x1(xf, self.to_qkv.matrix)
+            q, k, v = (t.reshape(b * f, h * w, heads, dh)
+                       for t in qkv.chunk(3, dim=-1))
+            if cond_used:
+                ek, ev = self._cond_kv(label_emb, b, f)
+                k = torch.cat([ek.reshape(b * f, -1, heads, dh), k], dim=1)
+                v = torch.cat([ev.reshape(b * f, -1, heads, dh), v], dim=1)
         out = linear_attention_tokens_first(q, k, v, scale=dh ** -0.5,
                                             spatial_size=h * w)
         out = conv1x1(out.reshape(b * f, h * w, heads * dh),
@@ -470,19 +568,33 @@ class SpatialLinearAttention(nn.Module):
 
 class TemporalAttentionBlock(nn.Module):
     """PreNorm + residual full attention over the frame axis; parameters
-    nest as the reference's `fn.norm.gamma` / `fn.fn.fn.<proj>`."""
+    nest as the reference's `fn.norm.gamma` / `fn.fn.fn.<proj>`. Under
+    'none' and 'self-stacked' conditioning it runs the frames-major plans
+    (fused or temporal_xla); under cross-attention the generic plan
+    (the JAX block's fallback), which has no fused form."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype, use_fused_block: bool, bwd: str = "recompute"):
+                 dtype, use_fused_block: bool, bwd: str = "recompute",
+                 cond_attention: str = "self-stacked",
+                 per_frame_cond: bool = True):
         super().__init__()
         self.fn = _PreNorm(dim, _Rearranged(Attention(
-            dim, heads, dim_head, cond_dim, dtype)))
-        self.use_fused_block = use_fused_block
+            dim, heads, dim_head, cond_dim, dtype, cond_attention,
+            per_frame_cond)))
+        self.generic = cond_attention == "cross-attention"
+        self.use_fused_block = use_fused_block and not self.generic
         self.bwd = bwd
 
     def forward(self, x, pos_bias, label_emb=None):
         b, f, h, w, c = x.shape
         attn = self.fn.fn.fn
+        if self.generic:
+            y = channel_layer_norm(x, self.fn.norm.scale)
+            y = y.permute(0, 2, 3, 1, 4).reshape(b, h * w, f, c)
+            y = attn(y, pos_bias=pos_bias, label_emb=label_emb,
+                     use_rotary=True)
+            y = y.reshape(b, h, w, f, c).permute(0, 3, 1, 2, 4)
+            return x + y.to(x.dtype)
         x4 = x.reshape(b, f, h * w, c)
         if self.use_fused_block:
             out = attn.temporal_fused(x4, self.fn.norm.scale, pos_bias,
@@ -498,10 +610,12 @@ class SpatialAttentionBlock(nn.Module):
     (mid block only)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype):
+                 dtype, cond_attention: str = "self-stacked",
+                 per_frame_cond: bool = True):
         super().__init__()
         self.fn = _PreNorm(dim, _Rearranged(Attention(
-            dim, heads, dim_head, cond_dim, dtype)))
+            dim, heads, dim_head, cond_dim, dtype, cond_attention,
+            per_frame_cond)))
 
     def forward(self, x, label_emb=None):
         b, f, h, w, c = x.shape
@@ -515,11 +629,16 @@ class SpatialLinearAttentionBlock(nn.Module):
     `fn.fn.<proj>`)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype, use_fused_block: bool, bwd: str = "recompute"):
+                 dtype, use_fused_block: bool, bwd: str = "recompute",
+                 cond_attention: str = "self-stacked",
+                 per_frame_cond: bool = True):
         super().__init__()
         self.fn = _PreNorm(dim, SpatialLinearAttention(
-            dim, heads, dim_head, cond_dim, dtype))
-        self.use_fused_block = use_fused_block
+            dim, heads, dim_head, cond_dim, dtype, cond_attention,
+            per_frame_cond))
+        # the fused plan has no cross-attention form (the JAX _fused_ok)
+        self.use_fused_block = (use_fused_block
+                                and cond_attention != "cross-attention")
         self.bwd = bwd
 
     def forward(self, x, label_emb=None):
@@ -532,8 +651,9 @@ class SpatialLinearAttentionBlock(nn.Module):
 
 
 class Downsample(SpatialConv):
-    def __init__(self, dim: int, dtype):
-        super().__init__(dim, dim, 4, stride=2, padding=1)
+    def __init__(self, dim: int, dtype, padding_mode: str = "zeros"):
+        super().__init__(dim, dim, 4, stride=2, padding=1,
+                         padding_mode=padding_mode)
         self.dtype = dtype
 
     def forward(self, x):
@@ -541,8 +661,8 @@ class Downsample(SpatialConv):
 
 
 class Upsample(SpatialConvTranspose):
-    def __init__(self, dim: int, dtype):
-        super().__init__(dim)
+    def __init__(self, dim: int, dtype, padding_mode: str = "zeros"):
+        super().__init__(dim, padding_mode)
         self.dtype = dtype
 
     def forward(self, x):
@@ -553,10 +673,18 @@ class Upsample(SpatialConvTranspose):
 
 
 class UNet3D(nn.Module):
-    """The denoiser, in the configuration family of the flagship: per-frame
-    conditioning (self-stacked tokens, hidden added to the time embedding),
-    spatial linear attention at every level, zeros padding. The other
-    variants of the JAX model raise NotImplementedError here."""
+    """The denoiser (the JAX UNet3D), from the flagship (per-frame
+    conditioning: self-stacked tokens, one a frame, hidden added to the
+    time embedding) to the paper's conditioning ablations (per_frame_cond
+    False: the CNN hidden, 'self-stacked' / 'cross-attention' / 'none'
+    tokens, the GRU's tokens, 'concat' to the time embedding), with or
+    without spatial linear attention, in every padding mode. The
+    focus-present mask is not ported (ROADMAP.md Queue 1 item 8).
+
+    cond_length is the width of the whole-curve conditioning (the tail of
+    the CSVs' 51-point curves): the GRU's token count, so the null token's
+    length. A token count above what the fused temporal kernels take
+    raises a ValueError here, where a fused temporal block would get it."""
 
     def __init__(self, dim: int = 64, dim_mults: Sequence[int] = (1, 2, 4, 8),
                  channels: int = 3, attn_heads: int = 8,
@@ -569,49 +697,80 @@ class UNet3D(nn.Module):
                  use_fused_linear_block: bool | str | int = "all",
                  use_fused_temporal_block: bool | str | int = "all",
                  fused_bwd_kernels: bool = False,
-                 temporal_vjp: str | None = None):
+                 temporal_vjp: str | None = None,
+                 cond_attention: str = "self-stacked",
+                 cond_attention_tokens: int = 16,
+                 cond_att_GRU: bool = False,
+                 cond_length: int = CURVE_POINTS - 1):
         super().__init__()
         temporal_bwd = temporal_bwd_mode(temporal_vjp, fused_bwd_kernels)
         linear_bwd = "kernel" if fused_bwd_kernels else "recompute"
-        unported = {"per_frame_cond": per_frame_cond is not True,
-                    "use_sparse_linear_attn": use_sparse_linear_attn is not True,
-                    "cond_to_time": cond_to_time != "add",
-                    "padding_mode": padding_mode != "zeros"}
-        if any(unported.values()):
-            raise NotImplementedError(
-                "not ported yet: " + ", ".join(k for k, v in unported.items()
-                                               if v))
+        if cond_attention not in COND_ATTENTIONS:
+            raise ValueError(f"unknown cond_attention {cond_attention!r}")
+        if cond_to_time not in ("add", "concat"):
+            raise ValueError(f"unknown cond_to_time {cond_to_time!r}")
         self.dtype = compute_dtype
         self.init_dim = dim
         self.use_temporal_attention_cond = use_temporal_attention_cond
+        self.use_sparse_linear_attn = use_sparse_linear_attn
+        self.per_frame_cond = per_frame_cond
+        self.cond_to_time = cond_to_time
+        # per-frame conditioning forces self-stacked tokens, one a frame
+        # (the JAX _cond_attention and _cond_tokens)
+        cdt = self.cond_attention = ("self-stacked" if per_frame_cond
+                                     else cond_attention)
+        self.cond_att_GRU = cond_att_GRU and not per_frame_cond
+        self.num_tokens = 0 if cdt == "none" else (
+            num_frames if per_frame_cond
+            else cond_length if self.cond_att_GRU else cond_attention_tokens)
         time_dim = cond_dim = dim * 4
+        time_emb_dim = time_dim + cond_dim if cond_to_time == "concat" \
+            else cond_dim
+        temporal_tokens = (self.num_tokens if cdt == "self-stacked"
+                           and use_temporal_attention_cond else 0)
 
-        def temporal(d):
+        def temporal(d, tokens=temporal_tokens):
+            fused = self._tri_state(use_fused_temporal_block, d)
+            if fused and cdt != "cross-attention":
+                check_cond_tokens(tokens)
             return TemporalAttentionBlock(
-                d, attn_heads, attn_dim_head, cond_dim, compute_dtype,
-                self._tri_state(use_fused_temporal_block, d), temporal_bwd)
+                d, attn_heads, attn_dim_head, cond_dim, compute_dtype, fused,
+                temporal_bwd, cdt, per_frame_cond)
 
         def linear(d):
+            if not use_sparse_linear_attn:
+                return nn.Identity()
             return SpatialLinearAttentionBlock(
                 d, attn_heads, 32, cond_dim, compute_dtype,
-                self._tri_state(use_fused_linear_block, d), linear_bwd)
+                self._tri_state(use_fused_linear_block, d), linear_bwd, cdt,
+                per_frame_cond)
 
-        def res(a, b_):
-            return ResnetBlock(a, b_, cond_dim, resnet_groups, compute_dtype)
+        def res(a, b_, emb=time_emb_dim):
+            return ResnetBlock(a, b_, emb, resnet_groups, compute_dtype,
+                               padding_mode)
 
         self.time_rel_pos_bias = RelativePositionBias(
             heads=attn_heads, num_buckets=32, max_distance=32)
-        self.init_conv = SpatialConv(channels, dim, init_kernel_size)
-        self.init_temporal_attn = temporal(dim)
+        self.init_conv = SpatialConv(channels, dim, init_kernel_size,
+                                     padding_mode=padding_mode)
+        self.init_temporal_attn = temporal(dim, tokens=0)
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(dim), nn.Linear(dim, time_dim),
             nn.GELU(), nn.Linear(time_dim, time_dim))
-        self.sign_emb = nn.Linear(1, cond_dim)
-        self.cond_token_to_hidden = nn.Sequential(
-            nn.LayerNorm(cond_dim, eps=1e-5), nn.Linear(cond_dim, cond_dim),
-            nn.SiLU(), nn.Linear(cond_dim, time_dim))
-        self.null_text_token = nn.Parameter(torch.zeros(1, num_frames,
-                                                        cond_dim))
+        chans = (16, 32, 64, 128, cond_dim)
+        if per_frame_cond:
+            self.sign_emb = nn.Linear(1, cond_dim)
+            self.cond_token_to_hidden = nn.Sequential(
+                nn.LayerNorm(cond_dim, eps=1e-5),
+                nn.Linear(cond_dim, cond_dim), nn.SiLU(),
+                nn.Linear(cond_dim, time_dim))
+        else:
+            self.sign_emb_CNN = SignalEmbedding("CNN", 1, chans)
+            if self.cond_att_GRU and cdt != "none":
+                self.sign_emb_GRU = SignalEmbedding("GRU", 1, chans)
+        if cdt != "none":
+            self.null_text_token = nn.Parameter(torch.zeros(
+                1, self.num_tokens, cond_dim))
         self.null_text_hidden = nn.Parameter(torch.zeros(1, time_dim))
 
         dims = [dim, *(dim * m for m in dim_mults)]
@@ -622,12 +781,13 @@ class UNet3D(nn.Module):
             self.downs.append(nn.ModuleList([
                 res(d_in, d_out), res(d_out, d_out), linear(d_out),
                 temporal(d_out),
-                nn.Identity() if last else Downsample(d_out, compute_dtype)]))
+                nn.Identity() if last else Downsample(d_out, compute_dtype,
+                                                      padding_mode)]))
         mid = dims[-1]
         self.mid_block1 = res(mid, mid)
         # the reference builds the mid attention with the default head dim 32
         self.mid_spatial_attn = SpatialAttentionBlock(
-            mid, attn_heads, 32, cond_dim, compute_dtype)
+            mid, attn_heads, 32, cond_dim, compute_dtype, cdt, per_frame_cond)
         self.mid_temporal_attn = temporal(mid)
         self.mid_block2 = res(mid, mid)
         self.ups = nn.ModuleList()
@@ -636,10 +796,10 @@ class UNet3D(nn.Module):
             self.ups.append(nn.ModuleList([
                 res(d_out * 2, d_in), res(d_in, d_in), linear(d_in),
                 temporal(d_in),
-                nn.Identity() if last else Upsample(d_in, compute_dtype)]))
+                nn.Identity() if last else Upsample(d_in, compute_dtype,
+                                                    padding_mode)]))
         self.final_conv = nn.Sequential(
-            ResnetBlock(dim * 2, dim, None, resnet_groups, compute_dtype),
-            Conv1x1(dim, channels))
+            res(dim * 2, dim, emb=None), Conv1x1(dim, channels))
 
     def _tri_state(self, flag, dim: int) -> bool:
         """False | True/'all' (every level) | 'level0' (full resolution) |
@@ -682,7 +842,7 @@ class UNet3D(nn.Module):
             if name in ("null_text_token", "null_text_hidden") \
                     or name.endswith("relative_attention_bias.weight"):
                 p.copy_(torch.randn(p.shape, generator=generator))
-            elif leaf == "bias":
+            elif leaf.startswith("bias"):        # bias, GRU bias_ih_l0 ...
                 p.zero_()
             elif leaf == "gamma" or p.dim() == 1:
                 p.fill_(1.0)
@@ -699,10 +859,11 @@ class UNet3D(nn.Module):
     def forward(self, x, time, cond, null_cond_mask=None,
                 cfg_tiled_pair: bool = False):
         """x: (b, f, h, w, channels) in [-1, 1]; time (b,); cond (b, f)
-        per-frame stresses; null_cond_mask (b,) bool, True = learned null
-        conditioning. With cfg_tiled_pair, x arrives at batch b while time,
-        cond and the mask arrive CFG-folded at 2b: the conditioning-free
-        init stage runs once and is tiled to 2b after it.
+        per-frame stresses, or (b, cond_length) the whole curve's tail
+        without per-frame conditioning; null_cond_mask (b,) bool, True =
+        learned null conditioning. With cfg_tiled_pair, x arrives at batch b
+        while time, cond and the mask arrive CFG-folded at 2b: the
+        conditioning-free init stage runs once and is tiled to 2b after it.
         Returns the predicted noise, float32, at the time batch."""
         b, f = x.shape[:2]
         if cfg_tiled_pair:
@@ -720,21 +881,38 @@ class UNet3D(nn.Module):
         r = x
 
         t_emb = self.time_mlp(time)
-        tokens = self.sign_emb(cond.float()[..., None])       # (b, f, cond)
-        hidden = self.cond_token_to_hidden(tokens.mean(dim=-2))
+        if self.per_frame_cond:
+            tokens = self.sign_emb(cond.float()[..., None])   # (b, f, cond)
+            hidden = self.cond_token_to_hidden(tokens.mean(dim=-2))
+        else:
+            hidden = self.sign_emb_CNN(cond)                  # (b, cond)
+            if self.cond_attention == "none":
+                tokens = None
+            elif self.cond_att_GRU:
+                tokens = self.sign_emb_GRU(cond)              # (b, L, cond)
+            else:
+                tokens = hidden[:, None].expand(b, self.num_tokens,
+                                                hidden.shape[-1])
         if null_cond_mask is None:
             null_cond_mask = torch.zeros(b, dtype=torch.bool,
                                          device=x.device)
-        tokens = torch.where(null_cond_mask[:, None, None],
-                             self.null_text_token.to(tokens.dtype), tokens)
+        if tokens is not None:
+            tokens = torch.where(null_cond_mask[:, None, None],
+                                 self.null_text_token.to(tokens.dtype), tokens)
         hidden = torch.where(null_cond_mask[:, None],
                              self.null_text_hidden.to(hidden.dtype), hidden)
-        t = t_emb + hidden
+        t = (t_emb + hidden if self.cond_to_time == "add"
+             else torch.cat([t_emb, hidden], dim=-1))
         tokens_temporal = tokens if self.use_temporal_attention_cond else None
+
+        def lin_block(lin, x):
+            if not self.use_sparse_linear_attn:
+                return x
+            return lin(x, label_emb=tokens)
 
         hs = []
         for res1, res2, lin, temporal, down in self.downs:
-            x = lin(res2(res1(x, t), t), label_emb=tokens)
+            x = lin_block(lin, res2(res1(x, t), t))
             x = temporal(x, pos_bias, label_emb=tokens_temporal)
             hs.append(x)
             x = down(x)
@@ -744,7 +922,7 @@ class UNet3D(nn.Module):
         x = self.mid_block2(x, t)
         for res1, res2, lin, temporal, up in self.ups:
             x = torch.cat([x, hs.pop()], dim=-1)
-            x = lin(res2(res1(x, t), t), label_emb=tokens)
+            x = lin_block(lin, res2(res1(x, t), t))
             x = temporal(x, pos_bias, label_emb=tokens_temporal)
             x = up(x)
         x = torch.cat([x, r.to(x.dtype)], dim=-1)
@@ -768,7 +946,11 @@ class UNet3D(nn.Module):
             use_fused_linear_block=cfg.use_fused_linear_block,
             use_fused_temporal_block=cfg.use_fused_temporal_block,
             fused_bwd_kernels=cfg.fused_bwd_kernels,
-            temporal_vjp=cfg.temporal_vjp)
+            temporal_vjp=cfg.temporal_vjp,
+            cond_attention=cfg.unet_cond_attention,
+            cond_attention_tokens=cfg.unet_cond_attention_tokens,
+            cond_att_GRU=cfg.unet_cond_att_GRU,
+            cond_length=cfg.cond_length)
 
 
 def build_unet(cfg: ModelConfig, *, device=None,

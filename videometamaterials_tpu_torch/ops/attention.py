@@ -12,12 +12,20 @@ import torch
 
 def stacked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, scale: float,
-                              num_video_tokens: int) -> torch.Tensor:
+                              num_video_tokens: int,
+                              pos_bias: torch.Tensor | None = None,
+                              pos_bias_on_cond: bool = False,
+                              focus_present_mask=None) -> torch.Tensor:
     """q: (b, s, h, n, d); k, v: (b, s, h, m, d) with any conditioning
-    tokens stacked IN FRONT of the n video tokens. Returns (b, s, h, n, d).
-    The position-bias and focus-mask arguments of the JAX function serve
-    the temporal generic plan, which the port does not run (its temporal
-    blocks take the frames-major plans)."""
+    tokens stacked IN FRONT of the n video tokens, or (b, 1, h, m, d):
+    conditioning keys and values shared by every s (broadcast, never
+    copied). pos_bias (h, n, n) lands on the video block of the scores and,
+    with pos_bias_on_cond (per-frame tokens, m = 2n), on the first n
+    columns too (vddp.py:502-512). Returns (b, s, h, n, d). The
+    focus-present mask is not ported (ROADMAP.md Queue 1 item 8)."""
+    if focus_present_mask is not None:
+        raise NotImplementedError("the focus-present mask is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 8)")
     n = num_video_tokens
     m = k.shape[-2]
     # the JAX core rounds the weights to v's dtype before the value product
@@ -25,6 +33,11 @@ def stacked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     rounds_weights = max(n, m) > 64
     q = q * scale
     sim = torch.einsum("bshid,bshjd->bshij", q.float(), k.float())
+    if pos_bias is not None:
+        bias = pos_bias.float()
+        sim = torch.cat([sim[..., :m - n], sim[..., m - n:] + bias], dim=-1)
+        if pos_bias_on_cond and m != n:
+            sim = torch.cat([sim[..., :n] + bias, sim[..., n:]], dim=-1)
     sim = sim - sim.amax(dim=-1, keepdim=True)
     attn = torch.exp(sim)
     attn = attn / attn.sum(dim=-1, keepdim=True)

@@ -5,8 +5,16 @@ the convolution runs as a 2D convolution on a `channels_last` view: the
 (B*F, H, W, C) storage is viewed as NCHW without a copy.
 
 Weights come in torch layouts: a forward conv takes (O, I, kh, kw), the
-transposed conv takes ConvTranspose's (I, O, kh, kw). Padding is zeros, the
-mode of the sampling path; the circular modes wait for a later slice.
+transposed conv takes ConvTranspose's (I, O, kh, kw). Three padding modes,
+as the JAX package's (its ops/conv.py:12-19):
+  'zeros'       symmetric zero padding (torch padding_mode='zeros')
+  'circular'    periodic in both H and W: a wrap-pad by the padding, then
+                a convolution without padding
+  'circular_1d' periodic in W (horizontal) only, zeros in H
+The transposed conv is an input-dilated forward convolution; in the
+circular modes its input is wrap-padded by k - 1 - p first and the
+dilated, wrapped input is cropped by s + p - 1 on each side (the
+reference's transposed layer's crop).
 
 A bf16 convolution with a bias that autograd does not record (sampling,
 the validation loss) rounds once, after the bias, as the TPU's
@@ -27,6 +35,22 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+PADDING_MODES = ("zeros", "circular", "circular_1d")
+
+
+def _wrap_pad(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+    """Pad H and W of an NCHW tensor by `pad` in a circular mode: both
+    periodic, or W periodic and H zeros (the JAX _wrap_pad_2d)."""
+    if mode not in PADDING_MODES:
+        raise ValueError(f"unknown padding mode {mode!r}")
+    if mode == "zeros" or pad == 0:
+        return x
+    if mode == "circular":
+        return F.pad(x, (pad, pad, pad, pad), mode="circular")
+    x = F.pad(x, (pad, pad, 0, 0), mode="circular")
+    return F.pad(x, (0, 0, pad, pad))
 
 
 def _conv2d(x, weight, bias, *, stride: int, padding: int):
@@ -62,7 +86,8 @@ def _from_nchw(y: torch.Tensor, b: int, f: int) -> torch.Tensor:
 
 def conv2d_spatial(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor | None, *, stride: int = 1,
-                   padding: int | None = None) -> torch.Tensor:
+                   padding: int | None = None,
+                   padding_mode: str = "zeros") -> torch.Tensor:
     """Spatial conv over a (B, F, H, W, C) video; weight (O, I, kh, kw).
     `padding` defaults to (k - 1) // 2."""
     kh = weight.shape[-2]
@@ -71,27 +96,45 @@ def conv2d_spatial(x: torch.Tensor, weight: torch.Tensor,
             raise ValueError("default padding needs an odd kernel")
         padding = kh // 2
     b, f = x.shape[:2]
-    return _from_nchw(_conv2d(_to_nchw(x), weight, bias, stride=stride,
+    xn = _to_nchw(x)
+    if padding_mode != "zeros":
+        xn, padding = _wrap_pad(xn, padding, padding_mode), 0
+    return _from_nchw(_conv2d(xn, weight, bias, stride=stride,
                               padding=padding), b, f)
 
 
 def conv_transpose2d_spatial(x: torch.Tensor, weight: torch.Tensor,
                              bias: torch.Tensor | None, *, stride: int = 2,
-                             padding: int = 1) -> torch.Tensor:
+                             padding: int = 1,
+                             padding_mode: str = "zeros") -> torch.Tensor:
     """Transposed spatial conv (the Upsample op: kernel 4, stride 2,
     padding 1 -> exact 2x), written as the input-dilated forward conv
     conv_transpose(x, W; s, p) == conv(dilate(x, s), flip(W)^T; k - 1 - p).
-    weight: ConvTranspose layout (I, O, kh, kw)."""
+    weight: ConvTranspose layout (I, O, kh, kw). In a circular mode the
+    input is wrap-padded by k - 1 - p and the dilated result cropped by
+    s + p - 1 a side (the JAX package's negative padding 1 - s - p)."""
     k = weight.shape[-1]
-    b, f, h, w, c = x.shape
+    edge = k - 1 - padding
+    b, f = x.shape[:2]
+    xn = _to_nchw(x)
+    if padding_mode != "zeros":
+        xn = _wrap_pad(xn, edge, padding_mode)
+    h, w = xn.shape[2:]
+    c = xn.shape[1]
     # zeros between the pixels, built channels-last so the NCHW view of it
     # is a channels_last tensor
     dilated = x.new_zeros((b * f, (h - 1) * stride + 1, (w - 1) * stride + 1,
                            c))
-    dilated[:, ::stride, ::stride] = x.reshape(b * f, h, w, c)
+    dilated[:, ::stride, ::stride] = xn.permute(0, 2, 3, 1)
+    pad = edge
+    if padding_mode != "zeros":
+        crop = stride + padding - 1
+        dilated = dilated[:, crop:dilated.shape[1] - crop,
+                          crop:dilated.shape[2] - crop]
+        pad = 0
     w_fwd = weight.flip(2, 3).transpose(0, 1)
     return _from_nchw(_conv2d(dilated.permute(0, 3, 1, 2), w_fwd, bias,
-                              stride=1, padding=k - 1 - padding), b, f)
+                              stride=1, padding=pad), b, f)
 
 
 def conv1x1(x: torch.Tensor, weight: torch.Tensor,

@@ -12,7 +12,8 @@
 // of both stages is the same, so out stays bit-equal.
 //
 // Per batch row b and spatial position s, over F = 11 frames and T cond
-// tokens (T = 11, or 0 for the init block), heads = 8 of d = 32:
+// tokens (0 <= T <= 69: the flagship's 11, or 0 for the init block; 6, 16
+// or 50 on the conditioning ablations), heads = 8 of d = 32:
 //   y_f   = bf16(LN(x_f) * gamma)              two-pass, scale-only, eps 1e-5
 //   qkv_f = bf16(y_f @ w_all[f])               rotary and 1/sqrt(d) are folded
 //                                              into the per-frame w_all
@@ -61,6 +62,19 @@
 // x rows (mostly from L2). p adds B*F*S*(F+T)*8*2
 // bytes of 2-byte writes (143 MB at batch 4, level 0), strided by the 8
 // heads. Kernel time depends only on the shape.
+//
+// Any T: the keys of a position (F frames, then T tokens) are padded to K,
+// a multiple of 16 -- 32 while F + T <= 32, then 64 and 80 -- and the
+// kernel instance is chosen by K (kNK = K / 16 key tiles), with T a launch
+// argument: the token rows in shared memory, the bias columns and the key
+// mask follow it, the fragment sizes and products follow K. A runtime T
+// with padded key groups costs the padded keys' products (at most 15 keys
+// of the next tile); template instances per T would cost one build of
+// each kernel per count, for the 70 counts up to the maximum. The
+// flagship's two counts, T = 11 and T = 0, keep instances of their own
+// with T a compile-time constant, so their code is what it was before
+// other counts were taken. At K >= 64 one block an SM runs (its
+// shared memory allows no second).
 #include "temporal_tile.cuh"
 
 namespace {
@@ -78,16 +92,21 @@ __host__ __device__ constexpr int stages() { return kC <= 64 ? 4 : 3; }
 
 constexpr int kP = 32;            // positions per block: M of the QKV product
 
-template <int kF, int kT, int kC>
-constexpr size_t attn_smem() {
+constexpr int kMaxKeys = 80;      // F + T: five 16-key tiles
+constexpr int kRuntimeT = -1;     // kT of the instances that take any T
+
+template <int kF, int kC>
+__host__ __device__ constexpr size_t attn_smem(int T) {
   return ((size_t)kF * kP * kHP + (size_t)2 * kP * (kC + 8) +
-          (size_t)stages<kC>() * kKC * kHP + (size_t)(2 * kT + 1) * vmt::kTokP) *
+          (size_t)stages<kC>() * kKC * kHP + (size_t)(2 * T + 1) * vmt::kTokP) *
              2 +
-         (size_t)kF * (kF + kT) * 4;
+         (size_t)kF * (kF + T) * 4;
 }
 
-template <int kF, int kT, int kC, bool kEmitP>
-__global__ void __launch_bounds__(kThreads, 2) temporal_attn_kernel(
+// kT: the token count, fixed (>= 0) or kRuntimeT (t_rt is the count);
+// kNK: 16-key tiles of a position's keys
+template <int kF, int kT, int kNK, int kC, bool kEmitP>
+__global__ void __launch_bounds__(kThreads, kNK > 2 ? 1 : 2) temporal_attn_kernel(
     const __nv_bfloat16* __restrict__ x,      // (B, F, S, C)
     const float* __restrict__ gamma,          // (C)
     const __nv_bfloat16* __restrict__ w_all,  // (F, C, 3H)
@@ -96,8 +115,10 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_attn_kernel(
     const __nv_bfloat16* __restrict__ ev,     // (B, T, H) or null
     __nv_bfloat16* __restrict__ acc_out,      // (B, F, S, H)
     __nv_bfloat16* __restrict__ p_out,        // (B, F, S, (F+T)*heads), kEmitP
-    int S) {
-  constexpr int kG = kF + kT;                 // key groups
+    int S, int t_rt) {
+  const int T = kT >= 0 ? kT : t_rt;          // conditioning tokens
+  const int kG = kF + T;                      // key groups
+  constexpr int kN = 2 * kNK;                 // 8-key tiles
   constexpr int kYP = kC + 8;                 // padded pitch of the y tiles
   constexpr int kNKC = kC / kKC;              // weight chunks per frame
   constexpr int kNQ = kF * kNKC;
@@ -110,8 +131,8 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_attn_kernel(
   __nv_bfloat16* ys = hs + kF * kP * kHP;                     // [2][P][kYP]
   __nv_bfloat16* ws = ys + 2 * kP * kYP;                   // [stage][kKC][kHP]
   __nv_bfloat16* ekb = ws + kStages * kKC * kHP;          // [T][kTokP]
-  __nv_bfloat16* evb = ekb + kT * vmt::kTokP;
-  __nv_bfloat16* zrow = evb + kT * vmt::kTokP;            // [kTokP] zeros
+  __nv_bfloat16* evb = ekb + T * vmt::kTokP;
+  __nv_bfloat16* zrow = evb + T * vmt::kTokP;             // [kTokP] zeros
   float* bias_h = reinterpret_cast<float*>(zrow + vmt::kTokP);      // [F][G]
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
@@ -148,9 +169,9 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_attn_kernel(
     vmt::cp_async_commit();
   }
   for (int i = t; i < kF * kG; i += kThreads) bias_h[i] = bias[i * kHeads + h];
-  for (int i = t; i < kT * vmt::kD; i += kThreads) {
+  for (int i = t; i < T * vmt::kD; i += kThreads) {
     const int u = i / vmt::kD, e = i % vmt::kD;
-    const size_t o = ((size_t)b * kT + u) * kH + h * vmt::kD + e;
+    const size_t o = ((size_t)b * T + u) * kH + h * vmt::kD + e;
     ekb[u * vmt::kTokP + e] = ek[o];
     evb[u * vmt::kTokP + e] = ev[o];
   }
@@ -216,13 +237,13 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_attn_kernel(
 
   // ---- attention on the tensor cores: warp w takes positions w, w + 8,
   // ...; per position S = Q [K; EK]^T, the softmax, acc = P [V; EV]
-  vmt::PositionRows<kF, kT, kP, kHP> rows{hs, ekb, evb, zrow, 0};
+  vmt::PositionRows<kF, kP, kHP> rows{hs, ekb, evb, zrow, T, 0};
   for (int p = warp; p < kP && s0 + p < S; p += kThreads / 32) {
     rows.p = p;
-    float sc[4][4] = {};
+    float sc[kN][4] = {};
     vmt::mma_rows_rows(sc, [&](int i) { return rows.frame(i, 0); },
                        [&](int j) { return rows.key(j, 1); }, lane);
-    vmt::softmax_rows<kF, kG>(sc, bias_h, lane);
+    vmt::softmax_rows<kF>(sc, bias_h, kG, lane);
     float o[4][4] = {};
     vmt::mma_frag_rows<false>(o, sc, [&](int j) { return rows.key(j, 2); }, lane);
     const size_t row0 = (size_t)b * kF * S + s0 + p;  // (b, frame 0, s)
@@ -237,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 2) temporal_attn_kernel(
         if (i >= kF) continue;
         __nv_bfloat16* prow = p_out + (row0 + (size_t)i * S) * kG * kHeads + h;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int j = nt * 8 + 2 * tq + e;
@@ -332,14 +353,14 @@ __global__ void __launch_bounds__(kThreads) temporal_outproj_kernel(
     }
 }
 
-template <int kF, int kT, int kC, bool kEmitP>
+template <int kF, int kT, int kNK, int kC, bool kEmitP>
 cudaError_t launch(const void* x, const void* gamma, const void* w_all,
                    const void* w_out, const void* bias, const void* ek,
                    const void* ev, void* out, void* acc, void* p_out, int B,
-                   int S, cudaStream_t stream) {
+                   int S, int T, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  constexpr size_t smem = attn_smem<kF, kT, kC>();
-  auto attn = temporal_attn_kernel<kF, kT, kC, kEmitP>;
+  const size_t smem = attn_smem<kF, kC>(T);
+  auto attn = temporal_attn_kernel<kF, kT, kNK, kC, kEmitP>;
   cudaError_t err = cudaFuncSetAttribute(
       attn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -347,7 +368,7 @@ cudaError_t launch(const void* x, const void* gamma, const void* w_all,
       static_cast<const bf*>(x), static_cast<const float*>(gamma),
       static_cast<const bf*>(w_all), static_cast<const float*>(bias),
       static_cast<const bf*>(ek), static_cast<const bf*>(ev),
-      static_cast<bf*>(acc), static_cast<bf*>(p_out), S);
+      static_cast<bf*>(acc), static_cast<bf*>(p_out), S, T);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   auto proj = temporal_outproj_kernel<kC>;
   err = cudaFuncSetAttribute(proj, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -360,15 +381,16 @@ cudaError_t launch(const void* x, const void* gamma, const void* w_all,
   return cudaGetLastError();
 }
 
-template <int kT, bool kEmitP>
+template <int kT, int kNK, bool kEmitP>
 cudaError_t launch_c(int C, const void* x, const void* gamma, const void* w_all,
                      const void* w_out, const void* bias, const void* ek,
                      const void* ev, void* out, void* acc, void* p_out, int B,
-                     int S, cudaStream_t stream) {
+                     int S, int T, cudaStream_t stream) {
 #define VMT_CASE(CC)                                                          \
   case CC:                                                                    \
-    return launch<11, kT, CC, kEmitP>(x, gamma, w_all, w_out, bias, ek, ev,   \
-                                      out, acc, p_out, B, S, stream);
+    return launch<11, kT, kNK, CC, kEmitP>(x, gamma, w_all, w_out, bias, ek,  \
+                                           ev, out, acc, p_out, B, S, T,      \
+                                           stream);
   switch (C) {
     VMT_CASE(64)
     VMT_CASE(128)
@@ -379,18 +401,40 @@ cudaError_t launch_c(int C, const void* x, const void* gamma, const void* w_all,
 #undef VMT_CASE
 }
 
+// 16-key tiles of the instance that takes T tokens beside F frames (0 for
+// a count outside [0, kMaxKeys - F])
+int key_tiles(int F, int T) {
+  const int G = F + T;
+  if (T < 0 || G > kMaxKeys) return 0;
+  return G <= 32 ? 2 : G <= 64 ? 4 : 5;
+}
+
 template <bool kEmitP>
 cudaError_t launch_t(int T, int C, const void* x, const void* gamma,
                      const void* w_all, const void* w_out, const void* bias,
                      const void* ek, const void* ev, void* out, void* acc,
                      void* p_out, int B, int S, cudaStream_t stream) {
   if (T == 0)
-    return launch_c<0, kEmitP>(C, x, gamma, w_all, w_out, bias, nullptr,
-                               nullptr, out, acc, p_out, B, S, stream);
+    return launch_c<0, 2, kEmitP>(C, x, gamma, w_all, w_out, bias, nullptr,
+                                  nullptr, out, acc, p_out, B, S, T, stream);
   if (T == 11)
-    return launch_c<11, kEmitP>(C, x, gamma, w_all, w_out, bias, ek, ev, out,
-                                acc, p_out, B, S, stream);
-  return cudaErrorInvalidValue;
+    return launch_c<11, 2, kEmitP>(C, x, gamma, w_all, w_out, bias, ek, ev,
+                                   out, acc, p_out, B, S, T, stream);
+  switch (key_tiles(11, T)) {
+    case 2:
+      return launch_c<kRuntimeT, 2, kEmitP>(C, x, gamma, w_all, w_out, bias,
+                                            ek, ev, out, acc, p_out, B, S, T,
+                                            stream);
+    case 4:
+      return launch_c<kRuntimeT, 4, kEmitP>(C, x, gamma, w_all, w_out, bias,
+                                            ek, ev, out, acc, p_out, B, S, T,
+                                            stream);
+    case 5:
+      return launch_c<kRuntimeT, 5, kEmitP>(C, x, gamma, w_all, w_out, bias,
+                                            ek, ev, out, acc, p_out, B, S, T,
+                                            stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -403,7 +447,8 @@ extern "C" int vmt_temporal_block_fwd(const void* x, const void* gamma,
                                       const void* ev, void* out, void* acc,
                                       void* p, int B, int F, int S, int C,
                                       int T, int heads, void* stream) {
-  if (F != 11 || heads != kHeads) return (int)cudaErrorInvalidValue;
+  if (F != 11 || heads != kHeads || (T > 0 && (ek == nullptr || ev == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (p != nullptr)
     return (int)launch_t<true>(T, C, x, gamma, w_all, w_out, bias, ek, ev, out,
@@ -416,11 +461,11 @@ extern "C" int vmt_temporal_block_fwd(const void* x, const void* gamma,
 // attention stage, 1 the out-projection; 0 for a shape the kernel does not
 // take.
 extern "C" size_t vmt_temporal_block_fwd_smem(int C, int T, int stage) {
+  if (key_tiles(11, T) == 0) return 0;
   if (stage == 1) return kOutSmem;
-#define VMT_CASE(CC)                                                \
-  case CC:                                                          \
-    return T == 0 ? attn_smem<11, 0, CC>() : attn_smem<11, 11, CC>();
-  if (T != 0 && T != 11) return 0;
+#define VMT_CASE(CC)  \
+  case CC:            \
+    return attn_smem<11, CC>(T);
   switch (C) {
     VMT_CASE(64)
     VMT_CASE(128)

@@ -62,6 +62,18 @@
 // training shape, written once and read by the contraction and stage 2
 // (dqkv twice): about 0.45 ms at the HBM rate. Kernel time depends only on
 // the shape: the tiles are fixed by C.
+// Any T from 0 to 69, as the forward (csrc/fused_temporal_block.cu): a
+// position's keys padded to 32, 64 or 80 (kNK 16-key tiles), T a launch
+// argument, the flagship's T = 11 and T = 0 on instances of their own.
+// dK^T and dV^T are taken 32 keys at a time (the last chunk 16 at 80
+// keys) through the same transpose scratch. The per-block partials of
+// dbias and of the token rows: at 32 keys each warp writes its sums to
+// arrays of its own and the threads then sum the warps in order; at 64
+// and 80 keys, where per-warp token rows (8 x 256 T bytes) would not fit
+// beside the rest, the warps add their sums in eight ordered rounds
+// (warp w in round w) to one block-wide array each -- the same order of
+// summation, at eight barriers. At 64 and 80 keys the token sums (2 x 16
+// kNK floats a lane) spill: those instances are correct first, not fast.
 #include <algorithm>
 
 #include "reduce.cuh"
@@ -88,25 +100,78 @@ constexpr int kStages = 3;
 template <int kC>
 __host__ __device__ constexpr int tile_bufs() { return kC <= 256 ? 2 : 1; }
 
+constexpr int kMaxKeys = 80;      // F + T: five 16-key tiles
+constexpr int kRuntimeT = -1;     // kT of the instances that take any T
+
+// the warps' partial sums in arrays of their own (32 keys), or in one
+// block-wide array summed in ordered rounds (64 and 80)
+__host__ __device__ constexpr bool per_warp_partials(int kNK) { return kNK == 2; }
+
 // phase B's shared memory: each warp's transpose scratch (two tiles), then
-// each warp's
-// partial dbias (16 x 32 f32) and dek/dev rows (T x 64 f32)
-template <int kT>
-__host__ __device__ constexpr size_t pass_smem() {
-  return (size_t)8 * 2 * 16 * vmt::kTokP * 2 + (size_t)8 * 16 * 32 * 4 +
-         (size_t)8 * kT * 2 * kD * 4;
+// the partial dbias (16 x 16 kNK f32) and dek/dev rows (T x 64 f32), one
+// of each a warp or one for the block
+__host__ __device__ constexpr size_t pass_smem(int T, int kNK) {
+  return (size_t)8 * 2 * 16 * vmt::kTokP * 2 +
+         (size_t)(per_warp_partials(kNK) ? 8 : 1) *
+             ((size_t)16 * 16 * kNK * 4 + (size_t)T * 2 * kD * 4);
 }
 
-template <int kF, int kT, int kC>
-constexpr size_t attn_smem() {
-  constexpr size_t tiles = (size_t)2 * tile_bufs<kC>() * kP * (kC + 8) * 2;
-  constexpr size_t pass = pass_smem<kT>();
+template <int kF, int kNK, int kC>
+__host__ __device__ constexpr size_t attn_smem(int T) {
+  const size_t tiles = (size_t)2 * tile_bufs<kC>() * kP * (kC + 8) * 2;
+  const size_t pass = pass_smem(T, kNK);
   return (size_t)kF * kP * kHP * 2 + (tiles > pass ? tiles : pass) +
-         ((size_t)kStages * kKC * kHP + (size_t)(2 * kT + 1) * vmt::kTokP) * 2 +
-         (size_t)kF * (kF + kT) * 4;
+         ((size_t)kStages * kKC * kHP + (size_t)(2 * T + 1) * vmt::kTokP) * 2 +
+         (size_t)kF * (kF + T) * 4;
 }
 
-template <int kF, int kT, int kC>
+// The keys 32 c.. of one position (kMT 16-key tiles): part 1, dK = dS^T Q
+// (ds split into bf16 + its rounding error, so f32 to about 16 bits);
+// part 2, dV = bf16(P)^T G_acc. The frame rows go to dqkv, every row is
+// added to the warp's token sums (the frame rows of those are never read).
+template <int kMT, int kN, int kNK, class Rows>
+__device__ __forceinline__ void tok_chunk(
+    int c, const float (&pr)[kN][4], const float (&ds)[kN][4],
+    float (&tok_k)[kNK][4][4], float (&tok_v)[kNK][4][4],
+    __nv_bfloat16* scr, const Rows& rows, __nv_bfloat16* __restrict__ dqkv_out,
+    int B, int b, int S, size_t s, int h, int lane) {
+  constexpr int kF = 11;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int part = 1; part <= 2; ++part) {
+    float d[kMT][4][4] = {};
+    if (part == 1)
+      vmt::mma_fragT_rows<true>(d, ds, 4 * c, scr,
+                                [&](int i) { return rows.frame(i, 0); }, lane);
+    else
+      vmt::mma_fragT_rows<false>(d, pr, 4 * c, scr,
+                                 [&](int i) { return rows.frame(i, 3); }, lane);
+    float (&tok)[kNK][4][4] = part == 1 ? tok_k : tok_v;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = (2 * c + mt) * 16 + gq + 8 * half;  // key
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          tok[2 * c + mt][nt][2 * half] += d[mt][nt][2 * half];
+          tok[2 * c + mt][nt][2 * half + 1] += d[mt][nt][2 * half + 1];
+        }
+        if (j < kF) {
+          __nv_bfloat16* dst = dqkv_out + ((size_t)(j * B + b) * S + s) * kQKV +
+                               part * kH + h * kD;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            *reinterpret_cast<uint32_t*>(dst + nt * 8 + 2 * tq) =
+                vmt::pack_bf16x2(d[mt][nt][2 * half], d[mt][nt][2 * half + 1]);
+        }
+      }
+  }
+}
+
+// kT: the token count, fixed (>= 0) or kRuntimeT (t_rt is the count);
+// kNK: 16-key tiles of a position's keys
+template <int kF, int kT, int kNK, int kC>
 __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
     const __nv_bfloat16* __restrict__ x,       // (B, F, S, C)
     const float* __restrict__ gamma,           // (C)
@@ -121,8 +186,11 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
     __nv_bfloat16* __restrict__ acc_out,       // (B, F, S, H) scratch
     float* __restrict__ part_dbias,            // (B * nS, F, F+T, heads)
     float* __restrict__ part_dekv,             // (B, nS, 2, T, H)
-    int B, int S) {
-  constexpr int kG = kF + kT;
+    int B, int S, int t_rt) {
+  const int T = kT >= 0 ? kT : t_rt;           // conditioning tokens
+  const int kG = kF + T;                       // key groups
+  constexpr int kN = 2 * kNK;                  // 8-key tiles
+  constexpr int kKeys = 16 * kNK;
   constexpr int kYP = kC + 8;
   constexpr int kNKC = kC / kKC;
   constexpr int kNQ = kF * kNKC;
@@ -135,17 +203,20 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
   __nv_bfloat16* ys = reinterpret_cast<__nv_bfloat16*>(uni);  // [kTB][P][kYP]
   __nv_bfloat16* gs = ys + kTB * kP * kYP;                    // [kTB][P][kYP]
   // phase B: per warp two 16 x kTokP transpose scratch tiles, then the
-  // warps' partial dbias [16][32] and token rows [T][dek 32 | dev 32]
+  // partial dbias [16][kKeys] and token rows [T][dek 32 | dev 32], each
+  // warp's (kPerWarp) or the block's
+  constexpr bool kPerWarp = per_warp_partials(kNK);
+  constexpr int kParts = kPerWarp ? kWarps : 1;
   __nv_bfloat16* scratch = reinterpret_cast<__nv_bfloat16*>(uni);
   float* red_b = reinterpret_cast<float*>(scratch + kWarps * 2 * 16 * vmt::kTokP);
-  float* red_t = red_b + kWarps * 16 * 32;
+  float* red_t = red_b + kParts * 16 * kKeys;
   constexpr size_t kTiles = (size_t)2 * kTB * kP * kYP * 2;
-  constexpr size_t kPass = pass_smem<kT>();
+  const size_t pass = pass_smem(T, kNK);
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(
-      uni + (kTiles > kPass ? kTiles : kPass));                    // ring
+      uni + (kTiles > pass ? kTiles : pass));                      // ring
   __nv_bfloat16* ekb = ws + kStages * kKC * kHP;                  // [T][kTokP]
-  __nv_bfloat16* evb = ekb + kT * vmt::kTokP;
-  __nv_bfloat16* zrow = evb + kT * vmt::kTokP;                    // zeros
+  __nv_bfloat16* evb = ekb + T * vmt::kTokP;
+  __nv_bfloat16* zrow = evb + T * vmt::kTokP;                     // zeros
   float* bias_h = reinterpret_cast<float*>(zrow + vmt::kTokP);    // [F][G]
 
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
@@ -185,9 +256,9 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
   load_chunk(1);
   vmt::cp_async_commit();
   for (int i = t; i < kF * kG; i += kThreads) bias_h[i] = bias[i * kHeads + h];
-  for (int i = t; i < kT * kD; i += kThreads) {
+  for (int i = t; i < T * kD; i += kThreads) {
     const int u = i / kD, e = i % kD;
-    const size_t o = ((size_t)b * kT + u) * kH + h * kD + e;
+    const size_t o = ((size_t)b * T + u) * kH + h * kD + e;
     ekb[u * vmt::kTokP + e] = ek[o];
     evb[u * vmt::kTokP + e] = ev[o];
   }
@@ -271,16 +342,19 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
   // into bf16(ds) + its rounding error for its two products.
   // dbias and the token rows of dK, dV sum over the warp's positions in
   // registers.
-  vmt::PositionRows<kF, kT, kP, kHP> rows{hs, ekb, evb, zrow, 0};
+  vmt::PositionRows<kF, kP, kHP> rows{hs, ekb, evb, zrow, T, 0};
   __nv_bfloat16* scr = scratch + warp * 2 * 16 * vmt::kTokP;
-  float dbias_acc[4][4] = {}, tok_k[2][4][4] = {}, tok_v[2][4][4] = {};
+  // the block-wide partials start at zero (the tiles above are dead)
+  if constexpr (!kPerWarp)
+    for (int i = t; i < 16 * kKeys + T * 2 * kD; i += kThreads) red_b[i] = 0.f;
+  float dbias_acc[kN][4] = {}, tok_k[kNK][4][4] = {}, tok_v[kNK][4][4] = {};
   for (int p = warp; p < kP && s0 + p < S; p += kWarps) {
     rows.p = p;
     const size_t s = s0 + p;
-    float pr[4][4] = {};
+    float pr[kN][4] = {};
     vmt::mma_rows_rows(pr, [&](int i) { return rows.frame(i, 0); },
                        [&](int j) { return rows.key(j, 1); }, lane);
-    vmt::softmax_rows<kF, kG>(pr, bias_h, lane);
+    vmt::softmax_rows<kF>(pr, bias_h, kG, lane);
     {
       float o[4][4] = {};
       vmt::mma_frag_rows<false>(o, pr, [&](int j) { return rows.key(j, 2); },
@@ -289,21 +363,21 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
         return acc_out + ((size_t)(b * kF + i) * S + s) * kH + h * kD;
       }, lane);
     }
-    float ds[4][4] = {};
+    float ds[kN][4] = {};
     vmt::mma_rows_rows(ds, [&](int i) { return rows.frame(i, 3); },
                        [&](int j) { return rows.key(j, 2); }, lane);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       float tsum = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
           tsum = fmaf(pr[nt][2 * half + e], ds[nt][2 * half + e], tsum);
       tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
       tsum += __shfl_xor_sync(0xffffffffu, tsum, 2);
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < kN; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& d = ds[nt][2 * half + e];
@@ -320,45 +394,25 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
       }, lane);
     }
 #pragma unroll
-    for (int part = 1; part <= 2; ++part) {
-      // part 1: dK = dS^T Q (ds split into bf16 + its rounding error, so
-      // f32 to about 16 bits); part 2: dV = bf16(P)^T G_acc
-      float d[2][4][4] = {};
-      if (part == 1)
-        vmt::mma_fragT_rows<true>(d, ds, scr, [&](int i) { return rows.frame(i, 0); },
-                                  lane);
-      else
-        vmt::mma_fragT_rows<false>(d, pr, scr, [&](int i) { return rows.frame(i, 3); },
-                                   lane);
-      float (&tok)[2][4][4] = part == 1 ? tok_k : tok_v;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int j = mt * 16 + gq + 8 * half;  // key
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            tok[mt][nt][2 * half] += d[mt][nt][2 * half];
-            tok[mt][nt][2 * half + 1] += d[mt][nt][2 * half + 1];
-          }
-          if (j < kF) {
-            __nv_bfloat16* dst = dqkv_out + ((size_t)(j * B + b) * S + s) * kQKV +
-                                 part * kH + h * kD;
-#pragma unroll
-            for (int nt = 0; nt < 4; ++nt)
-              *reinterpret_cast<uint32_t*>(dst + nt * 8 + 2 * tq) =
-                  vmt::pack_bf16x2(d[mt][nt][2 * half], d[mt][nt][2 * half + 1]);
-          }
-        }
+    for (int c = 0; c < (kNK + 1) / 2; ++c) {
+      // the keys 32 c.. (the last chunk 16 of them at kNK = 5)
+      if (2 * c + 1 < kNK) {
+        tok_chunk<2>(c, pr, ds, tok_k, tok_v, scr, rows, dqkv_out, B, b, S, s,
+                     h, lane);
+      } else {
+        tok_chunk<1>(c, pr, ds, tok_k, tok_v, scr, rows, dqkv_out, B, b, S, s,
+                     h, lane);
+      }
     }
   }
-  __syncthreads();  // every warp is past its scratch
+  __syncthreads();  // every warp is past its scratch and its positions
 
-  // ---- per-block partials, summed over the warps in order: dbias over the
-  // positions, dek/dev (the token rows of dK, dV)
-  {
+  // ---- per-block partials: dbias over the positions, dek/dev (the token
+  // rows of dK, dV), summed over the warps in order
+  const size_t blk = (size_t)b * nS + blockIdx.x;
+  if constexpr (kPerWarp) {
     float* rb = red_b + warp * 16 * 32;
-    float* rt = red_t + warp * kT * 2 * kD;
+    float* rt = red_t + warp * T * 2 * kD;
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
@@ -372,7 +426,7 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int u = mt * 16 + gq + 8 * half - kF;  // token
-        if (u < 0 || u >= kT) continue;
+        if (u < 0 || u >= T) continue;
 #pragma unroll
         for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
@@ -381,24 +435,64 @@ __global__ void __launch_bounds__(kThreads, 1) temporal_bwd_attn_kernel(
             rt[u * 2 * kD + kD + nt * 8 + 2 * tq + e] = tok_v[mt][nt][2 * half + e];
           }
       }
-  }
-  __syncthreads();
-  const size_t blk = (size_t)b * nS + blockIdx.x;
-  for (int it = t; it < kF * kG; it += kThreads) {
-    const int i = it / kG, j = it % kG;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) sum += red_b[(w * 16 + i) * 32 + j];
-    part_dbias[(blk * kF * kG + it) * kHeads + h] = sum;
-  }
-  if (kT > 0) {
-    float* pd = part_dekv + blk * 2 * kT * kH;
-    for (int it = t; it < kT * 2 * kD; it += kThreads) {
-      const int u = it / (2 * kD), e = it % (2 * kD);
+    __syncthreads();
+    for (int it = t; it < kF * kG; it += kThreads) {
+      const int i = it / kG, j = it % kG;
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += red_t[(w * kT + u) * 2 * kD + e];
-      pd[(e < kD ? u : kT + u) * kH + h * kD + e % kD] = sum;
+      for (int w = 0; w < kWarps; ++w) sum += red_b[(w * 16 + i) * 32 + j];
+      part_dbias[(blk * kF * kG + it) * kHeads + h] = sum;
+    }
+    if (T > 0) {
+      float* pd = part_dekv + blk * 2 * T * kH;
+      for (int it = t; it < T * 2 * kD; it += kThreads) {
+        const int u = it / (2 * kD), e = it % (2 * kD);
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) sum += red_t[(w * T + u) * 2 * kD + e];
+        pd[(e < kD ? u : T + u) * kH + h * kD + e % kD] = sum;
+      }
+    }
+    return;
+  }
+  // wide keys: warp w adds its sums to the block's arrays in round w
+  for (int w = 0; w < kWarps; ++w) {
+    if (warp == w) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int nt = 0; nt < kN; ++nt) {
+          const int i = gq + 8 * half, col = nt * 8 + 2 * tq;
+          red_b[i * kKeys + col] += dbias_acc[nt][2 * half];
+          red_b[i * kKeys + col + 1] += dbias_acc[nt][2 * half + 1];
+        }
+#pragma unroll
+      for (int mt = 0; mt < kNK; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int u = mt * 16 + gq + 8 * half - kF;  // token
+          if (u < 0 || u >= T) continue;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              red_t[u * 2 * kD + nt * 8 + 2 * tq + e] += tok_k[mt][nt][2 * half + e];
+              red_t[u * 2 * kD + kD + nt * 8 + 2 * tq + e] +=
+                  tok_v[mt][nt][2 * half + e];
+            }
+        }
+    }
+    __syncthreads();
+  }
+  for (int it = t; it < kF * kG; it += kThreads) {
+    const int i = it / kG, j = it % kG;
+    part_dbias[(blk * kF * kG + it) * kHeads + h] = red_b[i * kKeys + j];
+  }
+  if (T > 0) {
+    float* pd = part_dekv + blk * 2 * T * kH;
+    for (int it = t; it < T * 2 * kD; it += kThreads) {
+      const int u = it / (2 * kD), e = it % (2 * kD);
+      pd[(e < kD ? u : T + u) * kH + h * kD + e % kD] = red_t[it];
     }
   }
 }
@@ -604,26 +698,26 @@ Work carve(void* base, int B, int F, int S, int C, int T) {
   return w;
 }
 
-template <int kF, int kT, int kC>
+template <int kF, int kT, int kNK, int kC>
 cudaError_t launch(const void* x, const void* gamma, const void* w_all,
                    const void* w_outT, const void* bias, const void* ek,
                    const void* ev, const void* g, void* dx, void* dgamma,
                    void* dw_all, void* dw_out, void* dbias, void* dekv,
-                   void* workspace, int B, int S, cudaStream_t stream) {
+                   void* workspace, int B, int S, int T, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  constexpr size_t smem1 = attn_smem<kF, kT, kC>();
-  auto attn = temporal_bwd_attn_kernel<kF, kT, kC>;
+  const size_t smem1 = attn_smem<kF, kNK, kC>(T);
+  auto attn = temporal_bwd_attn_kernel<kF, kT, kNK, kC>;
   cudaError_t err = cudaFuncSetAttribute(
       attn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem1);
   if (err != cudaSuccess) return err;
-  const Work w = carve(workspace, B, kF, S, kC, kT);
+  const Work w = carve(workspace, B, kF, S, kC, T);
   const int nS = (S + kP - 1) / kP;
   attn<<<dim3(nS, kHeads, B), kThreads, smem1, stream>>>(
       static_cast<const bf*>(x), static_cast<const float*>(gamma),
       static_cast<const bf*>(w_all), static_cast<const bf*>(w_outT),
       static_cast<const float*>(bias), static_cast<const bf*>(ek),
       static_cast<const bf*>(ev), static_cast<const bf*>(g), w.y, w.dqkv,
-      w.acc, w.pdbias, w.pdekv, B, S);
+      w.acc, w.pdbias, w.pdekv, B, S, T);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   constexpr size_t smem2 = dx_smem_all<kC>();
   auto dxk = temporal_bwd_dx_kernel<kF, kC>;
@@ -650,23 +744,23 @@ cudaError_t launch(const void* x, const void* gamma, const void* w_all,
                            kC, w.ws_colsum, stream);
   if (err != cudaSuccess) return err;
   err = vmt::launch_colsum(w.pdbias, static_cast<float*>(dbias), 1, B * nS,
-                           kF * (kF + kT) * kHeads, w.ws_colsum, stream);
-  if (err != cudaSuccess || kT == 0) return err;
+                           kF * (kF + T) * kHeads, w.ws_colsum, stream);
+  if (err != cudaSuccess || T == 0) return err;
   return vmt::launch_colsum(w.pdekv, static_cast<float*>(dekv), B, nS,
-                            2 * kT * kH, w.ws_colsum, stream);
+                            2 * T * kH, w.ws_colsum, stream);
 }
 
-template <int kT>
+template <int kT, int kNK>
 cudaError_t launch_c(int C, const void* x, const void* gamma,
                      const void* w_all, const void* w_outT, const void* bias,
                      const void* ek, const void* ev, const void* g, void* dx,
                      void* dgamma, void* dw_all, void* dw_out, void* dbias,
-                     void* dekv, void* ws, int B, int S, cudaStream_t st) {
-#define VMT_CASE(CC)                                                        \
-  case CC:                                                                  \
-    return launch<11, kT, CC>(x, gamma, w_all, w_outT, bias, ek, ev, g, dx, \
-                              dgamma, dw_all, dw_out, dbias, dekv, ws, B,   \
-                              S, st);
+                     void* dekv, void* ws, int B, int S, int T, cudaStream_t st) {
+#define VMT_CASE(CC)                                                         \
+  case CC:                                                                   \
+    return launch<11, kT, kNK, CC>(x, gamma, w_all, w_outT, bias, ek, ev, g, \
+                                   dx, dgamma, dw_all, dw_out, dbias, dekv,  \
+                                   ws, B, S, T, st);
   switch (C) {
     VMT_CASE(64)
     VMT_CASE(128)
@@ -675,6 +769,14 @@ cudaError_t launch_c(int C, const void* x, const void* gamma,
     default: return cudaErrorInvalidValue;
   }
 #undef VMT_CASE
+}
+
+// 16-key tiles of the instance that takes T tokens beside F frames (0 for
+// a count outside [0, kMaxKeys - F]): the forward's rule
+int key_tiles(int F, int T) {
+  const int G = F + T;
+  if (T < 0 || G > kMaxKeys) return 0;
+  return G <= 32 ? 2 : G <= 64 ? 4 : 5;
 }
 
 }  // namespace
@@ -688,11 +790,14 @@ extern "C" size_t vmt_temporal_block_bwd_workspace(int B, int F, int S, int C,
 // Dynamic shared memory of stage 0 (the attention stage) or 1 (dy and the
 // LN backward) at (C, T); 0 for a shape the kernel does not take.
 extern "C" size_t vmt_temporal_block_bwd_smem(int C, int T, int stage) {
-#define VMT_CASE(CC)                                                      \
-  case CC:                                                                \
-    if (stage == 1) return dx_smem_all<CC>();                             \
-    return T == 0 ? attn_smem<11, 0, CC>() : attn_smem<11, 11, CC>();
-  if (T != 0 && T != 11) return 0;
+  const int nk = key_tiles(11, T);
+#define VMT_CASE(CC)                                          \
+  case CC:                                                    \
+    if (stage == 1) return dx_smem_all<CC>();                 \
+    return nk == 2   ? attn_smem<11, 2, CC>(T)                \
+           : nk == 4 ? attn_smem<11, 4, CC>(T)                \
+                     : attn_smem<11, 5, CC>(T);
+  if (nk == 0) return 0;
   switch (C) {
     VMT_CASE(64)
     VMT_CASE(128)
@@ -711,15 +816,28 @@ extern "C" int vmt_temporal_block_bwd(
     void* dgamma, void* dw_all, void* dw_out, void* dbias, void* dekv,
     void* workspace, int B, int F, int S, int C, int T, int heads,
     void* stream) {
-  if (F != 11 || heads != kHeads) return (int)cudaErrorInvalidValue;
+  if (F != 11 || heads != kHeads ||
+      (T > 0 && (ek == nullptr || ev == nullptr || dekv == nullptr)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (T == 0)
-    return (int)launch_c<0>(C, x, gamma, w_all, w_outT, bias, nullptr, nullptr,
-                            g, dx, dgamma, dw_all, dw_out, dbias, nullptr,
-                            workspace, B, S, st);
+    return (int)launch_c<0, 2>(C, x, gamma, w_all, w_outT, bias, nullptr,
+                               nullptr, g, dx, dgamma, dw_all, dw_out, dbias,
+                               nullptr, workspace, B, S, T, st);
   if (T == 11)
-    return (int)launch_c<11>(C, x, gamma, w_all, w_outT, bias, ek, ev, g, dx,
-                             dgamma, dw_all, dw_out, dbias, dekv, workspace, B,
-                             S, st);
-  return (int)cudaErrorInvalidValue;
+    return (int)launch_c<11, 2>(C, x, gamma, w_all, w_outT, bias, ek, ev, g,
+                                dx, dgamma, dw_all, dw_out, dbias, dekv,
+                                workspace, B, S, T, st);
+#define VMT_NK(NK)                                                             \
+  case NK:                                                                     \
+    return (int)launch_c<kRuntimeT, NK>(C, x, gamma, w_all, w_outT, bias, ek,  \
+                                        ev, g, dx, dgamma, dw_all, dw_out,     \
+                                        dbias, dekv, workspace, B, S, T, st);
+  switch (key_tiles(11, T)) {
+    VMT_NK(2)
+    VMT_NK(4)
+    VMT_NK(5)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VMT_NK
 }

@@ -16,7 +16,9 @@ torch, as the JAX function is XLA) backs it through.
     out = x + W_out . softmax_j(q_i.k_j + bias_ij || q_i.ek_t + bias_it)
                     . [v_j || ev_t]
 
-per spatial position over the F frames (+ T conditioning tokens), with LN
+per spatial position over the F frames (+ T conditioning tokens, any T up
+to MAX_COND_TOKENS: 11 on the flagship, 0 in the init block, 6, 16 or 50
+on the conditioning ablations), with LN
 scale-only and two-pass, rotary and 1/sqrt(d) folded into the per-frame
 `w_all`, and bf16 roundings at qkv, at the softmax weights and at the value
 sum (the JAX kernel's :124, :226, :235).
@@ -33,6 +35,19 @@ FRAMES = 11
 CHANNELS = (64, 128, 256, 512)
 HEADS = 8
 HIDDEN = 256
+# the kernels pad a position's F + T keys to 32, 64 or 80
+# (csrc/fused_temporal_block.cu: kMaxKeys)
+MAX_COND_TOKENS = 80 - FRAMES
+
+
+def check_cond_tokens(t_tok: int) -> None:
+    """Raise ValueError for a count of conditioning tokens the kernels do
+    not take; a model checks its count when it is built."""
+    if not 0 <= t_tok <= MAX_COND_TOKENS:
+        raise ValueError(
+            f"the fused temporal kernels take 0 to {MAX_COND_TOKENS} "
+            f"conditioning tokens (F + T <= {MAX_COND_TOKENS + FRAMES} keys "
+            f"a position), got {t_tok}")
 
 
 def temporal_block_plain(x, gamma, w_all, w_out, ek, ev, bias_all, *,
@@ -123,7 +138,7 @@ def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
         "bias_all must be contiguous float32 (F, F+T, heads)")
     req((ek is None) == (ev is None), "ek and ev come together")
     if ek is not None:
-        req(t_tok == FRAMES, f"the kernel takes 0 or {FRAMES} cond tokens")
+        check_cond_tokens(t_tok)
         for t in (ek, ev):
             req(t.dtype == torch.bfloat16 and t.is_contiguous()
                 and tuple(t.shape) == (b, t_tok, HIDDEN),

@@ -12,8 +12,10 @@ or seeded random weights, and samples one video per conditioning curve
 under classifier-free guidance on the full DDPM chain with dynamic
 thresholding. Conditioning is a CSV of target stress-strain curves
 (normalised with the checkpoint's labels_scaling; 51-point curves are
-interpolated to the frame count) or, without targets, B seeded uniform
-curves in [-1, 1] (the JAX bench's conditioning). Writes videos.npy (B, F,
+interpolated to the frame count under per-frame conditioning, else their
+tail without the first point is taken, as the JAX Trainer does) or,
+without targets, B seeded uniform curves in [-1, 1] of the model's
+conditioning width (the JAX bench's conditioning). Writes videos.npy (B, F,
 H, W, C) in [0, 1], cond.npy and sample.json into OUT; the GIFs and
 geometries.csv of a run come from `videometamaterials_tpu_torch.main`.
 Runs on the GPU unless --device names another device.
@@ -62,12 +64,17 @@ def build_sampler(cfg: ModelConfig, *, device=None, weights=None,
     return GaussianDiffusion.from_config(model, cfg, dev)
 
 
-def target_cond(targets_csv, labels_scaling: dict,
-                num_frames: int) -> np.ndarray:
+def target_cond(targets_csv, labels_scaling: dict, num_frames: int,
+                per_frame_cond: bool = True) -> np.ndarray:
+    """The normalised conditioning of a CSV of target curves: per frame
+    (interpolated to num_frames) or the whole curve's tail (JAX
+    trainer.py:493-497)."""
     targets = np.genfromtxt(targets_csv, delimiter=",")
     if targets.ndim == 1:
         targets = targets[None, :]
-    if targets.shape[1] != num_frames:
+    if not per_frame_cond:
+        targets = targets[:, 1:]
+    elif targets.shape[1] != num_frames:
         targets = interpolate_labels(targets, num_frames)
     norm = Normalization.from_dict(labels_scaling)
     return norm.normalize(targets.astype(np.float32)).astype(np.float32)
@@ -108,10 +115,10 @@ def main(argv=None) -> dict:
             ap.error("--targets needs --labels-scaling")
         scaling = json.loads(Path(args.labels_scaling).read_text())
         cond = target_cond(args.targets, scaling["labels_scaling"],
-                           cfg.num_frames)
+                           cfg.num_frames, cfg.per_frame_cond)
     else:
         cond = np.random.default_rng(args.seed).uniform(
-            -1.0, 1.0, (args.batch, cfg.num_frames)).astype(np.float32)
+            -1.0, 1.0, (args.batch, cfg.cond_length)).astype(np.float32)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.perf_counter()

@@ -38,12 +38,12 @@ from videometamaterials_tpu_torch.training.trainer import StepTrainer
 
 def bench_batches(cfg, generator: torch.Generator, device):
     """Train batches of the benchmark workload, drawn as they are taken:
-    videos U[0, 1), labels N(0, 1)."""
+    videos U[0, 1), labels N(0, 1) of the model's conditioning width."""
     shape = (cfg.batch_size, cfg.num_frames, cfg.image_size, cfg.image_size,
              cfg.channels)
     while True:
         videos = torch.rand(shape, generator=generator, device=device)
-        labels = torch.randn((cfg.batch_size, cfg.num_frames),
+        labels = torch.randn((cfg.batch_size, cfg.cond_length),
                              generator=generator, device=device)
         yield videos, labels
 

@@ -15,10 +15,10 @@ for the configurations the port builds:
   `ups.N.4.conv_transpose.*`, `*.proj.conv.*`) map onto the plain ones;
 - the reference's unused tensors are skipped: `to_q`, `to_k` and `to_v`
   of an attention the port builds without them (vddp.py:415-417), and
-  the whole-signal CNN embedder that exists beside per-frame
-  conditioning;
-- the GRU embedder's tensors belong to `per_frame_cond: false`, which the
-  port does not build yet (ROADMAP.md Queue 1 item 8): they raise;
+  the whole-curve CNN and GRU embedders where the model has none (they
+  exist beside per-frame conditioning); a model of `per_frame_cond:
+  false` takes them under their own names (`sign_emb_CNN.emb_model.*`,
+  `sign_emb_GRU.emb_model.*`, nn.GRU's layout, both biases as given);
 - a 1x1 Conv2d weight (O, I, 1, 1) takes the port's (O, I, 1, 1, 1);
 - any other key the model lacks, and any parameter of the model the
   checkpoint lacks, raise a KeyError.
@@ -51,7 +51,7 @@ _ALIASES = (
     (re.compile(r"\.proj\.conv\."), ".proj."),
 )
 _UNUSED_QKV = re.compile(r"^(.*)\.to_[qkv]\.weight$")
-_SIGNAL_CNN = re.compile(r"^sign_emb_CNN\.emb_model\.\d+\.(weight|bias)$")
+_SIGNAL_EMB = re.compile(r"^sign_emb_(CNN|GRU)\.emb_model\.")
 
 
 def strip_prefix(key: str) -> str:
@@ -75,7 +75,7 @@ def port_key(key: str) -> str:
 
 def _unused(key: str, template: Mapping) -> bool:
     """A reference tensor the port's model has no use for."""
-    if _SIGNAL_CNN.match(key):
+    if _SIGNAL_EMB.match(key):
         return True
     m = _UNUSED_QKV.match(key)
     # to_q/to_k/to_v of an attention the model has, built without them
@@ -94,11 +94,6 @@ def import_state_dict(state: Mapping, template: Mapping[str, torch.Tensor]
         name = port_key(key)
         if name in _SCHEDULE_BUFFERS or ".rotary_emb." in name:
             continue
-        if name.startswith("sign_emb_GRU."):
-            raise NotImplementedError(
-                f"checkpoint key {key!r}: the GRU signal embedder "
-                "(per_frame_cond: false) is not ported yet (ROADMAP.md "
-                "Queue 1 item 8)")
         if name not in template:
             if not _unused(name, template):
                 unknown.append(key)
