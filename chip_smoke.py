@@ -110,6 +110,34 @@ Phases, each printing its wall time as it finishes:
              ablation-GRU checkpoint it writes, whole-curve targets, one
              chunk of 4, the full chain (10/8/8 a step), GIFs equal to
              the videos and geometries.csv
+  10 variants  the training-side variants on the flagship at batch 4 with
+             the kernel plan (fused_blocks_in_training + fused_bwd_kernels):
+             (a) focus: gradients under the explicit mask [T, F, T, F]
+             against the unfused plan under the same mask (loss within
+             MODEL_TOL, each fused-block gradient within GRAD_TOL of its
+             own max, as phase 5 holds them), then
+             a step with prob_focus_present 1.0 and one with the explicit
+             mask: 0/0/8/8/2/6 launches a step (no temporal kernel: the
+             masked temporal blocks take the unfused plan, as in the JAX
+             model); (b) accumulation, k = 2 over 4 micro-steps: the
+             parameters bit-unchanged after micro-steps 1 and 3 and moved
+             after 2 and 4, Adam's count 2, micro-step 2's update within
+             GRAD_TOL of one Adam step on the mean of the two micro-batches'
+             gradients computed outside, the MultiSteps state written after
+             micro-step 3 (msgpack) and read back bit for bit, 10/10/8/8/2/6
+             a micro-step; (c) remat_blocks: one step's gradients against
+             remat off (bit-equal or not, within GRAD_TOL), then 10 steps
+             each, median ms and peak memory; (d) one guided eps on the
+             unfused plan with temporal_s_tile 1152 against the untiled
+             unfused plan, within MODEL_TOL; (e) one step under
+             VMT_TEMPORAL_VJP=saved and VMT_LINEAR_BWD_KERNEL=1 without
+             fused_bwd_kernels: phase 5's saved-plan counters (10 emit_p,
+             no temporal backward, 8/8/2/6); (f) the rendering CLI
+             (videometamaterials_tpu_torch.gif_visualization) in-process on
+             phase 6's eval GIFs and its data folder's frame ranges: the
+             four artifacts, each GIF 11x96x96x4 through the port's reader,
+             visualization.gif's alpha the solid mask, and matplotlib, PIL
+             and imageio never imported
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -1543,7 +1571,14 @@ def phase_eval(smi: str, report: dict) -> dict:
             f"videos, geometries.csv {geoms.shape[0]} rows of "
             f"{geoms.shape[1]} (solid share {geoms.mean():.3f}); second run "
             f"{again['eval_dir'].parent.name}")
-        return {"chain_s": secs, "rel": rel, "counts": counts}
+        # (h) phase 10's rendering input: the GIFs and the frame ranges
+        render_src = ROOT / "build" / "smoke_render_src"
+        shutil.rmtree(render_src, ignore_errors=True)
+        shutil.copytree(eval_dir / "gifs", render_src / "gifs")
+        shutil.copy(data / "lagrangian" / "training"
+                    / "frame_range_data.csv", render_src)
+        return {"chain_s": secs, "rel": rel, "counts": counts,
+                "render_src": render_src}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2086,18 +2121,25 @@ def profile_steps(run, what: str, out_path: str | None) -> None:
 
 
 @contextlib.contextmanager
-def linear_layout(layout: str):
-    """VMT_LINEAR_LAYOUT, the JAX package's switch of the fused linear
-    blocks' layout, set for the block's duration."""
-    old = os.environ.get("VMT_LINEAR_LAYOUT")
-    os.environ["VMT_LINEAR_LAYOUT"] = layout
+def environ(**values):
+    """Environment variables (the JAX package's VMT_* switches) set for the
+    block's duration."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
-        if old is None:
-            del os.environ["VMT_LINEAR_LAYOUT"]
-        else:
-            os.environ["VMT_LINEAR_LAYOUT"] = old
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def linear_layout(layout: str):
+    """VMT_LINEAR_LAYOUT, the JAX package's switch of the fused linear
+    blocks' layout, set for the block's duration."""
+    return environ(VMT_LINEAR_LAYOUT=layout)
 
 
 def run_chain(diffusion, cfg, steps: int, per_step: dict, smi: str,
@@ -2324,6 +2366,482 @@ def ablation_eval(cfg, smi: str, phase6_s: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------- phase 10 variants
+
+FOCUS_PER_STEP = dict(linear_stats=8, linear_apply=8, linear_bwd_head=2,
+                      linear_bwd_merged=6)
+SAVED_PER_STEP = dict(temporal_fwd_p=10, linear_stats=8, linear_apply=8,
+                      linear_bwd_head=2, linear_bwd_merged=6)
+VARIANT_STEPS = 10      # timed steps of (c) under each remat setting
+FOCUS_STEPS = 5         # timed steps of (a) with prob_focus_present 1.0
+MICRO_STEPS = 10        # timed micro-steps of (b) after the 4 checked
+S_TILE = 1152           # (d): 8 tiles at level 0, 2 at level 1
+# (d): reference_temporal_block calls in one guided eps of the flagship:
+# 3 level-0 blocks (init, down 0, up 3) x 8 tiles + 2 level-1 blocks x 2
+S_TILE_CALLS = 3 * 8 + 2 * 2
+
+
+def _counts_of(per_step: dict, steps: int = 1) -> dict:
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    return {k: per_step.get(k, 0) * steps for k in _build.LAUNCH_COUNTS}
+
+
+def _check_counts(what: str, want: dict, totals: dict) -> dict:
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    counts = dict(_build.LAUNCH_COUNTS)
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected "
+                             f"{want}")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    return counts
+
+
+def _draws(cfg, gen, n: int):
+    """n seeded micro-batches with their t, noise and null masks."""
+    import torch
+
+    from videometamaterials_tpu_torch.train import bench_batches
+
+    batches = bench_batches(cfg, gen, "cuda")
+    out = []
+    for _ in range(n):
+        videos, labels = next(batches)
+        b = videos.shape[0]
+        out.append(dict(
+            videos=videos, labels=labels,
+            t=torch.randint(0, cfg.train_timesteps, (b,), generator=gen,
+                            device="cuda"),
+            noise=torch.randn(videos.shape, generator=gen, device="cuda"),
+            null_cond_mask=torch.rand(b, generator=gen, device="cuda") < 0.1))
+    return out
+
+
+def _raw_leaves(tree, prefix=()) -> dict:
+    """path -> numpy leaf (its own dtype) of a nested dict."""
+    import numpy as np
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_raw_leaves(v, prefix + (k,)))
+        else:
+            out[prefix + (k,)] = np.asarray(
+                v.cpu() if hasattr(v, "cpu") else v)
+    return out
+
+
+def _grad_shares(what: str, got: dict, want: dict, names=None) -> float:
+    """The largest |got - want| of each parameter (of `names`, default
+    all) as a share of want's largest |element|; raises past GRAD_TOL.
+    Returns the worst share."""
+    worst = 0.0
+    for n, w in want.items():
+        if names is not None and n not in names:
+            continue
+        size = w.float().abs().max().item()
+        if size == 0:
+            continue
+        share = (got[n].float() - w.float()).abs().max().item() / size
+        if not share <= GRAD_TOL:
+            raise AssertionError(f"{what}: {n} at {share:.3e} of its max, "
+                                 f"beyond {GRAD_TOL}")
+        worst = max(worst, share)
+    return worst
+
+
+def phase_variants(smi: str, report: dict, kernel_plan: dict | None,
+                   render_src: Path) -> dict:
+    """10: the training-side variants on the flagship's kernel plan at
+    batch 4 and the rendering (see the module docstring)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from videometamaterials_tpu_torch import gif_visualization
+    from videometamaterials_tpu_torch.config import ModelConfig, TrainerConfig
+    from videometamaterials_tpu_torch.data.gif_io import gif_to_rgba
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.models import unet3d
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.postproc.visualization import (
+        load_cell_fields,
+    )
+    from videometamaterials_tpu_torch.sample import build_sampler
+    from videometamaterials_tpu_torch.train import bench_batches
+    from videometamaterials_tpu_torch.training import checkpoint as ckpt
+    from videometamaterials_tpu_torch.training.msgpack_io import (
+        read_msgpack,
+        write_msgpack,
+    )
+    from videometamaterials_tpu_torch.training.optim import make_adam
+    from videometamaterials_tpu_torch.training.trainer import (
+        StepTrainer,
+        TrainState,
+        train_step,
+    )
+
+    cfg = ModelConfig().replace(fused_blocks_in_training=True,
+                                fused_bwd_kernels=True)
+    kernel = _counts_of(TRAIN_PER_STEP)
+    phase5_ms = ("not run" if kernel_plan is None
+                 else f"{kernel_plan['median_ms']:.1f} ms, "
+                 f"{kernel_plan['peak_bytes'] / 2 ** 30:.2f} GiB")
+    totals: dict = {}
+    out = {}
+
+    def build(plan_cfg):
+        return GaussianDiffusion.from_config(
+            build_unet(plan_cfg, device="cuda", seed=0), plan_cfg, "cuda")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, (time.perf_counter() - t0) * 1e3
+
+    def grads_of(model):
+        return {n: p.grad.detach().clone()
+                for n, p in model.named_parameters() if p.grad is not None}
+
+    # ---- (a) focus
+    t0 = time.perf_counter()
+    diff = build(cfg)
+    model = diff.model
+    d = _draws(cfg, torch.Generator(device="cuda").manual_seed(11), 1)[0]
+    mask = torch.tensor([True, False, True, False], device="cuda")
+    loss_of, grads = {}, {}
+    for plan in ("kernel", "unfused"):
+        model.zero_grad(set_to_none=True)
+        _build.reset_launch_counts()
+        with model.fused_plans(plan == "kernel"):
+            loss = diff.loss(d["videos"], d["labels"], t=d["t"],
+                             noise=d["noise"],
+                             null_cond_mask=d["null_cond_mask"],
+                             focus_present_mask=mask)
+        loss.backward()
+        if plan == "kernel":
+            _check_counts("focus-mask gradients", _counts_of(FOCUS_PER_STEP),
+                          totals)
+        loss_of[plan], grads[plan] = loss.item(), grads_of(model)
+    if not math.isfinite(loss_of["kernel"]):
+        raise AssertionError(f"focus-mask loss {loss_of['kernel']}")
+    loss_rel = abs(loss_of["kernel"] - loss_of["unfused"]) / abs(
+        loss_of["unfused"])
+    if loss_rel > MODEL_TOL:
+        raise AssertionError(f"focus-mask loss, kernel plan against "
+                             f"unfused: relative {loss_rel}")
+    # as phase 5: every parameter of the blocks the plans differ in (the
+    # fused ones) within GRAD_TOL; the rest (convs, norms) in bf16 only
+    # by their relative L2
+    groups = _param_groups(model)
+    worst = _grad_shares("focus-mask gradients, kernel plan against "
+                         "unfused", grads["kernel"], grads["unfused"],
+                         {n for n, g in groups.items() if g != "rest"})
+    rest = [n for n, g in groups.items() if g == "rest"]
+    rest_rel = (sum((grads["kernel"][n] - grads["unfused"][n]).float()
+                    .pow(2).sum() for n in rest)
+                / sum(grads["unfused"][n].float().pow(2).sum()
+                      for n in rest)).sqrt().item()
+    del grads
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    trainer = StepTrainer(diff, cfg, TrainerConfig(prob_focus_present=1.0),
+                          bench_batches(cfg, gen, "cuda"), generator=gen)
+    focus_ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FOCUS_STEPS):
+        _build.reset_launch_counts()
+        loss, ms = timed(trainer.step)
+        _check_counts("a step with prob_focus_present 1.0",
+                      _counts_of(FOCUS_PER_STEP), totals)
+        focus_ms.append(ms)
+        if not math.isfinite(loss.item()):
+            raise AssertionError(f"focus step loss {loss.item()}")
+    _build.reset_launch_counts()
+    loss = train_step(trainer.state, diff, d["videos"], d["labels"],
+                      trainer.tcfg, fused_in_training=True, t=d["t"],
+                      noise=d["noise"], null_cond_mask=d["null_cond_mask"],
+                      focus_present_mask=mask)
+    _check_counts("a step under the explicit mask [T, F, T, F]",
+                  _counts_of(FOCUS_PER_STEP), totals)
+    out["focus_ms"] = statistics.median(focus_ms)
+    out["focus_peak"] = torch.cuda.max_memory_allocated()
+    del diff, model, trainer
+    torch.cuda.empty_cache()
+    log(f"  (a) focus: loss kernel plan {loss_of['kernel']:.5f} vs unfused "
+        f"{loss_of['unfused']:.5f} (relative {loss_rel:.3e}, limit "
+        f"{MODEL_TOL}), every fused-block gradient within {worst:.3e} of "
+        f"its own max (limit {GRAD_TOL}), the rest at relative L2 "
+        f"{rest_rel:.3e}; prob_focus_present 1.0: median "
+        f"{out['focus_ms']:.1f} ms a step of {FOCUS_STEPS}, peak "
+        f"{out['focus_peak'] / 2 ** 30:.2f} GiB (phase 5's kernel plan "
+        f"{phase5_ms}), explicit mask step loss "
+        f"{loss.item():.4f}; launches 0/0/8/8/2/6 a step | "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- (b) accumulation, k = 2 over 4 micro-steps
+    t0 = time.perf_counter()
+    tcfg = TrainerConfig(gradient_accumulate_every=2)
+    draws = _draws(cfg, torch.Generator(device="cuda").manual_seed(13), 4)
+    diff = build(cfg)
+    model = diff.model
+    p0 = [p.detach().clone() for p in model.parameters()]
+    state = TrainState.create(model, cfg.learning_rate,
+                              tcfg.gradient_accumulate_every)
+    micro_ms, p2 = [], None
+    tmp = ROOT / "build" / "smoke_variants"
+    tmp.mkdir(parents=True, exist_ok=True)
+    written = None
+    for i, dr in enumerate(draws, 1):
+        before = [p.detach().clone() for p in model.parameters()]
+        _build.reset_launch_counts()
+        loss, ms = timed(lambda: train_step(
+            state, diff, dr["videos"], dr["labels"], tcfg,
+            fused_in_training=True, t=dr["t"], noise=dr["noise"],
+            null_cond_mask=dr["null_cond_mask"]))
+        _check_counts(f"micro-step {i}", kernel, totals)
+        micro_ms.append(ms)
+        same = all(torch.equal(a, p) for a, p in zip(before,
+                                                     model.parameters()))
+        if same != (i % 2 == 1) or not math.isfinite(loss.item()):
+            raise AssertionError(f"micro-step {i}: parameters "
+                                 f"{'unchanged' if same else 'moved'}, "
+                                 f"loss {loss.item()}")
+        if i == 2:
+            p2 = [p.detach().clone() for p in model.parameters()]
+        if i == 3:
+            named = list(model.named_parameters())
+            written = ckpt.optimizer_state_tree(state.optimizer, named,
+                                                clipped=False,
+                                                accum=state.accum)
+            path = tmp / "opt_state.msgpack"
+            write_msgpack(path, written)
+            back = read_msgpack(path)
+            fresh = TrainState.create(build_unet(cfg, device="cuda", seed=0),
+                                      cfg.learning_rate, 2)
+            fresh_named = list(fresh.model.named_parameters())
+            ckpt.load_optimizer_state(back, fresh.optimizer, fresh_named,
+                                      clipped=False, accum=fresh.accum)
+            want = _raw_leaves(written)
+            for tree in (back, ckpt.optimizer_state_tree(
+                    fresh.optimizer, fresh_named, clipped=False,
+                    accum=fresh.accum)):
+                got = _raw_leaves(tree)
+                if set(got) != set(want) or any(
+                        got[k].dtype != v.dtype or got[k].shape != v.shape
+                        or got[k].tobytes() != v.tobytes()
+                        for k, v in want.items()):
+                    raise AssertionError("the MultiSteps state did not read "
+                                         "back bit for bit")
+            size = path.stat().st_size
+            del fresh, back
+    counts_adam = {int(st["step"]) for st in state.optimizer.state.values()}
+    if counts_adam != {2} or state.accum.gradient_step != 2:
+        raise AssertionError(f"Adam's count {counts_adam}, gradient_step "
+                             f"{state.accum.gradient_step}")
+    # timed micro-steps, warm: every second one runs Adam
+    timed_ms = {True: [], False: []}
+    for i in range(MICRO_STEPS):
+        dr = draws[i % 4]
+        _build.reset_launch_counts()
+        _, ms = timed(lambda: train_step(
+            state, diff, dr["videos"], dr["labels"], tcfg,
+            fused_in_training=True, t=dr["t"], noise=dr["noise"],
+            null_cond_mask=dr["null_cond_mask"]))
+        _check_counts(f"timed micro-step {i}", kernel, totals)
+        timed_ms[i % 2 == 1].append(ms)
+    # micro-step 2's update against one Adam step on the mean, outside
+    ref = build(cfg)
+    sums = None
+    for dr in draws[:2]:
+        ref.model.zero_grad(set_to_none=True)
+        with ref.model.fused_plans(True):
+            ref.loss(dr["videos"], dr["labels"], t=dr["t"], noise=dr["noise"],
+                     null_cond_mask=dr["null_cond_mask"]).backward()
+        # no gradient (the init temporal block's unused to_k / to_v):
+        # zeros, as MultiSteps accumulates it
+        g = [torch.zeros_like(p) if p.grad is None else p.grad.float()
+             for p in ref.model.parameters()]
+        sums = g if sums is None else [a + b for a, b in zip(sums, g)]
+    for p, g in zip(ref.model.parameters(), sums):
+        p.grad = g / 2
+    make_adam(list(ref.model.parameters()), cfg.learning_rate).step()
+    names = [n for n, _ in ref.model.named_parameters()]
+    worst_upd = _grad_shares(
+        "micro-step 2's update against an Adam step on the mean",
+        {n: a - b for n, a, b in zip(names, p2, p0)},
+        {n: p.detach() - b for n, p, b in zip(names, ref.model.parameters(),
+                                               p0)})
+    out["micro_ms"] = statistics.median(timed_ms[True] + timed_ms[False])
+    del diff, model, state, ref, sums, p0, p2
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  (b) accumulation k=2: parameters unchanged after micro-steps 1 "
+        f"and 3, moved after 2 and 4, Adam's count 2; micro-step 2's update "
+        f"within {worst_upd:.3e} of an Adam step on the mean (limit "
+        f"{GRAD_TOL}); MultiSteps state after micro-step 3 "
+        f"({size / 1e6:.1f} MB msgpack) read back bit for bit; micro-steps "
+        "1-4 " + ", ".join(f"{m:.1f}" for m in micro_ms) + f" ms; then "
+        f"{MICRO_STEPS} more: median {out['micro_ms']:.1f} ms (with Adam "
+        f"{statistics.median(timed_ms[True]):.1f}, without "
+        f"{statistics.median(timed_ms[False]):.1f}; phase 5's step "
+        f"{phase5_ms}); launches 10/10/8/8/2/6 a micro-step | "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- (c) remat_blocks against remat off
+    t0 = time.perf_counter()
+    d = _draws(cfg, torch.Generator(device="cuda").manual_seed(14), 1)[0]
+    one, runs = {}, {}
+    for remat in (False, True):
+        plan_cfg = cfg.replace(remat_blocks=remat)
+        diff = build(plan_cfg)
+        diff.model.zero_grad(set_to_none=True)
+        with diff.model.fused_plans(True):
+            diff.loss(d["videos"], d["labels"], t=d["t"], noise=d["noise"],
+                      null_cond_mask=d["null_cond_mask"]).backward()
+        one[remat] = grads_of(diff.model)
+        diff.model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device="cuda").manual_seed(15)
+        trainer = StepTrainer(diff, plan_cfg, TrainerConfig(),
+                              bench_batches(plan_cfg, gen, "cuda"),
+                              generator=gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        ms = [timed(trainer.step)[1] for _ in range(VARIANT_STEPS)]
+        _check_counts(f"remat_blocks {remat}: {VARIANT_STEPS} steps",
+                      _counts_of(TRAIN_PER_STEP, VARIANT_STEPS), totals)
+        runs[remat] = dict(median_ms=statistics.median(ms),
+                           peak_bytes=torch.cuda.max_memory_allocated())
+        del diff, trainer
+        torch.cuda.empty_cache()
+    bit_equal = all(torch.equal(one[True][n], g)
+                    for n, g in one[False].items())
+    worst_remat = _grad_shares("remat_blocks gradients against remat off",
+                               one[True], one[False])
+    out["remat"] = runs
+    del one
+    log(f"  (c) remat_blocks: one step's gradients "
+        f"{'bit-equal to' if bit_equal else 'not bit-equal to'} remat off "
+        f"(every one within {worst_remat:.3e} of its max, limit {GRAD_TOL}); "
+        f"{VARIANT_STEPS} steps each: median {runs[True]['median_ms']:.1f} ms "
+        f"and peak {runs[True]['peak_bytes'] / 2 ** 30:.2f} GiB with remat, "
+        f"{runs[False]['median_ms']:.1f} ms and "
+        f"{runs[False]['peak_bytes'] / 2 ** 30:.2f} GiB without, on {smi} | "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- (d) the s-tiled plan against the untiled one, unfused
+    t0 = time.perf_counter()
+    tiled_cfg = ModelConfig().replace(temporal_s_tile=S_TILE)
+    diffusion = build_sampler(tiled_cfg, device="cuda", seed=0)
+    blocks = [m for m in diffusion.model.modules()
+              if isinstance(m, unet3d.TemporalAttentionBlock)]
+    calls = [0]
+    real = unet3d.reference_temporal_block
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((1, FRAMES, 96, 96, 3), generator=g, device="cuda")
+    t = torch.full((1,), 128, device="cuda")
+    cond = torch.rand((1, FRAMES), generator=g, device="cuda") * 2 - 1
+    _build.reset_launch_counts()
+    unet3d.reference_temporal_block = counted
+    try:
+        with torch.no_grad(), diffusion.model.fused_plans(False):
+            tiled = diffusion.guided_eps(x, t, cond, 5.0)
+            for m in blocks:
+                m.s_tile = None
+            untiled = diffusion.guided_eps(x, t, cond, 5.0)
+    finally:
+        unet3d.reference_temporal_block = real
+    _check_counts("the s-tiled eps", _counts_of({}), totals)
+    if calls[0] != S_TILE_CALLS or not torch.isfinite(tiled).all():
+        raise AssertionError(f"s-tiled eps: {calls[0]} tiles (expected "
+                             f"{S_TILE_CALLS})")
+    rel_tile = ((tiled - untiled).norm() / untiled.norm()).item()
+    if rel_tile > MODEL_TOL:
+        raise AssertionError(f"s-tiled eps against untiled: relative "
+                             f"{rel_tile}")
+    out["s_tile_rel"] = rel_tile
+    del diffusion, blocks, tiled, untiled
+    torch.cuda.empty_cache()
+    log(f"  (d) temporal_s_tile {S_TILE}: guided eps on the unfused plan "
+        f"({calls[0]} tiles of the reference block) against the untiled "
+        f"plan: relative error {rel_tile:.3e} (limit {MODEL_TOL}) | "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- (e) the switches: the saved plan and the linear backward kernels
+    t0 = time.perf_counter()
+    plain_cfg = cfg.replace(fused_bwd_kernels=False)
+    with environ(VMT_TEMPORAL_VJP="saved", VMT_LINEAR_BWD_KERNEL="1"):
+        diff = build(plain_cfg)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        trainer = StepTrainer(diff, plain_cfg, TrainerConfig(),
+                              bench_batches(plain_cfg, gen, "cuda"),
+                              generator=gen)
+        _build.reset_launch_counts()
+        loss = trainer.step()
+        counts = _check_counts("a step under VMT_TEMPORAL_VJP=saved and "
+                               "VMT_LINEAR_BWD_KERNEL=1",
+                               _counts_of(SAVED_PER_STEP), totals)
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"switch step loss {loss.item()}")
+    del diff, trainer
+    torch.cuda.empty_cache()
+    log(f"  (e) VMT_TEMPORAL_VJP=saved, VMT_LINEAR_BWD_KERNEL=1 (no "
+        f"fused_bwd_kernels): launches {counts}, loss {loss.item():.4f} | "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- (f) the rendering, in-process, without matplotlib or Pillow
+    t0 = time.perf_counter()
+    gifs = str(render_src / "gifs") + "/"
+    frame_ranges = str(render_src / "frame_range_data.csv")
+    vis_dir = Path(gif_visualization.main(["--path", gifs, "--frame-ranges",
+                                           frame_ranges]))
+    names = sorted(p.name for p in vis_dir.iterdir())
+    if names != ["stress_strain_estimate.csv", "visualization.gif",
+                 "visualization_conv_euler.gif", "visualization_legend.png"]:
+        raise AssertionError(f"rendering artifacts {names}")
+    for name in ("visualization.gif", "visualization_conv_euler.gif"):
+        shape = gif_to_rgba(vis_dir / name).shape
+        if shape != (FRAMES, 96, 96, 4):
+            raise AssertionError(f"{name}: {shape}")
+    solid = load_cell_fields(gifs, frame_ranges, 0, 0, "lagrangian")["mask"]
+    alpha = gif_to_rgba(vis_dir / "visualization.gif")[..., 3]
+    if not np.array_equal(alpha != 0, solid):
+        raise AssertionError("visualization.gif's alpha is not the solid "
+                             "mask")
+    loaded = {m for m in ("matplotlib", "PIL", "imageio") if m in sys.modules}
+    if loaded:
+        raise AssertionError(f"the rendering imported {sorted(loaded)}")
+    shutil.rmtree(render_src, ignore_errors=True)
+    log(f"  (f) rendering: {len(names)} artifacts, GIFs {FRAMES}x96x96x4, "
+        f"visualization.gif's alpha the solid mask ({solid.mean():.3f} "
+        f"solid); matplotlib, PIL, imageio not imported | "
+        f"{time.perf_counter() - t0:.1f}s")
+    for k, v in totals.items():
+        report[k]["launches_phase10"] = v
+    return out
+
+
+def run_variants(smi: str, report: dict, kernel_plan: dict | None,
+                 render_src: Path) -> None:
+    t0 = time.perf_counter()
+    phase_variants(smi, report, kernel_plan, render_src)
+    log(f"[10 variants] passed | {time.perf_counter() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=256,
@@ -2338,6 +2856,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-out", metavar="PATH",
                     help="also write the whole profile tables to PATH "
                          "(.sample, .sample_head and .train suffixes)")
+    ap.add_argument("--variants-only", action="store_true",
+                    help="run phases 0, 1, 6 (the rendering's input) and 10 "
+                         "only, and print no result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2374,6 +2895,17 @@ def main(argv=None) -> int:
     log(f"[1 build] {'built' if info['built'] else 'cached'} "
         f"{info['path']} (nvcc {info['seconds']:.1f}s) | "
         f"{time.perf_counter() - t0:.1f}s")
+
+    if args.variants_only:
+        report = {k: {} for k in _build.LAUNCH_COUNTS}
+        t0 = time.perf_counter()
+        evaluated = phase_eval(smi, report)
+        log(f"[6 eval] passed | {time.perf_counter() - t0:.1f}s")
+        torch.cuda.empty_cache()
+        run_variants(smi, report, None, evaluated["render_src"])
+        log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1, 6 "
+            "and 10 only: no result line)")
+        return 0
 
     # ---- 2 kernels against their twins
     t0 = time.perf_counter()
@@ -2543,6 +3075,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     ablation_eval(arms["ablation-GRU"], smi, evaluated["chain_s"])
     log(f"[9e eval] passed | {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    # ---- 10 variants: focus mask, accumulation, remat, s-tile, switches,
+    # rendering
+    run_variants(smi, report, train["kernel"], evaluated["render_src"])
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

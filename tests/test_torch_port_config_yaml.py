@@ -86,11 +86,21 @@ def test_model_yamls_and_jax_snapshots_load(tmp_path):
     assert euler.reference_frame == "eulerian"
     assert euler.selected_channels == (0, 1, 2)
     j_euler = j_config.load_model_yaml(ROOT / "model_euler.yaml")
-    path = tmp_path / "snap.yaml"
-    j_config.save_model_yaml(j_euler, path)
-    got = config.load_model_yaml(path)
-    for f in dataclasses.fields(got):
-        assert getattr(got, f.name) == getattr(j_euler, f.name), f.name
+    # the tiny JAX snapshot of the `texts` fixture: temporal_s_tile 128
+    # (and remat_blocks) round-trip since they are ported
+    j_tiny = j_config.ModelConfig(unet_dim=8, dim_mults=(1, 2),
+                                  learning_rate=1e-5, temporal_s_tile=128,
+                                  temporal_vjp="saved", remat_blocks=True)
+    for j_cfg in (j_euler, j_tiny):
+        path = tmp_path / "snap.yaml"
+        j_config.save_model_yaml(j_cfg, path)
+        got = config.load_model_yaml(path)
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(j_cfg, f.name), f.name
+        back = tmp_path / "back.yaml"
+        config.save_model_yaml(got, back)
+        assert config.load_model_yaml(back) == got
+    assert got.temporal_s_tile == 128 and got.remat_blocks
 
 
 def test_writer_reads_back_through_safe_load(tmp_path):

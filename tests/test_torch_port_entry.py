@@ -91,21 +91,28 @@ def test_sample_cli_on_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("remat_blocks", True), ("temporal_s_tile", 128),
-    ("prob_focus_present", 0.1), ("gradient_accumulate_every", 2)])
+    ("remat_blocks", True), ("temporal_s_tile", 32),
+    ("prob_focus_present", 0.5), ("gradient_accumulate_every", 2)])
 def test_unported_variants_raise(field, value, tmp_path):
-    """The training-side variants not ported yet (ROADMAP.md Queue 1
-    item 8) raise, from model.yaml or the trainer's config; the model
-    variants of the conditioning ablation build (tests/
-    test_torch_port_variants.py holds them against the JAX model)."""
-    if field in ("prob_focus_present", "gradient_accumulate_every"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            TrainerConfig(**{field: value})
-    else:
-        path = tmp_path / "model.yaml"
-        path.write_text(f"{field}: {str(value).lower()}\n")
-        with pytest.raises(NotImplementedError, match="item 8"):
-            load_model_yaml(path)
+    """The training-side variants that raised until they were ported
+    (ROADMAP.md Queue 1 item 8) now train on a tiny config: the model.yaml
+    keys read by load_model_yaml (a tile of 32 splits the 8 x 8 level into
+    two), the trainer's keys taken by TrainerConfig, two steps each with
+    finite losses; the model variants of the conditioning ablation build
+    (tests/test_torch_port_train_variants.py and
+    tests/test_torch_port_variants.py hold them against the JAX model)."""
+    from videometamaterials_tpu_torch import train as t_train
+
+    path = tmp_path / "model.yaml"
+    trainer_keys = ("prob_focus_present", "gradient_accumulate_every")
+    path.write_text(TINY_YAML + ("" if field in trainer_keys else
+                                 f"{field}: {str(value).lower()}\n"))
+    cfg = load_model_yaml(path).replace(batch_size=2)
+    tcfg = TrainerConfig(**({field: value} if field in trainer_keys
+                            else {}))
+    assert getattr(tcfg if field in trainer_keys else cfg, field) == value
+    out = t_train.run(cfg, 2, device="cpu", tcfg=tcfg, log=lambda _: None)
+    assert np.isfinite(out["losses"]).all() and len(out["losses"]) == 2
     for variant in (dict(per_frame_cond=False),
                     dict(unet_use_sparse_linear_attn=False),
                     dict(unet_cond_to_time="concat"),

@@ -423,9 +423,12 @@ def test_batch_sampler_streams_match_jax():
 # ---------------------------------------------------------------- wiring
 
 
-def test_unported_options_raise():
-    """The options still unported raise; temporal_vjp 'saved' is ported
-    and resolves, and an unknown plan still raises."""
+def test_unported_options_raise(monkeypatch):
+    """The trainer options that raised until they were ported (the focus
+    mask, MultiSteps) are accepted; temporal_vjp 'saved' is ported and
+    resolves, an unknown plan still raises, and the plan resolves as the
+    JAX package's does (VMT_TEMPORAL_VJP unset here)."""
+    monkeypatch.delenv("VMT_TEMPORAL_VJP", raising=False)
     assert t_config.ModelConfig(temporal_vjp="saved").temporal_vjp == "saved"
     assert t_config.temporal_bwd_mode("saved", False) == "saved"
     model = UNet3D(num_frames=FRAMES, temporal_vjp="saved", **TINY)
@@ -435,10 +438,12 @@ def test_unported_options_raise():
         t_config.ModelConfig(temporal_vjp="other")
     with pytest.raises(ValueError):
         UNet3D(num_frames=FRAMES, temporal_vjp="other", **TINY)
-    with pytest.raises(NotImplementedError, match="focus"):
-        t_config.TrainerConfig(prob_focus_present=0.1)
-    with pytest.raises(NotImplementedError, match="MultiSteps"):
-        t_config.TrainerConfig(gradient_accumulate_every=2)
+    assert t_config.TrainerConfig(
+        prob_focus_present=0.1).prob_focus_present == 0.1
+    tcfg = t_config.TrainerConfig(gradient_accumulate_every=2)
+    state = TrainState.create(torch.nn.Linear(2, 2), 1e-3,
+                              tcfg.gradient_accumulate_every)
+    assert state.accum is not None and state.accum.k == 2
     assert t_config.temporal_bwd_mode(None, True) == "kernel"
     assert t_config.temporal_bwd_mode(None, False) == "recompute"
     assert t_config.temporal_bwd_mode("recompute", True) == "recompute"

@@ -240,6 +240,34 @@ def test_resume_is_bit_equal(data, tmp_path):
     assert all(p.dtype == torch.float32 for p in c.state.model.parameters())
 
 
+def test_resume_in_an_accumulation_is_bit_equal(data, tmp_path):
+    """gradient_accumulate_every 2 with prob_focus_present 0.5: 4
+    micro-steps with a milestone at 3, in the middle of an accumulation,
+    equal 3 micro-steps and a resume of 3 (the checkpoint carries the
+    MultiSteps state); a trainer without accumulation refuses that
+    checkpoint, naming the state it expected."""
+    kw = dict(train_num_steps=4, save_and_sample_every=3, num_samples=0,
+              gradient_accumulate_every=2, prob_focus_present=0.5)
+    a = _port_trainer(data, tmp_path / "a", **kw)
+    a.train()
+    opt = ckpt.read_checkpoint(tmp_path / "a", 3)["opt_state"]
+    assert (int(opt["mini_step"]), int(opt["gradient_step"])) == (1, 1)
+    b_dir = tmp_path / "b"
+    shutil.copytree(tmp_path / "a", b_dir)
+    shutil.rmtree(b_dir / "model" / "step_4")
+    metrics = (b_dir / "metrics.jsonl").read_text().splitlines()
+    (b_dir / "metrics.jsonl").write_text(
+        "\n".join(metrics[:4]) + "\n")      # what the run had at step 3
+    b = _port_trainer(data, b_dir, **kw)
+    b.train(load_model_step=3)
+    for rel in ("model/step_4/checkpoint.msgpack", "metrics.jsonl"):
+        assert (tmp_path / "a" / rel).read_bytes() == \
+            (b_dir / rel).read_bytes(), rel
+    plain = _port_trainer(data, b_dir, train_num_steps=4)
+    with pytest.raises(ValueError, match="state of adam"):
+        plain.load(3)
+
+
 def test_refuses_a_cache_restored_step(data, tmp_path):
     t = _port_trainer(data, tmp_path, train_num_steps=2)
     t.save(1)

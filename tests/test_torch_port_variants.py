@@ -394,10 +394,25 @@ def test_attention_core_position_bias_matches_jax(n_cond, on_cond):
                                     torch.tensor(vc), **kw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        stacked_softmax_attention(torch.tensor(q), torch.tensor(k),
-                                  torch.tensor(v), focus_present_mask=True,
-                                  **kw)
+    # the focus-present mask: defined on unstacked keys only (the JAX
+    # assert), where it matches the JAX core
+    mask = np.array([True, False])
+    if n_cond:
+        with pytest.raises(ValueError, match="unstacked"):
+            stacked_softmax_attention(torch.tensor(q), torch.tensor(k),
+                                      torch.tensor(v),
+                                      focus_present_mask=torch.tensor(mask),
+                                      **kw)
+    else:
+        want = j_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                           pos_bias=jnp.asarray(bias),
+                           focus_present_mask=jnp.asarray(mask), **kw)
+        got = stacked_softmax_attention(
+            torch.tensor(q), torch.tensor(k), torch.tensor(v),
+            pos_bias=torch.tensor(bias),
+            focus_present_mask=torch.tensor(mask), **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
 
 
 def _gru_leaves(seed, hidden=6, features=1):
@@ -538,9 +553,14 @@ def test_whole_curve_conditioning_of_the_entry_points(tmp_path):
     model = UNet3D.from_config(back.replace(unet_dim=8, dim_mults=(1, 2),
                                             compute_dtype="float32"))
     assert model.num_tokens == CURVE and model.cond_att_GRU
-    path.write_text(path.read_text() + "remat_blocks: true\n")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        config.load_model_yaml(path)
+    # the training-side keys round-trip with the ablation's (they raised
+    # until ROADMAP.md Queue 1 item 8 was ported)
+    path.write_text(path.read_text().replace("remat_blocks: false",
+                                             "remat_blocks: true"))
+    remat = config.load_model_yaml(path)
+    assert remat == cfg.replace(remat_blocks=True)
+    assert UNet3D.from_config(remat.replace(
+        unet_dim=8, dim_mults=(1, 2), compute_dtype="float32")).remat_blocks
     with pytest.raises(ValueError, match="cond_attention"):
         dataclasses.replace(cfg, unet_cond_attention="stacked")
 

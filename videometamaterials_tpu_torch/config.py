@@ -10,7 +10,9 @@ bf16 activations over fp32 parameters, both fused kernel families on at
 every level, and training on the unfused plans. The conditioning ablation
 keys of model.yaml (`unet_cond_attention`, `unet_cond_attention_tokens`,
 `unet_cond_att_GRU`) are read; `per_frame_cond: true` overrides the first
-two, as in the JAX package.
+two, as in the JAX package. So are the training-side keys `remat_blocks`
+(checkpointed ResnetBlocks) and `temporal_s_tile` (the s-tiled temporal
+plan); `sample_scan_chunk`, a TPU scan knob, is accepted and dropped.
 
 model.yaml is read and written by a reader and writer of the YAML subset
 that model.yaml, model_euler.yaml and `yaml.safe_dump` of a config use
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import re
 from dataclasses import dataclass
 from pathlib import Path
@@ -81,6 +84,13 @@ class ModelConfig:
     # 'kernel' | 'saved' (the forward kernel emits the softmax weights,
     # the backward starts from them)
     temporal_vjp: str | None = None
+    # torch.utils.checkpoint around each ResnetBlock: recompute its
+    # activations in the backward instead of storing them (same gradients)
+    remat_blocks: bool = False
+    # the unfused temporal blocks in tiles of this many spatial positions
+    # where the tile divides h*w and is smaller than it (None = untiled);
+    # the fused kernel, where selected, takes precedence
+    temporal_s_tile: int | None = None
 
     def __post_init__(self):
         if self.loss_type not in ("l1", "l2"):
@@ -125,9 +135,12 @@ def temporal_bwd_mode(temporal_vjp: str | None,
                       fused_bwd_kernels: bool) -> str:
     """The fused temporal block's backward under grad, resolved as the JAX
     package does (fused_temporal_block.py:830-833): an explicit plan wins,
-    else 'kernel' with fused_bwd_kernels and 'recompute' without."""
+    else 'kernel' with fused_bwd_kernels, else the environment's
+    VMT_TEMPORAL_VJP, else 'recompute'. Read at each call, as the JAX entry
+    point reads it at each trace."""
     if temporal_vjp is None:
-        return "kernel" if fused_bwd_kernels else "recompute"
+        temporal_vjp = "kernel" if fused_bwd_kernels else os.environ.get(
+            "VMT_TEMPORAL_VJP", "recompute")
     if temporal_vjp not in ("recompute", "kernel", "saved"):
         raise ValueError(f"unknown temporal_vjp {temporal_vjp!r}")
     return temporal_vjp
@@ -148,12 +161,16 @@ class TrainerConfig:
     num_preds: int = 1
     num_samples: int = 3                      # validation curves a milestone
     max_grad_norm: float | None = None        # optax clip_by_global_norm
+    # micro-batches an optimizer step (optax.MultiSteps on the mean of
+    # their gradients) when above 1, as the JAX Trainer wraps its chain
     gradient_accumulate_every: int = 1
     horizontal_flip: bool = False             # train-set augmentation
     test_batch_size: int = 2                  # sampling takes half of it
     seed: int = 0
     log: bool = True                          # the JAX wandb switch: no wandb
                                               # here, metrics.jsonl either way
+    # a sample's chance that its temporal attention attends to its own
+    # frame only (the focus-present mask), drawn when above 0
     prob_focus_present: float = 0.0
     checkpoint_backend: str = "msgpack"       # 'orbax' needs orbax
     keep_last_checkpoints: int | None = None  # None = keep every milestone
@@ -164,14 +181,6 @@ class TrainerConfig:
     fidelity_probe_preds: int = 2
 
     def __post_init__(self):
-        if self.prob_focus_present > 0:
-            raise NotImplementedError(
-                "prob_focus_present > 0 needs the focus-present mask, not "
-                "ported yet (ROADMAP.md Queue 1 item 8)")
-        if self.gradient_accumulate_every > 1:
-            raise NotImplementedError(
-                "gradient_accumulate_every > 1 (optax.MultiSteps semantics) "
-                "is not ported yet (ROADMAP.md Queue 1 item 8)")
         if self.checkpoint_backend != "msgpack":
             raise NotImplementedError(
                 f"checkpoint backend {self.checkpoint_backend!r}: only "
@@ -183,13 +192,9 @@ class TrainerConfig:
         return dataclasses.replace(self, **kw)
 
 
-# Keys of model.yaml the port does not read (the TPU scan chunking and
-# temporal tiling, remat): accepted by the reader and dropped. The
-# ones that change the model (a temporal_s_tile, remat_blocks: true) wait
-# for ROADMAP.md Queue 1 item 8 and are refused when set.
-_UNREAD_KEYS = frozenset(("sample_scan_chunk", "temporal_s_tile",
-                          "remat_blocks"))
-_UNPORTED_VALUES = {"temporal_s_tile": (None,), "remat_blocks": (False,)}
+# Keys of model.yaml the port does not read (the TPU sampler's scan
+# chunking): accepted by the reader and dropped.
+_UNREAD_KEYS = frozenset(("sample_scan_chunk",))
 
 # ------------------------------------------------------ the YAML subset
 
@@ -350,11 +355,6 @@ def load_model_yaml(path: str | Path) -> ModelConfig:
     unknown = set(raw) - known - _UNREAD_KEYS
     if unknown:
         raise ValueError(f"unknown config keys in {path}: {sorted(unknown)}")
-    for key, accepted in _UNPORTED_VALUES.items():
-        if key in raw and raw[key] not in accepted:
-            raise NotImplementedError(
-                f"{path}: {key}: {raw[key]!r} is not ported yet (ROADMAP.md "
-                "Queue 1 item 8)")
     kw = {k: v for k, v in raw.items() if k in known}
     if "learning_rate" in kw:
         kw["learning_rate"] = float(kw["learning_rate"])

@@ -17,12 +17,24 @@ videometamaterials_tpu/data/gif_io.py (which uses Pillow).
   array_to_gif    a (F, H, W) float [0, 1] (or uint8) video as a GIF89a with
                   a 256-grey global palette, every frame whole, LZW-coded,
                   looping
+  rgba_to_gif     a (F, H, W, 4) uint8 RGBA video as the JAX renderer's
+                  imageio call writes it (a delay of 20 cs, disposal 2,
+                  NETSCAPE loop 0): per frame a local palette of its opaque
+                  colours and one transparent index (alpha 0 is
+                  transparent, any other alpha opaque); a frame of more
+                  than 255 opaque colours has them merged to 255 (see
+                  `_merge_palette`)
+  gif_to_rgba     any GIF as (F, H, W, 4) uint8 RGBA: frames composited on
+                  a transparent screen with their disposal methods and
+                  transparency (transparent pixels read (0, 0, 0, 0))
+  write_png       a (H, W, 4) uint8 RGBA image as a PNG (zlib, no filter)
   cast_num_frames truncate or zero-pad the frame axis
 """
 
 from __future__ import annotations
 
 import struct
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -389,6 +401,175 @@ def array_to_gif(video: np.ndarray, path: str | Path, duration: int = 200,
         out.append(_sub_blocks(_lzw_encode(frame.tobytes())))
     out.append(b"\x3b")
     Path(path).write_bytes(b"".join(out))
+
+
+# ------------------------------------------------------------ RGBA codec
+
+# distinct opaque colours of a frame the palette reduction takes: it merges
+# one pair at a time over an n x n distance table
+MAX_FRAME_COLORS = 1024
+
+
+def _merge_palette(colors: np.ndarray, counts: np.ndarray,
+                   limit: int = 255) -> np.ndarray:
+    """Reduce `colors` (n, 3) uint8, sorted, with pixel counts, to at most
+    `limit` entries: while there are more, the pair of surviving colours at
+    the smallest squared RGB distance merges, the one with fewer pixels
+    (on a tie the later in sorted order) taking the other's colour and
+    adding its pixels to it. Returns for each colour the index of the
+    colour it is drawn with. Deterministic; exact where n <= limit."""
+    n = len(colors)
+    target = np.arange(n)
+    if n <= limit:
+        return target
+    if n > MAX_FRAME_COLORS:
+        raise ValueError(f"a frame of {n} opaque colours: the GIF writer "
+                         f"takes at most {MAX_FRAME_COLORS}")
+    c = colors.astype(np.int64)
+    dist = ((c[:, None, :] - c[None, :, :]) ** 2).sum(-1)
+    big = np.iinfo(np.int64).max
+    dist[np.arange(n), np.arange(n)] = big
+    counts = counts.astype(np.int64).copy()
+    for _ in range(n - limit):
+        i, j = np.unravel_index(np.argmin(dist), dist.shape)
+        i, j = min(i, j), max(i, j)
+        keep, drop = (j, i) if counts[j] > counts[i] else (i, j)
+        counts[keep] += counts[drop]
+        target[target == drop] = keep
+        dist[drop, :] = big
+        dist[:, drop] = big
+    return target
+
+
+def _rgba_frame(frame: np.ndarray) -> tuple[bytes, bytes, int]:
+    """(local palette bytes of 256 entries, indices, transparent index) of
+    one (H, W, 4) frame."""
+    opaque = frame[..., 3] != 0
+    rgb = frame[..., :3].astype(np.int64)
+    packed = (rgb[..., 0] << 16) | (rgb[..., 1] << 8) | rgb[..., 2]
+    keys, inverse, counts = np.unique(packed[opaque], return_inverse=True,
+                                      return_counts=True)
+    colors = np.stack([(keys >> 16) & 255, (keys >> 8) & 255, keys & 255],
+                      axis=1).astype(np.uint8)
+    target = _merge_palette(colors, counts)
+    kept, slot = np.unique(target, return_inverse=True)
+    index = np.zeros(frame.shape[:2], np.uint8)
+    index[opaque] = slot[inverse]
+    # a transparent index in every frame, used or not: a decoder that
+    # fills a disposed frame with the transparent colour (Pillow) then
+    # shows the next frame's transparent pixels as transparent
+    tidx = len(kept)
+    index[~opaque] = tidx
+    palette = np.zeros((256, 3), np.uint8)
+    palette[:len(kept)] = colors[kept]
+    return palette.tobytes(), index.tobytes(), tidx
+
+
+def rgba_to_gif(video: np.ndarray, path: str | Path) -> None:
+    """video: (F, H, W, 4) uint8 RGBA. Every frame is stored whole with its
+    own palette, 20 cs long, looping (see the module docstring); a decoder
+    sees F frames."""
+    video = np.asarray(video)
+    if video.dtype != np.uint8 or video.ndim != 4 or video.shape[-1] != 4:
+        raise ValueError(f"expected (F, H, W, 4) uint8, got {video.dtype} "
+                         f"{video.shape}")
+    f, h, w, _ = video.shape
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0x70, 0, 0),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+    for frame in video:
+        palette, index, tidx = _rgba_frame(frame)
+        flags = (2 << 2) | 1                # disposal 2, transparent index
+        out.append(b"\x21\xf9\x04" + struct.pack("<BHB", flags, 20, tidx)
+                   + b"\x00")
+        out.append(b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0x87))
+        out.append(palette + b"\x08")
+        out.append(_sub_blocks(_lzw_encode(index)))
+    out.append(b"\x3b")
+    Path(path).write_bytes(b"".join(out))
+
+
+def gif_to_rgba(path: str | Path) -> np.ndarray:
+    """Decode a GIF to (F, H, W, 4) uint8 RGBA: each frame drawn on the
+    canvas left by the previous one's disposal (0/1 keep, 2 clear the
+    frame's box to transparent, 3 restore it), its transparent index
+    leaving the canvas as it was."""
+    src = _Bytes(Path(path).read_bytes())
+    if src.take(6) not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF file")
+    width, height, flags, _, _ = struct.unpack("<HHBBB", src.take(7))
+    global_pal = src.palette(flags) if flags & 0x80 else None
+    canvas = np.zeros((height, width, 4), np.uint8)
+    frames, gce, restore = [], {}, None
+    while src.pos < len(src.data):
+        tag = src.byte()
+        if tag == 0x3B:
+            break
+        if tag == 0x21:
+            label = src.byte()
+            block = src.blocks()
+            if label == 0xF9 and len(block) >= 4:
+                gce = {"disposal": (block[0] >> 2) & 7}
+                if block[0] & 1:
+                    gce["transparency"] = block[3]
+            continue
+        if tag != 0x2C:
+            raise ValueError(f"GIF: unexpected block 0x{tag:02x}")
+        x0, y0, w, h, iflags = struct.unpack("<HHHHB", src.take(9))
+        if x0 + w > width or y0 + h > height:
+            raise ValueError("GIF frame outside the logical screen")
+        pal = src.palette(iflags) if iflags & 0x80 else global_pal
+        if pal is None:
+            pal = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, 1)
+        lut = np.zeros((256, 4), np.uint8)
+        lut[:len(pal), :3] = pal[:256]
+        lut[:, 3] = 255
+        min_size = src.byte()
+        if not 1 <= min_size <= 11:
+            raise ValueError(f"GIF: LZW minimum code size {min_size}")
+        idx = _lzw_decode(src.blocks(), min_size, w * h).reshape(h, w)
+        if iflags & 0x40:
+            idx = _deinterlace(idx)
+        box = (slice(y0, y0 + h), slice(x0, x0 + w))
+        if restore is not None:
+            canvas[restore[0]] = restore[1]
+        disposal = gce.get("disposal", 0)
+        restore = ((box, 0) if disposal == 2
+                   else (box, canvas[box].copy()) if disposal == 3 else None)
+        tidx = gce.get("transparency")
+        drawn = lut[idx]
+        if tidx is None:
+            canvas[box] = drawn
+        else:
+            keep = (idx == tidx)[..., None]
+            canvas[box] = np.where(keep, canvas[box], drawn)
+        frames.append(canvas.copy())
+        gce = {}
+    if not frames:
+        raise ValueError("GIF without frames")
+    return np.stack(frames)
+
+
+def write_png(path: str | Path, rgba: np.ndarray,
+              text: dict[str, str] | None = None) -> None:
+    """A (H, W, 4) uint8 image as an 8-bit RGBA PNG, rows unfiltered, with
+    optional tEXt chunks (Latin-1 keys and values)."""
+    rgba = np.ascontiguousarray(rgba, np.uint8)
+    h, w, _ = rgba.shape
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           rgba.reshape(h, w * 4)], axis=1)
+    parts = [b"\x89PNG\r\n\x1a\n",
+             chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))]
+    for key, value in (text or {}).items():
+        parts.append(chunk(b"tEXt", key.encode("latin-1") + b"\x00"
+                           + value.encode("latin-1")))
+    parts += [chunk(b"IDAT", zlib.compress(rows.tobytes(), 9)),
+              chunk(b"IEND", b"")]
+    Path(path).write_bytes(b"".join(parts))
 
 
 def cast_num_frames(video: np.ndarray, frames: int) -> np.ndarray:

@@ -335,12 +335,14 @@ class GaussianDiffusion:
 
     # ----------------------------------------------------------------- loss
     def p_losses(self, x_start, t, cond, noise, null_cond_mask,
-                 per_sample: bool = False):
+                 focus_present_mask=None, per_sample: bool = False):
         """Epsilon-prediction loss (l1 or l2) of x_start in [-1, 1] at
-        timesteps t with the given noise and null-conditioning mask: the
-        batch mean, or per_sample=True the (b,) per-sample means."""
+        timesteps t with the given noise, null-conditioning mask and
+        focus-present mask (None: none): the batch mean, or per_sample=True
+        the (b,) per-sample means."""
         x_noisy = self.q_sample(x_start, t, noise)
-        eps_hat = self.model(x_noisy, t, cond, null_cond_mask=null_cond_mask)
+        eps_hat = self.model(x_noisy, t, cond, null_cond_mask=null_cond_mask,
+                             focus_present_mask=focus_present_mask)
         diff = noise - eps_hat
         err = diff.abs() if self.loss_type == "l1" else diff.square()
         if per_sample:
@@ -349,10 +351,15 @@ class GaussianDiffusion:
 
     def loss(self, x, cond, *, null_cond_prob: float = 0.0,
              generator: Optional[torch.Generator] = None, t=None, noise=None,
-             null_cond_mask=None, per_sample: bool = False):
+             null_cond_mask=None, focus_present_mask=None,
+             prob_focus_present: float = 0.0, per_sample: bool = False):
         """Training objective on [0, 1] videos: t ~ U[0, T), standard
         normal noise and a Bernoulli(null_cond_prob) null-conditioning mask,
-        each drawn from `generator` unless given."""
+        each drawn from `generator` unless given; then, when no
+        focus_present_mask is given and prob_focus_present > 0, a
+        Bernoulli(prob_focus_present) focus-present mask (JAX
+        gaussian.py:506-508: drawn, so never None, whenever the
+        probability is positive)."""
         b = x.shape[0]
         if tuple(x.shape[1:]) != self.video_shape(b)[1:]:
             raise ValueError(f"bad video shape {tuple(x.shape)}")
@@ -366,5 +373,9 @@ class GaussianDiffusion:
         if null_cond_mask is None:
             null_cond_mask = torch.rand(b, generator=generator,
                                         device=dev) < null_cond_prob
+        if focus_present_mask is None and prob_focus_present > 0:
+            focus_present_mask = torch.rand(b, generator=generator,
+                                            device=dev) < prob_focus_present
         return self.p_losses(normalize_img(x.float()), t, cond, noise,
-                             null_cond_mask, per_sample=per_sample)
+                             null_cond_mask, focus_present_mask,
+                             per_sample=per_sample)

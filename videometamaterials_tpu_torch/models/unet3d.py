@@ -36,7 +36,19 @@ token a curve point, or none; the tokens enter the blocks stacked in front
 of the keys ('self-stacked', on the fused kernels at any token count up to
 MAX_COND_TOKENS) or as the keys of a cross-attention (the generic plan).
 The circular padding modes and `use_sparse_linear_attn: false` are built
-too. The focus-present mask is not ported (ROADMAP.md Queue 1 item 8).
+too.
+
+The training-side variants follow the JAX model: a focus-present mask
+(b,) bool limits a True sample's temporal queries to their own frame; a
+temporal block under a mask leaves the fused kernel for its unfused plan,
+which masks only without conditioning tokens (the JAX temporal_xla and
+Attention ignore the mask where tokens are stacked, unet3d.py:466-471;
+matched, not repaired). `temporal_s_tile` runs the unfused temporal
+blocks tile by tile over the spatial positions (`temporal_stiled`), and
+`remat_blocks` recomputes every ResnetBlock in the backward
+(torch.utils.checkpoint, non-reentrant, so the recompute runs under grad
+as the first pass did and ops/conv.py takes the same rounding branch in
+both).
 """
 
 from __future__ import annotations
@@ -49,6 +61,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from videometamaterials_tpu_torch.config import (
     COND_ATTENTIONS,
@@ -64,6 +77,7 @@ from videometamaterials_tpu_torch.models.embeddings import (
     SinusoidalPosEmb,
 )
 from videometamaterials_tpu_torch.ops.attention import (
+    NEG_INF,
     linear_attention_tokens_first,
     stacked_softmax_attention,
 )
@@ -78,6 +92,7 @@ from videometamaterials_tpu_torch.ops.cuda.fused_linear_block import (
 from videometamaterials_tpu_torch.ops.cuda.fused_temporal_block import (
     check_cond_tokens,
     fused_temporal_block,
+    reference_temporal_block,
 )
 from videometamaterials_tpu_torch.ops.norms import (
     channel_layer_norm,
@@ -287,13 +302,14 @@ class Attention(nn.Module):
         return conv1x1(le, self.to_k.weight), conv1x1(le, self.to_v.weight)
 
     def forward(self, x, pos_bias=None, label_emb=None,
-                use_rotary: bool = False):
+                use_rotary: bool = False, focus_present_mask=None):
         """Generic plan (the JAX Attention.__call__) on (b, s, n, c), n the
         token axis: the mid spatial block (s frames, n pixels, no rotary,
         no position bias) and the temporal blocks under cross-attention (s
         pixels, n frames, rotary and the position bias). Conditioning
         tokens (b, T, cond_dim): per-frame ones (T = s, one in front of
-        each frame's keys, the mid block), else shared by every s."""
+        each frame's keys, the mid block), else shared by every s. The
+        focus-present mask applies only where no tokens are used."""
         b, s, n, _ = x.shape
         heads, dh = self.heads, self.dim_head
         hidden = heads * dh
@@ -342,7 +358,8 @@ class Attention(nn.Module):
         out = stacked_softmax_attention(
             split_heads(q), split_heads(k), split_heads(v), scale=dh ** -0.5,
             num_video_tokens=n, pos_bias=pos_bias,
-            pos_bias_on_cond=self.per_frame_cond and cond_used)
+            pos_bias_on_cond=self.per_frame_cond and cond_used,
+            focus_present_mask=None if cond_used else focus_present_mask)
         out = out.permute(0, 1, 3, 2, 4).reshape(b, s, n, hidden)
         return conv1x1(out, self.to_out.weight)
 
@@ -422,12 +439,36 @@ class Attention(nn.Module):
             self._temporal_bias_all(f, t_tok, pos_bias), heads=self.heads,
             bwd=bwd)
 
-    def temporal_xla(self, x_bfsc, norm_gamma, pos_bias, label_emb=None):
+    def temporal_stiled(self, x_bfsc, norm_gamma, pos_bias, label_emb=None,
+                        s_tile: int = 1152):
+        """The s-tiled plan (the JAX temporal_stiled): the block through
+        reference_temporal_block on each tile of s_tile spatial positions,
+        the whole axis at once where s_tile does not divide it into two or
+        more tiles."""
+        b, f, s, _ = x_bfsc.shape
+        dt = self.dtype
+        w_all, freqs = self._folded_temporal_weights(f)
+        ek, ev = self._temporal_cond(label_emb, freqs)
+        t_tok = 0 if ek is None else ek.shape[1]
+        args = (norm_gamma, w_all.to(dt), self.to_out.weight.t().to(dt),
+                None if ek is None else ek.to(dt),
+                None if ev is None else ev.to(dt),
+                self._temporal_bias_all(f, t_tok, pos_bias))
+        n = s // s_tile if s % s_tile == 0 else 1
+        if n <= 1:
+            return reference_temporal_block(x_bfsc, *args, heads=self.heads)
+        return torch.cat([
+            reference_temporal_block(tile, *args, heads=self.heads)
+            for tile in x_bfsc.split(s_tile, dim=2)], dim=2)
+
+    def temporal_xla(self, x_bfsc, norm_gamma, pos_bias, label_emb=None,
+                     focus_present_mask=None):
         """The unfused plan of the temporal block (the JAX package's
         temporal_xla): LN + folded QKV + joint softmax over [video | cond]
         keys + out-proj + residual, in frames-major (b, f, s, c) layout.
         Scores and weights are stored in the compute dtype, as the JAX plan
-        stores them under bf16."""
+        stores them under bf16. The focus-present mask applies only without
+        conditioning tokens, as in the JAX plan."""
         b, f, s, _ = x_bfsc.shape
         heads, dh = self.heads, self.dim_head
         hidden = heads * dh
@@ -457,6 +498,11 @@ class Attention(nn.Module):
             out = out + torch.einsum("bitsh,bthd->bishd",
                                      (e_c / z).to(dt).float(), evh)
         else:
+            if focus_present_mask is not None:
+                eye = torch.eye(f, dtype=torch.bool, device=sim_v.device)
+                allow = eye[None, :, :, None, None] | ~focus_present_mask[
+                    :, None, None, None, None]
+                sim_v = sim_v.masked_fill(~allow, NEG_INF)
             mx = sim_v.amax(dim=2, keepdim=True).float()
             e = torch.exp(sim_v.float() - mx)
             attn = (e / e.sum(dim=2, keepdim=True)).to(dt).float()
@@ -570,38 +616,57 @@ class TemporalAttentionBlock(nn.Module):
     """PreNorm + residual full attention over the frame axis; parameters
     nest as the reference's `fn.norm.gamma` / `fn.fn.fn.<proj>`. Under
     'none' and 'self-stacked' conditioning it runs the frames-major plans
-    (fused or temporal_xla); under cross-attention the generic plan
-    (the JAX block's fallback), which has no fused form."""
+    as the JAX block dispatches them (unet3d.py:705-725): the fused kernel
+    without a focus mask, else the s-tiled plan without a mask where
+    s_tile divides h*w into two or more tiles, else temporal_xla (with the
+    mask); under cross-attention the generic plan (the JAX block's
+    fallback), which has no fused form. The fused backward plan is
+    resolved at each call (`config.temporal_bwd_mode` of `bwd`, an
+    explicit plan or None, and fused_bwd_kernels)."""
 
     def __init__(self, dim: int, heads: int, dim_head: int, cond_dim: int,
-                 dtype, use_fused_block: bool, bwd: str = "recompute",
+                 dtype, use_fused_block: bool, bwd: str | None = None,
                  cond_attention: str = "self-stacked",
-                 per_frame_cond: bool = True):
+                 per_frame_cond: bool = True,
+                 fused_bwd_kernels: bool = False,
+                 s_tile: int | None = None):
         super().__init__()
         self.fn = _PreNorm(dim, _Rearranged(Attention(
             dim, heads, dim_head, cond_dim, dtype, cond_attention,
             per_frame_cond)))
         self.generic = cond_attention == "cross-attention"
         self.use_fused_block = use_fused_block and not self.generic
-        self.bwd = bwd
+        self.temporal_vjp = bwd
+        self.fused_bwd_kernels = fused_bwd_kernels
+        self.s_tile = s_tile
 
-    def forward(self, x, pos_bias, label_emb=None):
+    @property
+    def bwd(self) -> str:
+        return temporal_bwd_mode(self.temporal_vjp, self.fused_bwd_kernels)
+
+    def forward(self, x, pos_bias, label_emb=None, focus_present_mask=None):
         b, f, h, w, c = x.shape
         attn = self.fn.fn.fn
         if self.generic:
             y = channel_layer_norm(x, self.fn.norm.scale)
             y = y.permute(0, 2, 3, 1, 4).reshape(b, h * w, f, c)
             y = attn(y, pos_bias=pos_bias, label_emb=label_emb,
-                     use_rotary=True)
+                     use_rotary=True, focus_present_mask=focus_present_mask)
             y = y.reshape(b, h, w, f, c).permute(0, 3, 1, 2, 4)
             return x + y.to(x.dtype)
         x4 = x.reshape(b, f, h * w, c)
-        if self.use_fused_block:
+        if self.use_fused_block and focus_present_mask is None:
             out = attn.temporal_fused(x4, self.fn.norm.scale, pos_bias,
                                       label_emb=label_emb, bwd=self.bwd)
+        elif self.s_tile and focus_present_mask is None \
+                and (h * w) % self.s_tile == 0 and h * w > self.s_tile:
+            out = attn.temporal_stiled(x4, self.fn.norm.scale, pos_bias,
+                                       label_emb=label_emb,
+                                       s_tile=self.s_tile)
         else:
             out = attn.temporal_xla(x4, self.fn.norm.scale, pos_bias,
-                                    label_emb=label_emb)
+                                    label_emb=label_emb,
+                                    focus_present_mask=focus_present_mask)
         return out.reshape(b, f, h, w, c)
 
 
@@ -678,8 +743,9 @@ class UNet3D(nn.Module):
     time embedding) to the paper's conditioning ablations (per_frame_cond
     False: the CNN hidden, 'self-stacked' / 'cross-attention' / 'none'
     tokens, the GRU's tokens, 'concat' to the time embedding), with or
-    without spatial linear attention, in every padding mode. The
-    focus-present mask is not ported (ROADMAP.md Queue 1 item 8).
+    without spatial linear attention, in every padding mode, with the
+    focus-present mask, the s-tiled temporal plan and checkpointed
+    ResnetBlocks (remat_blocks).
 
     cond_length is the width of the whole-curve conditioning (the tail of
     the CSVs' 51-point curves): the GRU's token count, so the null token's
@@ -701,9 +767,12 @@ class UNet3D(nn.Module):
                  cond_attention: str = "self-stacked",
                  cond_attention_tokens: int = 16,
                  cond_att_GRU: bool = False,
-                 cond_length: int = CURVE_POINTS - 1):
+                 cond_length: int = CURVE_POINTS - 1,
+                 remat_blocks: bool = False,
+                 temporal_s_tile: int | None = None):
         super().__init__()
-        temporal_bwd = temporal_bwd_mode(temporal_vjp, fused_bwd_kernels)
+        temporal_bwd_mode(temporal_vjp, fused_bwd_kernels)    # validates
+        self.remat_blocks = remat_blocks
         linear_bwd = "kernel" if fused_bwd_kernels else "recompute"
         if cond_attention not in COND_ATTENTIONS:
             raise ValueError(f"unknown cond_attention {cond_attention!r}")
@@ -735,7 +804,8 @@ class UNet3D(nn.Module):
                 check_cond_tokens(tokens)
             return TemporalAttentionBlock(
                 d, attn_heads, attn_dim_head, cond_dim, compute_dtype, fused,
-                temporal_bwd, cdt, per_frame_cond)
+                temporal_vjp, cdt, per_frame_cond, fused_bwd_kernels,
+                temporal_s_tile)
 
         def linear(d):
             if not use_sparse_linear_attn:
@@ -856,26 +926,41 @@ class UNet3D(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=generator)
                         * fan_in ** -0.5)
 
+    def _res(self, block: ResnetBlock, x, t=None):
+        """A ResnetBlock, recomputed in the backward under remat_blocks
+        (non-reentrant: grad mode stays on in the first pass and in the
+        recompute, so both take the same convolution branch)."""
+        if self.remat_blocks and torch.is_grad_enabled():
+            return checkpoint(block, x, t, use_reentrant=False,
+                              preserve_rng_state=False)
+        return block(x, t)
+
     def forward(self, x, time, cond, null_cond_mask=None,
-                cfg_tiled_pair: bool = False):
+                focus_present_mask=None, cfg_tiled_pair: bool = False):
         """x: (b, f, h, w, channels) in [-1, 1]; time (b,); cond (b, f)
         per-frame stresses, or (b, cond_length) the whole curve's tail
         without per-frame conditioning; null_cond_mask (b,) bool, True =
-        learned null conditioning. With cfg_tiled_pair, x arrives at batch b
-        while time, cond and the mask arrive CFG-folded at 2b: the
-        conditioning-free init stage runs once and is tiled to 2b after it.
-        Returns the predicted noise, float32, at the time batch."""
+        learned null conditioning; focus_present_mask (b,) bool or None,
+        True = the sample's temporal queries see their own frame only. With
+        cfg_tiled_pair, x arrives at batch b while time, cond and the mask
+        arrive CFG-folded at 2b: the conditioning-free init stage runs once
+        and is tiled to 2b after it (sampling only: no focus mask). Returns
+        the predicted noise, float32, at the time batch."""
         b, f = x.shape[:2]
         if cfg_tiled_pair:
             if time.shape[0] != 2 * b:
                 raise ValueError(
                     "cfg_tiled_pair expects untiled x with time/cond folded "
                     f"to 2x its batch; got {b} and {time.shape[0]}")
+            if focus_present_mask is not None:
+                raise ValueError(
+                    "cfg_tiled_pair assumes sampling (no focus mask)")
             b = 2 * b
         x = x.to(self.dtype)
         pos_bias = self.time_rel_pos_bias(f)
         x = self.init_conv(x)
-        x = self.init_temporal_attn(x, pos_bias)
+        fmask = focus_present_mask
+        x = self.init_temporal_attn(x, pos_bias, focus_present_mask=fmask)
         if cfg_tiled_pair:
             x = torch.cat([x, x], dim=0)
         r = x
@@ -910,23 +995,29 @@ class UNet3D(nn.Module):
                 return x
             return lin(x, label_emb=tokens)
 
+        def res(block, x, t_=t):
+            return self._res(block, x, t_)
+
         hs = []
         for res1, res2, lin, temporal, down in self.downs:
-            x = lin_block(lin, res2(res1(x, t), t))
-            x = temporal(x, pos_bias, label_emb=tokens_temporal)
+            x = lin_block(lin, res(res2, res(res1, x)))
+            x = temporal(x, pos_bias, label_emb=tokens_temporal,
+                         focus_present_mask=fmask)
             hs.append(x)
             x = down(x)
-        x = self.mid_block1(x, t)
+        x = res(self.mid_block1, x)
         x = self.mid_spatial_attn(x, label_emb=tokens)
-        x = self.mid_temporal_attn(x, pos_bias, label_emb=tokens_temporal)
-        x = self.mid_block2(x, t)
+        x = self.mid_temporal_attn(x, pos_bias, label_emb=tokens_temporal,
+                                   focus_present_mask=fmask)
+        x = res(self.mid_block2, x)
         for res1, res2, lin, temporal, up in self.ups:
             x = torch.cat([x, hs.pop()], dim=-1)
-            x = lin_block(lin, res2(res1(x, t), t))
-            x = temporal(x, pos_bias, label_emb=tokens_temporal)
+            x = lin_block(lin, res(res2, res(res1, x)))
+            x = temporal(x, pos_bias, label_emb=tokens_temporal,
+                         focus_present_mask=fmask)
             x = up(x)
         x = torch.cat([x, r.to(x.dtype)], dim=-1)
-        x = self.final_conv[0](x)
+        x = res(self.final_conv[0], x, None)
         return self.final_conv[1](x).float()
 
     @classmethod
@@ -950,7 +1041,9 @@ class UNet3D(nn.Module):
             cond_attention=cfg.unet_cond_attention,
             cond_attention_tokens=cfg.unet_cond_attention_tokens,
             cond_att_GRU=cfg.unet_cond_att_GRU,
-            cond_length=cfg.cond_length)
+            cond_length=cfg.cond_length,
+            remat_blocks=cfg.remat_blocks,
+            temporal_s_tile=cfg.temporal_s_tile)
 
 
 def build_unet(cfg: ModelConfig, *, device=None,

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+NEG_INF = -0.7 * torch.finfo(torch.float32).max
+
 
 def stacked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, scale: float,
@@ -21,11 +23,10 @@ def stacked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     conditioning keys and values shared by every s (broadcast, never
     copied). pos_bias (h, n, n) lands on the video block of the scores and,
     with pos_bias_on_cond (per-frame tokens, m = 2n), on the first n
-    columns too (vddp.py:502-512). Returns (b, s, h, n, d). The
-    focus-present mask is not ported (ROADMAP.md Queue 1 item 8)."""
-    if focus_present_mask is not None:
-        raise NotImplementedError("the focus-present mask is not ported yet "
-                                  "(ROADMAP.md Queue 1 item 8)")
+    columns too (vddp.py:502-512). focus_present_mask (b,) bool: a True
+    sample's queries attend to their own token only (vddp.py:514-524);
+    defined only without stacked conditioning tokens (m == n), as in the
+    JAX core. Returns (b, s, h, n, d)."""
     n = num_video_tokens
     m = k.shape[-2]
     # the JAX core rounds the weights to v's dtype before the value product
@@ -38,6 +39,13 @@ def stacked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
         sim = torch.cat([sim[..., :m - n], sim[..., m - n:] + bias], dim=-1)
         if pos_bias_on_cond and m != n:
             sim = torch.cat([sim[..., :n] + bias, sim[..., n:]], dim=-1)
+    if focus_present_mask is not None:
+        if sim.shape[-1] != n:
+            raise ValueError("focus_present masking requires unstacked K")
+        eye = torch.eye(n, dtype=torch.bool, device=sim.device)
+        allow = eye | ~focus_present_mask.to(sim.device)[:, None, None, None,
+                                                         None]
+        sim = sim.masked_fill(~allow, NEG_INF)
     sim = sim - sim.amax(dim=-1, keepdim=True)
     attn = torch.exp(sim)
     attn = attn / attn.sum(dim=-1, keepdim=True)

@@ -14,7 +14,9 @@ layout ('merged': stats + apply; 'head': the head-layout kernel) on the
 primals, which are saved, and a backward that is autograd through the JAX
 package's reference_linear_block ('recompute', the JAX default) or the
 backward kernel ('kernel'), routed per-head or merged by the JAX rule
-(`bwd_route`).
+(`bwd_route`). VMT_LINEAR_LAYOUT picks the layout and
+VMT_LINEAR_BWD_KERNEL=1 the backward kernel under 'recompute' too, read
+where the JAX package reads them (fused_linear_block.py:569, :906).
 
     stats:  z[a] = sum_tok exp(clip(k, +-60))[a]
             ctx[h, a, e] = sum_tok bf16(exp(clip(k)))[h, a] * bf16(v / HW)[h, e]
@@ -446,6 +448,12 @@ def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
     return dx, dgamma, dw_qkv, dw_out, dout_bias, dek, dev
 
 
+def bwd_kernel_env() -> bool:
+    """VMT_LINEAR_BWD_KERNEL=1: the backward kernel under the 'recompute'
+    plan too (the JAX _bwd_kernel_env, read when the backward runs)."""
+    return os.environ.get("VMT_LINEAR_BWD_KERNEL", "") == "1"
+
+
 class _FusedLinearBlock(torch.autograd.Function):
     """The JAX custom VJP (fused_linear_block.py:550-745): the layout's
     forward on the primals, which are saved; the backward recomputes
@@ -466,7 +474,7 @@ class _FusedLinearBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
-        if ctx.bwd == "kernel":
+        if ctx.bwd == "kernel" or bwd_kernel_env():
             route = bwd_route(args[0].shape[1], layout=ctx.layout)
             grads = linear_block_bwd(*args, g.contiguous(), **ctx.kw,
                                      route=route)

@@ -22,9 +22,27 @@ on the conditioning ablations), with LN
 scale-only and two-pass, rotary and 1/sqrt(d) folded into the per-frame
 `w_all`, and bf16 roundings at qkv, at the softmax weights and at the value
 sum (the JAX kernel's :124, :226, :235).
+
+The JAX package's switches are read where it reads them: VMT_TEMPORAL_VJP
+in `config.temporal_bwd_mode`, VMT_TEMPORAL_BWD_KERNEL=1 in the backward
+(the backward kernel under the 'recompute' plan too, :480-488), and
+VMT_TEMPORAL_SOFTMAX ('split' or 'merged', default 'split') in
+`fused_temporal_block`, which validates it. Split and merged are two TPU
+layouts of one function, and the port's merged instance (the emit_p
+kernel, row 2) gives an `out` bit-equal to the split one's (row 1;
+chip_smoke.py phase 2). So 'merged' runs row 1 where nothing reads p, and
+the emit_p kernel under the 'saved' plan, which forces merged in the JAX
+package as well.
+
+`reference_temporal_block` is the port's copy of the JAX XLA twin
+(fused_temporal_block.py:413-459): what the JAX s-tiled plan runs on each
+tile, with the unfused path's LayerNorm (one-pass unless
+VMT_ONEPASS_NORMS=0) and no rounding of the softmax weights.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -113,6 +131,39 @@ def temporal_outproj_plain(x, acc, w_out) -> torch.Tensor:
     in float32 and rounded to x's dtype."""
     out = torch.einsum("bfsh,hc->bfsc", acc.float(), w_out.float())
     return (x.float() + out).to(x.dtype)
+
+
+def reference_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
+                             heads: int) -> torch.Tensor:
+    """Own copy of the JAX package's reference_temporal_block: x + block(x)
+    with the unfused path's LayerNorm statistics, qkv and the value sum
+    rounded to w_all's dtype, the softmax in float32, and the
+    out-projection and the residual add in that dtype. Shapes as
+    temporal_block_plain's."""
+    b, f, s, c = x.shape
+    hidden = w_out.shape[0]
+    d = hidden // heads
+    dt = w_all.dtype
+    y = channel_layer_norm(x, gamma).to(dt)
+    qkv = torch.einsum("bfsc,fch->bfsh", y, w_all)
+    q, k, v = (t.reshape(b, f, s, heads, d).float()
+               for t in qkv.split(hidden, dim=-1))
+    bias = bias_all.float()
+    sim = torch.einsum("bishd,bjshd->bijsh", q, k) + bias[None, :, :f, None, :]
+    if ek is not None:
+        t_tok = ek.shape[1]
+        ekh = ek.float().reshape(b, t_tok, heads, d)
+        evh = ev.float().reshape(b, t_tok, heads, d)
+        sim_c = (torch.einsum("bishd,bthd->bitsh", q, ekh)
+                 + bias[None, :, f:, None, :])
+        p = torch.softmax(torch.cat([sim, sim_c], dim=2), dim=2)
+        out = (torch.einsum("bijsh,bjshd->bishd", p[:, :, :f], v)
+               + torch.einsum("bitsh,bthd->bishd", p[:, :, f:], evh))
+    else:
+        out = torch.einsum("bijsh,bjshd->bishd", torch.softmax(sim, dim=2), v)
+    out = out.to(dt).reshape(b, f, s, hidden)
+    out = torch.einsum("bfsh,hc->bfsc", out, w_out.to(dt))
+    return x + out.to(x.dtype)
 
 
 def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
@@ -320,7 +371,7 @@ class _FusedTemporalBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         args = ctx.saved_tensors
-        run = (temporal_block_bwd if ctx.bwd == "kernel"
+        run = (temporal_block_bwd if ctx.bwd == "kernel" or bwd_kernel_env()
                else temporal_block_bwd_plain)
         dx, dgamma, dw_all, dw_out, dek, dev, dbias = run(
             *args, g.contiguous(), heads=ctx.heads)
@@ -350,6 +401,24 @@ class _FusedTemporalBlockSavedP(torch.autograd.Function):
 
 
 BWD_PLANS = ("recompute", "kernel", "saved")
+SOFTMAX_LAYOUTS = ("split", "merged")
+
+
+def bwd_kernel_env() -> bool:
+    """VMT_TEMPORAL_BWD_KERNEL=1: the backward kernel under every plan
+    but 'saved' (the JAX _bwd_kernel_env, read when the backward runs)."""
+    return os.environ.get("VMT_TEMPORAL_BWD_KERNEL", "") == "1"
+
+
+def softmax_layout() -> str:
+    """VMT_TEMPORAL_SOFTMAX, default 'split', validated as the JAX entry
+    point validates it (both layouts run row 1 here where p is not read;
+    see the module docstring)."""
+    layout = os.environ.get("VMT_TEMPORAL_SOFTMAX", "split")
+    if layout not in SOFTMAX_LAYOUTS:
+        raise ValueError(f"unknown VMT_TEMPORAL_SOFTMAX {layout!r}: one of "
+                         f"{SOFTMAX_LAYOUTS}")
+    return layout
 
 
 def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
@@ -364,6 +433,7 @@ def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     forward kernel runs: its out is bit-equal to the emit_p launch's."""
     if bwd not in BWD_PLANS:
         raise ValueError(f"unknown backward plan {bwd!r}")
+    softmax_layout()
     operands = (x, gamma, w_all, w_out, ek, ev, bias_all)
     if bwd == "saved" and torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):

@@ -6,17 +6,23 @@ input dtype, and return the input dtype.
 
 One-pass statistics (biased var = E[x^2] - mean^2) are the default, as in
 the JAX package's unfused path; the fused kernels and their twins use the
-two-pass form (`one_pass=False`).
+two-pass form (`one_pass=False`). The JAX package's switch
+VMT_ONEPASS_NORMS is read when the module is imported, as there: "0" or
+"" makes the default two-pass.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-ONE_PASS_STATS = True
+ONE_PASS_STATS = os.environ.get("VMT_ONEPASS_NORMS", "1") not in ("", "0")
 
 
-def _stats(x32: torch.Tensor, dims, one_pass: bool):
+def _stats(x32: torch.Tensor, dims, one_pass: bool | None):
+    if one_pass is None:
+        one_pass = ONE_PASS_STATS
     mean = x32.mean(dim=dims, keepdim=True)
     if one_pass:
         meansq = x32.square().mean(dim=dims, keepdim=True)
@@ -28,7 +34,7 @@ def _stats(x32: torch.Tensor, dims, one_pass: bool):
 
 def channel_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
                        eps: float = 1e-5,
-                       one_pass: bool = ONE_PASS_STATS) -> torch.Tensor:
+                       one_pass: bool | None = None) -> torch.Tensor:
     """Scale-only LayerNorm over the last (channel) axis, biased variance,
     eps inside the sqrt. gamma: (C,)."""
     x32 = x.float()
@@ -39,7 +45,7 @@ def channel_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float = 1e-5,
-               one_pass: bool = ONE_PASS_STATS) -> torch.Tensor:
+               one_pass: bool | None = None) -> torch.Tensor:
     """GroupNorm on a channels-last (B, ..., C) tensor: statistics per
     sample and channel group over every other axis (torch GroupNorm on
     (B, C, F, H, W))."""

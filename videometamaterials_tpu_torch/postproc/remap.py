@@ -11,12 +11,11 @@ src/utils.py:164-307). GIFs go through the port's codec
   update_pixel_positions        the displacement scatter (last write wins)
   clear_isolated_pixels         transparent pixels with no opaque
                                 neighbour, on RGBA frames
+  convert_isolated_pixels_gif   the same on an RGBA GIF file, rewritten
+                                in place
 
 Every value written comes from the same mean of the same neighbour list
-as the reference, so outputs are bit-identical to the JAX package's. The
-RGBA GIF file round trip of the JAX convert_isolated_pixels_gif belongs to
-the rendering (create_visualization), which waits for ROADMAP.md Queue 1
-item 6 with it.
+as the reference, so outputs are bit-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,7 +24,12 @@ import heapq
 
 import numpy as np
 
-from videometamaterials_tpu_torch.data.gif_io import array_to_gif, gif_to_array
+from videometamaterials_tpu_torch.data.gif_io import (
+    array_to_gif,
+    gif_to_array,
+    gif_to_rgba,
+    rgba_to_gif,
+)
 
 
 def _neighbor_sums_counts(a: np.ndarray):
@@ -191,6 +195,13 @@ def clear_isolated_pixels(frames: np.ndarray) -> np.ndarray:
     has[:, :, :-1] |= opaque[:, :, 1:]
     out[..., 3][opaque & ~has] = 0
     return out
+
+
+def convert_isolated_pixels_gif(gif_path: str) -> None:
+    """Make the isolated pixels of an RGBA GIF transparent and write it
+    back (the JAX convert_isolated_pixels_gif, src/utils.py:164-196), read
+    and written by the port's RGBA codec."""
+    rgba_to_gif(clear_isolated_pixels(gif_to_rgba(gif_path)), gif_path)
 
 
 def grid_gif_to_array(path: str) -> tuple[np.ndarray, int, int]:

@@ -16,8 +16,12 @@ of numpy arrays in flax's layout (`convert.torch_to_flax_tree`).
   A = {'0': {'count', 'mu', 'nu'}, '1': {}}, the Trainer's {'0': A}, or
   with the clip {'0': {}, '1': A},
   which `optimizer_state_tree` and `load_optimizer_state` map to and from
-  torch's Adam state (step, exp_avg, exp_avg_sq per parameter); a run
-  checkpoint of either package resumes in the other;
+  torch's Adam state (step, exp_avg, exp_avg_sq per parameter); under
+  gradient accumulation that chain is the inner state of optax.MultiSteps,
+  {'mini_step', 'gradient_step', 'inner_opt_state', 'acc_grads',
+  'skip_state': {}} (flax's layout of MultiStepsState), mapped to and from
+  `optim.MultiSteps`; a run checkpoint of either package resumes in the
+  other;
 - `read_train_checkpoint` refuses a step restored from a ckpt_cache tree
   (its params are the bf16 EMA, it has no optimizer state);
 - prune_checkpoints keeps the newest N step directories.
@@ -44,6 +48,7 @@ from videometamaterials_tpu_torch.training.msgpack_io import (
     read_msgpack,
     write_msgpack,
 )
+from videometamaterials_tpu_torch.training.optim import MultiSteps
 
 _SECTIONS = ("params", "ema_params")
 
@@ -193,11 +198,14 @@ def read_train_checkpoint(results_folder: str | Path,
 
 
 def optimizer_state_tree(optimizer: torch.optim.Optimizer,
-                         named_params, clipped: bool) -> dict:
+                         named_params, clipped: bool,
+                         accum: Optional[MultiSteps] = None) -> dict:
     """optax's state of adam (after clip_by_global_norm when `clipped`) for
     a torch Adam over named_params ((name, parameter) in the model's
     order): count = the steps taken, mu / nu = exp_avg / exp_avg_sq in
-    flax's layout (zeros before the first step)."""
+    flax's layout (zeros before the first step); with `accum`, that chain's
+    state inside optax.MultiSteps'."""
+    named_params = list(named_params)
     count, mu, nu = 0, {}, {}
     for name, p in named_params:
         st = optimizer.state.get(p)
@@ -210,22 +218,58 @@ def optimizer_state_tree(optimizer: torch.optim.Optimizer,
                   "mu": torch_to_flax_tree(mu),
                   "nu": torch_to_flax_tree(nu)},
             "1": {}}
-    return {"0": {}, "1": adam} if clipped else {"0": adam}
+    chain = {"0": {}, "1": adam} if clipped else {"0": adam}
+    if accum is None:
+        return chain
+    return {"mini_step": np.asarray(accum.mini_step, np.int32),
+            "gradient_step": np.asarray(accum.gradient_step, np.int32),
+            "inner_opt_state": chain,
+            "acc_grads": torch_to_flax_tree(
+                {name: acc for (name, _), acc in zip(named_params,
+                                                     accum.acc_grads)}),
+            "skip_state": {}}
+
+
+_MULTI_STEPS_KEYS = {"mini_step", "gradient_step", "inner_opt_state",
+                     "acc_grads", "skip_state"}
 
 
 def load_optimizer_state(tree: dict, optimizer: torch.optim.Optimizer,
-                         named_params, clipped: bool) -> int:
+                         named_params, clipped: bool,
+                         accum: Optional[MultiSteps] = None) -> int:
     """Set a torch Adam's state from optax's (the inverse of
-    optimizer_state_tree); returns optax's count. Raises when the tree is
-    not that chain's state or does not fit the parameters."""
+    optimizer_state_tree), and with `accum` the MultiSteps counters and
+    accumulated gradients around it; returns Adam's count. Raises when the
+    tree is not that chain's state or does not fit the parameters."""
     what = "clip_by_global_norm + adam" if clipped else "adam"
+    named_params = list(named_params)
+    if accum is not None:
+        what = f"MultiSteps({what})"
+        if not isinstance(tree, dict) or set(tree) != _MULTI_STEPS_KEYS:
+            raise ValueError(f"opt_state is not optax's state of {what}")
+        acc = flax_to_torch_state_dict(tree["acc_grads"])
+        if set(acc) != {n for n, _ in named_params} or any(
+                acc[n].shape != p.shape for n, p in named_params):
+            raise ValueError(f"the accumulated gradients of {what} do not "
+                             "fit the model's parameters")
+        mini_step = int(np.asarray(tree["mini_step"]))
+        if not 0 <= mini_step < accum.k:
+            raise ValueError(f"mini_step {mini_step} of {what} outside "
+                             f"[0, {accum.k})")
+        count = load_optimizer_state(tree["inner_opt_state"], optimizer,
+                                     named_params, clipped)
+        accum.mini_step = mini_step
+        accum.gradient_step = int(np.asarray(tree["gradient_step"]))
+        for (name, _), a in zip(named_params, accum.acc_grads):
+            a.copy_(acc[name].to(a.device, torch.float32))
+        return count
     try:
         adam = tree["1" if clipped else "0"]["0"]
         count, mu, nu = int(np.asarray(adam["count"])), adam["mu"], adam["nu"]
     except (KeyError, TypeError) as e:
         raise ValueError(f"opt_state is not optax's state of {what}") from e
     mu, nu = flax_to_torch_state_dict(mu), flax_to_torch_state_dict(nu)
-    named = list(named_params)
+    named = named_params
     if set(mu) != {n for n, _ in named} or set(nu) != set(mu):
         raise ValueError(f"the optimizer state of {what} does not fit the "
                          "model's parameters")

@@ -5,7 +5,13 @@ Port of videometamaterials_tpu/training/trainer.py. The train step
 the optional global-norm clip), then the EMA of the parameters with the
 pre-increment step: do = step % ema_update_every == 0,
 reset = step < ema_start_step, e <- do ? (reset ? p : beta e + (1-beta) p) : e,
-on the updated parameters.
+on the updated parameters. With gradient_accumulate_every = k > 1 the
+chain is wrapped in optax.MultiSteps (`optim.MultiSteps`): a step is a
+micro-step, the parameters move on every k-th, and the step count, the
+EMA rule and the milestones count micro-steps, as in the JAX Trainer
+(:145-152), so the EMA lerps on micro-steps whose parameters did not
+move. prob_focus_present draws a focus-present mask in the loss of the
+train step and of the validation loss (:194, :229).
 
 The plan split of the JAX Trainer (:76-95): unless the model config sets
 fused_blocks_in_training, the loss runs every attention block on its
@@ -60,6 +66,7 @@ from videometamaterials_tpu_torch.training import checkpoint as ckpt
 from videometamaterials_tpu_torch.training.artifacts import save_preds
 from videometamaterials_tpu_torch.training.fidelity import score_gifs_dir
 from videometamaterials_tpu_torch.training.optim import (
+    MultiSteps,
     clip_by_global_norm_,
     make_adam,
 )
@@ -81,20 +88,25 @@ def seeded_generator(device, *key: int) -> torch.Generator:
 
 @dataclass
 class TrainState:
-    """step (the number of steps taken), the model (its parameters are the
-    trained ones), the optimizer over them, and the EMA parameters in the
-    order of model.named_parameters()."""
+    """step (the number of (micro-)steps taken), the model (its parameters
+    are the trained ones), the optimizer over them, the EMA parameters in
+    the order of model.named_parameters(), and the gradient accumulation
+    (None without it)."""
 
     step: int
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     ema: list[torch.Tensor]
+    accum: Optional[MultiSteps] = None
 
     @classmethod
-    def create(cls, model: torch.nn.Module, lr: float) -> "TrainState":
+    def create(cls, model: torch.nn.Module, lr: float,
+               accumulate_every: int = 1) -> "TrainState":
         params = list(model.parameters())
+        accum = (MultiSteps(params, accumulate_every)
+                 if accumulate_every > 1 else None)
         return cls(step=0, model=model, optimizer=make_adam(params, lr),
-                   ema=[p.detach().clone() for p in params])
+                   ema=[p.detach().clone() for p in params], accum=accum)
 
     def ema_state_dict(self) -> dict[str, torch.Tensor]:
         return {name: e for (name, _), e in
@@ -102,14 +114,29 @@ class TrainState:
 
 
 @torch.no_grad()
-def apply_gradients(state: TrainState, tcfg: TrainerConfig) -> None:
+def apply_gradients(state: TrainState, tcfg: TrainerConfig) -> bool:
     """Clip (optax clip_by_global_norm, when max_grad_norm is set), take the
     Adam step, update the EMA with the pre-increment step, count the step.
-    The gradients are the parameters' .grad."""
+    The gradients are the parameters' .grad. Under gradient accumulation
+    they join the running mean, and clip and Adam run on the mean on every
+    k-th micro-step only. Returns whether the parameters were updated."""
     params = list(state.model.parameters())
-    if tcfg.max_grad_norm is not None:
-        clip_by_global_norm_([p.grad for p in params], tcfg.max_grad_norm)
-    state.optimizer.step()
+    emit = True
+    if state.accum is not None:
+        emit = state.accum.accumulate([p.grad for p in params])
+        if emit:
+            for p, acc in zip(params, state.accum.acc_grads):
+                if p.grad is None:
+                    p.grad = acc.clone()
+                else:
+                    p.grad.copy_(acc)
+    if emit:
+        if tcfg.max_grad_norm is not None:
+            clip_by_global_norm_([p.grad for p in params],
+                                 tcfg.max_grad_norm)
+        state.optimizer.step()
+    if state.accum is not None:
+        state.accum.advance(emit)
     if state.step % tcfg.ema_update_every == 0:
         fresh = [p.detach() for p in params]
         if state.step < tcfg.ema_start_step:
@@ -119,21 +146,25 @@ def apply_gradients(state: TrainState, tcfg: TrainerConfig) -> None:
             torch._foreach_mul_(state.ema, beta)
             torch._foreach_add_(state.ema, fresh, alpha=1.0 - beta)
     state.step += 1
+    return emit
 
 
 def train_step(state: TrainState, diffusion: GaussianDiffusion, videos,
                labels, tcfg: TrainerConfig, *, fused_in_training: bool,
                generator: torch.Generator | None = None, t=None, noise=None,
-               null_cond_mask=None) -> torch.Tensor:
-    """One step on a batch of [0, 1] videos (b, F, H, W, C) and labels
-    (b, F). t, noise and the null-conditioning mask are drawn from
+               null_cond_mask=None, focus_present_mask=None) -> torch.Tensor:
+    """One (micro-)step on a batch of [0, 1] videos (b, F, H, W, C) and
+    labels (b, F). t, noise, the null-conditioning mask and, with
+    prob_focus_present > 0, the focus-present mask are drawn from
     `generator` unless given. Returns the loss (detached, on the device)."""
     state.optimizer.zero_grad(set_to_none=True)
     with state.model.fused_plans(fused_in_training):
         loss = diffusion.loss(videos, labels,
                               null_cond_prob=tcfg.null_cond_prob,
                               generator=generator, t=t, noise=noise,
-                              null_cond_mask=null_cond_mask)
+                              null_cond_mask=null_cond_mask,
+                              focus_present_mask=focus_present_mask,
+                              prob_focus_present=tcfg.prob_focus_present)
     loss.backward()
     apply_gradients(state, tcfg)
     return loss.detach()
@@ -166,8 +197,9 @@ class StepTrainer:
         self.mcfg, self.tcfg = model_cfg, trainer_cfg
         self.device = diffusion.device
         self.batches = batches
-        self.state = TrainState.create(diffusion.model,
-                                       model_cfg.learning_rate)
+        self.state = TrainState.create(
+            diffusion.model, model_cfg.learning_rate,
+            trainer_cfg.gradient_accumulate_every)
         self.generator = generator
 
     def step(self) -> torch.Tensor:
@@ -334,6 +366,7 @@ class Trainer(StepTrainer):
                     torch.from_numpy(v).to(self.device),
                     torch.from_numpy(c).to(self.device),
                     null_cond_prob=self.tcfg.null_cond_prob,
+                    prob_focus_present=self.tcfg.prob_focus_present,
                     per_sample=True, **kw)
                 total += float(per_sample.sum())
                 count += len(v)
@@ -407,7 +440,8 @@ class Trainer(StepTrainer):
             "params": ckpt.torch_to_flax_tree(dict(named)),
             "opt_state": ckpt.optimizer_state_tree(
                 self.state.optimizer, named,
-                clipped=self.tcfg.max_grad_norm is not None),
+                clipped=self.tcfg.max_grad_norm is not None,
+                accum=self.state.accum),
             "ema_params": ckpt.torch_to_flax_tree(
                 self.state.ema_state_dict())}
         aux = {"labels_scaling": self.ds.labels_scaling.to_dict(),
@@ -458,12 +492,17 @@ class Trainer(StepTrainer):
             raise ValueError("the checkpoint's EMA does not fit the model")
         for (name, _), e in zip(named, self.state.ema):
             e.copy_(ema[name])
+        accum = self.state.accum
         count = ckpt.load_optimizer_state(
             raw["opt_state"], self.state.optimizer, named,
-            clipped=self.tcfg.max_grad_norm is not None)
+            clipped=self.tcfg.max_grad_norm is not None, accum=accum)
         self.state.step = int(np.asarray(raw["step"]))
-        if count != self.state.step:
-            raise ValueError(f"optimizer count {count} differs from the "
+        # Adam counts inner steps; under accumulation the step counts
+        # micro-steps: gradient_step * k + mini_step
+        inner = self.state.step if accum is None else accum.gradient_step
+        if count != inner or (accum is not None and self.state.step != (
+                accum.gradient_step * accum.k + accum.mini_step)):
+            raise ValueError(f"optimizer count {count} does not fit the "
                              f"checkpoint's step {self.state.step}")
         print(f"checkpoint loaded from step {step}")
 
