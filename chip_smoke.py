@@ -138,6 +138,24 @@ Phases, each printing its wall time as it finishes:
              four artifacts, each GIF 11x96x96x4 through the port's reader,
              visualization.gif's alpha the solid mask, and matplotlib, PIL
              and imageio never imported
+  11 parallel  the data-parallel paths (videometamaterials_tpu_torch.parallel)
+             under an NCCL process group of one rank on the card (NCCL takes
+             one rank a card; two ranks are proven by the CPU tests on
+             gloo): (a) 20 kernel-plan train steps at batch 4 on phase 5's
+             seeded batches, 10/10/8/8/2/6 launches a step, parameters,
+             Adam moments, EMA and losses bit-equal to the same 20 steps
+             without a group, the median step ms beside phase 5's (a gap
+             over 10% flagged); (b) the train CLI in-process under the
+             group with --profile-dir, 14 steps on phase 7's GIF folder, no
+             milestone: trace_rank0.json written with every ported kernel
+             family among its device events, rank 0's one checkpoint,
+             byte-equal to the same run's without --profile-dir;
+             (c) one guided DDIM-64 chunk of 4 through the Trainer's
+             sample_videos under the group at 10/8/8 a step; (d)
+             dryrun_multichip(1) on an NCCL group it opens and
+             dryrun_multichip(2) on two gloo CPU processes, each under a
+             timeout. The kernels line gains launches_phase11 ((a) with
+             the group, (b) and (c))
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -2842,6 +2860,269 @@ def run_variants(smi: str, report: dict, kernel_plan: dict | None,
     log(f"[10 variants] passed | {time.perf_counter() - t0:.1f}s")
 
 
+# ------------------------------------------------------- phase 11 parallel
+
+PARALLEL_STEPS = 20     # phase 11 (a): kernel-plan steps with and without
+PROFILE_STEPS = 14      # (b): the trace covers steps 10 to 12
+DP_DDIM_STEPS = 64      # (c): one guided DDIM-64 chunk of EVAL_CHUNK
+
+
+def _dp_steps(cfg, steps: int) -> dict:
+    """Phase 5's kernel plan: `steps` train steps on its seeded batches
+    (generator 7, the EMA every 2 steps from step 4), from the counters
+    at zero. Returns the state's tensors as the checkpoint holds them
+    (parameters, Adam moments, zeros where Adam holds none, EMA), the step
+    seconds and the counters."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import TrainerConfig
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.train import bench_batches
+    from videometamaterials_tpu_torch.training.trainer import StepTrainer
+
+    model = build_unet(cfg, device="cuda", seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    trainer = StepTrainer(
+        GaussianDiffusion.from_config(model, cfg, "cuda"), cfg,
+        TrainerConfig(ema_update_every=2, ema_start_step=4),
+        bench_batches(cfg, gen, "cuda"), generator=gen)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = dict(_build.LAUNCH_COUNTS)
+    state = trainer.state
+    adam = state.optimizer.state
+    tensors = {f"param {n}": p.detach().clone()
+               for n, p in model.named_parameters()}
+    tensors.update({f"adam {k} {n}": adam[p][k].clone() if p in adam
+                    else torch.zeros_like(p)
+                    for n, p in model.named_parameters()
+                    for k in ("exp_avg", "exp_avg_sq")})
+    tensors.update({f"ema {n}": e.clone() for (n, _), e in
+                    zip(model.named_parameters(), state.ema)})
+    del trainer, model, state
+    torch.cuda.empty_cache()
+    return {"tensors": tensors, "times": times, "counts": counts,
+            "losses": [float(v) for v in losses]}
+
+
+@contextlib.contextmanager
+def deadline(seconds: int, what: str):
+    """Raise TimeoutError in the block after `seconds` (SIGALRM)."""
+    import signal
+
+    def expire(signum, frame):
+        raise TimeoutError(f"{what}: no end within {seconds}s")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.alarm(seconds)
+    try:
+        yield
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def phase_parallel(smi: str, report: dict,
+                   step_ms_phase5: float | None) -> None:
+    """11 parallel: the data-parallel paths under an NCCL process group of
+    one rank on this card (NCCL takes one rank a card): (a) the kernel
+    plan's train steps bit-equal to the same steps without a group; (b)
+    the train CLI with --profile-dir; (c) a guided DDIM-64 chunk through
+    the Trainer's sample_videos; (d) the dry runs, dryrun_multichip(1) on
+    NCCL and dryrun_multichip(2) on two gloo CPU processes."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from videometamaterials_tpu_torch import main as cli
+    from videometamaterials_tpu_torch import parallel
+    from videometamaterials_tpu_torch.config import (
+        load_model_yaml,
+        save_model_yaml,
+    )
+    from videometamaterials_tpu_torch.graft_entry import (
+        dryrun_multichip,
+        free_port,
+    )
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    cfg = load_model_yaml(ROOT / "model.yaml").replace(
+        fused_blocks_in_training=True, fused_bwd_kernels=True)
+    totals = {k: 0 for k in _build.LAUNCH_COUNTS}
+
+    # ---- (a) train steps with and without the group
+    t0 = time.perf_counter()
+    alone = _dp_steps(cfg, PARALLEL_STEPS)
+    parallel.initialize_distributed(f"tcp://127.0.0.1:{free_port()}",
+                                    world_size=1, rank=0, backend="nccl")
+    try:
+        grouped = _dp_steps(cfg, PARALLEL_STEPS)
+        counts = grouped["counts"]
+        want = _counts_of(TRAIN_PER_STEP, PARALLEL_STEPS)
+        if counts != want or alone["counts"] != want:
+            raise AssertionError(f"11a: launch counts {counts} (without the "
+                                 f"group {alone['counts']}), expected {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        if alone["tensors"].keys() != grouped["tensors"].keys():
+            raise AssertionError("11a: the state's tensors differ in name")
+        differ = [n for n, v in alone["tensors"].items()
+                  if not torch.equal(v, grouped["tensors"][n])]
+        if differ:
+            worst = max(((alone["tensors"][n] - grouped["tensors"][n]).abs()
+                         .max().item(), n) for n in differ)
+            raise AssertionError(
+                f"11a: {len(differ)} of {len(alone['tensors'])} state "
+                f"tensors differ from the steps without a group; the "
+                f"largest |difference| {worst[0]:.3e} ({worst[1]})")
+        if alone["losses"] != grouped["losses"]:
+            raise AssertionError("11a: the losses differ from the steps "
+                                 "without a group")
+        ms = {k: statistics.median(v["times"]) * 1e3
+              for k, v in (("group", grouped), ("alone", alone))}
+        if step_ms_phase5 is None:
+            beside = "phase 5 not run"
+        else:
+            gap = ms["group"] / step_ms_phase5 - 1
+            beside = (f"phase 5's kernel plan {step_ms_phase5:.1f} "
+                      f"({100 * gap:+.1f}%"
+                      + ("; FLAG: more than 10% from phase 5"
+                         if abs(gap) > 0.10 else "") + ")")
+        log(f"  (a) {PARALLEL_STEPS} kernel-plan steps in an NCCL group of "
+            f"1: parameters, Adam moments and EMA (all "
+            f"{len(alone['tensors'])} tensors) and losses bit-equal to the "
+            f"steps without a group; median {ms['group']:.1f} ms a "
+            f"step, {ms['alone']:.1f} without the group, {beside}; "
+            f"launches {counts} | {time.perf_counter() - t0:.1f}s")
+        del alone, grouped
+        torch.cuda.empty_cache()
+
+        # ---- (b) the train CLI under the group, traced
+        t0 = time.perf_counter()
+        (ROOT / "build").mkdir(exist_ok=True)
+        tmp = Path(tempfile.mkdtemp(prefix="smoke_dp_", dir=ROOT / "build"))
+        try:
+            data = train_data(tmp / "data")
+            cfg_path = tmp / "model_train.yaml"
+            save_model_yaml(cfg, cfg_path)
+            trace_dir = tmp / "trace"
+            args = ["--run-name", "dp", "--config", str(cfg_path),
+                    "--data-root", str(data), "--train-num-steps",
+                    str(PROFILE_STEPS), "--save-and-sample-every", "1000",
+                    "--test-batch-size", "8", "--sampling-timesteps",
+                    str(DP_DDIM_STEPS), "--skip-eval-target", "--device",
+                    "cuda"]
+            _build.reset_launch_counts()
+            out = cli.main(args + ["--runs-root", str(tmp / "runs"),
+                                   "--profile-dir", str(trace_dir)])
+            counts = dict(_build.LAUNCH_COUNTS)
+            want = _counts_of(TRAIN_PER_STEP, PROFILE_STEPS)
+            if counts != want:
+                raise AssertionError(f"11b: launch counts {counts}, "
+                                     f"expected {want}")
+            for k, v in counts.items():
+                totals[k] += v
+            trainer = out["trainer"]
+            run = tmp / "runs" / "dp"
+            steps_written = sorted(p.name for p in (run / "model").iterdir()
+                                   if p.name.startswith("step_"))
+            if steps_written != [f"step_{PROFILE_STEPS}"]:
+                raise AssertionError(f"11b: checkpoints {steps_written}")
+            trace_path = trace_dir / "trace_rank0.json"
+            size = trace_path.stat().st_size
+            events = json.loads(trace_path.read_text())["traceEvents"]
+            kernels = [e.get("name", "") for e in events
+                       if e.get("cat") == "kernel"]
+            seen = {k for k in PORTED_KERNELS
+                    if any(k in name for name in kernels)}
+            missing = set(PORTED_KERNELS) - seen
+            if missing:
+                raise AssertionError(f"11b: the trace's device events lack "
+                                     f"{sorted(missing)}")
+            losses = [json.loads(line)["training loss"] for line in
+                      (run / "metrics.jsonl").read_text().splitlines()]
+            if len(losses) != PROFILE_STEPS or not all(
+                    math.isfinite(v) for v in losses):
+                raise AssertionError(f"11b: training losses {losses}")
+            # the same run untraced: the trace changes no result
+            cli.main(args + ["--runs-root", str(tmp / "runs_plain")])
+            ckpt = Path("model") / f"step_{PROFILE_STEPS}" / \
+                "checkpoint.msgpack"
+            if (run / ckpt).read_bytes() != (
+                    tmp / "runs_plain" / "dp" / ckpt).read_bytes():
+                raise AssertionError("11b: the traced run's checkpoint "
+                                     "differs from the untraced run's")
+            log(f"  (b) train CLI under the group, {PROFILE_STEPS} steps "
+                f"with --profile-dir: trace_rank0.json {size / 2 ** 20:.1f} "
+                f"MiB, {len(kernels)} kernel events, every ported kernel "
+                f"family in them; one checkpoint ({steps_written[0]}), "
+                f"written by rank 0, byte-equal to the same run's without "
+                f"the trace; launches {counts} | "
+                f"{time.perf_counter() - t0:.1f}s")
+
+            # ---- (c) a guided DDIM-64 chunk through the Trainer
+            t0 = time.perf_counter()
+            cond = (torch.rand((EVAL_CHUNK, cfg.cond_length),
+                               generator=torch.Generator().manual_seed(11))
+                    * 2 - 1).numpy()
+            if trainer.test_batch != EVAL_CHUNK:
+                raise AssertionError(f"11c: the sampling chunk is "
+                                     f"{trainer.test_batch}")
+            _build.reset_launch_counts()
+            videos = trainer.sample_videos(cond, 5.0)
+            torch.cuda.synchronize()
+            chain_s = time.perf_counter() - t0
+            counts = dict(_build.LAUNCH_COUNTS)
+            want = _counts_of(EVAL_PER_STEP, DP_DDIM_STEPS)
+            if counts != want:
+                raise AssertionError(f"11c: launch counts {counts}, "
+                                     f"expected {want}")
+            for k, v in counts.items():
+                totals[k] += v
+            shape = (EVAL_CHUNK, FRAMES, cfg.image_size, cfg.image_size, 3)
+            if videos.shape != shape or not np.isfinite(videos).all():
+                raise AssertionError(f"11c: videos {videos.shape}, not the "
+                                     "shape or not finite")
+            log(f"  (c) Trainer.sample_videos under the group: one chunk "
+                f"of {EVAL_CHUNK}, DDIM-{DP_DDIM_STEPS}, w = 5: "
+                f"{chain_s:.2f}s; videos {videos.shape}; launches {counts}")
+            del out, trainer
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    finally:
+        parallel.mesh.destroy()
+
+    # ---- (d) the dry runs: n = 1 opens its own NCCL group here
+    t0 = time.perf_counter()
+    with deadline(120, "dryrun_multichip(1)"):
+        dryrun_multichip(1)
+    log(f"  (d) dryrun_multichip(1): an NCCL group of one it opened | "
+        f"{time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    dryrun_multichip(2, timeout=300)
+    log(f"  (d) dryrun_multichip(2): two gloo CPU processes (one card) | "
+        f"{time.perf_counter() - t0:.1f}s")
+    for k, v in totals.items():
+        report[k]["launches_phase11"] = v
+    log(f"[11 parallel] world 1 on NCCL on {smi}, world 2 on gloo CPU "
+        f"processes; launches {totals}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=256,
@@ -2859,6 +3140,9 @@ def main(argv=None) -> int:
     ap.add_argument("--variants-only", action="store_true",
                     help="run phases 0, 1, 6 (the rendering's input) and 10 "
                          "only, and print no result line")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="run phases 0, 1 and 11 only (no phase 5 step to "
+                         "compare with), and print no result line")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -2895,6 +3179,15 @@ def main(argv=None) -> int:
     log(f"[1 build] {'built' if info['built'] else 'cached'} "
         f"{info['path']} (nvcc {info['seconds']:.1f}s) | "
         f"{time.perf_counter() - t0:.1f}s")
+
+    if args.parallel_only:
+        report = {k: {} for k in _build.LAUNCH_COUNTS}
+        t0 = time.perf_counter()
+        phase_parallel(smi, report, None)
+        log(f"[11 parallel] passed | {time.perf_counter() - t0:.1f}s")
+        log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
+            "11 only: no result line)")
+        return 0
 
     if args.variants_only:
         report = {k: {} for k in _build.LAUNCH_COUNTS}
@@ -3080,6 +3373,12 @@ def main(argv=None) -> int:
     # ---- 10 variants: focus mask, accumulation, remat, s-tile, switches,
     # rendering
     run_variants(smi, report, train["kernel"], evaluated["render_src"])
+    torch.cuda.empty_cache()
+
+    # ---- 11 parallel: the data-parallel paths, the trace, the dry runs
+    t0 = time.perf_counter()
+    phase_parallel(smi, report, train["kernel"]["median_ms"])
+    log(f"[11 parallel] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

@@ -43,7 +43,13 @@ FEM-verification stack:
                        msgpack format, checkpoints (optax's Adam state),
                        the reference checkpoint.pt import, the artifact
                        export
+  parallel/            data parallelism across processes (one a device;
+                       NCCL, gloo): the process group, padded row splits,
+                       the gathers, the bucketed gradient mean
   convert.py           flax parameter tree <-> torch state dict
+  graft_entry.py       entry points: the flagship's guided forward, and
+                       dryrun_multichip (a data-parallel train step and
+                       sampling chunk over n ranks)
   main.py              entry point: training on a GIF folder, and guided
                        target evaluation (DDPM or DDIM, guidance arms) to
                        GIFs and geometries.csv

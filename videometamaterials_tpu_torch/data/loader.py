@@ -1,10 +1,10 @@
 """Shuffled batch indices and a prefetching batch stream: the port's
 copies of videometamaterials_tpu/data/loader.py:InfiniteBatchSampler
-(numpy only, with that sampler's defaults fixed: one process, shuffled,
-whole batches) and prefetch_batches (:72-93).
+(numpy only, with that sampler's defaults fixed: shuffled, whole batches)
+and prefetch_batches (:72-93).
 
 The sampler gives the same index stream as the JAX package's for the same
-seed, example count and batch size.
+seed, example count, batch size, process index and process count.
 """
 
 from __future__ import annotations
@@ -20,28 +20,46 @@ import torch
 
 class InfiniteBatchSampler:
     """Shuffled epochs of indices, cut into whole batches (an epoch's
-    remainder is dropped)."""
+    remainder is dropped). With process_count > 1 each process takes a
+    disjoint contiguous stripe of every epoch's order (the last process
+    also the remainder), or the whole order where there are fewer examples
+    than processes; a stripe shorter than a batch falls back to a batch
+    drawn with replacement, the same on every process."""
 
-    def __init__(self, num_examples: int, batch_size: int, seed: int = 0):
+    def __init__(self, num_examples: int, batch_size: int, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1):
         if num_examples <= 0:
             raise ValueError("the sampler needs at least one example")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process {process_index} of {process_count}")
         self.n = num_examples
         self.batch_size = batch_size
         self.seed = seed
+        self.process_index = process_index
+        self.process_count = process_count
+
+    def _stripe(self, order: np.ndarray) -> np.ndarray:
+        per = self.n // self.process_count
+        if per == 0:
+            return order
+        start = self.process_index * per
+        last = self.process_index == self.process_count - 1
+        return order[start:] if last else order[start:start + per]
 
     def __iter__(self) -> Iterator[np.ndarray]:
         bs, e = self.batch_size, 0
         while True:
             order = np.random.default_rng((self.seed, e)).permutation(self.n)
+            stripe = self._stripe(order)
             e += 1
-            if self.n < bs:
+            if len(stripe) < bs:
                 # fewer examples than a batch: sample with replacement so
                 # tiny datasets still train
                 rng = np.random.default_rng((self.seed, e, 17))
                 yield rng.integers(0, self.n, size=bs)
                 continue
-            for i in range(0, self.n - bs + 1, bs):
-                yield order[i:i + bs]
+            for i in range(0, len(stripe) - bs + 1, bs):
+                yield stripe[i:i + bs]
 
 
 def prefetch_batches(dataset, sampler: InfiniteBatchSampler, *,

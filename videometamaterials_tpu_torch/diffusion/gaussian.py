@@ -363,19 +363,34 @@ class GaussianDiffusion:
         b = x.shape[0]
         if tuple(x.shape[1:]) != self.video_shape(b)[1:]:
             raise ValueError(f"bad video shape {tuple(x.shape)}")
-        dev = x.device
+        draws = self.loss_draws(
+            b, x.device, generator=generator, null_cond_prob=null_cond_prob,
+            prob_focus_present=prob_focus_present, t=t, noise=noise,
+            null_cond_mask=null_cond_mask,
+            focus_present_mask=focus_present_mask)
+        return self.p_losses(normalize_img(x.float()), cond=cond,
+                             per_sample=per_sample, **draws)
+
+    def loss_draws(self, b: int, device, *,
+                   generator: Optional[torch.Generator] = None,
+                   null_cond_prob: float = 0.0,
+                   prob_focus_present: float = 0.0, t=None, noise=None,
+                   null_cond_mask=None, focus_present_mask=None) -> dict:
+        """The random inputs of `loss` for a batch of b videos: t, noise,
+        null_cond_mask and focus_present_mask, each drawn from `generator`
+        in this order unless given (the focus mask only when
+        prob_focus_present > 0; None otherwise)."""
         if t is None:
             t = torch.randint(0, self.timesteps, (b,), generator=generator,
-                              device=dev)
+                              device=device)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=dev,
-                                dtype=torch.float32)
+            noise = torch.randn(self.video_shape(b), generator=generator,
+                                device=device, dtype=torch.float32)
         if null_cond_mask is None:
             null_cond_mask = torch.rand(b, generator=generator,
-                                        device=dev) < null_cond_prob
+                                        device=device) < null_cond_prob
         if focus_present_mask is None and prob_focus_present > 0:
             focus_present_mask = torch.rand(b, generator=generator,
-                                            device=dev) < prob_focus_present
-        return self.p_losses(normalize_img(x.float()), t, cond, noise,
-                             null_cond_mask, focus_present_mask,
-                             per_sample=per_sample)
+                                            device=device) < prob_focus_present
+        return dict(t=t, noise=noise, null_cond_mask=null_cond_mask,
+                    focus_present_mask=focus_present_mask)

@@ -12,6 +12,7 @@ evaluation.
         [--sampling-timesteps S] [--guidance-arms W[:PHI],...]
         [--torch-checkpoint checkpoint.pt]
         [--test-batch-size B] [--seed 0] [--no-log] [--device cuda]
+        [--profile-dir DIR]
 
 The JAX package's main.py (:57-187): the run directory runs/NAME with its
 config snapshot (model/model.yaml, written from --config for a new run,
@@ -36,8 +37,17 @@ below the config's train_timesteps samples with the S-step DDIM chain
 (eta = the config's ddim_sampling_eta), milestones included.
 --guidance-arms '5,2:0.7' evaluates each (w, phi) arm in turn (phi 0
 where not given, not the config's cfg_rescale), one directory and one
-printed line an arm, every arm from the same seed. Runs on the GPU unless
---device names another device.
+printed line an arm, every arm from the same seed. --profile-dir DIR
+writes a torch.profiler trace of training steps start+10 to start+13 to
+DIR/trace_rank<r>.json. Runs on the GPU unless --device names another
+device.
+
+Under a launcher (torchrun --nproc_per_node N -m
+videometamaterials_tpu_torch.main ..., or SLURM) the N processes train
+data-parallel, one device each (NCCL on the cards, gloo with --device
+cpu): the global batch is batch_size x N, rank 0 alone writes the run
+directory, and every rank samples its share of each chunk. Without one it
+is one process.
 """
 
 from __future__ import annotations
@@ -50,6 +60,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from videometamaterials_tpu_torch import parallel
 from videometamaterials_tpu_torch.config import (
     TrainerConfig,
     load_model_yaml,
@@ -133,6 +144,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--skip-eval-target", action="store_true")
     p.add_argument("--torch-checkpoint", default=None)
     p.add_argument("--device", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler trace of training steps "
+                        "start+10 to start+13 here")
     return p
 
 
@@ -141,17 +155,33 @@ def main(argv=None) -> dict:
     'sample_seconds', 'trainer', 'arms'}: 'arms' a dict an evaluated arm
     (guidance_scale, cfg_rescale, eval_dir, videos, sample_seconds), the
     eval keys the last arm's (None with --skip-eval-target), the trainer
-    None with --skip-train."""
+    None with --skip-train. Under a launcher the process joins its group
+    for the run and leaves it at the end."""
     args = _parser().parse_args(argv)
     arms = parse_arms(args.guidance_arms) if args.guidance_arms else None
     if args.torch_checkpoint and not Path(args.torch_checkpoint).is_file():
         raise FileNotFoundError(f"--torch-checkpoint {args.torch_checkpoint}"
                                 ": no such file")
+    # a launcher's environment joins a process group; without one a no-op
+    joined = not parallel.active() and parallel.initialize_distributed(
+        backend="gloo" if args.device == "cpu" else None)
+    try:
+        return _run(args, arms)
+    finally:
+        if joined:
+            parallel.mesh.destroy()
+
+
+def _run(args, arms) -> dict:
     dev = resolve_device(args.device)
+    if dev.type == "cuda" and dev.index is None and parallel.active():
+        dev = torch.device("cuda", torch.cuda.current_device())
 
     run_dir = Path(args.runs_root) / args.run_name
     cfg_snapshot = run_dir / "model" / "model.yaml"
     fresh = not (run_dir.exists() and cfg_snapshot.exists())
+    # every rank checks before any rank writes
+    parallel.barrier()
     if not fresh and args.load_model_step is None:
         print("Directory already exists, please change run_name to train "
               "new model or provide load_model_step")
@@ -174,7 +204,7 @@ def main(argv=None) -> dict:
         fidelity_probe_targets=args.fidelity_probe,
         fidelity_probe_n_targets=args.fidelity_probe_targets,
         fidelity_probe_preds=args.fidelity_probe_preds)
-    if fresh:
+    if fresh and parallel.rank() == 0:
         snapshot_run_config(config, run_dir)
 
     data_root = Path(args.data_root)
@@ -185,7 +215,8 @@ def main(argv=None) -> dict:
         labels_scaling = fit_labels_scaling(data_dir, cfg.num_frames,
                                             cfg.per_frame_cond)
         ranges = global_ranges(data_dir, cfg.reference_frame)
-        write_min_max_values(data_dir, ranges)
+        if parallel.rank() == 0:
+            write_min_max_values(data_dir, ranges)
         zero = zero_u_2(ranges)
         weights = None
         if args.torch_checkpoint:
@@ -206,7 +237,8 @@ def main(argv=None) -> dict:
         trainer = Trainer(GaussianDiffusion.from_config(model, cfg, dev),
                           cfg, tcfg, data_dir,
                           data_root / cfg.reference_frame / "validation",
-                          results_folder=run_dir)
+                          results_folder=run_dir,
+                          profile_dir=args.profile_dir)
         if args.torch_checkpoint:
             trainer.load_torch_checkpoint(args.torch_checkpoint)
         trainer.train(load_model_step=args.load_model_step,
@@ -224,7 +256,8 @@ def main(argv=None) -> dict:
             result = eval_target(
                 diffusion, cfg, run_dir, out["step"], targets, labels_scaling,
                 zero, guidance_scale=w, num_preds=args.num_preds,
-                chunk=sampling_chunk(args.test_batch_size), seed=args.seed,
+                chunk=sampling_chunk(args.test_batch_size)
+                * parallel.world_size(), seed=args.seed,
                 cfg_rescale=phi, w_label=w_label)
             if result is None:
                 break

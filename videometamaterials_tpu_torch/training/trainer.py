@@ -37,6 +37,23 @@ config says; milestones and the probe too), `eval_target` samples every
 target curve num_preds times and writes the artifacts under
 runs/<name>/eval_target_w_<w>[_phi_<phi>]_<i>/step_<step>/.
 `Trainer.load_torch_checkpoint` imports a reference checkpoint.pt.
+
+Data parallelism (JAX :127-137, :380-397, :553-581), under a process
+group of W ranks (`parallel.initialize_distributed`), one device each:
+the global batch is batch_size x W and each rank trains on its own stripe
+of every epoch (batch_size rows); a step's draws are taken at the global
+batch's shape and sliced, and the gradients averaged over the ranks
+before the clip, Adam and the EMA, so the ranks take the steps one
+process takes on the global batch and hold the same state. The
+validation batches and the sampling chunks are padded to a multiple of W
+and split, their draws taken at the padded shape, and the rows gathered:
+every rank returns the same loss and videos. Rank 0 alone writes
+metrics.jsonl, checkpoints and artifacts. Without a process group none of
+this runs and no collective is called.
+
+`profile_dir` (JAX :103-104, :305-325): a torch.profiler trace of steps
+start+10 to start+13 (CPU activity, and the card's), written as
+profile_dir/trace_rank<r>.json (chrome trace format).
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from videometamaterials_tpu_torch import parallel
 from videometamaterials_tpu_torch.config import ModelConfig, TrainerConfig
 from videometamaterials_tpu_torch.data.dataset import VideoDataset
 from videometamaterials_tpu_torch.data.loader import (
@@ -156,18 +174,35 @@ def train_step(state: TrainState, diffusion: GaussianDiffusion, videos,
     """One (micro-)step on a batch of [0, 1] videos (b, F, H, W, C) and
     labels (b, F). t, noise, the null-conditioning mask and, with
     prob_focus_present > 0, the focus-present mask are drawn from
-    `generator` unless given. Returns the loss (detached, on the device)."""
+    `generator` unless given. Returns the loss (detached, on the device).
+
+    Under a process group of W ranks the batch is this rank's rows
+    r*b .. (r+1)*b - 1 of a global batch of W*b: the draws are taken (or
+    given) at the global shape and sliced to those rows, the gradients
+    are averaged over the ranks before the optimizer, and the loss
+    returned is the global batch's."""
     state.optimizer.zero_grad(set_to_none=True)
+    draws = dict(t=t, noise=noise, null_cond_mask=null_cond_mask,
+                 focus_present_mask=focus_present_mask)
+    if parallel.active():
+        b, r = videos.shape[0], parallel.rank()
+        draws = diffusion.loss_draws(
+            b * parallel.world_size(), videos.device, generator=generator,
+            null_cond_prob=tcfg.null_cond_prob,
+            prob_focus_present=tcfg.prob_focus_present, **draws)
+        draws = {k: None if v is None else v[r * b:(r + 1) * b]
+                 for k, v in draws.items()}
     with state.model.fused_plans(fused_in_training):
         loss = diffusion.loss(videos, labels,
                               null_cond_prob=tcfg.null_cond_prob,
-                              generator=generator, t=t, noise=noise,
-                              null_cond_mask=null_cond_mask,
-                              focus_present_mask=focus_present_mask,
-                              prob_focus_present=tcfg.prob_focus_present)
+                              generator=generator,
+                              prob_focus_present=tcfg.prob_focus_present,
+                              **draws)
     loss.backward()
+    (loss,) = parallel.all_reduce_mean_(state.model.parameters(),
+                                        loss.detach())
     apply_gradients(state, tcfg)
-    return loss.detach()
+    return loss
 
 
 def array_batches(videos: np.ndarray, labels: np.ndarray, batch_size: int,
@@ -221,37 +256,69 @@ class Trainer(StepTrainer):
     `validation_folder`, which takes the training folder's labels_scaling)
     and writes checkpoints, milestone artifacts and metrics.jsonl under
     `results_folder`. `timings` collects the seconds of each save and of
-    each milestone's parts."""
+    each milestone's parts. Under a process group each rank holds one
+    (and the same) trainer; see the module docstring. With `profile_dir`
+    steps start+10 to start+13 of `train` are traced."""
 
     def __init__(self, diffusion: GaussianDiffusion, model_cfg: ModelConfig,
                  trainer_cfg: TrainerConfig, folder: str | Path,
                  validation_folder: str | Path,
-                 results_folder: str | Path = "./results"):
+                 results_folder: str | Path = "./results",
+                 profile_dir: str | Path | None = None):
         super().__init__(diffusion, model_cfg, trainer_cfg, batches=None)
         self.results_folder = Path(results_folder)
         self.results_folder.mkdir(parents=True, exist_ok=True)
+        self.profile_dir = Path(profile_dir) if profile_dir else None
+        self.world, self.rank = parallel.world_size(), parallel.rank()
         self.selected_channels = list(model_cfg.selected_channels)
         data = dict(selected_channels=self.selected_channels,
                     num_frames=model_cfg.num_frames,
                     per_frame_cond=model_cfg.per_frame_cond,
                     reference_frame=model_cfg.reference_frame)
-        self.ds = VideoDataset(folder, model_cfg.image_size,
-                               horizontal_flip=trainer_cfg.horizontal_flip,
-                               **data)
+        # rank 0 builds the folders' caches, the other ranks read them
+        with parallel.rank0_first():
+            self.ds = VideoDataset(
+                folder, model_cfg.image_size,
+                horizontal_flip=trainer_cfg.horizontal_flip, **data)
+            self.ds_test = VideoDataset(
+                validation_folder, model_cfg.image_size,
+                labels_scaling=self.ds.labels_scaling, **data)
         print(f"found {len(self.ds)} videos as gif files in {folder}")
-        self.ds_test = VideoDataset(validation_folder, model_cfg.image_size,
-                                    labels_scaling=self.ds.labels_scaling,
-                                    **data)
-        self.sampler = InfiniteBatchSampler(len(self.ds),
-                                            model_cfg.batch_size,
-                                            seed=trainer_cfg.seed)
-        self.test_batch = sampling_chunk(trainer_cfg.test_batch_size)
+        # each rank a stripe of every epoch, batch_size rows a step: a
+        # global batch of batch_size x the ranks
+        self.sampler = InfiniteBatchSampler(
+            len(self.ds), model_cfg.batch_size, seed=trainer_cfg.seed,
+            process_index=self.rank, process_count=self.world)
+        self.test_batch = sampling_chunk(trainer_cfg.test_batch_size) \
+            * self.world
         self._metrics_path = self.results_folder / "metrics.jsonl"
         self.timings: list[dict] = []
 
     def _log(self, record: dict) -> None:
+        if self.rank != 0:              # one metrics stream
+            return
         with open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> Path:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        self.profile_dir.mkdir(parents=True, exist_ok=True)
+        path = self.profile_dir / f"trace_rank{self.rank}.json"
+        prof.export_chrome_trace(str(path))
+        print(f"profile written to {path}")
+        return path
 
     # ------------------------------------------------------------- train
     def train(self, load_model_step: Optional[int] = None,
@@ -276,8 +343,11 @@ class Trainer(StepTrainer):
         t_start = time.time()
         pending = None
         step = start
+        prof = None
         try:
             while step < tcfg.train_num_steps:
+                if self.profile_dir and step == start + 10:
+                    prof = self._start_profile()
                 loss = self.step()
                 # the previous step's loss, read while this one runs
                 if pending is not None:
@@ -285,6 +355,9 @@ class Trainer(StepTrainer):
                                "training loss": float(pending[1])})
                 pending = (step, loss)
                 step += 1
+                if prof is not None and step >= start + 13:
+                    self._stop_profile(prof)
+                    prof = None
                 if step % tcfg.save_and_sample_every == 0:
                     elapsed = time.strftime(
                         "%H:%M:%S", time.gmtime(time.time() - t_start))
@@ -300,6 +373,8 @@ class Trainer(StepTrainer):
                         "%H:%M:%S", time.gmtime(time.time() - t0)))
         finally:
             self.batches.close()
+            if prof is not None:
+                self._stop_profile(prof)
         if pending is not None:
             self._log({"step": pending[0],
                        "training loss": float(pending[1])})
@@ -317,7 +392,8 @@ class Trainer(StepTrainer):
             else guidance_scale
         step = self.state.step
         mode_dir = self.results_folder / "training" / f"step_{step}"
-        (mode_dir / "gifs").mkdir(parents=True, exist_ok=True)
+        if self.rank == 0:
+            (mode_dir / "gifs").mkdir(parents=True, exist_ok=True)
         times = {"step": step}
         t0 = time.perf_counter()
         val_loss = self.validation_loss()
@@ -336,11 +412,12 @@ class Trainer(StepTrainer):
             videos = self.sample_videos(
                 np.repeat(self.ds_test.labels[pick], num_preds, axis=0), w,
                 stream=_MILESTONE_SAMPLES)
-            save_preds(videos, mode_dir, self.selected_channels,
-                       num_samples=len(pick),
-                       reference_frame=self.mcfg.reference_frame,
-                       num_frames=self.mcfg.num_frames,
-                       zero_u_2=self.ds.zero_u_2)
+            if self.rank == 0:          # artifacts written once
+                save_preds(videos, mode_dir, self.selected_channels,
+                           num_samples=len(pick),
+                           reference_frame=self.mcfg.reference_frame,
+                           num_frames=self.mcfg.num_frames,
+                           zero_u_2=self.ds.zero_u_2)
             times["sampling"] = time.perf_counter() - t0
         self.timings.append(times)
         return val_loss
@@ -350,7 +427,11 @@ class Trainer(StepTrainer):
         """The mean per-sample loss over the validation folder on the
         trained parameters and the train plan, in batches of the sampling
         chunk. Batch i's t, noise and null mask come from a generator
-        seeded by (seed, i), or from draws[i] (a dict of loss keywords)."""
+        seeded by (seed, i), or from draws[i] (a dict of loss keywords).
+        Under a process group a batch is padded to a multiple of the ranks
+        and split, its draws taken at the padded shape and sliced, and the
+        per-sample losses gathered with the padding left out: every rank
+        returns the same value."""
         n_val = len(self.ds_test)
         bs = min(self.test_batch, n_val)
         total, count = 0.0, 0
@@ -362,21 +443,42 @@ class Trainer(StepTrainer):
                 kw = draws[i] if draws is not None else {
                     "generator": seeded_generator(
                         self.device, self.tcfg.seed, _VALIDATION, i)}
+                n = len(v)
+                if parallel.active():
+                    v, c, kw = self._local_batch(v, c, kw)
                 per_sample = self.diffusion.loss(
                     torch.from_numpy(v).to(self.device),
                     torch.from_numpy(c).to(self.device),
                     null_cond_prob=self.tcfg.null_cond_prob,
                     prob_focus_present=self.tcfg.prob_focus_present,
                     per_sample=True, **kw)
+                per_sample = parallel.gather_rows(per_sample)[:n]
                 total += float(per_sample.sum())
-                count += len(v)
+                count += n
         return total / count if count else float("nan")
 
-    def fidelity_probe(self) -> float:
+    def _local_batch(self, v, c, kw):
+        """This rank's rows of a validation batch padded to a multiple of
+        the ranks, and of its loss draws taken at the padded shape."""
+        v, _ = parallel.local_rows(v, self.world, self.rank)
+        c, _ = parallel.local_rows(c, self.world, self.rank)
+        per, lo = len(v), self.rank * len(v)
+        kw = dict(kw)
+        gen = kw.pop("generator", None)
+        full = self.diffusion.loss_draws(
+            per * self.world, self.device, generator=gen,
+            null_cond_prob=self.tcfg.null_cond_prob,
+            prob_focus_present=self.tcfg.prob_focus_present, **kw)
+        return v, c, {k: None if d is None else d[lo:lo + per]
+                      for k, d in full.items()}
+
+    def fidelity_probe(self) -> Optional[float]:
         """Guided samples of the first fidelity_probe_n_targets curves of
         fidelity_probe_targets, fidelity_probe_preds each, written to
         training/step_<N>/fidelity_probe/ and scored: the best-of-N
-        pixel-curve NRMSE (and per target) go to metrics.jsonl."""
+        pixel-curve NRMSE (and per target) go to metrics.jsonl. Every rank
+        samples; rank 0 writes, scores and returns the NRMSE (None
+        elsewhere)."""
         tcfg = self.tcfg
         step = self.state.step
         targets = np.genfromtxt(tcfg.fidelity_probe_targets, delimiter=",")
@@ -394,6 +496,8 @@ class Trainer(StepTrainer):
         videos = self.sample_videos(
             np.repeat(cond, tcfg.fidelity_probe_preds, axis=0),
             tcfg.guidance_scale, stream=_PROBE_SAMPLES)
+        if self.rank != 0:              # files written and scored once
+            return None
         mode_dir = (self.results_folder / "training" / f"step_{step}"
                     / "fidelity_probe")
         (mode_dir / "gifs").mkdir(parents=True, exist_ok=True)
@@ -422,8 +526,9 @@ class Trainer(StepTrainer):
                       guidance_scale: Optional[float] = None,
                       stream: int = _MILESTONE_SAMPLES) -> np.ndarray:
         """EMA samples (n, F, H, W, C) in [0, 1] of a conditioning batch, in
-        chunks of half the test batch, from the random stream (seed,
-        stream, step): a resumed run samples what the unbroken one did."""
+        chunks of half the test batch (times the ranks), from the random
+        stream (seed, stream, step): a resumed run samples what the
+        unbroken one did."""
         w = self.tcfg.guidance_scale if guidance_scale is None \
             else guidance_scale
         return sample_videos(self.sampling_diffusion(), cond, w,
@@ -431,8 +536,13 @@ class Trainer(StepTrainer):
                              seed=(self.tcfg.seed, stream, self.state.step))
 
     # -------------------------------------------------------- checkpoints
-    def save(self, step: Optional[int] = None) -> Path:
+    def save(self, step: Optional[int] = None) -> Optional[Path]:
+        """Rank 0 writes the checkpoint of the state (the ranks hold the
+        same one); every rank waits for it. Returns its path on rank 0."""
         step = self.state.step if step is None else step
+        if self.rank != 0:
+            parallel.barrier()
+            return None
         t0 = time.perf_counter()
         named = list(self.state.model.named_parameters())
         payload = {
@@ -453,6 +563,7 @@ class Trainer(StepTrainer):
         self.timings.append({"step": step,
                              "save": time.perf_counter() - t0})
         print(f"checkpoint saved to {path}")
+        parallel.barrier()
         return path
 
     @torch.no_grad()
@@ -528,20 +639,45 @@ def sample_videos(diffusion: GaussianDiffusion, cond: np.ndarray,
     """Guided samples (n, F, H, W, C) in [0, 1] of a conditioning batch
     (n, F), DDPM or DDIM as `diffusion.sample` dispatches: chunks of
     `chunk` curves (the last padded by repeating its last curve, the
-    padding dropped), each from its own generator."""
-    cond = np.asarray(cond, np.float32)
-    n = len(cond)
-    rem = (-n) % chunk
-    if rem:
-        cond = np.concatenate([cond, np.repeat(cond[-1:], rem, axis=0)])
+    padding dropped), each from its own generator. Under a process group
+    of W ranks the chunk is at least W and a multiple of W; each chunk's
+    generator draws the whole chunk's noise, each rank samples its rows,
+    and the rows are gathered: every rank returns the same videos."""
+    if parallel.active():
+        world = parallel.world_size()
+        chunk = -(-max(chunk, world) // world) * world
+    cond, n = parallel.pad_to_multiple(np.asarray(cond, np.float32), chunk)
     outs = []
     for i in range(0, len(cond), chunk):
         gen = chunk_generator(seed, i // chunk, diffusion.device)
-        videos = diffusion.sample(torch.from_numpy(cond[i:i + chunk]),
-                                  guidance_scale, generator=gen,
-                                  cfg_rescale=cfg_rescale)
+        c = torch.from_numpy(cond[i:i + chunk])
+        if parallel.active():
+            videos = _sample_rows(diffusion, c, guidance_scale, gen,
+                                  cfg_rescale)
+        else:
+            videos = diffusion.sample(c, guidance_scale, generator=gen,
+                                      cfg_rescale=cfg_rescale)
         outs.append(videos.float().cpu().numpy())
     return np.concatenate(outs)[:n]
+
+
+def _sample_rows(diffusion: GaussianDiffusion, cond: torch.Tensor,
+                 guidance_scale: float, gen: torch.Generator,
+                 cfg_rescale: float | None) -> torch.Tensor:
+    """This rank's rows of one chunk's chain, every noise drawn at the
+    chunk's shape in the chain's order and sliced; the ranks' rows
+    gathered."""
+    per = len(cond) // parallel.world_size()
+    rows = slice(parallel.rank() * per, (parallel.rank() + 1) * per)
+    shape = diffusion.video_shape(len(cond))
+
+    def draw(_=None):
+        return torch.randn(shape, generator=gen, device=diffusion.device,
+                           dtype=torch.float32)[rows]
+
+    videos = diffusion.sample(cond[rows], guidance_scale, x_T=draw(),
+                              noise_fn=draw, cfg_rescale=cfg_rescale)
+    return parallel.gather_rows(videos.float())
 
 
 def eval_target_dir(results_folder: str | Path, step: int,
@@ -576,7 +712,10 @@ def eval_target(diffusion: GaussianDiffusion, cfg: ModelConfig,
     mode_dir = eval_target_dir(results_folder, step,
                                guidance_scale if w_label is None else w_label,
                                phi)
-    (mode_dir / "gifs").mkdir(parents=True, exist_ok=True)
+    # every rank names the directory before rank 0 makes it
+    parallel.barrier()
+    if parallel.rank() == 0:
+        (mode_dir / "gifs").mkdir(parents=True, exist_ok=True)
     try:
         targets = np.genfromtxt(target_labels, delimiter=",")
     except OSError:
@@ -596,7 +735,8 @@ def eval_target(diffusion: GaussianDiffusion, cfg: ModelConfig,
                            guidance_scale, chunk=chunk, seed=seed,
                            cfg_rescale=cfg_rescale)
     seconds = time.perf_counter() - t0
-    save_preds(videos, mode_dir, list(cfg.selected_channels),
-               num_samples=len(cond), reference_frame=cfg.reference_frame,
-               num_frames=cfg.num_frames, zero_u_2=zero_u_2)
+    if parallel.rank() == 0:            # artifacts written once
+        save_preds(videos, mode_dir, list(cfg.selected_channels),
+                   num_samples=len(cond), reference_frame=cfg.reference_frame,
+                   num_frames=cfg.num_frames, zero_u_2=zero_u_2)
     return mode_dir, videos, seconds
