@@ -156,6 +156,21 @@ Phases, each printing its wall time as it finishes:
              dryrun_multichip(2) on two gloo CPU processes, each under a
              timeout. The kernels line gains launches_phase11 ((a) with
              the group, (b) and (c))
+  12 latency   the latency mode (videometamaterials_tpu_torch/parallel/
+             latency.py: one video's chain split across ranks, unfused
+             plans only): (a) an NCCL group of one rank, model.yaml with
+             the fused plans off, batch 1, w = 5, the full DDPM-256 chain
+             bit-equal to the same chain without the plan, no collective
+             and no kernel launch, its seconds (the unfused chain); (b)
+             two processes on cuda:0 in a gloo group (NCCL takes one rank
+             a card; the collectives staged through host memory), a
+             LATENCY_STEPS-step chain split by height and one split by
+             frames, each with its first eps and its chain against the
+             unsplit chain from the same x_T and noises (relative L2
+             within LATENCY_TOL), its collectives
+             a step (halo exchanges by height, none by frames, gathers in
+             both) and its seconds. The kernels line gains
+             launches_phase12 (0: no kernel is on this path)
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -3123,6 +3138,246 @@ def phase_parallel(smi: str, report: dict,
         f"processes; launches {totals}")
 
 
+# ------------------------------------------------------- phase 12 latency
+
+LATENCY_STEPS = 16      # (b): the cut chain each mode runs on two ranks
+LATENCY_SEED = 12       # the generator of x_T and the step noises
+# (b) bounds, relative L2 error against the unsplit chain from the same
+# x_T and noises: the split changes the order of float32 sums (GroupNorm,
+# the linear attention's key softmax) and the shapes the convolutions see,
+# so bf16 activations round elsewhere, as the fused plans do against the
+# unfused ones (MODEL_TOL, phase 3); a wrong halo row, a sum taken twice or
+# a lost block gives O(1) errors where it lands
+LATENCY_TOL = MODEL_TOL
+
+
+def _latency_cfg():
+    """model.yaml with the fused plans off: the latency mode runs the
+    unfused plans (as the JAX package's guard demands)."""
+    from videometamaterials_tpu_torch.config import load_model_yaml
+
+    return load_model_yaml(ROOT / "model.yaml").replace(
+        use_fused_linear_block=False, use_fused_temporal_block=False)
+
+
+def _latency_cond(cfg):
+    import torch
+
+    return torch.rand((1, cfg.cond_length),
+                      generator=torch.Generator().manual_seed(2)) * 2 - 1
+
+
+def _rel(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def latency_rank(rank: int, init: str, out: str) -> None:
+    """One of phase 12 (b)'s two ranks: a gloo group of two processes on
+    cuda:0 (collectives staged through host memory), the flagship's
+    seeded unfused model. For each mode the first step's guided eps and a
+    LATENCY_STEPS-step chain, both split over the two ranks, with the
+    collective counts before each step's noise and the chain's seconds;
+    rank 0 writes them to OUT/latency.pt."""
+    import torch
+
+    from videometamaterials_tpu_torch import parallel
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.sample import build_sampler
+
+    torch.cuda.set_device(0)
+    parallel.initialize_distributed(init, world_size=2, rank=rank,
+                                    backend="gloo")
+    try:
+        cfg = _latency_cfg()
+        model = build_sampler(cfg, device="cuda", seed=0).model
+        cond = _latency_cond(cfg)
+        result = {}
+        _build.reset_launch_counts()
+        for mode, make in (("height", parallel.spatial_video_sharding),
+                           ("frames", parallel.frame_video_sharding)):
+            plan = make()
+            diffusion = GaussianDiffusion.from_config(
+                model, cfg, "cuda", sample_spatial_sharding=plan)
+            lat = diffusion.latency
+            shape = diffusion.video_shape(1)
+            gen = torch.Generator(device="cuda").manual_seed(LATENCY_SEED)
+            x_t = torch.randn(shape, generator=gen, device="cuda")
+            t = torch.full((1,), cfg.train_timesteps - 1, device="cuda")
+            with torch.no_grad():
+                eps = lat.gather(diffusion.guided_eps(
+                    lat.local(x_t), t, cond.cuda(), 5.0, latency=lat))
+            plan.reset_counts()
+            gen = torch.Generator(device="cuda").manual_seed(LATENCY_SEED)
+            before = []
+
+            def noise(i):
+                before.append(dict(plan.counts))
+                return torch.randn(shape, generator=gen, device="cuda")
+
+            torch.cuda.synchronize()
+            parallel.barrier()
+            t0 = time.perf_counter()
+            video = diffusion.sample(cond, 5.0, generator=gen,
+                                     noise_fn=noise,
+                                     num_steps=LATENCY_STEPS)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            result[mode] = {"eps": eps.cpu(), "video": video.cpu(),
+                            "before_step": before,
+                            "total": dict(plan.counts), "seconds": seconds,
+                            "blocks": [s.blocks[rank] if s else None
+                                       for s in lat.levels]}
+        result["launches"] = dict(_build.LAUNCH_COUNTS)
+        if rank == 0:
+            torch.save(result, Path(out) / "latency.pt")
+        log(f"latency rank {rank}: done")
+    finally:
+        parallel.mesh.destroy()
+
+
+def phase_latency(smi: str, report: dict) -> None:
+    """12 latency: the latency mode (parallel/latency.py), one video's
+    chain split across ranks. (a) an NCCL group of one rank: the full
+    DDPM-256 chain of the flagship with the fused plans off, bit-equal to
+    the same chain without the plan, no collective called; (b) two ranks
+    on this one card, two processes on cuda:0 in a gloo group (NCCL takes
+    one rank a card), the collectives staged through host memory: a
+    LATENCY_STEPS-step chain split by height and one split by frames,
+    against the first steps of (a)'s unsplit chain from the same x_T and
+    noises."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from videometamaterials_tpu_torch import parallel
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.graft_entry import free_port
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.sample import build_sampler
+
+    cfg = _latency_cfg()
+    plain = build_sampler(cfg, device="cuda", seed=0)
+    cond = _latency_cond(cfg)
+    steps = cfg.train_timesteps
+
+    def chain(diffusion, num_steps=None):
+        gen = torch.Generator(device="cuda").manual_seed(LATENCY_SEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        video = diffusion.sample(cond, 5.0, generator=gen,
+                                 num_steps=num_steps)
+        torch.cuda.synchronize()
+        return video, time.perf_counter() - t0
+
+    # ---- (a) a group of one: the unsplit code, no collective
+    t0 = time.perf_counter()
+    _build.reset_launch_counts()
+    want, plain_s = chain(plain)
+    parallel.initialize_distributed(f"tcp://127.0.0.1:{free_port()}",
+                                    world_size=1, rank=0, backend="nccl")
+    try:
+        plan = parallel.spatial_video_sharding()
+        one = GaussianDiffusion.from_config(plain.model, cfg, "cuda",
+                                            sample_spatial_sharding=plan)
+        got, one_s = chain(one)
+    finally:
+        parallel.mesh.destroy()
+    launches = dict(_build.LAUNCH_COUNTS)
+    if plan.world != 1 or one.latency is not None:
+        raise AssertionError(f"12a: a plan of {plan.world} ranks")
+    if any(plan.counts.values()):
+        raise AssertionError(f"12a: collectives {plan.counts} in a group "
+                             "of one")
+    if any(launches.values()):
+        raise AssertionError(f"12a: kernel launches {launches} on the "
+                             "unfused plans")
+    if not torch.equal(got, want):
+        raise AssertionError(
+            f"12a: the group-of-one chain differs from the unsplit chain, "
+            f"max |diff| {(got - want).abs().max().item():.3e}")
+    if not torch.isfinite(want).all() or want.min() < 0 or want.max() > 1:
+        raise AssertionError("12a: the chain's videos are not finite in "
+                             "[0, 1]")
+    log(f"  (a) NCCL group of 1, flagship with the fused plans off, "
+        f"DDPM-{steps}, w = 5, batch 1: bit-equal to the unsplit chain, "
+        f"collectives {plan.counts}, kernel launches 0; unfused chain "
+        f"{one_s:.2f}s in the group, {plain_s:.2f}s without "
+        f"({60.0 / plain_s:.3f} videos/min) on {smi} | "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- (b) two ranks on this card, gloo, staged through the host
+    t0 = time.perf_counter()
+    ref, _ = chain(plain, LATENCY_STEPS)
+    gen = torch.Generator(device="cuda").manual_seed(LATENCY_SEED)
+    x_t = torch.randn(plain.video_shape(1), generator=gen, device="cuda")
+    with torch.no_grad():
+        eps_ref = plain.guided_eps(
+            x_t, torch.full((1,), steps - 1, device="cuda"), cond.cuda(),
+            5.0)
+    del plain, one
+    torch.cuda.empty_cache()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="smoke_latency_", dir=ROOT / "build"))
+    init = f"tcp://127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--latency-rank",
+         str(r), "--latency-init", init, "--latency-out", str(tmp)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+        failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if failed:
+            raise AssertionError("12b: ranks {failed} failed:\n" + "".join(
+                f"--- rank {r} ---\n{o[-3000:]}" for r, o in enumerate(outs)))
+        res = torch.load(tmp / "latency.pt", weights_only=False)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(res["launches"].values()):
+        raise AssertionError(f"12b: kernel launches {res['launches']}")
+    for mode in ("height", "frames"):
+        r = res[mode]
+        marks = r["before_step"] + [r["total"]]
+        per = [{k: b[k] - a[k] for k in a} for a, b in zip(marks, marks[1:])]
+        # the last step also gathers the result
+        last = {**per[0], "all_gather": per[0]["all_gather"] + 1}
+        if any(p != per[0] for p in per[:-1]) or per[-1] != last:
+            raise AssertionError(f"12b {mode}: collectives a step {per}")
+        halo = per[0]["halo"]
+        if (mode == "height") != (halo > 0) or not per[0]["all_gather"]:
+            raise AssertionError(f"12b {mode}: collectives a step {per[0]}")
+        eps_err = _rel(r["eps"].cuda(), eps_ref)
+        chain_err = _rel(r["video"].cuda(), ref)
+        max_err = (r["video"].cuda() - ref).abs().max().item()
+        if not torch.isfinite(r["video"]).all() or \
+                eps_err > LATENCY_TOL or chain_err > LATENCY_TOL:
+            raise AssertionError(
+                f"12b {mode}: eps relative error {eps_err:.3e}, chain "
+                f"{chain_err:.3e} (limit {LATENCY_TOL})")
+        log(f"  (b) {mode} split over 2 ranks (blocks of rank 0 by level "
+            f"{r['blocks']}), {LATENCY_STEPS} steps: first eps relative L2 "
+            f"error {eps_err:.3e} (limit {LATENCY_TOL}), chain "
+            f"{chain_err:.3e} (limit {LATENCY_TOL}, max |diff| "
+            f"{max_err:.3e}); collectives a step {per[0]} (+1 gather of "
+            f"the result); {r['seconds']:.2f}s, "
+            f"{r['seconds'] / LATENCY_STEPS * 1e3:.1f} ms a step: both "
+            f"ranks compute on this card, every collective goes through "
+            f"host memory (gloo), so this is no latency figure")
+    for k in report:
+        report[k]["launches_phase12"] = 0
+    log(f"  (b) two processes on one card | {time.perf_counter() - t0:.1f}s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=256,
@@ -3143,6 +3398,12 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel-only", action="store_true",
                     help="run phases 0, 1 and 11 only (no phase 5 step to "
                          "compare with), and print no result line")
+    ap.add_argument("--latency-only", action="store_true",
+                    help="run phases 0, 1 and 12 only, and print no result "
+                         "line")
+    ap.add_argument("--latency-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--latency-init", help=argparse.SUPPRESS)
+    ap.add_argument("--latency-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -3156,6 +3417,9 @@ def main(argv=None) -> int:
         log("chip_smoke: run from the root of a checkout of the repository")
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.latency_rank is not None:               # a rank of phase 12 (b)
+        latency_rank(args.latency_rank, args.latency_init, args.latency_out)
+        return 0
 
     from videometamaterials_tpu_torch.config import ModelConfig
     from videometamaterials_tpu_torch.ops.cuda import _build
@@ -3187,6 +3451,15 @@ def main(argv=None) -> int:
         log(f"[11 parallel] passed | {time.perf_counter() - t0:.1f}s")
         log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
             "11 only: no result line)")
+        return 0
+
+    if args.latency_only:
+        report = {k: {} for k in _build.LAUNCH_COUNTS}
+        t0 = time.perf_counter()
+        phase_latency(smi, report)
+        log(f"[12 latency] passed | {time.perf_counter() - t0:.1f}s")
+        log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
+            "12 only: no result line)")
         return 0
 
     if args.variants_only:
@@ -3379,6 +3652,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_parallel(smi, report, train["kernel"]["median_ms"])
     log(f"[11 parallel] passed | {time.perf_counter() - t0:.1f}s")
+    torch.cuda.empty_cache()
+
+    # ---- 12 latency: one chain split by height and by frames
+    t0 = time.perf_counter()
+    phase_latency(smi, report)
+    log(f"[12 latency] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

@@ -457,7 +457,8 @@ def test_dryrun_multichip_two_gloo_processes(capsys):
     dryrun_multichip(2, timeout=TIMEOUT)
     out = capsys.readouterr().out
     assert "dryrun_multichip(2): loss=" in out
-    assert "sample=(2, 3, 16, 16, 3) backend=gloo device=cpu OK" in out
+    assert ("sample=(2, 3, 16, 16, 3) latency_mode=(1, 3, 16, 16, 3) "
+            "backend=gloo device=cpu OK") in out
 
 
 def test_entry_is_the_flagships_guided_forward():

@@ -14,6 +14,15 @@ C), [0, 1] at the sampling API and [-1, 1] inside.
 of the guided eps (no thresholding), steps between the timesteps numpy's
 float64 linspace gives, draws a noise every step (eta = 0 included) and
 returns x0 at the last step.
+
+The latency mode (`sample_spatial_sharding`, the JAX field of that name):
+a plan of parallel/latency.py splits one video's DDPM or DDIM chain by
+height or by frames across the ranks of a process group. Every rank
+draws the whole start and step noise from the same generator and keeps
+its part, so the draws are one process's; the dynamic threshold gathers
+|x0| (the quantile of the whole video), the CFG-rescale std all-reduces
+its sums, and the result is gathered whole on every rank. As in JAX it
+runs the unfused plans only. A plan of one rank takes the unsplit code.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ class GaussianDiffusion:
                  loss_type: str = "l1",
                  sampling_timesteps: Optional[int] = None,
                  ddim_sampling_eta: float = 0.0,
+                 sample_spatial_sharding=None,
                  device: torch.device | str = "cpu"):
         sampling_timesteps = sampling_timesteps or timesteps
         if not 0 < sampling_timesteps <= timesteps:
@@ -72,9 +82,23 @@ class GaussianDiffusion:
         self.schedule = make_schedule(timesteps, self.device)
         # the float32 alphas_cumprod on the host, for the DDIM coefficients
         self._abar = self.schedule.alphas_cumprod.cpu().numpy()
+        # the latency mode's plan bound to the model; None for one rank
+        self.latency = None
+        if sample_spatial_sharding is not None:
+            if any(getattr(m, "use_fused_block", False)
+                   for m in model.modules()):
+                raise ValueError(
+                    "sample_spatial_sharding runs the unfused plans "
+                    "(temporal_xla and the plain linear attention): build "
+                    "the model with use_fused_temporal_block=False and "
+                    "use_fused_linear_block=False")
+            bound = sample_spatial_sharding.bind(image_size, num_frames,
+                                                 len(model.downs))
+            self.latency = bound if bound.world > 1 else None
 
     @classmethod
-    def from_config(cls, model, cfg, device) -> "GaussianDiffusion":
+    def from_config(cls, model, cfg, device,
+                    sample_spatial_sharding=None) -> "GaussianDiffusion":
         return cls(model, image_size=cfg.image_size,
                    num_frames=cfg.num_frames, channels=cfg.channels,
                    timesteps=cfg.train_timesteps,
@@ -85,7 +109,9 @@ class GaussianDiffusion:
                    cfg_shared_init=cfg.cfg_shared_init,
                    loss_type=cfg.loss_type,
                    sampling_timesteps=cfg.sampling_timesteps,
-                   ddim_sampling_eta=cfg.ddim_sampling_eta, device=device)
+                   ddim_sampling_eta=cfg.ddim_sampling_eta,
+                   sample_spatial_sharding=sample_spatial_sharding,
+                   device=device)
 
     @property
     def is_ddim_sampling(self) -> bool:
@@ -126,45 +152,55 @@ class GaussianDiffusion:
 
     # ---------------------------------------------------------------- model
     def guided_eps(self, x, t, cond, guidance_scale: float,
-                   cfg_rescale: Optional[float] = None):
+                   cfg_rescale: Optional[float] = None, latency=None):
         """CFG noise prediction: the conditional and the null forward as
         one model call on a doubled batch; with cfg_shared_init the UNet
-        runs its conditioning-free init stage once per latent."""
+        runs its conditioning-free init stage once per latent. `latency`:
+        the bound plan of a split chain (x is this rank's part)."""
         phi = self.cfg_rescale if cfg_rescale is None else cfg_rescale
         b = x.shape[0]
+        kw = {} if latency is None else {"latency": latency}
         if guidance_scale == 1.0:
             return self.model(x, t, cond, null_cond_mask=torch.zeros(
-                b, dtype=torch.bool, device=x.device))
+                b, dtype=torch.bool, device=x.device), **kw)
         t2 = torch.cat([t, t])
         cond2 = torch.cat([cond, cond])
         mask2 = torch.cat([torch.zeros(b, dtype=torch.bool, device=x.device),
                            torch.ones(b, dtype=torch.bool, device=x.device)])
         if self.cfg_shared_init:
             eps2 = self.model(x, t2, cond2, null_cond_mask=mask2,
-                              cfg_tiled_pair=True)
+                              cfg_tiled_pair=True, **kw)
         else:
             eps2 = self.model(torch.cat([x, x]), t2, cond2,
-                              null_cond_mask=mask2)
+                              null_cond_mask=mask2, **kw)
         eps_cond, eps_null = eps2.chunk(2)
         eps = eps_null + (eps_cond - eps_null) * guidance_scale
         if phi > 0.0:
             # CFG rescale (Lin et al. 2023, section 3.4): restore the
             # conditional prediction's per-sample std, blend by phi
-            dims = tuple(range(1, eps.ndim))
-            std_cond = eps_cond.float().std(dim=dims, keepdim=True,
-                                            unbiased=False)
-            std_cfg = eps.float().std(dim=dims, keepdim=True, unbiased=False)
+            if latency is None:
+                dims = tuple(range(1, eps.ndim))
+                std_cond = eps_cond.float().std(dim=dims, keepdim=True,
+                                                unbiased=False)
+                std_cfg = eps.float().std(dim=dims, keepdim=True,
+                                          unbiased=False)
+            else:
+                std_cond, std_cfg = _split_std(
+                    torch.stack([eps_cond, eps]).float(), latency.levels[0])
             rescaled = eps * (std_cond / std_cfg.clamp_min(1e-8)).to(eps.dtype)
             eps = phi * rescaled + (1.0 - phi) * eps
         return eps
 
-    def threshold(self, x_recon):
+    def threshold(self, x_recon, latency=None):
         """Static clip to [-1, 1], or dynamic (Imagen) thresholding at the
         per-sample `dynamic_thres_percentile` quantile of |x0|: 'bisect'
-        finds it with 12 rounds of counting, 'sort' is torch.quantile."""
+        finds it with 12 rounds of counting, 'sort' is torch.quantile.
+        Under a split chain's `latency` the quantile is the whole video's:
+        x0 is gathered and the quantile taken as one process takes it."""
         if not self.use_dynamic_thres:
             return x_recon.clamp(-1.0, 1.0)
-        flat = x_recon.reshape(x_recon.shape[0], -1).abs()
+        whole = x_recon if latency is None else latency.gather(x_recon)
+        flat = whole.reshape(whole.shape[0], -1).abs()
         q = self.dynamic_thres_percentile
         if self.dynamic_thres_method == "sort":
             s = torch.quantile(flat, q, dim=-1)
@@ -184,16 +220,18 @@ class GaussianDiffusion:
         return torch.maximum(torch.minimum(x_recon, s), -s) / s
 
     def p_mean_variance(self, x, t, cond, guidance_scale: float,
-                        cfg_rescale: Optional[float] = None):
-        eps = self.guided_eps(x, t, cond, guidance_scale, cfg_rescale)
-        x_recon = self.threshold(self.predict_start_from_noise(x, t, eps))
+                        cfg_rescale: Optional[float] = None, latency=None):
+        eps = self.guided_eps(x, t, cond, guidance_scale, cfg_rescale,
+                              latency)
+        x_recon = self.threshold(self.predict_start_from_noise(x, t, eps),
+                                 latency)
         return self.q_posterior(x_recon, x, t)
 
     def p_sample(self, x, t, cond, guidance_scale: float, noise,
-                 cfg_rescale: Optional[float] = None):
+                 cfg_rescale: Optional[float] = None, latency=None):
         """One ancestral step with the given standard-normal noise."""
         mean, _, log_var = self.p_mean_variance(x, t, cond, guidance_scale,
-                                                cfg_rescale)
+                                                cfg_rescale, latency)
         nonzero = (t > 0).to(x.dtype).reshape(-1, *((1,) * (x.ndim - 1)))
         return mean + nonzero * torch.exp(0.5 * log_var) * noise
 
@@ -209,30 +247,47 @@ class GaussianDiffusion:
         drawn from `generator`; step i's noise is noise_fn(i), or drawn.
         num_steps runs only the first steps of the same chain (a partial
         chain for time-bounded checks). Returns videos in [0, 1]."""
+        split = self._split_kw()
+
         def step(img, t, noise):
             t = torch.full((img.shape[0],), t, dtype=torch.long,
                            device=self.device)
             return self.p_sample(img, t, cond, guidance_scale, noise,
-                                 cfg_rescale)
+                                 cfg_rescale, **split)
 
         return self._chain(cond, range(self.timesteps - 1, -1, -1), step,
                            generator, x_T, noise_fn, num_steps)
 
+    def _split_kw(self) -> dict:
+        """The step's `latency` argument of a split chain; none unsplit, so
+        an unsplit step is called as before the latency mode."""
+        return {} if self.latency is None else {"latency": self.latency}
+
     def _chain(self, cond, steps, step, generator, x_T, noise_fn, num_steps):
         """img <- step(img, s, noise) over the first num_steps of `steps`
         (all without it), from x_T or a drawn start; step i's noise is
-        noise_fn(i) or drawn from `generator`. Returns videos in [0, 1]."""
+        noise_fn(i) or drawn from `generator`. Returns videos in [0, 1].
+        A split chain (self.latency) steps this rank's part of the whole
+        start and noises and gathers the result."""
         shape = self.video_shape(cond.shape[0])
+        lat = self.latency
 
         def draw():
             return torch.randn(shape, generator=generator,
                                device=self.device, dtype=torch.float32)
 
-        img = draw() if x_T is None else x_T.to(self.device, torch.float32)
+        def part(video):
+            return video if lat is None else lat.local(video)
+
+        img = part(draw() if x_T is None
+                   else x_T.to(self.device, torch.float32))
         if num_steps is not None:
             steps = steps[:num_steps]
         for i, s in enumerate(steps):
-            img = step(img, s, draw() if noise_fn is None else noise_fn(i))
+            img = step(img, s, part(draw() if noise_fn is None
+                                    else noise_fn(i)))
+        if lat is not None:
+            img = lat.gather(img)
         return unnormalize_img(img)
 
     def ddim_pairs(self) -> list[tuple[int, int]]:
@@ -257,13 +312,13 @@ class GaussianDiffusion:
         return float(np.sqrt(alpha_next)), float(c), float(sigma)
 
     def ddim_step(self, x, t: int, t_next: int, cond, guidance_scale: float,
-                  noise, cfg_rescale: Optional[float] = None):
+                  noise, cfg_rescale: Optional[float] = None, latency=None):
         """One DDIM step from t to t_next (x0 at t_next < 0) with the given
         standard-normal noise; x0 is not thresholded."""
         b = x.shape[0]
         t_vec = torch.full((b,), t, dtype=torch.long, device=x.device)
         eps = self.guided_eps(x, t_vec, cond, guidance_scale,
-                              cfg_rescale).float()
+                              cfg_rescale, latency).float()
         x_start = self.predict_start_from_noise(x, t_vec, eps)
         if t_next < 0:
             return x_start
@@ -280,9 +335,11 @@ class GaussianDiffusion:
         """The DDIM chain over ddim_pairs(), with the hooks of
         p_sample_loop (x_T, noise_fn(i) of step i, num_steps). Returns
         videos in [0, 1]."""
+        split = self._split_kw()
+
         def step(img, pair, noise):
             return self.ddim_step(img, *pair, cond, guidance_scale, noise,
-                                  cfg_rescale)
+                                  cfg_rescale, **split)
 
         return self._chain(cond, self.ddim_pairs(), step, generator, x_T,
                            noise_fn, num_steps)
@@ -394,3 +451,15 @@ class GaussianDiffusion:
                                             device=device) < prob_focus_present
         return dict(t=t, noise=noise, null_cond_mask=null_cond_mask,
                     focus_present_mask=focus_present_mask)
+
+
+def _split_std(x32: torch.Tensor, shard) -> tuple[torch.Tensor, ...]:
+    """The per-sample population std of each of the tensors stacked on
+    x32's axis 0, (n, b, ...) split across the ranks: two all-reduces (the
+    sums, then the squared deviations), over the whole element count."""
+    dims = tuple(range(2, x32.ndim))
+    count = shard.whole(x32[0, 0].numel())
+    mean = shard.all_reduce(x32.sum(dim=dims, keepdim=True)) / count
+    var = shard.all_reduce((x32 - mean).square().sum(dim=dims,
+                                                     keepdim=True)) / count
+    return tuple(var.sqrt())

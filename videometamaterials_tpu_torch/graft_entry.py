@@ -5,8 +5,10 @@ entry()             -> (fn, args): the flagship denoiser's guided forward
                        (CFG, w = 5) on seeded weights, on the card.
 dryrun_multichip(n) -> one data-parallel train step (loss, gradients
                        averaged over n ranks, Adam, EMA) of a tiny model,
-                       one example a rank, then one guided sampling chunk of
-                       n at w = 5 split over the ranks; prints one line.
+                       one example a rank, one guided sampling chunk of n
+                       at w = 5 split over the ranks, then the latency
+                       mode: one video's w = 5 chain split by height over
+                       the n ranks; prints one line.
 
     python -m videometamaterials_tpu_torch.graft_entry --dryrun N
 
@@ -172,9 +174,20 @@ def _dryrun_body(n: int) -> str:
                          .numpy(), 5.0, chunk=n, seed=1)
     if vids.shape != shape:
         raise AssertionError(f"sampled {vids.shape}, expected {shape}")
+    # the latency mode (__graft_entry__.py:180-195): one video's chain, its
+    # height split over the ranks, the whole video on every rank
+    latency = GaussianDiffusion.from_config(
+        sampler.model, cfg, dev,
+        sample_spatial_sharding=parallel.spatial_video_sharding())
+    one = latency.sample(torch.zeros((1, cfg.cond_length)), 5.0,
+                         generator=torch.Generator(dev).manual_seed(2))
+    if tuple(one.shape) != (1, *shape[1:]) or not torch.isfinite(one).all():
+        raise AssertionError(f"latency mode: {tuple(one.shape)}, expected "
+                             f"{(1, *shape[1:])} and finite")
     where = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
     line = (f"dryrun_multichip({n}): loss={loss:.4f} sample={vids.shape} "
-            f"backend={backend} device={where} OK")
+            f"latency_mode={tuple(one.shape)} backend={backend} "
+            f"device={where} OK")
     if r == 0:
         print(line, flush=True)
     return line

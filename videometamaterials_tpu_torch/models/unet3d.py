@@ -49,6 +49,12 @@ blocks tile by tile over the spatial positions (`temporal_stiled`), and
 (torch.utils.checkpoint, non-reentrant, so the recompute runs under grad
 as the first pass did and ops/conv.py takes the same rounding branch in
 both).
+
+The latency mode (parallel/latency.py) passes each block the Shard of its
+level: convolutions read halo rows, GroupNorm all-reduces its sums, the
+linear attention its key softmax and context, the mid attention gathers
+its keys and values (height), the temporal blocks theirs (frames); a
+level whose rows do not split runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -119,10 +125,10 @@ class SpatialConv(nn.Module):
         self.stride, self.padding = stride, padding
         self.padding_mode = padding_mode
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
         return conv2d_spatial(x, self.weight[:, :, 0], self.bias,
                               stride=self.stride, padding=self.padding,
-                              padding_mode=self.padding_mode)
+                              padding_mode=self.padding_mode, shard=shard)
 
 
 class SpatialConvTranspose(nn.Module):
@@ -135,9 +141,10 @@ class SpatialConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
         self.padding_mode = padding_mode
 
-    def forward(self, x):
+    def forward(self, x, shard=None):
         return conv_transpose2d_spatial(x, self.weight[:, :, 0], self.bias,
-                                        padding_mode=self.padding_mode)
+                                        padding_mode=self.padding_mode,
+                                        shard=shard)
 
 
 class Conv1x1(nn.Module):
@@ -234,9 +241,10 @@ class Block(nn.Module):
         self.groups = groups
         self.dtype = dtype
 
-    def forward(self, x, scale_shift=None):
-        x = self.proj(x.to(self.dtype))
-        x = group_norm(x, self.norm.weight, self.norm.bias, self.groups)
+    def forward(self, x, scale_shift=None, shard=None):
+        x = self.proj(x.to(self.dtype), shard)
+        x = group_norm(x, self.norm.weight, self.norm.bias, self.groups,
+                       shard=shard)
         if scale_shift is not None:
             scale, shift = scale_shift
             x = (x * (scale[:, None, None, None, :].to(x.dtype) + 1)
@@ -259,12 +267,12 @@ class ResnetBlock(nn.Module):
         self.res_conv = Conv1x1(dim, dim_out) if dim != dim_out else None
         self.dtype = dtype
 
-    def forward(self, x, time_emb=None):
+    def forward(self, x, time_emb=None, shard=None):
         scale_shift = None
         if self.mlp is not None:
             scale_shift = self.mlp(time_emb.float()).chunk(2, dim=-1)
-        h = self.block1(x, scale_shift=scale_shift)
-        h = self.block2(h)
+        h = self.block1(x, scale_shift=scale_shift, shard=shard)
+        h = self.block2(h, shard=shard)
         if self.res_conv is not None:
             x = self.res_conv(x.to(self.dtype))
         return h + x.to(h.dtype)
@@ -302,20 +310,33 @@ class Attention(nn.Module):
         return conv1x1(le, self.to_k.weight), conv1x1(le, self.to_v.weight)
 
     def forward(self, x, pos_bias=None, label_emb=None,
-                use_rotary: bool = False, focus_present_mask=None):
+                use_rotary: bool = False, focus_present_mask=None,
+                shard=None):
         """Generic plan (the JAX Attention.__call__) on (b, s, n, c), n the
         token axis: the mid spatial block (s frames, n pixels, no rotary,
         no position bias) and the temporal blocks under cross-attention (s
         pixels, n frames, rotary and the position bias). Conditioning
         tokens (b, T, cond_dim): per-frame ones (T = s, one in front of
         each frame's keys, the mid block), else shared by every s. The
-        focus-present mask applies only where no tokens are used."""
+        focus-present mask applies only where no tokens are used. With a
+        `shard` (the latency mode) the n tokens are this rank's part of a
+        split token axis (the mid block's rows, or the generic temporal
+        plan's frames): the keys and values of every rank are gathered,
+        the queries, rotary angles and position-bias rows stay this
+        rank's."""
         b, s, n, _ = x.shape
         heads, dh = self.heads, self.dim_head
         hidden = heads * dh
         x = x.to(self.dtype)
-        freqs = (torch.as_tensor(rotary_frequencies(n, min(32, dh)),
-                                 device=x.device) if use_rotary else None)
+        n_all, lo = n, 0
+        if shard is not None:
+            unit = n // (shard.stop - shard.start)     # tokens a row / frame
+            n_all, lo = shard.whole(n), shard.start * unit
+            if pos_bias is not None:
+                pos_bias = pos_bias[:, lo:lo + n]
+        freqs_all = (torch.as_tensor(rotary_frequencies(n_all, min(32, dh)),
+                                     device=x.device) if use_rotary else None)
+        freqs = None if freqs_all is None else freqs_all[lo:lo + n]
         cond_used = self.cond_attention != "none" and label_emb is not None
 
         def split_heads(t):       # (b, s', m, hidden) -> (b, s', heads, m, d)
@@ -330,7 +351,7 @@ class Attention(nn.Module):
             out = stacked_softmax_attention(
                 split_heads(q), split_heads(ek[:, None]),
                 split_heads(ev[:, None]), scale=dh ** -0.5,
-                num_video_tokens=n)
+                num_video_tokens=n_all)
             out = out.permute(0, 1, 3, 2, 4).reshape(b, s, n, hidden)
             return conv1x1(out, self.to_out.weight)
 
@@ -339,6 +360,9 @@ class Attention(nn.Module):
         if freqs is not None:
             q = apply_rotary_heads(q, freqs, heads)
             k = apply_rotary_heads(k, freqs, heads)
+        if shard is not None:
+            k, v = shard.gather(torch.cat([k, v], dim=-1), dim=2,
+                                unit=unit).chunk(2, dim=-1)
         if cond_used:                                 # 'self-stacked'
             ek, ev = self._cond_kv(label_emb)
             if pos_bias is None and self.per_frame_cond:
@@ -350,14 +374,14 @@ class Attention(nn.Module):
             else:
                 t_tok = ek.shape[1]
                 if freqs is not None and self.per_frame_cond:
-                    ek = apply_rotary_heads(ek, freqs, heads)
+                    ek = apply_rotary_heads(ek, freqs_all, heads)
                 ek = ek[:, None].expand(b, s, t_tok, hidden)
                 ev = ev[:, None].expand(b, s, t_tok, hidden)
             k = torch.cat([ek, k], dim=-2)
             v = torch.cat([ev, v], dim=-2)
         out = stacked_softmax_attention(
             split_heads(q), split_heads(k), split_heads(v), scale=dh ** -0.5,
-            num_video_tokens=n, pos_bias=pos_bias,
+            num_video_tokens=n_all, pos_bias=pos_bias,
             pos_bias_on_cond=self.per_frame_cond and cond_used,
             focus_present_mask=None if cond_used else focus_present_mask)
         out = out.permute(0, 1, 3, 2, 4).reshape(b, s, n, hidden)
@@ -462,23 +486,32 @@ class Attention(nn.Module):
             for tile in x_bfsc.split(s_tile, dim=2)], dim=2)
 
     def temporal_xla(self, x_bfsc, norm_gamma, pos_bias, label_emb=None,
-                     focus_present_mask=None):
+                     focus_present_mask=None, shard=None):
         """The unfused plan of the temporal block (the JAX package's
         temporal_xla): LN + folded QKV + joint softmax over [video | cond]
         keys + out-proj + residual, in frames-major (b, f, s, c) layout.
         Scores and weights are stored in the compute dtype, as the JAX plan
         stores them under bf16. The focus-present mask applies only without
-        conditioning tokens, as in the JAX plan."""
+        conditioning tokens, as in the JAX plan. With a frame `shard` (the
+        latency mode) x holds this rank's frames: its queries take their
+        frames' rows of the folded weights and of the position bias, and
+        attend to every rank's keys and values, gathered."""
         b, f, s, _ = x_bfsc.shape
+        f_all, lo = (f, 0) if shard is None else (shard.size, shard.start)
         heads, dh = self.heads, self.dim_head
         hidden = heads * dh
         dt = self.dtype
         y = channel_layer_norm(x_bfsc, norm_gamma).to(dt)
-        w_all, freqs = self._folded_temporal_weights(f)
-        qkv = torch.einsum("bfsc,fch->bfsh", y, w_all.to(dt))
-        q, k, v = (t.reshape(b, f, s, heads, dh).float()
-                   for t in qkv.split(hidden, dim=-1))
-        bias = pos_bias.float().permute(1, 2, 0)[None, :, :, None, :].to(dt)
+        w_all, freqs = self._folded_temporal_weights(f_all)
+        qkv = torch.einsum("bfsc,fch->bfsh", y, w_all[lo:lo + f].to(dt))
+        q, kv = qkv[..., :hidden], qkv[..., hidden:]
+        if shard is not None:
+            kv = shard.gather(kv)
+        q = q.reshape(b, f, s, heads, dh).float()
+        k, v = (t.reshape(b, f_all, s, heads, dh).float()
+                for t in kv.split(hidden, dim=-1))
+        bias = pos_bias.float().permute(1, 2, 0)[None, lo:lo + f, :, None,
+                                                 :].to(dt)
         sim_v = torch.einsum("bishd,bjshd->bijsh", q, k).to(dt) + bias
         ek, ev = self._temporal_cond(label_emb, freqs)
         if ek is not None:
@@ -486,7 +519,7 @@ class Attention(nn.Module):
             ekh = ek.reshape(b, t_tok, heads, dh).float()
             evh = ev.reshape(b, t_tok, heads, dh).float()
             sim_c = torch.einsum("bishd,bthd->bitsh", q, ekh).to(dt)
-            if self._cond_block_biased(f, t_tok):
+            if self._cond_block_biased(f_all, t_tok):
                 sim_c = sim_c + bias
             mx = torch.maximum(sim_v.amax(dim=2, keepdim=True),
                                sim_c.amax(dim=2, keepdim=True)).float()
@@ -499,7 +532,8 @@ class Attention(nn.Module):
                                      (e_c / z).to(dt).float(), evh)
         else:
             if focus_present_mask is not None:
-                eye = torch.eye(f, dtype=torch.bool, device=sim_v.device)
+                eye = torch.eye(f_all, dtype=torch.bool,
+                                device=sim_v.device)[lo:lo + f]
                 allow = eye[None, :, :, None, None] | ~focus_present_mask[
                     :, None, None, None, None]
                 sim_v = sim_v.masked_fill(~allow, NEG_INF)
@@ -556,17 +590,25 @@ class SpatialLinearAttention(nn.Module):
         return tuple(t[:, None].expand(b, f, t_tok, hidden).reshape(
             b * f, t_tok, hidden) for t in (ek, ev))
 
-    def forward(self, x, label_emb=None):
+    def forward(self, x, label_emb=None, shard=None):
         """Unfused plan on the normed input; returns the block's update
-        (b, f, h, w, dim) without the residual."""
+        (b, f, h, w, dim) without the residual. A height `shard` (the
+        latency mode): x holds this rank's rows, and the key softmax runs
+        over every rank's pixels (the conditioning tokens, on every rank,
+        once)."""
         b, f, h, w, c = x.shape
         heads, dh = self.heads, self.dim_head
+        rows = shard if shard is not None and shard.splits_height else None
+        spatial = h * w if rows is None else rows.whole(h * w)
         xf = x.reshape(b * f, h * w, c).to(self.dtype)
         cond_used = self.cond_attention != "none" and label_emb is not None
+        shared = 0
         if self.cond_attention == "cross-attention" and cond_used:
+            # the keys are the tokens alone, whole on every rank
             q = conv1x1(xf, self.to_q.matrix).reshape(b * f, h * w, heads, dh)
             k, v = (t.reshape(b * f, -1, heads, dh)
                     for t in self._cond_kv(label_emb, b, f))
+            rows = None
         else:
             qkv = conv1x1(xf, self.to_qkv.matrix)
             q, k, v = (t.reshape(b * f, h * w, heads, dh)
@@ -575,8 +617,10 @@ class SpatialLinearAttention(nn.Module):
                 ek, ev = self._cond_kv(label_emb, b, f)
                 k = torch.cat([ek.reshape(b * f, -1, heads, dh), k], dim=1)
                 v = torch.cat([ev.reshape(b * f, -1, heads, dh), v], dim=1)
+                shared = k.shape[1] - h * w
         out = linear_attention_tokens_first(q, k, v, scale=dh ** -0.5,
-                                            spatial_size=h * w)
+                                            spatial_size=spatial, shard=rows,
+                                            num_shared=shared)
         out = conv1x1(out.reshape(b * f, h * w, heads * dh),
                       self.to_out.matrix, self.to_out.bias)
         return out.reshape(b, f, h, w, self.dim)
@@ -644,29 +688,38 @@ class TemporalAttentionBlock(nn.Module):
     def bwd(self) -> str:
         return temporal_bwd_mode(self.temporal_vjp, self.fused_bwd_kernels)
 
-    def forward(self, x, pos_bias, label_emb=None, focus_present_mask=None):
+    def forward(self, x, pos_bias, label_emb=None, focus_present_mask=None,
+                shard=None):
+        """`shard` (the latency mode): a frame split gathers the keys and
+        values over the ranks; a height split leaves the block local (each
+        pixel's frames are on one rank) and only the s-tile choice sees
+        the whole frame."""
         b, f, h, w, c = x.shape
         attn = self.fn.fn.fn
+        frames = shard if shard is not None and shard.splits_frames else None
         if self.generic:
             y = channel_layer_norm(x, self.fn.norm.scale)
             y = y.permute(0, 2, 3, 1, 4).reshape(b, h * w, f, c)
             y = attn(y, pos_bias=pos_bias, label_emb=label_emb,
-                     use_rotary=True, focus_present_mask=focus_present_mask)
+                     use_rotary=True, focus_present_mask=focus_present_mask,
+                     shard=frames)
             y = y.reshape(b, h, w, f, c).permute(0, 3, 1, 2, 4)
             return x + y.to(x.dtype)
         x4 = x.reshape(b, f, h * w, c)
+        s_all = h * w if shard is None or frames else shard.whole(h * w)
         if self.use_fused_block and focus_present_mask is None:
             out = attn.temporal_fused(x4, self.fn.norm.scale, pos_bias,
                                       label_emb=label_emb, bwd=self.bwd)
-        elif self.s_tile and focus_present_mask is None \
-                and (h * w) % self.s_tile == 0 and h * w > self.s_tile:
+        elif self.s_tile and focus_present_mask is None and frames is None \
+                and s_all % self.s_tile == 0 and s_all > self.s_tile:
             out = attn.temporal_stiled(x4, self.fn.norm.scale, pos_bias,
                                        label_emb=label_emb,
                                        s_tile=self.s_tile)
         else:
             out = attn.temporal_xla(x4, self.fn.norm.scale, pos_bias,
                                     label_emb=label_emb,
-                                    focus_present_mask=focus_present_mask)
+                                    focus_present_mask=focus_present_mask,
+                                    shard=frames)
         return out.reshape(b, f, h, w, c)
 
 
@@ -682,11 +735,14 @@ class SpatialAttentionBlock(nn.Module):
             dim, heads, dim_head, cond_dim, dtype, cond_attention,
             per_frame_cond)))
 
-    def forward(self, x, label_emb=None):
+    def forward(self, x, label_emb=None, shard=None):
+        """`shard`: a height split gathers the keys and values over the
+        ranks; a frame split leaves the block local."""
         b, f, h, w, c = x.shape
+        rows = shard if shard is not None and shard.splits_height else None
         y = channel_layer_norm(x, self.fn.norm.scale).reshape(b, f, h * w, c)
-        y = self.fn.fn.fn(y, label_emb=label_emb).reshape(b, f, h, w, c)
-        return x + y.to(x.dtype)
+        y = self.fn.fn.fn(y, label_emb=label_emb, shard=rows)
+        return x + y.reshape(b, f, h, w, c).to(x.dtype)
 
 
 class SpatialLinearAttentionBlock(nn.Module):
@@ -706,12 +762,13 @@ class SpatialLinearAttentionBlock(nn.Module):
                                 and cond_attention != "cross-attention")
         self.bwd = bwd
 
-    def forward(self, x, label_emb=None):
+    def forward(self, x, label_emb=None, shard=None):
         gamma = self.fn.norm.scale
         if self.use_fused_block:
             return self.fn.fn.forward_fused(x, gamma, label_emb=label_emb,
                                             bwd=self.bwd)
-        y = self.fn.fn(channel_layer_norm(x, gamma), label_emb=label_emb)
+        y = self.fn.fn(channel_layer_norm(x, gamma), label_emb=label_emb,
+                       shard=shard)
         return x + y.to(x.dtype)
 
 
@@ -721,8 +778,8 @@ class Downsample(SpatialConv):
                          padding_mode=padding_mode)
         self.dtype = dtype
 
-    def forward(self, x):
-        return super().forward(x.to(self.dtype))
+    def forward(self, x, shard=None):
+        return super().forward(x.to(self.dtype), shard)
 
 
 class Upsample(SpatialConvTranspose):
@@ -730,8 +787,8 @@ class Upsample(SpatialConvTranspose):
         super().__init__(dim, padding_mode)
         self.dtype = dtype
 
-    def forward(self, x):
-        return super().forward(x.to(self.dtype))
+    def forward(self, x, shard=None):
+        return super().forward(x.to(self.dtype), shard)
 
 
 # ------------------------------------------------------------------- UNet
@@ -926,17 +983,31 @@ class UNet3D(nn.Module):
                 p.copy_(torch.randn(p.shape, generator=generator)
                         * fan_in ** -0.5)
 
-    def _res(self, block: ResnetBlock, x, t=None):
+    def _res(self, block: ResnetBlock, x, t=None, shard=None):
         """A ResnetBlock, recomputed in the backward under remat_blocks
         (non-reentrant: grad mode stays on in the first pass and in the
         recompute, so both take the same convolution branch)."""
         if self.remat_blocks and torch.is_grad_enabled():
-            return checkpoint(block, x, t, use_reentrant=False,
+            return checkpoint(block, x, t, shard, use_reentrant=False,
                               preserve_rng_state=False)
-        return block(x, t)
+        return block(x, t, shard)
+
+    @staticmethod
+    def _resample(op, x, src, dst):
+        """A Downsample or Upsample (the last level's Identity: x) from a
+        level split as `src` to one split as `dst` (Shards; None: whole on
+        every rank). A split level going down to a whole one is gathered
+        first; a whole level coming up to a split one is sliced after."""
+        if isinstance(op, nn.Identity):
+            return x
+        if src is not None and dst is None:
+            x, src = src.gather(x), None
+        y = op(x, src)
+        return dst.local(y) if src is None and dst is not None else y
 
     def forward(self, x, time, cond, null_cond_mask=None,
-                focus_present_mask=None, cfg_tiled_pair: bool = False):
+                focus_present_mask=None, cfg_tiled_pair: bool = False,
+                latency=None):
         """x: (b, f, h, w, channels) in [-1, 1]; time (b,); cond (b, f)
         per-frame stresses, or (b, cond_length) the whole curve's tail
         without per-frame conditioning; null_cond_mask (b,) bool, True =
@@ -945,8 +1016,16 @@ class UNet3D(nn.Module):
         cfg_tiled_pair, x arrives at batch b while time, cond and the mask
         arrive CFG-folded at 2b: the conditioning-free init stage runs once
         and is tiled to 2b after it (sampling only: no focus mask). Returns
-        the predicted noise, float32, at the time batch."""
+        the predicted noise, float32, at the time batch. `latency`: a plan
+        bound to this model (parallel/latency.py) whose ranks each hold
+        their rows or frames of x; the result is this rank's part too."""
         b, f = x.shape[:2]
+        levels = (latency.levels if latency is not None
+                  else (None,) * len(self.downs))
+        frames = levels[0] if levels[0] is not None \
+            and levels[0].splits_frames else None
+        if frames is not None:
+            f = frames.size
         if cfg_tiled_pair:
             if time.shape[0] != 2 * b:
                 raise ValueError(
@@ -958,9 +1037,10 @@ class UNet3D(nn.Module):
             b = 2 * b
         x = x.to(self.dtype)
         pos_bias = self.time_rel_pos_bias(f)
-        x = self.init_conv(x)
+        x = self.init_conv(x, levels[0])
         fmask = focus_present_mask
-        x = self.init_temporal_attn(x, pos_bias, focus_present_mask=fmask)
+        x = self.init_temporal_attn(x, pos_bias, focus_present_mask=fmask,
+                                    shard=levels[0])
         if cfg_tiled_pair:
             x = torch.cat([x, x], dim=0)
         r = x
@@ -989,35 +1069,44 @@ class UNet3D(nn.Module):
         t = (t_emb + hidden if self.cond_to_time == "add"
              else torch.cat([t_emb, hidden], dim=-1))
         tokens_temporal = tokens if self.use_temporal_attention_cond else None
+        # the spatial blocks of a frame split take their frames' tokens
+        tokens_frames = (frames.local(tokens) if frames is not None
+                         and self.per_frame_cond and tokens is not None
+                         else tokens)
 
-        def lin_block(lin, x):
+        def lin_block(lin, x, shard):
             if not self.use_sparse_linear_attn:
                 return x
-            return lin(x, label_emb=tokens)
+            return lin(x, label_emb=tokens_frames, shard=shard)
 
-        def res(block, x, t_=t):
-            return self._res(block, x, t_)
+        def res(block, x, shard, t_=t):
+            return self._res(block, x, t_, shard)
 
         hs = []
-        for res1, res2, lin, temporal, down in self.downs:
-            x = lin_block(lin, res(res2, res(res1, x)))
+        last = len(levels) - 1
+        for i, (res1, res2, lin, temporal, down) in enumerate(self.downs):
+            sh = levels[i]
+            x = lin_block(lin, res(res2, res(res1, x, sh), sh), sh)
             x = temporal(x, pos_bias, label_emb=tokens_temporal,
-                         focus_present_mask=fmask)
+                         focus_present_mask=fmask, shard=sh)
             hs.append(x)
-            x = down(x)
-        x = res(self.mid_block1, x)
-        x = self.mid_spatial_attn(x, label_emb=tokens)
+            x = self._resample(down, x, sh, levels[min(i + 1, last)])
+        mid = levels[last]
+        x = res(self.mid_block1, x, mid)
+        x = self.mid_spatial_attn(x, label_emb=tokens_frames, shard=mid)
         x = self.mid_temporal_attn(x, pos_bias, label_emb=tokens_temporal,
-                                   focus_present_mask=fmask)
-        x = res(self.mid_block2, x)
-        for res1, res2, lin, temporal, up in self.ups:
+                                   focus_present_mask=fmask, shard=mid)
+        x = res(self.mid_block2, x, mid)
+        for i, (res1, res2, lin, temporal, up) in zip(
+                range(last, -1, -1), self.ups):
+            sh = levels[i]
             x = torch.cat([x, hs.pop()], dim=-1)
-            x = lin_block(lin, res(res2, res(res1, x)))
+            x = lin_block(lin, res(res2, res(res1, x, sh), sh), sh)
             x = temporal(x, pos_bias, label_emb=tokens_temporal,
-                         focus_present_mask=fmask)
-            x = up(x)
+                         focus_present_mask=fmask, shard=sh)
+            x = self._resample(up, x, sh, levels[max(i - 1, 0)])
         x = torch.cat([x, r.to(x.dtype)], dim=-1)
-        x = res(self.final_conv[0], x, None)
+        x = res(self.final_conv[0], x, levels[0], None)
         return self.final_conv[1](x).float()
 
     @classmethod

@@ -8,6 +8,7 @@ results come back in the value dtype.
 from __future__ import annotations
 
 import torch
+import torch.distributed
 
 NEG_INF = -0.7 * torch.finfo(torch.float32).max
 
@@ -26,7 +27,11 @@ def stacked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
     columns too (vddp.py:502-512). focus_present_mask (b,) bool: a True
     sample's queries attend to their own token only (vddp.py:514-524);
     defined only without stacked conditioning tokens (m == n), as in the
-    JAX core. Returns (b, s, h, n, d)."""
+    JAX core. Returns (b, s, h, n, d). Where the latency mode splits the
+    token axis across ranks, q holds this rank's tokens and k, v every
+    rank's: num_video_tokens is then the whole count (which decides the
+    rounding of the weights as in the unsplit call) and pos_bias holds
+    this rank's query rows."""
     n = num_video_tokens
     m = k.shape[-2]
     # the JAX core rounds the weights to v's dtype before the value product
@@ -57,18 +62,50 @@ def stacked_softmax_attention(q: torch.Tensor, k: torch.Tensor,
 
 def linear_attention_tokens_first(q: torch.Tensor, k: torch.Tensor,
                                   v: torch.Tensor, *, scale: float,
-                                  spatial_size: int) -> torch.Tensor:
+                                  spatial_size: int, shard=None,
+                                  num_shared: int = 0) -> torch.Tensor:
     """Linear (efficiency) attention: q softmaxes over its features, k over
     the tokens, v is scaled by 1/spatial_size.
-    q: (B, N, h, d); k, v: (B, M, h, d). Returns (B, N, h, d)."""
+    q: (B, N, h, d); k, v: (B, M, h, d). Returns (B, N, h, d).
+    With a `shard` the tokens are one rank's part of a height-split frame
+    (spatial_size the whole frame's), behind `num_shared` tokens every
+    rank holds (the conditioning); the key softmax and the context run
+    over all ranks' tokens, the shared ones counted once."""
     q32 = q.float()
-    k32 = k.float()
     q32 = torch.exp(q32 - q32.amax(dim=-1, keepdim=True))
     q32 = q32 / q32.sum(dim=-1, keepdim=True)
-    k32 = torch.exp(k32 - k32.amax(dim=1, keepdim=True))
-    k32 = k32 / k32.sum(dim=1, keepdim=True)
+    if shard is None:
+        k32 = k.float()
+        k32 = torch.exp(k32 - k32.amax(dim=1, keepdim=True))
+        k32 = k32 / k32.sum(dim=1, keepdim=True)
+        v32 = v.float() / spatial_size
+        context = torch.einsum("bnhd,bnhe->bhde", k32, v32)
+    else:
+        context = _split_context(k.float(), v.float() / spatial_size, shard,
+                                 num_shared)
     q32 = q32 * scale
-    v32 = v.float() / spatial_size
-    context = torch.einsum("bnhd,bnhe->bhde", k32, v32)
     out = torch.einsum("bhde,bnhd->bnhe", context, q32)
     return out.to(v.dtype)
+
+
+def _split_context(k32, v32, shard, shared: int):
+    """The context sum_n softmax_n(k)[n] v[n] over tokens split across the
+    ranks, the first `shared` tokens on every rank: one MAX all_reduce of
+    the key max, one SUM all_reduce of the exp sum and the unnormalised
+    context, then the shared tokens' terms, added once."""
+    kc, k32 = k32[:, :shared], k32[:, shared:]
+    vc, v32 = v32[:, :shared], v32[:, shared:]
+    mx = shard.all_reduce(k32.amax(dim=1, keepdim=True),
+                          op=torch.distributed.ReduceOp.MAX)
+    if shared:
+        mx = torch.maximum(mx, kc.amax(dim=1, keepdim=True))
+    e = torch.exp(k32 - mx)
+    sums = shard.all_reduce(torch.cat([
+        e.sum(dim=1)[..., None],
+        torch.einsum("bnhd,bnhe->bhde", e, v32)], dim=-1))
+    z, context = sums[..., 0], sums[..., 1:]
+    if shared:
+        ec = torch.exp(kc - mx)
+        z = z + ec.sum(dim=1)
+        context = context + torch.einsum("bnhd,bnhe->bhde", ec, vc)
+    return context / z[..., None]

@@ -36,21 +36,25 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from videometamaterials_tpu_torch.parallel.latency import halo_rows
+
 
 PADDING_MODES = ("zeros", "circular", "circular_1d")
 
 
-def _wrap_pad(x: torch.Tensor, pad: int, mode: str) -> torch.Tensor:
+def _wrap_pad(x: torch.Tensor, pad: int, mode: str,
+              rows: bool = True) -> torch.Tensor:
     """Pad H and W of an NCHW tensor by `pad` in a circular mode: both
-    periodic, or W periodic and H zeros (the JAX _wrap_pad_2d)."""
+    periodic, or W periodic and H zeros (the JAX _wrap_pad_2d). rows=False
+    pads W alone: a height-split tensor's rows come with their halo."""
     if mode not in PADDING_MODES:
         raise ValueError(f"unknown padding mode {mode!r}")
     if mode == "zeros" or pad == 0:
         return x
-    if mode == "circular":
+    if mode == "circular" and rows:
         return F.pad(x, (pad, pad, pad, pad), mode="circular")
     x = F.pad(x, (pad, pad, 0, 0), mode="circular")
-    return F.pad(x, (0, 0, pad, pad))
+    return F.pad(x, (0, 0, pad, pad)) if rows else x
 
 
 def _conv2d(x, weight, bias, *, stride: int, padding: int):
@@ -84,41 +88,70 @@ def _from_nchw(y: torch.Tensor, b: int, f: int) -> torch.Tensor:
     return y.reshape(b, f, *y.shape[1:])
 
 
+def _with_halo(x, shard, rows: tuple[int, int], padding_mode: str):
+    """x's rows with the halo `rows` (above, below) a height-split
+    convolution reads: the neighbours' edge rows, zeros past the global
+    edge, or under 'circular' the other edge's rows."""
+    if padding_mode not in PADDING_MODES:
+        raise ValueError(f"unknown padding mode {padding_mode!r}")
+    return shard.halo(x, *rows, wrap=padding_mode == "circular")
+
+
 def conv2d_spatial(x: torch.Tensor, weight: torch.Tensor,
                    bias: torch.Tensor | None, *, stride: int = 1,
                    padding: int | None = None,
-                   padding_mode: str = "zeros") -> torch.Tensor:
+                   padding_mode: str = "zeros", shard=None) -> torch.Tensor:
     """Spatial conv over a (B, F, H, W, C) video; weight (O, I, kh, kw).
-    `padding` defaults to (k - 1) // 2."""
+    `padding` defaults to (k - 1) // 2. `shard` (parallel/latency.py): x
+    holds one rank's rows of a height-split video, which the convolution
+    reads with their halo; otherwise (None, or a frame split) the rows are
+    whole."""
     kh = weight.shape[-2]
     if padding is None:
         if kh % 2 == 0:
             raise ValueError("default padding needs an odd kernel")
         padding = kh // 2
     b, f = x.shape[:2]
+    split = shard is not None and shard.splits_height
+    if split:
+        x = _with_halo(x, shard, halo_rows(kh, stride, padding),
+                       padding_mode)
     xn = _to_nchw(x)
+    pad_h, pad_w = (0 if split else padding), padding
     if padding_mode != "zeros":
-        xn, padding = _wrap_pad(xn, padding, padding_mode), 0
+        xn, pad_h, pad_w = _wrap_pad(xn, padding, padding_mode,
+                                     rows=not split), 0, 0
     return _from_nchw(_conv2d(xn, weight, bias, stride=stride,
-                              padding=padding), b, f)
+                              padding=(pad_h, pad_w)), b, f)
 
 
 def conv_transpose2d_spatial(x: torch.Tensor, weight: torch.Tensor,
                              bias: torch.Tensor | None, *, stride: int = 2,
                              padding: int = 1,
-                             padding_mode: str = "zeros") -> torch.Tensor:
+                             padding_mode: str = "zeros",
+                             shard=None) -> torch.Tensor:
     """Transposed spatial conv (the Upsample op: kernel 4, stride 2,
     padding 1 -> exact 2x), written as the input-dilated forward conv
     conv_transpose(x, W; s, p) == conv(dilate(x, s), flip(W)^T; k - 1 - p).
     weight: ConvTranspose layout (I, O, kh, kw). In a circular mode the
     input is wrap-padded by k - 1 - p and the dilated result cropped by
-    s + p - 1 a side (the JAX package's negative padding 1 - s - p)."""
+    s + p - 1 a side (the JAX package's negative padding 1 - s - p).
+    `shard`: x holds one rank's rows of a height-split video; its halo
+    rows take the place of the padding of H, so the rank's outputs are
+    rows [s start, s stop) of the whole output."""
     k = weight.shape[-1]
     edge = k - 1 - padding
     b, f = x.shape[:2]
+    split = shard is not None and shard.splits_height
+    if split:
+        rows = halo_rows(k, stride, padding, transposed=True)
+        if stride * rows[0] != edge:
+            raise ValueError("a height split needs (k - 1 - p) to be a "
+                             "multiple of the stride")
+        x = _with_halo(x, shard, rows, padding_mode)
     xn = _to_nchw(x)
     if padding_mode != "zeros":
-        xn = _wrap_pad(xn, edge, padding_mode)
+        xn = _wrap_pad(xn, edge, padding_mode, rows=not split)
     h, w = xn.shape[2:]
     c = xn.shape[1]
     # zeros between the pixels, built channels-last so the NCHW view of it
@@ -126,15 +159,18 @@ def conv_transpose2d_spatial(x: torch.Tensor, weight: torch.Tensor,
     dilated = x.new_zeros((b * f, (h - 1) * stride + 1, (w - 1) * stride + 1,
                            c))
     dilated[:, ::stride, ::stride] = xn.permute(0, 2, 3, 1)
-    pad = edge
+    pad_h = pad_w = edge
     if padding_mode != "zeros":
         crop = stride + padding - 1
-        dilated = dilated[:, crop:dilated.shape[1] - crop,
+        crop_h = 0 if split else crop
+        dilated = dilated[:, crop_h:dilated.shape[1] - crop_h,
                           crop:dilated.shape[2] - crop]
-        pad = 0
+        pad_h = pad_w = 0
+    if split:
+        pad_h = 0
     w_fwd = weight.flip(2, 3).transpose(0, 1)
     return _from_nchw(_conv2d(dilated.permute(0, 3, 1, 2), w_fwd, bias,
-                              stride=1, padding=pad), b, f)
+                              stride=1, padding=(pad_h, pad_w)), b, f)
 
 
 def conv1x1(x: torch.Tensor, weight: torch.Tensor,

@@ -9,6 +9,11 @@ the JAX package's unfused path; the fused kernels and their twins use the
 two-pass form (`one_pass=False`). The JAX package's switch
 VMT_ONEPASS_NORMS is read when the module is imported, as there: "0" or
 "" makes the default two-pass.
+
+In the latency mode (parallel/latency.py) group_norm takes the Shard of a
+tensor split by height or by frames: its sums are all-reduced over the
+ranks and divided by the whole element count (one all_reduce in the
+one-pass form, two in the two-pass form).
 """
 
 from __future__ import annotations
@@ -32,6 +37,26 @@ def _stats(x32: torch.Tensor, dims, one_pass: bool | None):
     return mean, var
 
 
+def _split_stats(x32: torch.Tensor, one_pass: bool | None, shard):
+    """_stats over axes 1 and 3 of a (b, n, groups, c) tensor split across
+    the ranks: the local sums all-reduced, over the whole count of
+    elements."""
+    if one_pass is None:
+        one_pass = ONE_PASS_STATS
+    dims = (1, 3)
+    n = shard.whole(x32.shape[1] * x32.shape[3])
+    total = x32.sum(dim=dims, keepdim=True)
+    if one_pass:
+        sums = shard.all_reduce(torch.stack(
+            [total, x32.square().sum(dim=dims, keepdim=True)])) / n
+        mean = sums[0]
+        return mean, (sums[1] - mean.square()).clamp_min(0.0)
+    mean = shard.all_reduce(total) / n
+    var = shard.all_reduce((x32 - mean).square().sum(dim=dims,
+                                                     keepdim=True)) / n
+    return mean, var
+
+
 def channel_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
                        eps: float = 1e-5,
                        one_pass: bool | None = None) -> torch.Tensor:
@@ -45,14 +70,15 @@ def channel_layer_norm(x: torch.Tensor, gamma: torch.Tensor,
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                num_groups: int, eps: float = 1e-5,
-               one_pass: bool | None = None) -> torch.Tensor:
+               one_pass: bool | None = None, shard=None) -> torch.Tensor:
     """GroupNorm on a channels-last (B, ..., C) tensor: statistics per
     sample and channel group over every other axis (torch GroupNorm on
-    (B, C, F, H, W))."""
+    (B, C, F, H, W)); with a `shard`, over the whole split tensor."""
     b, c = x.shape[0], x.shape[-1]
     if c % num_groups:
         raise ValueError(f"channels {c} not divisible by {num_groups} groups")
     grouped = x.float().reshape(b, -1, num_groups, c // num_groups)
-    mean, var = _stats(grouped, (1, 3), one_pass)
+    mean, var = (_stats(grouped, (1, 3), one_pass) if shard is None
+                 else _split_stats(grouped, one_pass, shard))
     normed = ((grouped - mean) / torch.sqrt(var + eps)).reshape(x.shape)
     return (normed * scale.float() + bias.float()).to(x.dtype)

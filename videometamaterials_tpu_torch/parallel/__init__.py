@@ -1,3 +1,8 @@
+from videometamaterials_tpu_torch.parallel.latency import (  # noqa: F401
+    LatencyPlan,
+    frame_video_sharding,
+    spatial_video_sharding,
+)
 from videometamaterials_tpu_torch.parallel.mesh import (  # noqa: F401
     active,
     all_reduce_mean_,

@@ -21,12 +21,13 @@ mesh does:
     fused_plans switch, the focus mask's bypassed blocks), where JAX
     psums every leaf.
 
-make_mesh, batch_sharding, replicated_sharding and the two video
-shardings have no counterpart here: they are GSPMD objects, and the port
-places one rank on one device with explicit collectives. The latency mode
-(one chain's height or frames split across devices, :105-129) needs
-hand-written halo exchanges and attention collectives; it is not ported
-yet.
+make_mesh, batch_sharding and replicated_sharding have no counterpart
+here: they are GSPMD objects, and the port places one rank on one device
+with explicit collectives. The two video shardings of the latency mode
+(one chain's height or frames split across devices, :105-129) are
+parallel/latency.py's spatial_video_sharding and frame_video_sharding,
+with the halo exchanges and collectives GSPMD would insert written by
+hand.
 
 Without a process group every function here is the one-process identity
 and calls no collective.
