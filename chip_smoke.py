@@ -171,6 +171,31 @@ Phases, each printing its wall time as it finishes:
              a step (halo exchanges by height, none by frames, gathers in
              both) and its seconds. The kernels line gains
              launches_phase12 (0: no kernel is on this path)
+  13 widths  rows 1, 4 and 5 at every shape the TPU kernels take (the
+             any-shape instances, csrc/any_shape.cu, which the wrappers
+             pick from the shape alone outside the specialised set): (a)
+             first every shape the three configurations of (b) give the
+             any-shape instances in a guided step (`width_path_shapes`,
+             level by level), then
+             row 1 over F in WIDTH_F x heads x d in WIDTH_HEADS x C in
+             WIDTH_C x T in WIDTH_T at S = 144 and two shapes at S = 9191,
+             rows 4-5 over the same heads, C and Mc at N = 144 and two at
+             N = 9191, each against its twin at phase 2's tolerances with
+             two launches bit-equal, the any-shape instances against the
+             specialised ones at two flagship shapes, and their times at
+             the configurations' largest shapes; (b) three edits of
+             model.yaml with the fused plans on and seeded weights, wide
+             (unet_dim 128: C = 1024 any-shape), heads4x64 (4 heads of
+             64: every block any-shape) and tokens96 (the CNN hidden
+             broadcast to 96 tokens), one guided eps each within
+             MODEL_TOL of the unfused plans, its launches of each
+             instance and the shapes they were launched at, which must be
+             those (a) checked; (c) the wide model's full guided DDPM-256 chain
+             through the sampling entry (videometamaterials_tpu_torch.
+             sample --config), 16-step chains of heads4x64 and tokens96,
+             their seconds and launches. The kernels line gains the three
+             any-shape rows (launches: the wide chain's) and, on every
+             row, launches_widths, launches_heads4x64, launches_tokens96
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -288,14 +313,15 @@ PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                   "contract_partial", "colsum_kernel")
 # the device functions of the tensor-core kernels (rows 1-8 of PERF.md's
 # kernel table: linear_apply_kernel<C, false> row 5, <C, true> row 8's
-# apply, whose stats pass it shares with rows 6-7; and the contraction of
-# rows 3, 6 and 7): their ptxas resources are printed and their SASS must
-# hold tensor-core instructions (HMMA) and no atomics
+# apply, whose stats pass it shares with rows 6-7; the contraction of rows
+# 3, 6 and 7; and the projections of the any-shape rows 1, 4, 5): their
+# ptxas resources are printed and their SASS must hold tensor-core
+# instructions (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                        "contract_partial", "linear_stats_partial",
                        "linear_apply_kernel", "linear_bwd_stats_kernel",
-                       "linear_bwd_dx_kernel")
+                       "linear_bwd_dx_kernel", "any_gemm_kernel")
 
 
 def log(msg: str) -> None:
@@ -413,6 +439,10 @@ def kernel_resources(info: dict) -> None:
             f"{lib.vmt_linear_block_bwd_smem(c, 0)} B (head layout "
             f"{lib.vmt_linear_block_bwd_smem(c, 2)} B), dx "
             f"{lib.vmt_linear_block_bwd_smem(c, 1)} B")
+    log("  dynamic shared memory of the any-shape attention stage (a block "
+        "of up to 4 warps) at F x d = " + ", ".join(
+            f"{f} x {d}: {lib.vmt_temporal_block_any_smem(f, d)} B"
+            for f, d in ((5, 32), (11, 32), (11, 64), (16, 32), (16, 64))))
     dump = Path(_build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         log("  cuobjdump not in the toolkit: SASS not counted")
@@ -466,40 +496,44 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 # ----------------------------------------------------------------- inputs
 
 
-def temporal_inputs(b, s, c, t_tok, gen):
+def temporal_inputs(b, s, c, t_tok, gen, f=FRAMES, heads=HEADS, d=32):
     import torch
 
     dev, bf = "cuda", torch.bfloat16
+    hd = heads * d
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    w_all = rnd(FRAMES, c, 3 * HIDDEN, scale=c ** -0.5)
-    w_all[..., :HIDDEN] *= 32 ** -0.5           # the folded q scale
+    w_all = rnd(f, c, 3 * hd, scale=c ** -0.5)
+    w_all[..., :hd] *= d ** -0.5                # the folded q scale
     return dict(
-        x=rnd(b, FRAMES, s, c).to(bf), gamma=1 + rnd(c, scale=0.1),
-        w_all=w_all.to(bf), w_out=rnd(HIDDEN, c, scale=HIDDEN ** -0.5).to(bf),
-        ek=rnd(b, t_tok, HIDDEN).to(bf) if t_tok else None,
-        ev=rnd(b, t_tok, HIDDEN).to(bf) if t_tok else None,
-        bias_all=rnd(FRAMES, FRAMES + t_tok, HEADS, scale=0.5))
+        x=rnd(b, f, s, c).to(bf), gamma=1 + rnd(c, scale=0.1),
+        w_all=w_all.to(bf), w_out=rnd(hd, c, scale=hd ** -0.5).to(bf),
+        ek=rnd(b, t_tok, hd).to(bf) if t_tok else None,
+        ev=rnd(b, t_tok, hd).to(bf) if t_tok else None,
+        bias_all=rnd(f, f + t_tok, heads, scale=0.5))
 
 
-def linear_inputs(bf_, n, c, gen, m_c=1):
+def linear_inputs(bf_, n, c, gen, m_c=1, heads=HEADS, d=32):
+    """ctx ~ 32 (d / 32) N(0, 1) keeps the apply's update about as large as
+    x at any d (check_update)."""
     import torch
 
     dev, bf = "cuda", torch.bfloat16
+    hd = heads * d
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     return dict(
         x=rnd(bf_, n, c).to(bf), gamma=1 + rnd(c, scale=0.1),
-        w_qkv=rnd(c, 3 * HIDDEN, scale=c ** -0.5).to(bf),
-        w_out=rnd(HIDDEN, c, scale=HIDDEN ** -0.5).to(bf),
-        out_bias=rnd(c, scale=0.1), ek=rnd(bf_, m_c, HIDDEN).to(bf),
-        ev=rnd(bf_, m_c, HIDDEN).to(bf),
-        ctx=rnd(bf_, HEADS, 32, 32, scale=APPLY_CTX_SCALE),
-        z=1 + rnd(bf_, HIDDEN).abs())
+        w_qkv=rnd(c, 3 * hd, scale=c ** -0.5).to(bf),
+        w_out=rnd(hd, c, scale=hd ** -0.5).to(bf),
+        out_bias=rnd(c, scale=0.1), ek=rnd(bf_, m_c, hd).to(bf),
+        ev=rnd(bf_, m_c, hd).to(bf),
+        ctx=rnd(bf_, heads, d, d, scale=APPLY_CTX_SCALE * d / 32),
+        z=1 + rnd(bf_, hd).abs())
 
 
 def check_cotangents(name, names, got, want):
@@ -533,14 +567,14 @@ def check_cotangents(name, names, got, want):
     return worst, share, at
 
 
-def temporal_cost(b, s, c, t_tok):
+def temporal_cost(b, s, c, t_tok, f=FRAMES, heads=HEADS, hidden=HIDDEN):
     """(bytes, flops): x read and out written once, weights once; QKV
     projection, out-projection, scores and value sums."""
-    act = b * FRAMES * s * c * 2
-    weights = (FRAMES * c * 3 * HIDDEN + HIDDEN * c + 2 * b * t_tok * HIDDEN
-               ) * 2 + FRAMES * (FRAMES + t_tok) * HEADS * 4 + c * 4
-    flops = 2 * b * FRAMES * s * (c * 3 * HIDDEN + HIDDEN * c
-                                  + 2 * (FRAMES + t_tok) * HIDDEN)
+    act = b * f * s * c * 2
+    weights = (f * c * 3 * hidden + hidden * c + 2 * b * t_tok * hidden
+               ) * 2 + f * (f + t_tok) * heads * 4 + c * 4
+    flops = 2 * b * f * s * (c * 3 * hidden + hidden * c
+                             + 2 * (f + t_tok) * hidden)
     return 2 * act + weights, flops
 
 
@@ -564,10 +598,11 @@ def head_cost(bf_, n, c, m_c=1):
                            + 3 * 2 * HIDDEN * 32 + 2 * 2 * HIDDEN * c)
 
 
-def stats_cost(bf_, n, c, m_c=1):
-    nbytes = (bf_ * n * c * 2 + c * 2 * HIDDEN * 2 + 2 * bf_ * m_c * HIDDEN * 2
-              + bf_ * (HEADS * 32 * 32 + HIDDEN) * 4)
-    flops = 2 * bf_ * (n * c * 2 * HIDDEN + (n + m_c) * HEADS * 32 * 32)
+def stats_cost(bf_, n, c, m_c=1, heads=HEADS, d=32):
+    hidden = heads * d
+    nbytes = (bf_ * n * c * 2 + c * 2 * hidden * 2 + 2 * bf_ * m_c * hidden * 2
+              + bf_ * (heads * d * d + hidden) * 4)
+    flops = 2 * bf_ * (n * c * 2 * hidden + (n + m_c) * heads * d * d)
     return nbytes, flops
 
 
@@ -603,10 +638,11 @@ def linear_bwd_cost(bf_, n, c, m_c=1):
     return nbytes, flops
 
 
-def apply_cost(bf_, n, c):
-    nbytes = (2 * bf_ * n * c * 2 + (c * HIDDEN + HIDDEN * c) * 2
-              + bf_ * (HEADS * 32 * 32 + HIDDEN) * 4 + c * 8)
-    flops = 2 * bf_ * n * (c * HIDDEN + HEADS * 32 * 32 + HIDDEN * c)
+def apply_cost(bf_, n, c, heads=HEADS, d=32):
+    hidden = heads * d
+    nbytes = (2 * bf_ * n * c * 2 + (c * hidden + hidden * c) * 2
+              + bf_ * (heads * d * d + hidden) * 4 + c * 8)
+    flops = 2 * bf_ * n * (c * hidden + heads * d * d + hidden * c)
     return nbytes, flops
 
 
@@ -3378,6 +3414,539 @@ def phase_latency(smi: str, report: dict) -> None:
     log(f"  (b) two processes on one card | {time.perf_counter() - t0:.1f}s")
 
 
+# ----------------------------------------------------------------- phase 13
+
+# (a) the any-shape instances of rows 1, 4 and 5 over this grid, at
+# WIDTH_S positions (tokens) a frame: level 3 of a 96 x 96 video
+WIDTH_F = (5, 11, 16)
+WIDTH_HEADS = ((4, 32), (4, 64), (8, 32), (16, 32))
+WIDTH_C = (32, 96, 1024)
+WIDTH_T = (0, 11, 96, 150)
+WIDTH_S = 144
+# off every tile: (F, (heads, d), C, T) of row 1 at S = 9191, and
+# ((heads, d), C, Mc) of rows 4-5 at N = 9191
+WIDTH_RAGGED_TEMPORAL = [(11, (4, 64), 96, 96), (5, (16, 32), 32, 150)]
+WIDTH_RAGGED_LINEAR = [((4, 32), 96, 11), ((8, 32), 32, 0)]
+# (b), (c): model.yaml with these keys changed, and each eps's launches a
+# kernel of a guided step (the CFG pair one batch of 2)
+WIDTH_CONFIGS = {
+    # C = 1024 at level 3 and in the mid block: rows 1, 4, 5 any-shape
+    # there, specialised at C <= 512
+    "wide": (dict(unet_dim=128),
+             dict(fused_temporal_block=8, temporal_block_any=2,
+                  linear_stats=7, linear_stats_any=1, linear_apply=7,
+                  linear_apply_any=1)),
+    # 4 heads of 64: every temporal block any-shape; the linear blocks'
+    # 4 x 32 = 128 passes the JAX gate and runs any-shape
+    "heads4x64": (dict(unet_attn_heads=4, unet_attn_dim_head=64),
+                  dict(temporal_block_any=10, linear_stats_any=8,
+                       linear_apply_any=8)),
+    # the CNN hidden broadcast to 96 tokens: 107 keys a position in every
+    # temporal block but the init block's
+    "tokens96": (dict(per_frame_cond="false", unet_cond_attention_tokens=96),
+                 dict(fused_temporal_block=1, temporal_block_any=9,
+                      linear_stats=8, linear_apply=8)),
+}
+WIDTH_CHAIN_STEPS = 16  # (c): the chains of heads4x64 and tokens96
+ANY_ROWS = ("temporal_block_any", "linear_stats_any", "linear_apply_any")
+
+
+def width_yaml(root: Path, name: str) -> Path:
+    """model.yaml with the keys of WIDTH_CONFIGS[name] changed, written to
+    root/<name>.yaml."""
+    import re
+
+    text = (ROOT / "model.yaml").read_text()
+    for key, value in WIDTH_CONFIGS[name][0].items():
+        text, n = re.subn(rf"^{key}:.*$", f"{key}: {value}", text,
+                          flags=re.M)
+        if n != 1:
+            raise AssertionError(f"model.yaml has no line {key}")
+    path = root / f"{name}.yaml"
+    path.write_text(text)
+    return path
+
+
+def width_path_shapes(cfg, batch: int = 1) -> tuple[set, set]:
+    """The shapes at which one guided eps of cfg's model at `batch` latents
+    (the CFG pair doubles it) launches the any-shape instances, UNet3D's
+    blocks level by level: row 1's (B', F, S, C, T, heads, d) and rows
+    4-5's (B'F, N, C, Mc, heads, d). The init block has no tokens and,
+    with cfg_shared_init, runs once a latent; the linear blocks' heads are
+    32 wide."""
+    import torch
+
+    from videometamaterials_tpu_torch.models.unet3d import UNet3D
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    with torch.device("meta"):
+        model = UNet3D.from_config(cfg)
+    f, heads, d = cfg.num_frames, cfg.unet_attn_heads, cfg.unet_attn_dim_head
+    b2 = 2 * batch
+    chans = [cfg.unet_dim, *(cfg.unet_dim * m for m in cfg.dim_mults)]
+    sizes = [(cfg.image_size >> i) ** 2 for i in range(len(cfg.dim_mults))]
+    stacked = model.cond_attention == "self-stacked"
+    t_tok = (model.num_tokens if stacked
+             and model.use_temporal_attention_cond else 0)
+    m_c = 0 if not stacked else 1 if model.per_frame_cond else t_tok
+    # (block, B', S, C, T) of every temporal and linear block
+    blocks = [(model.init_temporal_attn,
+               batch if cfg.cfg_shared_init else b2, sizes[0], chans[0], 0)]
+    for i, level in enumerate(model.downs):
+        blocks += [(level[k], b2, sizes[i], chans[i + 1], t_tok)
+                   for k in (2, 3)]
+    blocks.append((model.mid_temporal_attn, b2, sizes[-1], chans[-1],
+                   t_tok))
+    for i, level in enumerate(model.ups):
+        lvl = len(sizes) - 1 - i
+        blocks += [(level[k], b2, sizes[lvl], chans[lvl], t_tok)
+                   for k in (2, 3)]
+    temporal, linear = set(), set()
+    for block, b, s, c, t in blocks:
+        if not getattr(block, "use_fused_block", False):
+            continue
+        if hasattr(block, "temporal_vjp"):
+            if tmp.forward_instance(f, heads, d, c, t) == tmp.ANY_SHAPE:
+                temporal.add((b, f, s, c, t, heads, d))
+        elif lin.forward_instance(heads, 32, c) == lin.ANY_SHAPE:
+            linear.add((b * f, s, c, m_c, heads, 32))
+    return temporal, linear
+
+
+def width_path_kernels(root: Path) -> dict:
+    """13 (a), first: the any-shape instances against their twins at every
+    shape `width_path_shapes` gives them in each configuration of
+    WIDTH_CONFIGS (seeded inputs, phase 2's tolerances, two launches
+    bit-equal). Returns {name: (row 1's shapes, rows 4-5's)}."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+
+    gen = torch.Generator(device="cuda").manual_seed(130)
+    shapes = {}
+    for name in WIDTH_CONFIGS:
+        cfg = load_model_yaml(width_yaml(root, name))
+        temporal, linear = shapes[name] = width_path_shapes(cfg)
+        errs = [0.0, 0.0, 0.0]
+        for b, f, s, c, t, heads, d in sorted(temporal):
+            a = temporal_inputs(b, s, c, t, gen, f, heads, d)
+            errs[0] = max(errs[0], width_temporal_check(
+                a, heads, f"{name} path: temporal any B'={b} F={f} S={s} "
+                f"C={c} T={t} {heads}x{d}"))
+        for bf_, n, c, m_c, heads, d in sorted(linear):
+            a = linear_inputs(bf_, n, c, gen, m_c, heads, d)
+            err_s, err_a = width_linear_check(
+                a, heads, f"{name} path: linear any BF={bf_} N={n} C={c} "
+                f"Mc={m_c} {heads}x{d}")
+            errs[1], errs[2] = max(errs[1], err_s), max(errs[2], err_a)
+        log(f"  {name} path shapes: row 1 at {len(temporal)} "
+            f"(B', F, S, C, T, heads, d) {sorted(temporal)}, max_abs_err "
+            f"{errs[0]:.3e}; rows 4-5 at {len(linear)} (B'F, N, C, Mc, "
+            f"heads, d) {sorted(linear)}, stats {errs[1]:.3e}, apply update "
+            f"{errs[2]:.3e}; two launches bit-equal")
+    return shapes
+
+
+def _recording_shapes(temporal: set, linear: set):
+    """A context in which each launch of an any-shape instance adds its
+    shape to `temporal` (row 1, as width_path_shapes) or `linear` (rows
+    4-5: the stats' shape; the apply's must be one of them)."""
+    import contextlib
+    from unittest import mock
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    fwd_any, stats_any, apply_any = tmp._fwd_any, lin._stats_any, \
+        lin._apply_any
+    applied = set()
+
+    def fwd(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
+        temporal.add((*x.shape, 0 if ek is None else ek.shape[1], heads,
+                      w_out.shape[0] // heads))
+        return fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
+
+    def stats(x, gamma, w_qkv, ek, ev, *, heads, spatial_size):
+        linear.add((*x.shape, 0 if ek is None else ek.shape[1], heads,
+                    w_qkv.shape[1] // (3 * heads)))
+        return stats_any(x, gamma, w_qkv, ek, ev, heads=heads,
+                         spatial_size=spatial_size)
+
+    def apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads, scale):
+        applied.add((*x.shape, heads, w_qkv.shape[1] // (3 * heads)))
+        return apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z,
+                         heads=heads, scale=scale)
+
+    @contextlib.contextmanager
+    def ctx():
+        with mock.patch.object(tmp, "_fwd_any", fwd), \
+                mock.patch.object(lin, "_stats_any", stats), \
+                mock.patch.object(lin, "_apply_any", apply):
+            yield
+        stats_shapes = {(*s[:3], *s[4:]) for s in linear}
+        if applied != stats_shapes:
+            raise AssertionError(f"the apply ran at {sorted(applied)}, the "
+                                 f"stats at {sorted(stats_shapes)}")
+
+    return ctx()
+
+
+def _launched(name: str, fn):
+    """fn() with the launches of `name` it made (the wrapper's count)."""
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    before = _build.LAUNCH_COUNTS[name]
+    out = fn()
+    return out, _build.LAUNCH_COUNTS[name] - before
+
+
+def width_temporal_check(a, heads, what):
+    """Row 1's any-shape instance on `a`: two launches bit-equal, one each,
+    within BF16_TOL of the twin; returns the max error."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    b, f, s, c = a["x"].shape
+    d = a["w_out"].shape[0] // heads
+    t_tok = 0 if a["ek"] is None else a["ek"].shape[1]
+    if tmp.forward_instance(f, heads, d, c, t_tok) != tmp.ANY_SHAPE:
+        raise AssertionError(f"{what}: routed to the specialised instance")
+    out, n1 = _launched("temporal_block_any",
+                        lambda: tmp.temporal_block_fwd(**a, heads=heads))
+    again, n2 = _launched("temporal_block_any",
+                          lambda: tmp.temporal_block_fwd(**a, heads=heads))
+    if (n1, n2) != (1, 1):
+        raise AssertionError(f"{what}: {n1} + {n2} any-shape launches")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{what}: two launches give different bits")
+    return check_close(what, out, tmp.temporal_block_plain(**a, heads=heads),
+                       BF16_TOL)
+
+
+def width_linear_check(a, heads, what):
+    """Rows 4 and 5's any-shape instances on `a`: each two launches
+    bit-equal, one each; stats within CTX_SHARE of the summands' magnitude
+    (ctx) and STATS_TOL (z), the apply's update within APPLY_TOL; returns
+    (the stats' max error, the apply's)."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    bf_, n, c = a["x"].shape
+    d = a["w_out"].shape[0] // heads
+    if lin.forward_instance(heads, d, c) != lin.ANY_SHAPE:
+        raise AssertionError(f"{what}: routed to the specialised instances")
+    kw = dict(heads=heads, spatial_size=n)
+    sargs = (a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"])
+    (ctx_k, z_k), n1 = _launched("linear_stats_any",
+                                 lambda: lin.linear_stats(*sargs, **kw))
+    (ctx_2, z_2), n2 = _launched("linear_stats_any",
+                                 lambda: lin.linear_stats(*sargs, **kw))
+    if (n1, n2) != (1, 1):
+        raise AssertionError(f"{what}: {n1} + {n2} stats launches")
+    if not (torch.equal(ctx_k, ctx_2) and torch.equal(z_k, z_2)):
+        raise AssertionError(f"{what}: stats launches give different bits")
+    ctx_p, z_p = lin.linear_stats_plain(*sargs, **kw)
+    err_s, _ = check_ctx(f"{what} ctx", ctx_k, ctx_p,
+                         lin.linear_stats_magnitude(*sargs, **kw))
+    err_s = max(err_s, check_close(f"{what} z", z_k, z_p, STATS_TOL))
+    akw = dict(heads=heads, scale=d ** -0.5)
+    aargs = (a["x"], a["gamma"], a["w_qkv"], a["w_out"], a["out_bias"],
+             a["ctx"], a["z"])
+    out, n1 = _launched("linear_apply_any",
+                        lambda: lin.linear_apply(*aargs, **akw))
+    again, n2 = _launched("linear_apply_any",
+                          lambda: lin.linear_apply(*aargs, **akw))
+    if (n1, n2) != (1, 1) or not torch.equal(out, again):
+        raise AssertionError(f"{what}: apply launches {n1} + {n2}, or "
+                             "different bits")
+    err_a = check_update(f"{what} apply", out,
+                         lin.linear_apply_plain(*aargs, **akw), a["x"],
+                         a["out_bias"])
+    return err_s, err_a
+
+
+def width_kernels(report, root: Path) -> dict:
+    """13 (a): the any-shape instances against their twins at the
+    configurations' path shapes (`width_path_kernels`, whose shapes it
+    returns), then over the grid (WIDTH_F x WIDTH_HEADS x WIDTH_C x WIDTH_T for row 1, WIDTH_HEADS x
+    WIDTH_C x WIDTH_T as Mc for rows 4-5, 2 batch rows / 22 frames of
+    WIDTH_S positions) and at 9191 positions, two launches bit-equal; the
+    any-shape instances against the specialised ones at two flagship
+    shapes; and each instance's time at the three configurations'
+    largest shapes."""
+    import itertools
+
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    path_shapes = width_path_kernels(root)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst = dict.fromkeys(ANY_ROWS, 0.0)
+    n_t = 0
+    for f, (heads, d), c, t_tok in itertools.product(
+            WIDTH_F, WIDTH_HEADS, WIDTH_C, WIDTH_T):
+        a = temporal_inputs(2, WIDTH_S, c, t_tok, gen, f, heads, d)
+        err = width_temporal_check(a, heads, f"temporal any F={f} "
+                                   f"{heads}x{d} C={c} T={t_tok}")
+        worst["temporal_block_any"] = max(worst["temporal_block_any"], err)
+        n_t += 1
+    for f, (heads, d), c, t_tok in WIDTH_RAGGED_TEMPORAL:
+        a = temporal_inputs(2, 9191, c, t_tok, gen, f, heads, d)
+        err = width_temporal_check(a, heads, f"temporal any F={f} "
+                                   f"{heads}x{d} C={c} T={t_tok} S=9191")
+        worst["temporal_block_any"] = max(worst["temporal_block_any"], err)
+        n_t += 1
+    log(f"  row 1 any-shape: {n_t} shapes (F in {WIDTH_F}, heads x d in "
+        f"{WIDTH_HEADS}, C in {WIDTH_C}, T in {WIDTH_T}, S = {WIDTH_S}; "
+        f"{len(WIDTH_RAGGED_TEMPORAL)} at S = 9191): two launches bit-equal, "
+        f"max_abs_err {worst['temporal_block_any']:.3e} (tol {BF16_TOL})")
+    n_l = 0
+    for (heads, d), c, m_c in itertools.product(WIDTH_HEADS, WIDTH_C,
+                                                WIDTH_T):
+        a = linear_inputs(22, WIDTH_S, c, gen, m_c, heads, d)
+        err_s, err_a = width_linear_check(
+            a, heads, f"linear any {heads}x{d} C={c} Mc={m_c}")
+        worst["linear_stats_any"] = max(worst["linear_stats_any"], err_s)
+        worst["linear_apply_any"] = max(worst["linear_apply_any"], err_a)
+        n_l += 1
+    for (heads, d), c, m_c in WIDTH_RAGGED_LINEAR:
+        a = linear_inputs(22, 9191, c, gen, m_c, heads, d)
+        err_s, err_a = width_linear_check(
+            a, heads, f"linear any {heads}x{d} C={c} Mc={m_c} N=9191")
+        worst["linear_stats_any"] = max(worst["linear_stats_any"], err_s)
+        worst["linear_apply_any"] = max(worst["linear_apply_any"], err_a)
+        n_l += 1
+    log(f"  rows 4-5 any-shape: {n_l} shapes (heads x d in {WIDTH_HEADS}, "
+        f"C in {WIDTH_C}, Mc in {WIDTH_T}, N = {WIDTH_S}; "
+        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191): each two launches "
+        f"bit-equal, stats max_abs_err {worst['linear_stats_any']:.3e} "
+        f"(ctx tol {CTX_SHARE:.2e} of its summands' magnitude, z "
+        f"{STATS_TOL}), apply update err {worst['linear_apply_any']:.3e} "
+        f"(tol {APPLY_TOL} of its max)")
+
+    # the any-shape instances against the specialised ones (flagship)
+    for b, s, c in ((2, 9216, 64), (2, 144, 512)):
+        a = temporal_inputs(b, s, c, FRAMES, gen)
+        spec = tmp.temporal_block_fwd(**a, heads=HEADS)
+        err_t = check_close(f"temporal any vs specialised {b, s, c}",
+                            tmp._fwd_any(**a, heads=HEADS), spec, BF16_TOL)
+        bf_ = b * FRAMES
+        la = linear_inputs(bf_, s, c, gen)
+        kw = dict(heads=HEADS, spatial_size=s)
+        sargs = (la["x"], la["gamma"], la["w_qkv"], la["ek"], la["ev"])
+        ctx_s, z_s = lin.linear_stats(*sargs, **kw)
+        ctx_a, z_a = lin._stats_any(*sargs, **kw)
+        err_s, _ = check_ctx(f"stats any vs specialised {bf_, s, c}", ctx_a,
+                             ctx_s, lin.linear_stats_magnitude(*sargs, **kw))
+        err_s = max(err_s, check_close(f"z any vs specialised {bf_, s, c}",
+                                       z_a, z_s, STATS_TOL))
+        aargs = (la["x"], la["gamma"], la["w_qkv"], la["w_out"],
+                 la["out_bias"], la["ctx"], la["z"])
+        akw = dict(heads=HEADS, scale=32 ** -0.5)
+        err_a = check_update(f"apply any vs specialised {bf_, s, c}",
+                             lin._apply_any(*aargs, **akw),
+                             lin.linear_apply(*aargs, **akw), la["x"],
+                             la["out_bias"])
+        log(f"  flagship shape (B'={b}, S={s}, C={c}, T=11): any-shape "
+            f"against specialised, temporal {err_t:.3e}, stats {err_s:.3e}, "
+            "apply update {:.3e}".format(err_a))
+
+    # times at the configurations' largest any-shape launches
+    timed = [("wide", 2, 11, 144, 1024, 11, 8, 32),
+             ("heads4x64", 2, 11, 9216, 64, 11, 4, 64),
+             ("tokens96", 2, 11, 9216, 64, 96, 8, 32)]
+    for name, b, f, s, c, t_tok, heads, d in timed:
+        a = temporal_inputs(b, s, c, t_tok, gen, f, heads, d)
+        width_temporal_check(a, heads, f"temporal any timed ({name})")
+        ms = cuda_ms(lambda: tmp.temporal_block_fwd(**a, heads=heads))
+        plain_ms = cuda_ms(lambda: tmp.temporal_block_plain(**a, heads=heads),
+                           reps=2, warmup=1)
+        cost = temporal_cost(b, s, c, t_tok, f=f, heads=heads,
+                             hidden=heads * d)
+        bound_ms, by = bound(*cost)
+        log(f"  temporal any ({name}: B'={b} F={f} S={s} C={c} T={t_tok} "
+            f"{heads}x{d}): {ms:.3f} ms ({rate(ms, cost[1], bound_ms)}), "
+            f"twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+        if name == "heads4x64":
+            report["temporal_block_any"].update(
+                max_abs_err=worst["temporal_block_any"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                shape=[b, f, s, c, t_tok, heads, d])
+    for name, bf_, n, c, m_c, heads, d in (
+            ("wide", 22, 144, 1024, 1, 8, 32),
+            ("heads4x64", 22, 9216, 64, 1, 4, 32)):
+        a = linear_inputs(bf_, n, c, gen, m_c, heads, d)
+        kw = dict(heads=heads, spatial_size=n)
+        sargs = (a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"])
+        aargs = (a["x"], a["gamma"], a["w_qkv"], a["w_out"], a["out_bias"],
+                 a["ctx"], a["z"])
+        akw = dict(heads=heads, scale=d ** -0.5)
+        width_linear_check(a, heads, f"linear any timed ({name})")
+        rows = {
+            "linear_stats_any": (
+                lambda: lin.linear_stats(*sargs, **kw),
+                lambda: lin.linear_stats_plain(*sargs, **kw),
+                stats_cost(bf_, n, c, m_c, heads=heads, d=d)),
+            "linear_apply_any": (
+                lambda: lin.linear_apply(*aargs, **akw),
+                lambda: lin.linear_apply_plain(*aargs, **akw),
+                apply_cost(bf_, n, c, heads=heads, d=d))}
+        for row, (kernel, plain, cost) in rows.items():
+            ms = cuda_ms(kernel)
+            plain_ms = cuda_ms(plain, reps=2, warmup=1)
+            bound_ms, by = bound(*cost)
+            log(f"  {row} ({name}: BF={bf_} N={n} C={c} Mc={m_c} "
+                f"{heads}x{d}): {ms:.3f} ms ({rate(ms, cost[1], bound_ms)}), "
+                f"twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+            if name == "heads4x64":
+                report[row].update(
+                    max_abs_err=worst[row], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=by,
+                    shape=[bf_, n, c, m_c, heads, d])
+    return path_shapes
+
+
+def width_models(root: Path, path_shapes: dict) -> dict:
+    """13 (b): each configuration's guided eps at batch 1, fused plans
+    against unfused, its launches a kernel, and the shapes of the
+    any-shape launches, which must be path_shapes[name] (those 13 (a)
+    checked). Returns the relative errors."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.sample import build_sampler
+
+    rels = {}
+    for name, (_, per_step) in WIDTH_CONFIGS.items():
+        t0 = time.perf_counter()
+        cfg = load_model_yaml(width_yaml(root, name))
+        diffusion = build_sampler(cfg, device="cuda", seed=0)
+        _build.reset_launch_counts()
+        temporal, linear = set(), set()
+        with _recording_shapes(temporal, linear):
+            rels[name] = rel = phase_model(diffusion, cfg)
+        torch.cuda.synchronize()
+        if (temporal, linear) != path_shapes[name]:
+            raise AssertionError(
+                f"13b {name} eps: any-shape launches at {sorted(temporal)} "
+                f"and {sorted(linear)}, 13 (a) checked "
+                f"{[sorted(x) for x in path_shapes[name]]}")
+        counts = dict(_build.LAUNCH_COUNTS)
+        want = {k: per_step.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"13b {name} eps: launch counts {counts}, "
+                                 f"expected {want}")
+        params = sum(p.numel() for p in diffusion.model.parameters())
+        log(f"  {name} ({params / 1e6:.1f} M parameters): guided eps fused "
+            f"vs unfused plans, relative error {rel:.3e} (limit "
+            f"{MODEL_TOL}); launches {_nonzero(counts)} | "
+            f"{time.perf_counter() - t0:.1f}s")
+        del diffusion
+        torch.cuda.empty_cache()
+    return rels
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def width_chain(root: Path, name: str, steps: int, smi: str) -> dict:
+    """13 (c): the guided DDPM chain of one video through the sampling
+    entry (videometamaterials_tpu_torch.sample, --config), from the
+    counters at zero: its launches (WIDTH_CONFIGS' a step), seconds, and
+    finite videos of the right shape (in [0, 1] after the whole chain)."""
+    import numpy as np
+    import torch
+
+    from videometamaterials_tpu_torch import sample
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    out = root / f"{name}_samples"
+    argv = ["--out-dir", str(out), "--config", str(width_yaml(root, name)),
+            "--seed", "0", "--guidance-scale", "5"]
+    if steps != 256:
+        argv += ["--num-steps", str(steps)]
+    _build.reset_launch_counts()
+    meta = sample.main(argv)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCH_COUNTS)
+    want = {k: WIDTH_CONFIGS[name][1].get(k, 0) * steps for k in counts}
+    if counts != want:
+        raise AssertionError(f"13c {name} chain: launch counts {counts}, "
+                             f"expected {want}")
+    videos = np.load(out / "videos.npy")
+    if videos.shape != (1, FRAMES, 96, 96, 3) or not np.isfinite(
+            videos).all():
+        raise AssertionError(f"13c {name}: videos {videos.shape}, finite "
+                             f"{np.isfinite(videos).all()}")
+    lo, hi = float(videos.min()), float(videos.max())
+    if steps == 256 and (lo < 0.0 or hi > 1.0):
+        raise AssertionError(f"13c {name}: videos outside [0, 1]")
+    log(f"  {name} chain through sample.py --config, {steps} steps, batch 1 "
+        f"(CFG pair 2), w=5: {meta['seconds']:.2f}s "
+        f"({meta['seconds'] / steps * 1e3:.1f} ms a step) on {smi}; "
+        f"launches {_nonzero(counts)}; videos {videos.shape} finite in "
+        f"[{lo:.3f}, {hi:.3f}]")
+    return dict(counts=counts, seconds=meta["seconds"])
+
+
+def phase_widths(smi: str, report: dict) -> None:
+    """13 widths: the sampling kernels at every shape (see the module
+    docstring). The kernels line gains launches_widths (the wide chain),
+    launches_heads4x64 and launches_tokens96 (their 16-step chains); the
+    any-shape rows' `launches` is the wide chain's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    t0 = time.perf_counter()
+    report["temporal_block_any"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/any_shape.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_temporal_block.py:82")
+    report["linear_stats_any"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/any_shape.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:102")
+    report["linear_apply_any"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/any_shape.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:146")
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="smoke_widths_", dir=ROOT / "build"))
+    try:
+        path_shapes = width_kernels(report, root)
+        torch.cuda.synchronize()
+        log(f"[13a kernels] the any-shape instances match their twins | "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        width_models(root, path_shapes)
+        log(f"[13b model] guided eps of the three configurations | "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        chains = {name: width_chain(root, name, steps, smi) for name, steps in
+                  (("wide", 256), ("heads4x64", WIDTH_CHAIN_STEPS),
+                   ("tokens96", WIDTH_CHAIN_STEPS))}
+        for name, res in chains.items():
+            for k, v in res["counts"].items():
+                report[k][f"launches_{'widths' if name == 'wide' else name}"] = v
+        for k in ANY_ROWS:
+            report[k]["launches"] = chains["wide"]["counts"][k]
+            report[k]["library_ms"] = None
+        log(f"[13c chain] wide DDPM-256 {chains['wide']['seconds']:.2f}s; "
+            f"heads4x64 and tokens96 {WIDTH_CHAIN_STEPS} steps "
+            f"{chains['heads4x64']['seconds']:.2f}s / "
+            f"{chains['tokens96']['seconds']:.2f}s | "
+            f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=256,
@@ -3400,6 +3969,9 @@ def main(argv=None) -> int:
                          "compare with), and print no result line")
     ap.add_argument("--latency-only", action="store_true",
                     help="run phases 0, 1 and 12 only, and print no result "
+                         "line")
+    ap.add_argument("--widths-only", action="store_true",
+                    help="run phases 0, 1 and 13 only, and print no result "
                          "line")
     ap.add_argument("--latency-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--latency-init", help=argparse.SUPPRESS)
@@ -3460,6 +4032,15 @@ def main(argv=None) -> int:
         log(f"[12 latency] passed | {time.perf_counter() - t0:.1f}s")
         log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
             "12 only: no result line)")
+        return 0
+
+    if args.widths_only:
+        report = {k: {} for k in _build.LAUNCH_COUNTS}
+        t0 = time.perf_counter()
+        phase_widths(smi, report)
+        log(f"[13 widths] passed | {time.perf_counter() - t0:.1f}s")
+        log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
+            "13 only: no result line)")
         return 0
 
     if args.variants_only:
@@ -3658,6 +4239,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_latency(smi, report)
     log(f"[12 latency] passed | {time.perf_counter() - t0:.1f}s")
+
+    # ---- 13 widths: rows 1, 4, 5 at every shape, three configurations
+    t0 = time.perf_counter()
+    phase_widths(smi, report)
+    log(f"[13 widths] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

@@ -202,13 +202,18 @@ def test_linear_head_kernel_does_not_clamp(cuda):
 
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
+    """A CUDA tensor of a shape or type no instance takes raises: row 1 in
+    float32, and the training rows (the backward kernel) at C = 48, which
+    only the forward's any-shape instance takes."""
     x = torch.zeros((2, 11, 16, 48), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="C in"):
-        tmp.fused_temporal_block(
-            x, torch.ones(48, device="cuda"),
+    args = (torch.ones(48, device="cuda"),
             torch.zeros((11, 48, 768), dtype=torch.bfloat16, device="cuda"),
             torch.zeros((256, 48), dtype=torch.bfloat16, device="cuda"),
-            None, None, torch.zeros((11, 11, 8), device="cuda"), heads=8)
+            None, None, torch.zeros((11, 11, 8), device="cuda"))
+    with pytest.raises(ValueError, match="bf16"):
+        tmp.fused_temporal_block(x.float(), *args, heads=8)
+    with pytest.raises(ValueError, match="C in"):
+        tmp.temporal_block_bwd(x, *args, x, heads=8)
 
 
 # ------------------------------------------------------------ backward
@@ -771,9 +776,13 @@ def test_temporal_kernels_at_the_ablation_token_counts(cuda, s, c, t_tok):
 
 
 def test_temporal_kernels_refuse_a_count_above_the_maximum(cuda):
+    """Rows 2 and 3 take at most MAX_COND_TOKENS tokens (row 1's any-shape
+    instance takes more)."""
     args = _temporal_args(cuda, 1, 37, 64, tmp.MAX_COND_TOKENS + 1)
     with pytest.raises(ValueError, match="conditioning tokens"):
-        tmp.temporal_block_fwd(**args, heads=8)
+        tmp.temporal_block_fwd(**args, heads=8, emit_p=True)
+    with pytest.raises(ValueError, match="conditioning tokens"):
+        tmp.temporal_block_bwd(**args, g=args["x"], heads=8)
 
 
 @pytest.mark.parametrize("c", [64, 512])
@@ -840,3 +849,111 @@ def test_linear_bwd_kernel_at_16_cond_tokens(cuda, route, n, c):
                        lin.linear_block_bwd_plain(**args, g=g, **kw))
     for a, b_ in zip(got, lin.linear_block_bwd(**args, g=g, **kw)):
         assert torch.equal(a, b_)
+
+
+# ------------------------------------------------------- any-shape instances
+# rows 1, 4 and 5 at shapes outside the specialised instances' set
+# (chip_smoke.py phase 13 runs the whole grid): other frame counts, head
+# counts and widths, widths off 16-byte rows (C = 36), T > 69, N and S off
+# the tiles, and a tiny model's (3 frames, 2 heads of 4, C = 8: every
+# projection shorter than one K step)
+
+
+def _any_temporal_args(gen, b, f, s, c, t_tok, heads, d):
+    bf, hd = torch.bfloat16, heads * d
+    return dict(
+        x=_rnd(gen, b, f, s, c).to(bf), gamma=1 + _rnd(gen, c, scale=0.1),
+        w_all=(_rnd(gen, f, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(gen, hd, c) * hd ** -0.5).to(bf),
+        ek=_rnd(gen, b, t_tok, hd).to(bf) if t_tok else None,
+        ev=_rnd(gen, b, t_tok, hd).to(bf) if t_tok else None,
+        bias_all=_rnd(gen, f, f + t_tok, heads, scale=0.5))
+
+
+@pytest.mark.parametrize("f,heads,d,c,t_tok", [
+    (5, 4, 64, 96, 96), (16, 16, 32, 32, 150), (11, 8, 32, 1024, 11),
+    (11, 4, 32, 36, 0), (11, 8, 32, 64, 70), (3, 2, 4, 8, 3)])
+def test_temporal_any_shape_instance_matches_twin(cuda, f, heads, d, c,
+                                                  t_tok):
+    args = _any_temporal_args(cuda, 2, f, 100, c, t_tok, heads, d)
+    assert tmp.forward_instance(f, heads, d, c, t_tok) == tmp.ANY_SHAPE
+    before = dict(_build.LAUNCH_COUNTS)
+    got = tmp.temporal_block_fwd(**args, heads=heads)
+    again = tmp.temporal_block_fwd(**args, heads=heads)
+    torch.cuda.synchronize()
+    assert _build.LAUNCH_COUNTS["temporal_block_any"] == \
+        before["temporal_block_any"] + 2
+    assert _build.LAUNCH_COUNTS["fused_temporal_block"] == \
+        before["fused_temporal_block"]
+    assert torch.equal(got, again)
+    torch.testing.assert_close(
+        got.float(), tmp.temporal_block_plain(**args, heads=heads).float(),
+        **BF16_TOL)
+
+
+@pytest.mark.parametrize("heads,d,c,m_c", [
+    (4, 32, 96, 11), (16, 32, 1024, 0), (4, 64, 32, 96), (8, 32, 36, 1),
+    (4, 32, 8, 1)])
+def test_linear_any_shape_instances_match_twins(cuda, heads, d, c, m_c):
+    bf, b, n, hd = torch.bfloat16, 6, 300, heads * d
+    x = _rnd(cuda, b, n, c).to(bf)
+    gamma = 1 + _rnd(cuda, c, scale=0.1)
+    w_qkv = (_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf)
+    w_out = (_rnd(cuda, hd, c) * hd ** -0.5).to(bf)
+    out_bias = _rnd(cuda, c, scale=0.1)
+    ek = _rnd(cuda, b, m_c, hd).to(bf) if m_c else None
+    ev = _rnd(cuda, b, m_c, hd).to(bf) if m_c else None
+    kw = dict(heads=heads, spatial_size=n)
+    assert lin.forward_instance(heads, d, c) == lin.ANY_SHAPE
+    before = dict(_build.LAUNCH_COUNTS)
+    ctx_k, z_k = lin.linear_stats(x, gamma, w_qkv, ek, ev, **kw)
+    ctx_2, z_2 = lin.linear_stats(x, gamma, w_qkv, ek, ev, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ctx_k, ctx_2) and torch.equal(z_k, z_2)
+    ctx_p, z_p = lin.linear_stats_plain(x, gamma, w_qkv, ek, ev, **kw)
+    mag = lin.linear_stats_magnitude(x, gamma, w_qkv, ek, ev, **kw)
+    assert ((ctx_k - ctx_p).abs() <= CTX_SHARE * mag).all()
+    torch.testing.assert_close(z_k, z_p, **STATS_TOL)
+    ctx = _rnd(cuda, b, heads, d, d, scale=32.0 * d / 32)
+    z = 1 + _rnd(cuda, b, hd).abs()
+    args = (x, gamma, w_qkv, w_out, out_bias, ctx, z)
+    akw = dict(heads=heads, scale=d ** -0.5)
+    got = lin.linear_apply(*args, **akw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lin.linear_apply(*args, **akw))
+    assert _update_err(got, lin.linear_apply_plain(*args, **akw), x,
+                       out_bias) <= APPLY_TOL
+    assert _build.LAUNCH_COUNTS["linear_stats_any"] == \
+        before["linear_stats_any"] + 2
+    assert _build.LAUNCH_COUNTS["linear_apply_any"] == \
+        before["linear_apply_any"] + 2
+    assert _build.LAUNCH_COUNTS["linear_stats"] == before["linear_stats"]
+
+
+def test_any_shape_instances_match_the_specialised(cuda):
+    """At a flagship shape (C = 512, 8 heads of 32, T = 11) the any-shape
+    instances agree with the specialised ones within the twins'
+    tolerances."""
+    args = _temporal_args(cuda, 2, 144, 512, 11)
+    torch.testing.assert_close(tmp._fwd_any(**args, heads=8).float(),
+                               tmp.temporal_block_fwd(**args, heads=8).float(),
+                               **BF16_TOL)
+    bf, b, n, c, hd = torch.bfloat16, 6, 144, 512, 256
+    x = _rnd(cuda, b, n, c).to(bf)
+    gamma = 1 + _rnd(cuda, c, scale=0.1)
+    w_qkv = (_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf)
+    ek, ev = _rnd(cuda, b, 1, hd).to(bf), _rnd(cuda, b, 1, hd).to(bf)
+    kw = dict(heads=8, spatial_size=n)
+    ctx_a, z_a = lin._stats_any(x, gamma, w_qkv, ek, ev, **kw)
+    ctx_s, z_s = lin.linear_stats(x, gamma, w_qkv, ek, ev, **kw)
+    mag = lin.linear_stats_magnitude(x, gamma, w_qkv, ek, ev, **kw)
+    assert ((ctx_a - ctx_s).abs() <= CTX_SHARE * mag).all()
+    torch.testing.assert_close(z_a, z_s, **STATS_TOL)
+    w_out = (_rnd(cuda, hd, c) * hd ** -0.5).to(bf)
+    out_bias = _rnd(cuda, c, scale=0.1)
+    ctx, z = _rnd(cuda, b, 8, 32, 32, scale=32.0), 1 + _rnd(cuda, b, hd).abs()
+    args = (x, gamma, w_qkv, w_out, out_bias, ctx, z)
+    akw = dict(heads=8, scale=32 ** -0.5)
+    assert _update_err(lin._apply_any(*args, **akw),
+                       lin.linear_apply(*args, **akw), x, out_bias) <= \
+        APPLY_TOL

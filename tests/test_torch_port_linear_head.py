@@ -99,7 +99,8 @@ def test_layout_switch_reaches_the_head_twin_through_unet3d(monkeypatch):
     """VMT_LINEAR_LAYOUT=head, the JAX package's own switch, sends every
     fused linear block of UNet3D to the head layout (no new argument), and
     the model's eps matches the JAX model's under the same switch."""
-    tiny = dict(dim=8, dim_mults=(1, 2), channels=3, attn_heads=2,
+    # 4 heads: 4 x 32 = 128 takes the fused plan (the JAX gate)
+    tiny = dict(dim=8, dim_mults=(1, 2), channels=3, attn_heads=4,
                 attn_dim_head=8, init_kernel_size=3,
                 use_temporal_attention_cond=True, per_frame_cond=True)
     frames, img = 11, 8

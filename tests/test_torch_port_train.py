@@ -44,8 +44,9 @@ from videometamaterials_tpu_torch.training.trainer import (
 torch.set_num_threads(1)
 
 # a tiny model of the flagship family; 11 frames (the JAX model's
-# per-frame null token has 11)
-TINY = dict(dim=8, dim_mults=(1, 2), channels=3, attn_heads=2,
+# per-frame null token has 11); 4 heads, so the linear blocks' 4 x 32 =
+# 128 takes the fused plan (the JAX gate, unet3d.py:777-788)
+TINY = dict(dim=8, dim_mults=(1, 2), channels=3, attn_heads=4,
             attn_dim_head=8, use_temporal_attention_cond=True,
             per_frame_cond=True)
 FRAMES, IMG, T = 11, 8, 16
@@ -456,7 +457,7 @@ def test_train_plan_split_on_the_same_parameters(in_training, monkeypatch):
     plans, on the same parameter objects; with the flag set the train step
     runs the fused plans."""
     cfg = t_config.ModelConfig(
-        unet_dim=8, dim_mults=(1, 2), unet_attn_heads=2, unet_attn_dim_head=8,
+        unet_dim=8, dim_mults=(1, 2), unet_attn_heads=4, unet_attn_dim_head=8,
         image_size=IMG, compute_dtype="float32", train_timesteps=T,
         sampling_timesteps=T, batch_size=BATCH,
         fused_blocks_in_training=in_training)

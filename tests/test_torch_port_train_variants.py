@@ -61,6 +61,9 @@ FRAMES, IMG, CURVE = 11, 16, 50
 TINY = dict(dim=8, dim_mults=(1, 2), channels=3, attn_heads=2,
             attn_dim_head=4, init_kernel_size=3,
             use_temporal_attention_cond=True)
+# 4 heads: the linear blocks' 4 x 32 = 128 takes the fused plan (the JAX
+# gate, unet3d.py:777-788; 2 heads run the unfused plan)
+FUSABLE = dict(TINY, attn_heads=4)
 ARMS = {"per-frame": dict(per_frame_cond=True),
         "none": dict(per_frame_cond=False, cond_attention="none"),
         "cross": dict(per_frame_cond=False, cond_attention="cross-attention",
@@ -101,11 +104,11 @@ def _inputs(kw, seed=0):
     return x, time, cond, np.array([False, True])
 
 
-def _port(kw, params, fused, **extra):
+def _port(kw, params, fused, tiny=TINY, **extra):
     model = UNet3D(compute_dtype=torch.float32, num_frames=FRAMES,
                    use_fused_linear_block=fused,
                    use_fused_temporal_block=fused, cond_length=CURVE,
-                   **TINY, **kw, **extra)
+                   **tiny, **kw, **extra)
     model.load_state_dict(flax_to_torch_state_dict(params), strict=True)
     return model.eval()
 
@@ -129,7 +132,7 @@ class _Count:
 @pytest.fixture(scope="module", params=sorted(ARMS))
 def focus_arm(request):
     kw = ARMS[request.param]
-    j_model = JUNet3D(compute_dtype="float32", **TINY, **kw)
+    j_model = JUNet3D(compute_dtype="float32", **FUSABLE, **kw)
     x, time, cond, null = _inputs(kw)
     params = _random_params(j_model, (x, time, cond), 2)
     apply = jax.jit(lambda p, *a: j_model.apply(
@@ -144,7 +147,7 @@ def test_focus_mask_matches_jax(focus_arm, fused, monkeypatch):
     the fused flag on, no temporal block takes the fused kernel (the JAX
     unet3d.py:705) while the linear blocks keep theirs."""
     name, kw, params, (x, time, cond, null), want = focus_arm
-    model = _port(kw, params, fused)
+    model = _port(kw, params, fused, tiny=FUSABLE)
     temporal = _Count(monkeypatch, t_unet, "fused_temporal_block")
     linear = _Count(monkeypatch, t_unet, "fused_linear_block")
     args = [torch.tensor(a) for a in (x, time, cond)]
@@ -550,7 +553,7 @@ def _fused_step_calls(monkeypatch):
     spies = {"temporal_bwd": _Count(monkeypatch, t_tmp, "temporal_block_bwd"),
              "from_p": _Count(monkeypatch, t_tmp, "temporal_bwd_from_p"),
              "linear_bwd": _Count(monkeypatch, t_lin, "linear_block_bwd")}
-    model = UNet3D(compute_dtype=torch.float32, num_frames=FRAMES, **TINY)
+    model = UNet3D(compute_dtype=torch.float32, num_frames=FRAMES, **FUSABLE)
     model.init_weights(torch.Generator().manual_seed(0))
     diff = GaussianDiffusion(model, image_size=8, num_frames=FRAMES,
                              channels=3, timesteps=16)

@@ -202,14 +202,34 @@ def test_variant_modules_follow_the_jax_model():
     assert forced.null_text_token.shape == (1, FRAMES, 32)
 
 
-def test_token_count_above_the_kernels_raises_when_built():
+def test_token_count_above_the_kernels_raises_when_built(monkeypatch):
+    """Any token count builds and runs on the fused plans (row 1 has an
+    any-shape instance); a training plan that launches the temporal
+    training kernels (rows 2-3: the 'kernel' and 'saved' backward plans,
+    VMT_TEMPORAL_BWD_KERNEL=1), which take at most MAX_COND_TOKENS, raises
+    when its forward runs under grad, naming the ROADMAP item. (The name
+    dates from when the model refused the count at build; what raises now
+    is the training plans' forward.)"""
     over = t_tmp.MAX_COND_TOKENS + 1
+    kw = dict(compute_dtype=torch.float32, **TINY, per_frame_cond=False,
+              cond_attention_tokens=over)
+    rng = np.random.default_rng(3)
+    x = torch.tensor(rng.uniform(-1, 1, (1, FRAMES, IMG, IMG, 3)),
+                     dtype=torch.float32)
+    time = torch.tensor([5])
+    cond = torch.tensor(rng.uniform(-1, 1, (1, CURVE)), dtype=torch.float32)
+    model = UNet3D(**kw)
+    model(x, time, cond).sum().backward()        # 'recompute': builds, runs
+    for plan in (dict(fused_bwd_kernels=True), dict(temporal_vjp="saved")):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            UNet3D(**kw, **plan)(x, time, cond)
+    with torch.no_grad():                        # sampling takes any plan
+        UNet3D(**kw, fused_bwd_kernels=True)(x, time, cond)
+    monkeypatch.setenv("VMT_TEMPORAL_BWD_KERNEL", "1")
     with pytest.raises(ValueError, match=str(t_tmp.MAX_COND_TOKENS)):
-        UNet3D(compute_dtype=torch.float32, **TINY, per_frame_cond=False,
-               cond_attention_tokens=over)
+        model(x, time, cond)
     # the unfused plans take any count; so does the GRU's own width
-    UNet3D(compute_dtype=torch.float32, **TINY, per_frame_cond=False,
-           cond_attention_tokens=over, use_fused_temporal_block=False)
+    UNet3D(**kw, use_fused_temporal_block=False)(x, time, cond)
     UNet3D(compute_dtype=torch.float32, **TINY, per_frame_cond=False,
            cond_att_GRU=True, cond_length=t_tmp.MAX_COND_TOKENS)
 

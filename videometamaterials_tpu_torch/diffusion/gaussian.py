@@ -85,8 +85,9 @@ class GaussianDiffusion:
         # the latency mode's plan bound to the model; None for one rank
         self.latency = None
         if sample_spatial_sharding is not None:
-            if any(getattr(m, "use_fused_block", False)
-                   for m in model.modules()):
+            # the JAX guard reads the model's flags (gaussian.py:98-106)
+            if any(bool(getattr(model, flag, False)) for flag in (
+                    "use_fused_linear_block", "use_fused_temporal_block")):
                 raise ValueError(
                     "sample_spatial_sharding runs the unfused plans "
                     "(temporal_xla and the plain linear attention): build "

@@ -33,8 +33,10 @@ as the JAX model builds it: the whole curve through the CNN embedder (its
 hidden joins the time embedding, added or concatenated), and conditioning
 tokens that are the hidden broadcast to `cond_attention_tokens`, the GRU's
 token a curve point, or none; the tokens enter the blocks stacked in front
-of the keys ('self-stacked', on the fused kernels at any token count up to
-MAX_COND_TOKENS) or as the keys of a cross-attention (the generic plan).
+of the keys ('self-stacked', on the fused kernels at any token count; the
+training plans that launch the temporal training kernels take at most
+MAX_COND_TOKENS, and raise above it when they run) or as the keys of a
+cross-attention (the generic plan).
 The circular padding modes and `use_sparse_linear_attn: false` are built
 too.
 
@@ -96,7 +98,6 @@ from videometamaterials_tpu_torch.ops.cuda.fused_linear_block import (
     fused_linear_block,
 )
 from videometamaterials_tpu_torch.ops.cuda.fused_temporal_block import (
-    check_cond_tokens,
     fused_temporal_block,
     reference_temporal_block,
 )
@@ -757,9 +758,11 @@ class SpatialLinearAttentionBlock(nn.Module):
         self.fn = _PreNorm(dim, SpatialLinearAttention(
             dim, heads, dim_head, cond_dim, dtype, cond_attention,
             per_frame_cond))
-        # the fused plan has no cross-attention form (the JAX _fused_ok)
+        # the JAX _fused_ok (unet3d.py:777-788): no cross-attention form,
+        # and the XLA plan where heads * dim_head is not a multiple of 128
         self.use_fused_block = (use_fused_block
-                                and cond_attention != "cross-attention")
+                                and cond_attention != "cross-attention"
+                                and heads * dim_head % 128 == 0)
         self.bwd = bwd
 
     def forward(self, x, label_emb=None, shard=None):
@@ -806,8 +809,10 @@ class UNet3D(nn.Module):
 
     cond_length is the width of the whole-curve conditioning (the tail of
     the CSVs' 51-point curves): the GRU's token count, so the null token's
-    length. A token count above what the fused temporal kernels take
-    raises a ValueError here, where a fused temporal block would get it."""
+    length. Any token count builds and samples on the fused plans; a
+    training plan whose temporal kernels take fewer (the 'kernel' and
+    'saved' backward plans, VMT_TEMPORAL_BWD_KERNEL=1) raises a ValueError
+    in the forward under grad."""
 
     def __init__(self, dim: int = 64, dim_mults: Sequence[int] = (1, 2, 4, 8),
                  channels: int = 3, attn_heads: int = 8,
@@ -837,6 +842,10 @@ class UNet3D(nn.Module):
             raise ValueError(f"unknown cond_to_time {cond_to_time!r}")
         self.dtype = compute_dtype
         self.init_dim = dim
+        # the configured flags, as the JAX model's fields (each block then
+        # takes its plan by level and, for the linear blocks, the JAX gate)
+        self.use_fused_linear_block = use_fused_linear_block
+        self.use_fused_temporal_block = use_fused_temporal_block
         self.use_temporal_attention_cond = use_temporal_attention_cond
         self.use_sparse_linear_attn = use_sparse_linear_attn
         self.per_frame_cond = per_frame_cond
@@ -852,15 +861,11 @@ class UNet3D(nn.Module):
         time_dim = cond_dim = dim * 4
         time_emb_dim = time_dim + cond_dim if cond_to_time == "concat" \
             else cond_dim
-        temporal_tokens = (self.num_tokens if cdt == "self-stacked"
-                           and use_temporal_attention_cond else 0)
 
-        def temporal(d, tokens=temporal_tokens):
-            fused = self._tri_state(use_fused_temporal_block, d)
-            if fused and cdt != "cross-attention":
-                check_cond_tokens(tokens)
+        def temporal(d):
             return TemporalAttentionBlock(
-                d, attn_heads, attn_dim_head, cond_dim, compute_dtype, fused,
+                d, attn_heads, attn_dim_head, cond_dim, compute_dtype,
+                self._tri_state(use_fused_temporal_block, d),
                 temporal_vjp, cdt, per_frame_cond, fused_bwd_kernels,
                 temporal_s_tile)
 
@@ -880,7 +885,7 @@ class UNet3D(nn.Module):
             heads=attn_heads, num_buckets=32, max_distance=32)
         self.init_conv = SpatialConv(channels, dim, init_kernel_size,
                                      padding_mode=padding_mode)
-        self.init_temporal_attn = temporal(dim, tokens=0)
+        self.init_temporal_attn = temporal(dim)
         self.time_mlp = nn.Sequential(
             SinusoidalPosEmb(dim), nn.Linear(dim, time_dim),
             nn.GELU(), nn.Linear(time_dim, time_dim))

@@ -44,6 +44,10 @@ LAUNCH_COUNTS: dict[str, int] = {
     "linear_bwd_merged": 0,
     "temporal_fwd_p": 0,
     "linear_head": 0,
+    # the any-shape instances of rows 1, 4 and 5 (csrc/any_shape.cu)
+    "temporal_block_any": 0,
+    "linear_stats_any": 0,
+    "linear_apply_any": 0,
 }
 
 _P = ctypes.c_void_p
@@ -69,6 +73,15 @@ _SIGNATURES = {
     # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace, BF, N, C, Mc,
     # heads, apply tile, scale, inv_hw, stream
     "vmt_linear_head": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    # x, gamma, w_all, w_out, bias, ek, ev, out, scratch y, qkv, acc,
+    # B, F, S, C, T, heads, d, stream
+    "vmt_temporal_block_any": [_P] * 11 + [_I] * 7 + [_P],
+    # x, gamma, w_qkv, ek, ev, scratch y, kv, part_ctx, part_z, ctx, z,
+    # BF, N, C, Mc, heads, d, tile, inv_hw, stream
+    "vmt_linear_stats_any": [_P] * 11 + [_I] * 7 + [_F, _P],
+    # x, gamma, w_qkv, w_out, out_bias, ctx, z, out, scratch y, q, oh,
+    # BF, N, C, heads, d, scale, stream
+    "vmt_linear_apply_any": [_P] * 11 + [_I] * 5 + [_F, _P],
 }
 # sizes in bytes: the workspaces of the entry points that take one, and
 # the dynamic shared memory of the temporal and linear kernels' stages
@@ -80,6 +93,7 @@ _SIZE_SIGNATURES = {
     "vmt_temporal_block_bwd_smem": [_I] * 3,         # C, T, stage
     "vmt_linear_block_fwd_smem": [_I] * 2,           # C, stage
     "vmt_linear_block_bwd_smem": [_I] * 2,           # C, stage
+    "vmt_temporal_block_any_smem": [_I] * 2,         # F, d
 }
 
 

@@ -30,6 +30,13 @@ where the JAX package reads them (fused_linear_block.py:569, :906).
 
 Only the eight diagonal (32 x 32) blocks of the TPU kernel's masked
 (256 x 256) context are computed: ctx is (B, heads, d, d).
+
+Rows 4 and 5 (stats and apply) have two instances each, picked from the
+shape alone (`forward_instance`): the specialised kernels at the
+flagship's shapes (8 heads of 32, C in CHANNELS; any N and Mc) and the
+any-shape kernels (csrc/any_shape.cu: any heads, d up to 64 in the stats,
+C, N and Mc) at every other. The head layout (row 8) and the backward
+(rows 6, 7) take the flagship's shapes only (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -56,6 +63,10 @@ APPLY_TILE = 64
 # (N, hidden) f32 arrays fit in 40 MiB; larger ones go per-head
 ROUTE_BYTES = 40 * 2 ** 20
 LAYOUTS = ("merged", "head")
+# the instances of rows 4 and 5 (`forward_instance`)
+SPECIALISED, ANY_SHAPE = "specialised", "any"
+# tokens a block of the any-shape stats pass
+ANY_STATS_TILE = 256
 
 
 def stats_tile(n: int) -> int:
@@ -63,6 +74,16 @@ def stats_tile(n: int) -> int:
     tiles keep the partials scratch small at full resolution, small ones
     give the low-resolution levels enough blocks."""
     return 256 if n >= 4096 else 64
+
+
+def forward_instance(heads: int, dim_head: int, c: int) -> str:
+    """The instance of rows 4 and 5 a launch at this shape takes:
+    SPECIALISED (LAUNCH_COUNTS 'linear_stats', 'linear_apply') at the
+    flagship's shapes, ANY_SHAPE ('linear_stats_any', 'linear_apply_any')
+    at every other. A pure function of the shape."""
+    if heads == HEADS and dim_head * heads == HIDDEN and c in CHANNELS:
+        return SPECIALISED
+    return ANY_SHAPE
 
 
 def _stats_terms(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
@@ -134,24 +155,36 @@ def linear_block_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
                               heads=heads, scale=scale)
 
 
-def _check_common(x, gamma, w_qkv, heads):
+def _check_common(x, gamma, w_qkv, heads,
+                  specialised: bool = True) -> tuple[int, int]:
+    """x, gamma and w_qkv of a launch; `specialised` adds the specialised
+    kernels' shapes (8 heads of 32, C in CHANNELS). Returns (hidden, d)."""
     req = _build.require
     req(x.is_cuda, "the kernels take CUDA tensors")
     req(x.dtype == torch.bfloat16 and x.dim() == 3 and x.is_contiguous(),
         "x must be contiguous bf16 (B, N, C)")
     c = x.shape[2]
-    req(c in CHANNELS, f"the kernels take C in {CHANNELS}, got {c}")
-    req(heads == HEADS, f"the kernels take {HEADS} heads of 32")
+    hidden = w_qkv.shape[1] // 3
+    if specialised:
+        later = ("; the head layout and the backward at other shapes are "
+                 "ROADMAP.md Queue 2's next slice")
+        req(c in CHANNELS,
+            f"the kernels take C in {CHANNELS}, got {c}{later}")
+        req(heads == HEADS and hidden == HIDDEN,
+            f"the kernels take {HEADS} heads of 32{later}")
+    req(heads > 0 and hidden > 0 and hidden % heads == 0,
+        f"hidden {hidden} is not a multiple of {heads} heads")
     req(gamma.dtype == torch.float32 and tuple(gamma.shape) == (c,)
         and gamma.is_contiguous(), "gamma must be contiguous float32 (C,)")
     req(w_qkv.dtype == torch.bfloat16 and w_qkv.is_contiguous()
-        and tuple(w_qkv.shape) == (c, 3 * HIDDEN),
+        and tuple(w_qkv.shape) == (c, 3 * hidden),
         "w_qkv must be contiguous bf16 (C, 3*hidden)")
     for t in (gamma, w_qkv):
         req(t.device == x.device, "all operands on x's device")
+    return hidden, hidden // heads
 
 
-def _check_cond(ek, ev, x) -> int:
+def _check_cond(ek, ev, x, hidden: int = HIDDEN) -> int:
     """Check the conditioning K/V of a kernel launch; returns Mc."""
     req = _build.require
     req((ek is None) == (ev is None), "ek and ev come together")
@@ -159,7 +192,7 @@ def _check_cond(ek, ev, x) -> int:
         return 0
     for t in (ek, ev):
         req(t.dtype == torch.bfloat16 and t.is_contiguous()
-            and tuple(t.shape) == (x.shape[0], ek.shape[1], HIDDEN)
+            and tuple(t.shape) == (x.shape[0], ek.shape[1], hidden)
             and t.device == x.device,
             "ek/ev must be contiguous bf16 (B, Mc, hidden) on x's device")
     return ek.shape[1]
@@ -167,10 +200,15 @@ def _check_cond(ek, ev, x) -> int:
 
 def linear_stats(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
     """(ctx, z) of the block. A CPU tensor takes the plain twin; a CUDA
-    tensor launches the kernel (partials pass + ordered reduce) or raises."""
+    tensor launches the instance `forward_instance` names (partials pass +
+    ordered reduce) or raises."""
     if x.device.type == "cpu":
         return linear_stats_plain(x, gamma, w_qkv, ek, ev, heads=heads,
                                   spatial_size=spatial_size)
+    if forward_instance(heads, w_qkv.shape[1] // (3 * heads),
+                        x.shape[-1]) == ANY_SHAPE:
+        return _stats_any(x, gamma, w_qkv, ek, ev, heads=heads,
+                          spatial_size=spatial_size)
     _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
     m_c = _check_cond(ek, ev, x)
@@ -196,10 +234,15 @@ def linear_stats(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
 def linear_apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
                  scale: float) -> torch.Tensor:
     """x + block(x) from the stats. A CPU tensor takes the plain twin; a
-    CUDA tensor launches the kernel or raises."""
+    CUDA tensor launches the instance `forward_instance` names or
+    raises."""
     if x.device.type == "cpu":
         return linear_apply_plain(x, gamma, w_qkv, w_out, out_bias, ctx, z,
                                   heads=heads, scale=scale)
+    if forward_instance(heads, w_qkv.shape[1] // (3 * heads),
+                        x.shape[-1]) == ANY_SHAPE:
+        return _apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z,
+                          heads=heads, scale=scale)
     _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
     req = _build.require
@@ -225,6 +268,68 @@ def linear_apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
         _build.stream_handle(x.device))
     _build.check_launch(lib, err, "linear_apply")
     _build.LAUNCH_COUNTS["linear_apply"] += 1
+    return out
+
+
+def _stats_any(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
+    """Row 4 through the any-shape kernel: LN, k || v in float32, partial
+    sums over ANY_STATS_TILE tokens and the ordered reduce, its scratch
+    allocated here."""
+    hidden, d = _check_common(x, gamma, w_qkv, heads, specialised=False)
+    _build.require(d <= 64, f"the any-shape stats take d up to 64, got {d}")
+    b, n, c = x.shape
+    m_c = _check_cond(ek, ev, x, hidden)
+    tiles = -(-n // ANY_STATS_TILE)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty_like(x)
+    kv = torch.empty((b, n, 2 * hidden), **f32)
+    part_ctx = torch.empty((b, tiles, heads, d, d), **f32)
+    part_z = torch.empty((b, tiles, hidden), **f32)
+    ctx = torch.empty((b, heads, d, d), **f32)
+    z = torch.empty((b, hidden), **f32)
+    lib = _build.load_library()
+    p = _build.ptr
+    err = lib.vmt_linear_stats_any(
+        p(x), p(gamma), p(w_qkv), p(ek), p(ev), p(y), p(kv), p(part_ctx),
+        p(part_z), p(ctx), p(z), b, n, c, m_c, heads, d, ANY_STATS_TILE,
+        1.0 / spatial_size, _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "linear_stats_any")
+    _build.LAUNCH_COUNTS["linear_stats_any"] += 1
+    return ctx, z
+
+
+def _apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
+               scale: float):
+    """Row 5 through the any-shape kernel: LN, q in float32, the per-head
+    softmax and q ctx, the out-projection with out_bias and the residual,
+    its scratch allocated here."""
+    hidden, d = _check_common(x, gamma, w_qkv, heads, specialised=False)
+    b, n, c = x.shape
+    req = _build.require
+    req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous()
+        and tuple(w_out.shape) == (hidden, c),
+        "w_out must be contiguous bf16 (hidden, C)")
+    req(out_bias.dtype == torch.float32 and out_bias.is_contiguous()
+        and tuple(out_bias.shape) == (c,), "out_bias must be float32 (C,)")
+    req(ctx.dtype == torch.float32 and ctx.is_contiguous()
+        and tuple(ctx.shape) == (b, heads, d, d),
+        "ctx must be contiguous float32 (B, heads, d, d)")
+    req(z.dtype == torch.float32 and z.is_contiguous()
+        and tuple(z.shape) == (b, hidden), "z must be float32 (B, hidden)")
+    for t in (w_out, out_bias, ctx, z):
+        req(t.device == x.device, "all operands on x's device")
+    out = torch.empty_like(x)
+    y = torch.empty_like(x)
+    q = torch.empty((b, n, hidden), dtype=torch.float32, device=x.device)
+    oh = torch.empty((b, n, hidden), dtype=x.dtype, device=x.device)
+    lib = _build.load_library()
+    p = _build.ptr
+    err = lib.vmt_linear_apply_any(
+        p(x), p(gamma), p(w_qkv), p(w_out), p(out_bias), p(ctx), p(z),
+        p(out), p(y), p(q), p(oh), b, n, c, heads, d, scale,
+        _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "linear_apply_any")
+    _build.LAUNCH_COUNTS["linear_apply_any"] += 1
     return out
 
 

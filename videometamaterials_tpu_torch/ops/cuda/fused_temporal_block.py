@@ -16,12 +16,21 @@ torch, as the JAX function is XLA) backs it through.
     out = x + W_out . softmax_j(q_i.k_j + bias_ij || q_i.ek_t + bias_it)
                     . [v_j || ev_t]
 
-per spatial position over the F frames (+ T conditioning tokens, any T up
-to MAX_COND_TOKENS: 11 on the flagship, 0 in the init block, 6, 16 or 50
-on the conditioning ablations), with LN
-scale-only and two-pass, rotary and 1/sqrt(d) folded into the per-frame
-`w_all`, and bf16 roundings at qkv, at the softmax weights and at the value
-sum (the JAX kernel's :124, :226, :235).
+per spatial position over the F frames (+ T conditioning tokens: 11 on
+the flagship, 0 in the init block, 6, 16 or 50 on the conditioning
+ablations, any number beside), with LN scale-only and two-pass, rotary and
+1/sqrt(d) folded into the per-frame `w_all`, and bf16 roundings at qkv, at
+the softmax weights and at the value sum (the JAX kernel's :124, :226,
+:235).
+
+Row 1 has two instances, picked from the shape alone (`forward_instance`):
+the specialised kernel (csrc/fused_temporal_block.cu) at the flagship's
+shapes (F = 11, 8 heads of 32, C in CHANNELS, T <= MAX_COND_TOKENS) and
+the any-shape kernel (csrc/any_shape.cu) at every other shape the JAX
+kernel takes. The training rows (2, the emit_p forward, and 3, the
+backward) take the flagship's shapes only; a plan that would launch them
+at more than MAX_COND_TOKENS tokens raises when it is chosen, on every
+device (ROADMAP Queue 2).
 
 The JAX package's switches are read where it reads them: VMT_TEMPORAL_VJP
 in `config.temporal_bwd_mode`, VMT_TEMPORAL_BWD_KERNEL=1 in the backward
@@ -53,19 +62,38 @@ FRAMES = 11
 CHANNELS = (64, 128, 256, 512)
 HEADS = 8
 HIDDEN = 256
-# the kernels pad a position's F + T keys to 32, 64 or 80
+# the specialised kernels pad a position's F + T keys to 32, 64 or 80
 # (csrc/fused_temporal_block.cu: kMaxKeys)
 MAX_COND_TOKENS = 80 - FRAMES
+# the instances of row 1 (`forward_instance`)
+SPECIALISED, ANY_SHAPE = "specialised", "any"
+TRAINING_ROWS_ITEM = ("ROADMAP.md Queue 2: rows 2, 3, 6 and 7 at every shape "
+                      "(training at other widths and T > 69)")
 
 
 def check_cond_tokens(t_tok: int) -> None:
-    """Raise ValueError for a count of conditioning tokens the kernels do
-    not take; a model checks its count when it is built."""
+    """Raise ValueError for a count of conditioning tokens the training
+    kernels (rows 2 and 3) do not take."""
     if not 0 <= t_tok <= MAX_COND_TOKENS:
         raise ValueError(
-            f"the fused temporal kernels take 0 to {MAX_COND_TOKENS} "
-            f"conditioning tokens (F + T <= {MAX_COND_TOKENS + FRAMES} keys "
-            f"a position), got {t_tok}")
+            f"the fused temporal training kernels (the emit_p forward and "
+            f"the backward) take 0 to {MAX_COND_TOKENS} conditioning tokens "
+            f"(F + T <= {MAX_COND_TOKENS + FRAMES} keys a position), got "
+            f"{t_tok}; more is {TRAINING_ROWS_ITEM}. Train with "
+            "temporal_vjp 'recompute' and fused_bwd_kernels off, or with "
+            "the unfused plans")
+
+
+def forward_instance(f: int, heads: int, dim_head: int, c: int,
+                     t_tok: int) -> str:
+    """The instance of row 1 a launch at this shape takes: SPECIALISED
+    (LAUNCH_COUNTS entry 'fused_temporal_block') at the flagship's shapes,
+    ANY_SHAPE ('temporal_block_any') at every other. A pure function of
+    the shape."""
+    if (f == FRAMES and heads == HEADS and heads * dim_head == HIDDEN
+            and c in CHANNELS and 0 <= t_tok <= MAX_COND_TOKENS):
+        return SPECIALISED
+    return ANY_SHAPE
 
 
 def temporal_block_plain(x, gamma, w_all, w_out, ek, ev, bias_all, *,
@@ -166,53 +194,82 @@ def reference_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     return x + out.to(x.dtype)
 
 
-def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
+def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads,
+           specialised: bool = True) -> int:
+    """The operands of a launch of row 1, 2 or 3; `specialised` adds the
+    specialised kernels' shapes (F = 11, 8 heads of 32, C in CHANNELS, at
+    most MAX_COND_TOKENS tokens, aligned rows). Returns dim_head."""
     req = _build.require
     req(x.is_cuda, "the kernel takes CUDA tensors")
     req(x.dtype == torch.bfloat16 and x.dim() == 4 and x.is_contiguous(),
         "x must be contiguous bf16 (B, F, S, C)")
     b, f, s, c = x.shape
-    req(f == FRAMES, f"the kernel takes {FRAMES} frames, got {f}")
-    req(c in CHANNELS, f"the kernel takes C in {CHANNELS}, got {c}")
-    req(heads == HEADS and tuple(w_out.shape) == (HIDDEN, c),
-        f"the kernel takes {HEADS} heads of 32 and w_out ({HIDDEN}, C)")
+    hidden = w_out.shape[0]
+    t_tok = 0 if ek is None else ek.shape[1]
+    if specialised:
+        req(f == FRAMES, f"the kernel takes {FRAMES} frames, got {f}")
+        req(c in CHANNELS, f"the kernel takes C in {CHANNELS}, got {c}")
+        req(heads == HEADS and hidden == HIDDEN,
+            f"the kernel takes {HEADS} heads of 32 and w_out ({HIDDEN}, C)")
+        check_cond_tokens(t_tok)
+    req(heads > 0 and hidden > 0 and hidden % heads == 0,
+        f"hidden {hidden} is not a multiple of {heads} heads")
     req(gamma.dtype == torch.float32 and tuple(gamma.shape) == (c,)
         and gamma.is_contiguous(), "gamma must be contiguous float32 (C,)")
     req(w_all.dtype == torch.bfloat16 and w_all.is_contiguous()
-        and tuple(w_all.shape) == (f, c, 3 * HIDDEN),
+        and tuple(w_all.shape) == (f, c, 3 * hidden),
         "w_all must be contiguous bf16 (F, C, 3*hidden)")
-    req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous(),
-        "w_out must be contiguous bf16")
-    t_tok = 0 if ek is None else ek.shape[1]
+    req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous()
+        and tuple(w_out.shape) == (hidden, c),
+        "w_out must be contiguous bf16 (hidden, C)")
     req(bias_all.dtype == torch.float32 and bias_all.is_contiguous()
         and tuple(bias_all.shape) == (f, f + t_tok, heads),
         "bias_all must be contiguous float32 (F, F+T, heads)")
     req((ek is None) == (ev is None), "ek and ev come together")
-    if ek is not None:
-        check_cond_tokens(t_tok)
-        for t in (ek, ev):
-            req(t.dtype == torch.bfloat16 and t.is_contiguous()
-                and tuple(t.shape) == (b, t_tok, HIDDEN),
-                "ek/ev must be contiguous bf16 (B, T, hidden)")
+    for t in (ek, ev):
+        req(t is None or (t.dtype == torch.bfloat16 and t.is_contiguous()
+                          and tuple(t.shape) == (b, t_tok, hidden)),
+            "ek/ev must be contiguous bf16 (B, T, hidden)")
     for t in (gamma, w_all, w_out, bias_all, ek, ev):
         req(t is None or t.device == x.device, "all operands on x's device")
-    _build.require_aligned(x, w_all, w_out, ek, ev)
+    if specialised:
+        _build.require_aligned(x, w_all, w_out, ek, ev)
+    return hidden // heads
+
+
+def _check_training(x, w_out, ek, heads):
+    """Rows 2 and 3 take the flagship's shapes only: raise outside them,
+    naming the ROADMAP item."""
+    check_cond_tokens(0 if ek is None else ek.shape[1])
+    b, f, s, c = x.shape
+    hidden = w_out.shape[0]
+    _build.require(
+        forward_instance(f, heads, hidden // heads, c, 0) == SPECIALISED,
+        f"the fused temporal training kernels take F = {FRAMES}, {HEADS} "
+        f"heads of 32 and C in {CHANNELS}, got F = {f}, hidden {hidden} in "
+        f"{heads} heads, C = {c}; other shapes are {TRAINING_ROWS_ITEM}")
 
 
 def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
                        heads: int, emit_p: bool = False):
     """x + block(x), or (out, p) with emit_p (temporal_block_plain_p's p;
     out bit-equal to the launch without p). A CPU tensor takes the plain
-    twin; a CUDA tensor launches the kernel or raises."""
+    twin; a CUDA tensor launches the instance `forward_instance` names
+    (emit_p: the specialised kernel) or raises."""
     if x.device.type == "cpu":
         out, p_w = temporal_block_plain_p(x, gamma, w_all, w_out, ek, ev,
                                           bias_all, heads=heads)
         return (out, p_w) if emit_p else out
+    b, f, s, c = x.shape
+    t_tok = 0 if ek is None else ek.shape[1]
+    if not emit_p and forward_instance(f, heads, w_out.shape[0] // heads, c,
+                                       t_tok) == ANY_SHAPE:
+        return _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
+    if emit_p:
+        _check_training(x, w_out, ek, heads)
     _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
     lib = _build.load_library()
     out = torch.empty_like(x)
-    b, f, s, c = x.shape
-    t_tok = 0 if ek is None else ek.shape[1]
     # the bf16 value sums between the kernel's two launches
     acc = torch.empty((b, f, s, HIDDEN), dtype=x.dtype, device=x.device)
     p_w = (torch.empty((b, f, s, (f + t_tok) * heads), dtype=x.dtype,
@@ -226,6 +283,33 @@ def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     _build.check_launch(lib, err, name)
     _build.LAUNCH_COUNTS[name] += 1
     return (out, p_w) if emit_p else out
+
+
+def _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
+    """Row 1 through the any-shape kernel: LN, the QKV projection, the
+    attention and the out-projection with the residual, its bf16 scratch
+    (y, qkv, acc) allocated here."""
+    d = _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads,
+               specialised=False)
+    b, f, s, c = x.shape
+    t_tok = 0 if ek is None else ek.shape[1]
+    lib = _build.load_library()
+    _build.require(lib.vmt_temporal_block_any_smem(f, d) > 0,
+                   f"one warp's shared memory of the attention stage does "
+                   f"not fit at F = {f}, dim_head = {d}")
+    hidden = heads * d
+    out = torch.empty_like(x)
+    y = torch.empty_like(x)
+    qkv = torch.empty((b, f, s, 3 * hidden), dtype=x.dtype, device=x.device)
+    acc = torch.empty((b, f, s, hidden), dtype=x.dtype, device=x.device)
+    p = _build.ptr
+    err = lib.vmt_temporal_block_any(
+        p(x), p(gamma), p(w_all), p(w_out), p(bias_all), p(ek), p(ev),
+        p(out), p(y), p(qkv), p(acc), b, f, s, c, t_tok, heads, d,
+        _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "temporal_block_any")
+    _build.LAUNCH_COUNTS["temporal_block_any"] += 1
+    return out
 
 
 def temporal_block_bwd_plain(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
@@ -250,6 +334,7 @@ def temporal_block_bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
     if x.device.type == "cpu":
         return temporal_block_bwd_plain(x, gamma, w_all, w_out, ek, ev,
                                         bias_all, g, heads=heads)
+    _check_training(x, w_out, ek, heads)
     _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
     _build.require(g.dtype == x.dtype and g.shape == x.shape
                    and g.is_contiguous() and g.device == x.device,
@@ -435,7 +520,11 @@ def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
         raise ValueError(f"unknown backward plan {bwd!r}")
     softmax_layout()
     operands = (x, gamma, w_all, w_out, ek, ev, bias_all)
-    if bwd == "saved" and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in operands):
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in operands)
+    if needs_grad and (bwd != "recompute" or bwd_kernel_env()):
+        # the plan launches rows 2-3, which take at most MAX_COND_TOKENS
+        check_cond_tokens(0 if ek is None else ek.shape[1])
+    if bwd == "saved" and needs_grad:
         return _FusedTemporalBlockSavedP.apply(*operands, heads)
     return _FusedTemporalBlock.apply(*operands, heads, bwd)
