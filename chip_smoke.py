@@ -66,8 +66,9 @@ Phases, each printing its wall time as it finishes:
              fused_blocks_in_training + fused_bwd_kernels, batch 4: run A,
              20 steps with milestones at 10 and 20 (validation loss, the
              fidelity probe on 1 target x 2 predictions, 1 validation
-             curve sampled; each sampling call one chunk of 4 through the
-             full chain): launch counters 10/10/8/8/2/6 a train step and
+             curve sampled; each sampling call one chunk of 4 through
+             DDIM-64, --sampling-timesteps 64): launch
+             counters 10/10/8/8/2/6 a train step and
              10/8/8 a sampling step and a validation batch, finite
              losses, float32 parameters after each milestone, both
              milestone directories with their GIFs, metrics.jsonl with
@@ -159,9 +160,9 @@ Phases, each printing its wall time as it finishes:
   12 latency   the latency mode (videometamaterials_tpu_torch/parallel/
              latency.py: one video's chain split across ranks, unfused
              plans only): (a) an NCCL group of one rank, model.yaml with
-             the fused plans off, batch 1, w = 5, the full DDPM-256 chain
-             bit-equal to the same chain without the plan, no collective
-             and no kernel launch, its seconds (the unfused chain); (b)
+             the fused plans off, batch 1, w = 5, the first 64 steps of
+             the DDPM-256 chain bit-equal to the same steps without the
+             plan, no collective and no kernel launch, their seconds; (b)
              two processes on cuda:0 in a gloo group (NCCL takes one rank
              a card; the collectives staged through host memory), a
              LATENCY_STEPS-step chain split by height and one split by
@@ -190,12 +191,39 @@ Phases, each printing its wall time as it finishes:
              broadcast to 96 tokens), one guided eps each within
              MODEL_TOL of the unfused plans, its launches of each
              instance and the shapes they were launched at, which must be
-             those (a) checked; (c) the wide model's full guided DDPM-256 chain
-             through the sampling entry (videometamaterials_tpu_torch.
-             sample --config), 16-step chains of heads4x64 and tokens96,
+             those (a) checked; (c) the wide model's guided chain through
+             the sampling entry (videometamaterials_tpu_torch.sample
+             --config, the first 64 steps of DDPM-256), 16-step
+             chains of heads4x64 and tokens96,
              their seconds and launches. The kernels line gains the three
              any-shape rows (launches: the wide chain's) and, on every
              row, launches_widths, launches_heads4x64, launches_tokens96
+  14 widths-train  rows 2, 3, 6 and 7 at every shape (the any-shape
+             instances, csrc/any_shape.cu with p and csrc/any_shape_bwd.cu,
+             picked by the same `forward_instance`): (a) first every shape
+             a train step of the three configurations of 13 launches the
+             any-shape instances at (b)'s batch 2 and (c)'s batch 4
+             (`train_path`, level by level), rows 2-3 (with row 1) and
+             rows 6-7 on their route (with rows 4-5), then rows 2-3 over
+             13 (a)'s grid of F x heads x d x C x T at S = 144 and two
+             shapes at S = 9191, rows 6-7 over its heads, C and Mc on both
+             routes and two at N = 9191, and |k| across 60 on both routes;
+             each against its twin (row 2: out bit-equal to row 1's, p
+             summing to one; the cotangents within GRAD_TOL of their max),
+             two launches bit-equal; the new instances against the
+             specialised ones at two flagship shapes; their times at the
+             configurations' largest shapes; (b) one step of each
+             configuration at batch 2 on the kernel and saved plans beside
+             the recompute and unfused plans (every fused-block gradient
+             within GRAD_TOL of the recompute plan's max; the loss and each
+             group's relative L2 within GRAD_TOL of the unfused plan's), its
+             launches equal to `train_path`'s and the any-shape shapes
+             equal to those (a) checked; (c) the train
+             CLI on heads4x64 with the kernel plan, batch 4, 6 steps on
+             phase 7's seeded GIF folder: launches 6 times a step's, median
+             step ms and peak memory. The kernels line gains the four rows
+             (launches: (b) and (c)'s) and launches_widths_train on every
+             row
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -578,10 +606,10 @@ def temporal_cost(b, s, c, t_tok, f=FRAMES, heads=HEADS, hidden=HIDDEN):
     return 2 * act + weights, flops
 
 
-def temporal_p_cost(b, s, c, t_tok):
+def temporal_p_cost(b, s, c, t_tok, f=FRAMES, heads=HEADS, hidden=HIDDEN):
     """temporal_cost plus the bf16 softmax weights written once."""
-    nbytes, flops = temporal_cost(b, s, c, t_tok)
-    return nbytes + b * FRAMES * s * (FRAMES + t_tok) * HEADS * 2, flops
+    nbytes, flops = temporal_cost(b, s, c, t_tok, f, heads, hidden)
+    return nbytes + b * f * s * (f + t_tok) * heads * 2, flops
 
 
 def head_cost(bf_, n, c, m_c=1):
@@ -606,35 +634,36 @@ def stats_cost(bf_, n, c, m_c=1, heads=HEADS, d=32):
     return nbytes, flops
 
 
-def temporal_bwd_cost(b, s, c, t_tok):
+def temporal_bwd_cost(b, s, c, t_tok, f=FRAMES, heads=HEADS, hidden=HIDDEN):
     """(bytes, flops): x and g read, dx written, weights read once, the f32
     parameter cotangents written once; the recomputed QKV, dy and dw_all
     (3 x 2 C 3H a row), g_acc and dw_out (2 x 2 H C), and the attention
     backward (scores, dp, values, dq, dk, dv: 12 (F+T) H a row)."""
-    rows = b * FRAMES * s
-    weights = (FRAMES * c * 3 * HIDDEN + HIDDEN * c + 2 * b * t_tok * HIDDEN
-               ) * 2 + FRAMES * (FRAMES + t_tok) * HEADS * 4 + c * 4
-    grads = (FRAMES * c * 3 * HIDDEN + HIDDEN * c + c + 2 * b * t_tok * HIDDEN
-             + FRAMES * (FRAMES + t_tok) * HEADS) * 4
-    flops = rows * (3 * 2 * c * 3 * HIDDEN + 2 * 2 * HIDDEN * c
-                    + 12 * (FRAMES + t_tok) * HIDDEN)
+    rows = b * f * s
+    weights = (f * c * 3 * hidden + hidden * c + 2 * b * t_tok * hidden
+               ) * 2 + f * (f + t_tok) * heads * 4 + c * 4
+    grads = (f * c * 3 * hidden + hidden * c + c + 2 * b * t_tok * hidden
+             + f * (f + t_tok) * heads) * 4
+    flops = rows * (3 * 2 * c * 3 * hidden + 2 * 2 * hidden * c
+                    + 12 * (f + t_tok) * hidden)
     return 3 * rows * c * 2 + weights + grads, flops
 
 
-def linear_bwd_cost(bf_, n, c, m_c=1):
+def linear_bwd_cost(bf_, n, c, m_c=1, heads=HEADS, d=32):
     """(bytes, flops): x and g read, dx written, weights and cond tokens
     read, the f32 cotangents written; the QKV projection, dy and dW_qkv
     (3 x 2 C 3H a token), g_oh and dW_out (2 x 2 H C), and six per-head
-    32 x 32 products (stats, oh, dQ, dctx, dP, dV), the cond tokens in the
+    d x d products (stats, oh, dQ, dctx, dP, dV), the cond tokens in the
     stats and key-side ones."""
     rows = bf_ * n
-    nbytes = (3 * rows * c * 2 + (c * 3 * HIDDEN + HIDDEN * c) * 2
-              + 2 * bf_ * m_c * HIDDEN * 2 + c * 8
-              + (c * 3 * HIDDEN + HIDDEN * c + 2 * c
-                 + 2 * bf_ * m_c * HIDDEN) * 4)
-    flops = (rows * (3 * 2 * c * 3 * HIDDEN + 2 * 2 * HIDDEN * c
-                     + 6 * 2 * HIDDEN * 32)
-             + bf_ * m_c * 3 * 2 * HIDDEN * 32)
+    hidden = heads * d
+    nbytes = (3 * rows * c * 2 + (c * 3 * hidden + hidden * c) * 2
+              + 2 * bf_ * m_c * hidden * 2 + c * 8
+              + (c * 3 * hidden + hidden * c + 2 * c
+                 + 2 * bf_ * m_c * hidden) * 4)
+    flops = (rows * (3 * 2 * c * 3 * hidden + 2 * 2 * hidden * c
+                     + 6 * 2 * hidden * d)
+             + bf_ * m_c * 3 * 2 * hidden * d)
     return nbytes, flops
 
 
@@ -952,7 +981,7 @@ def linear_bwd_kernels(report, gen):
         a["ek"] = (a["ek"].float() + cond_key_shift(n)).to(torch.bfloat16)
         g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
             torch.bfloat16)
-        route = lin.bwd_route(n)
+        route = lin.bwd_route(n, hidden=a["w_out"].shape[0])
         kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n, route=route)
         got = lin.linear_block_bwd(**a, g=g, **kw)
         err, share, at = check_cotangents(
@@ -1206,7 +1235,7 @@ def ablation_kernels(report, kept=None):
 
     l_names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
     for m_c in ABLATION_MC:
-        shapes = [(bf_, n, c, lin.bwd_route(n))
+        shapes = [(bf_, n, c, lin.bwd_route(n, hidden=HIDDEN))
                   for bf_, n, c in sorted(set(TRAIN_LINEAR),
                                           key=lambda v: -v[1])]
         shapes += [(TRAIN_BATCH * FRAMES, 100, 64, r)
@@ -1653,6 +1682,10 @@ def phase_eval(smi: str, report: dict) -> dict:
 
 
 TRAIN_CLI_STEPS, TRAIN_CLI_EVERY = 20, 10
+# the milestones' sampling calls: DDIM-64 (--sampling-timesteps 64, phase
+# 8's sampler) where the full chain is 256 steps (the script's time
+# limit: phase 14 took the rest; phase 6 runs the full chain at the chunk)
+TRAIN_CLI_SAMPLING_STEPS = 64
 TRAIN_PER_STEP = dict(fused_temporal_block=10, linear_stats=8,
                       linear_apply=8, temporal_bwd=10, linear_bwd_head=2,
                       linear_bwd_merged=6)
@@ -1772,7 +1805,8 @@ def phase_train_cli(smi: str, report: dict, step_ms_phase5: float) -> dict:
                   "--fidelity-probe-preds", "2", "--test-batch-size", "8",
                   "--skip-eval-target", "--train-num-steps",
                   str(TRAIN_CLI_STEPS), "--save-and-sample-every",
-                  str(TRAIN_CLI_EVERY), "--device", "cuda"]
+                  str(TRAIN_CLI_EVERY), "--sampling-timesteps",
+                  str(TRAIN_CLI_SAMPLING_STEPS), "--device", "cuda"]
 
         # ---- run A: 20 steps, milestones at 10 and 20
         t0 = time.perf_counter()
@@ -1791,8 +1825,8 @@ def phase_train_cli(smi: str, report: dict, step_ms_phase5: float) -> dict:
         milestones = TRAIN_CLI_STEPS // TRAIN_CLI_EVERY
         # each milestone: one validation batch (4 videos) on the train plan
         # and two sampling calls (1 curve, 2 probe curves), each one chunk
-        # of 4 through the 256-step chain
-        sampling_steps = milestones * 2 * cfg.train_timesteps
+        # of 4 through DDIM-64
+        sampling_steps = milestones * 2 * TRAIN_CLI_SAMPLING_STEPS
         val_batches = milestones
         want = {k: TRAIN_PER_STEP.get(k, 0) * TRAIN_CLI_STEPS
                 + EVAL_PER_STEP.get(k, 0) * (sampling_steps + val_batches)
@@ -3177,6 +3211,9 @@ def phase_parallel(smi: str, report: dict,
 # ------------------------------------------------------- phase 12 latency
 
 LATENCY_STEPS = 16      # (b): the cut chain each mode runs on two ranks
+# (a): the chain of the group of one and its unsplit twin, the first 64
+# steps of DDPM-256 (the script's time limit: phase 14 took the rest)
+LATENCY_ONE_STEPS = 64
 LATENCY_SEED = 12       # the generator of x_T and the step noises
 # (b) bounds, relative L2 error against the unsplit chain from the same
 # x_T and noises: the split changes the order of float32 sums (GroupNorm,
@@ -3276,9 +3313,10 @@ def latency_rank(rank: int, init: str, out: str) -> None:
 
 def phase_latency(smi: str, report: dict) -> None:
     """12 latency: the latency mode (parallel/latency.py), one video's
-    chain split across ranks. (a) an NCCL group of one rank: the full
-    DDPM-256 chain of the flagship with the fused plans off, bit-equal to
-    the same chain without the plan, no collective called; (b) two ranks
+    chain split across ranks. (a) an NCCL group of one rank: the first
+    LATENCY_ONE_STEPS steps of the flagship's DDPM-256 chain with the fused
+    plans off, bit-equal to the same steps without the plan, no collective
+    called; (b) two ranks
     on this one card, two processes on cuda:0 in a gloo group (NCCL takes
     one rank a card), the collectives staged through host memory: a
     LATENCY_STEPS-step chain split by height and one split by frames,
@@ -3314,14 +3352,14 @@ def phase_latency(smi: str, report: dict) -> None:
     # ---- (a) a group of one: the unsplit code, no collective
     t0 = time.perf_counter()
     _build.reset_launch_counts()
-    want, plain_s = chain(plain)
+    want, plain_s = chain(plain, LATENCY_ONE_STEPS)
     parallel.initialize_distributed(f"tcp://127.0.0.1:{free_port()}",
                                     world_size=1, rank=0, backend="nccl")
     try:
         plan = parallel.spatial_video_sharding()
         one = GaussianDiffusion.from_config(plain.model, cfg, "cuda",
                                             sample_spatial_sharding=plan)
-        got, one_s = chain(one)
+        got, one_s = chain(one, LATENCY_ONE_STEPS)
     finally:
         parallel.mesh.destroy()
     launches = dict(_build.LAUNCH_COUNTS)
@@ -3337,14 +3375,13 @@ def phase_latency(smi: str, report: dict) -> None:
         raise AssertionError(
             f"12a: the group-of-one chain differs from the unsplit chain, "
             f"max |diff| {(got - want).abs().max().item():.3e}")
-    if not torch.isfinite(want).all() or want.min() < 0 or want.max() > 1:
-        raise AssertionError("12a: the chain's videos are not finite in "
-                             "[0, 1]")
-    log(f"  (a) NCCL group of 1, flagship with the fused plans off, "
-        f"DDPM-{steps}, w = 5, batch 1: bit-equal to the unsplit chain, "
-        f"collectives {plan.counts}, kernel launches 0; unfused chain "
-        f"{one_s:.2f}s in the group, {plain_s:.2f}s without "
-        f"({60.0 / plain_s:.3f} videos/min) on {smi} | "
+    if not torch.isfinite(want).all():
+        raise AssertionError("12a: the chain's videos are not finite")
+    log(f"  (a) NCCL group of 1, flagship with the fused plans off, the "
+        f"first {LATENCY_ONE_STEPS} steps of DDPM-{steps}, w = 5, batch 1: "
+        f"bit-equal to the unsplit steps, collectives {plan.counts}, kernel "
+        f"launches 0; {one_s:.2f}s in the group, {plain_s:.2f}s without "
+        f"({plain_s / LATENCY_ONE_STEPS * 1e3:.1f} ms a step) on {smi} | "
         f"{time.perf_counter() - t0:.1f}s")
 
     # ---- (b) two ranks on this card, gloo, staged through the host
@@ -3448,6 +3485,9 @@ WIDTH_CONFIGS = {
                       linear_stats=8, linear_apply=8)),
 }
 WIDTH_CHAIN_STEPS = 16  # (c): the chains of heads4x64 and tokens96
+# (c): the wide chain, the first 64 steps of DDPM-256 through the sampling
+# entry (the script's time limit: phase 14 took the rest)
+WIDTH_WIDE_STEPS = 64
 ANY_ROWS = ("temporal_block_any", "linear_stats_any", "linear_apply_any")
 
 
@@ -3467,23 +3507,18 @@ def width_yaml(root: Path, name: str) -> Path:
     return path
 
 
-def width_path_shapes(cfg, batch: int = 1) -> tuple[set, set]:
-    """The shapes at which one guided eps of cfg's model at `batch` latents
-    (the CFG pair doubles it) launches the any-shape instances, UNet3D's
-    blocks level by level: row 1's (B', F, S, C, T, heads, d) and rows
-    4-5's (B'F, N, C, Mc, heads, d). The init block has no tokens and,
-    with cfg_shared_init, runs once a latent; the linear blocks' heads are
-    32 wide."""
+def fused_blocks(cfg, b_init: int, b: int) -> list:
+    """cfg's UNet3D level by level: ('temporal', B', F, S, C, T, heads, d)
+    of every fused temporal block and ('linear', B'F, N, C, Mc, heads, 32)
+    of every fused linear block (their heads are 32 wide), in path order,
+    the init block (no tokens) at b_init rows and the rest at b."""
     import torch
 
     from videometamaterials_tpu_torch.models.unet3d import UNet3D
-    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
-    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
 
     with torch.device("meta"):
         model = UNet3D.from_config(cfg)
     f, heads, d = cfg.num_frames, cfg.unet_attn_heads, cfg.unet_attn_dim_head
-    b2 = 2 * batch
     chans = [cfg.unet_dim, *(cfg.unet_dim * m for m in cfg.dim_mults)]
     sizes = [(cfg.image_size >> i) ** 2 for i in range(len(cfg.dim_mults))]
     stacked = model.cond_attention == "self-stacked"
@@ -3491,27 +3526,53 @@ def width_path_shapes(cfg, batch: int = 1) -> tuple[set, set]:
              and model.use_temporal_attention_cond else 0)
     m_c = 0 if not stacked else 1 if model.per_frame_cond else t_tok
     # (block, B', S, C, T) of every temporal and linear block
-    blocks = [(model.init_temporal_attn,
-               batch if cfg.cfg_shared_init else b2, sizes[0], chans[0], 0)]
+    blocks = [(model.init_temporal_attn, b_init, sizes[0], chans[0], 0)]
     for i, level in enumerate(model.downs):
-        blocks += [(level[k], b2, sizes[i], chans[i + 1], t_tok)
+        blocks += [(level[k], b, sizes[i], chans[i + 1], t_tok)
                    for k in (2, 3)]
-    blocks.append((model.mid_temporal_attn, b2, sizes[-1], chans[-1],
-                   t_tok))
+    blocks.append((model.mid_temporal_attn, b, sizes[-1], chans[-1], t_tok))
     for i, level in enumerate(model.ups):
         lvl = len(sizes) - 1 - i
-        blocks += [(level[k], b2, sizes[lvl], chans[lvl], t_tok)
+        blocks += [(level[k], b, sizes[lvl], chans[lvl], t_tok)
                    for k in (2, 3)]
-    temporal, linear = set(), set()
-    for block, b, s, c, t in blocks:
+    out = []
+    for block, rows, s, c, t in blocks:
         if not getattr(block, "use_fused_block", False):
             continue
         if hasattr(block, "temporal_vjp"):
-            if tmp.forward_instance(f, heads, d, c, t) == tmp.ANY_SHAPE:
-                temporal.add((b, f, s, c, t, heads, d))
-        elif lin.forward_instance(heads, 32, c) == lin.ANY_SHAPE:
-            linear.add((b * f, s, c, m_c, heads, 32))
+            out.append(("temporal", rows, f, s, c, t, heads, d))
+        else:
+            out.append(("linear", rows * f, s, c, m_c, heads, 32))
+    return out
+
+
+def width_path_shapes(cfg, batch: int = 1) -> tuple[set, set]:
+    """The shapes at which one guided eps of cfg's model at `batch` latents
+    (the CFG pair doubles it) launches the any-shape instances, UNet3D's
+    blocks level by level (`fused_blocks`): row 1's (B', F, S, C, T,
+    heads, d) and rows 4-5's (B'F, N, C, Mc, heads, d). The init block
+    has no tokens and, with cfg_shared_init, runs once a latent."""
+    b2 = 2 * batch
+    temporal, linear = set(), set()
+    for kind, *shape in fused_blocks(
+            cfg, batch if cfg.cfg_shared_init else b2, b2):
+        if instance_of(kind, shape) != "any":
+            continue
+        (temporal if kind == "temporal" else linear).add(tuple(shape))
     return temporal, linear
+
+
+def instance_of(kind: str, shape) -> str:
+    """The instance ('specialised' or 'any') the wrappers pick for a fused
+    block of `fused_blocks`' shape."""
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    if kind == "temporal":
+        _, f, _, c, t, heads, d = shape
+        return tmp.forward_instance(f, heads, d, c, t)
+    _, _, c, _, heads, d = shape
+    return lin.forward_instance(heads, d, c)
 
 
 def width_path_kernels(root: Path) -> dict:
@@ -3546,50 +3607,6 @@ def width_path_kernels(root: Path) -> dict:
             f"heads, d) {sorted(linear)}, stats {errs[1]:.3e}, apply update "
             f"{errs[2]:.3e}; two launches bit-equal")
     return shapes
-
-
-def _recording_shapes(temporal: set, linear: set):
-    """A context in which each launch of an any-shape instance adds its
-    shape to `temporal` (row 1, as width_path_shapes) or `linear` (rows
-    4-5: the stats' shape; the apply's must be one of them)."""
-    import contextlib
-    from unittest import mock
-
-    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
-    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
-
-    fwd_any, stats_any, apply_any = tmp._fwd_any, lin._stats_any, \
-        lin._apply_any
-    applied = set()
-
-    def fwd(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
-        temporal.add((*x.shape, 0 if ek is None else ek.shape[1], heads,
-                      w_out.shape[0] // heads))
-        return fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
-
-    def stats(x, gamma, w_qkv, ek, ev, *, heads, spatial_size):
-        linear.add((*x.shape, 0 if ek is None else ek.shape[1], heads,
-                    w_qkv.shape[1] // (3 * heads)))
-        return stats_any(x, gamma, w_qkv, ek, ev, heads=heads,
-                         spatial_size=spatial_size)
-
-    def apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads, scale):
-        applied.add((*x.shape, heads, w_qkv.shape[1] // (3 * heads)))
-        return apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z,
-                         heads=heads, scale=scale)
-
-    @contextlib.contextmanager
-    def ctx():
-        with mock.patch.object(tmp, "_fwd_any", fwd), \
-                mock.patch.object(lin, "_stats_any", stats), \
-                mock.patch.object(lin, "_apply_any", apply):
-            yield
-        stats_shapes = {(*s[:3], *s[4:]) for s in linear}
-        if applied != stats_shapes:
-            raise AssertionError(f"the apply ran at {sorted(applied)}, the "
-                                 f"stats at {sorted(stats_shapes)}")
-
-    return ctx()
 
 
 def _launched(name: str, fn):
@@ -3828,10 +3845,16 @@ def width_models(root: Path, path_shapes: dict) -> dict:
         cfg = load_model_yaml(width_yaml(root, name))
         diffusion = build_sampler(cfg, device="cuda", seed=0)
         _build.reset_launch_counts()
-        temporal, linear = set(), set()
-        with _recording_shapes(temporal, linear):
+        shapes = {}
+        with _recording_shapes(shapes):
             rels[name] = rel = phase_model(diffusion, cfg)
         torch.cuda.synchronize()
+        temporal = shapes.get("temporal_block_any", set())
+        linear = shapes.get("linear_stats_any", set())
+        if shapes.get("linear_apply_any", set()) != linear:
+            raise AssertionError(f"13b {name} eps: the apply ran at "
+                                 f"{shapes.get('linear_apply_any')}, the "
+                                 f"stats at {linear}")
         if (temporal, linear) != path_shapes[name]:
             raise AssertionError(
                 f"13b {name} eps: any-shape launches at {sorted(temporal)} "
@@ -3929,7 +3952,8 @@ def phase_widths(smi: str, report: dict) -> None:
             f"{time.perf_counter() - t0:.1f}s")
         t0 = time.perf_counter()
         chains = {name: width_chain(root, name, steps, smi) for name, steps in
-                  (("wide", 256), ("heads4x64", WIDTH_CHAIN_STEPS),
+                  (("wide", WIDTH_WIDE_STEPS),
+                   ("heads4x64", WIDTH_CHAIN_STEPS),
                    ("tokens96", WIDTH_CHAIN_STEPS))}
         for name, res in chains.items():
             for k, v in res["counts"].items():
@@ -3937,10 +3961,784 @@ def phase_widths(smi: str, report: dict) -> None:
         for k in ANY_ROWS:
             report[k]["launches"] = chains["wide"]["counts"][k]
             report[k]["library_ms"] = None
-        log(f"[13c chain] wide DDPM-256 {chains['wide']['seconds']:.2f}s; "
+        log(f"[13c chain] wide {WIDTH_WIDE_STEPS} steps "
+            f"{chains['wide']['seconds']:.2f}s; "
             f"heads4x64 and tokens96 {WIDTH_CHAIN_STEPS} steps "
             f"{chains['heads4x64']['seconds']:.2f}s / "
             f"{chains['tokens96']['seconds']:.2f}s | "
+            f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 14
+
+# (a) the any-shape instances of rows 2, 3, 6 and 7 over 13 (a)'s grid
+# (F x heads x d x C x T at S = 144 for rows 2-3; heads x d x C x Mc at
+# N = 144, 22 folded frames, on both routes for rows 6-7) and at 9191
+# positions; (b) one step of each WIDTH_CONFIGS edit at WTRAIN_BATCH;
+# (c) the train CLI on heads4x64 at the flagship's batch 4, WTRAIN_CLI_STEPS
+# steps
+WTRAIN_BATCH = 2
+WTRAIN_CLI_BATCH = 4
+WTRAIN_CLI_STEPS = 6
+# the batches whose path shapes (a) checks: (b)'s and (c)'s
+WTRAIN_PATH_BATCHES = {"wide": (WTRAIN_BATCH,),
+                       "heads4x64": (WTRAIN_BATCH, WTRAIN_CLI_BATCH),
+                       "tokens96": (WTRAIN_BATCH,)}
+TRAIN_ANY_ROWS = ("temporal_fwd_p_any", "temporal_bwd_any",
+                  "linear_bwd_head_any", "linear_bwd_merged_any")
+# the any-shape instances a train step launches, by the wrapper that
+# launches them (the shapes recorded: temporal (B, F, S, C, T, heads, d),
+# linear (BF, N, C, Mc, heads, d) and, for rows 6-7, the route)
+WTRAIN_PLANS = {"kernel": {}, "saved": {"temporal_vjp": "saved"}}
+
+
+def train_path(cfg, batch: int) -> dict:
+    """What one train step of cfg's model at `batch` videos launches,
+    UNet3D's blocks level by level (`fused_blocks`): for each plan of
+    WTRAIN_PLANS the launches of each kernel ({name: count}) and the
+    shapes of each any-shape instance ({name: set}), the linear blocks'
+    backward on the route the JAX rule gives (bwd_route at the block's
+    hidden)."""
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    out = {plan: ({}, {}) for plan in WTRAIN_PLANS}
+    for kind, *shape in fused_blocks(cfg, batch, batch):
+        any_ = instance_of(kind, shape) == "any"
+        shape = tuple(shape)
+        if kind == "temporal":
+            names = {"kernel": [("fused_temporal_block", "temporal_block_any"),
+                                ("temporal_bwd", "temporal_bwd_any")],
+                     "saved": [("temporal_fwd_p", "temporal_fwd_p_any")]}
+        else:
+            route = lin.bwd_route(shape[1], hidden=shape[4] * shape[5])
+            names = dict.fromkeys(WTRAIN_PLANS, [
+                ("linear_stats", "linear_stats_any"),
+                ("linear_apply", "linear_apply_any"),
+                (f"linear_bwd_{route}", f"linear_bwd_{route}_any")])
+            if any_:
+                shape = shape + (route,)
+        for plan, rows in names.items():
+            counts, shapes = out[plan]
+            for spec, anyname in rows:
+                name = anyname if any_ else spec
+                counts[name] = counts.get(name, 0) + 1
+                if any_:
+                    rows_shape = (shape[:6] if anyname in (
+                        "linear_stats_any", "linear_apply_any") else shape)
+                    shapes.setdefault(anyname, set()).add(rows_shape)
+    return out
+
+
+def _recording_shapes(shapes: dict):
+    """A context in which each launch of an any-shape instance adds its
+    shape to shapes[its LAUNCH_COUNTS name]: temporal (B, F, S, C, T,
+    heads, d), linear (BF, N, C, Mc, heads, d) and, for rows 6-7, the
+    route (as `width_path_shapes` and `train_path` write them). The
+    apply's is the stats' before it (it takes no tokens)."""
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    fwd_any, bwd_any = tmp._fwd_any, tmp._bwd_any
+    stats_any, apply_any, lbwd_any = lin._stats_any, lin._apply_any, \
+        lin._bwd_any
+
+    def tshape(x, w_out, ek, heads):
+        return (*x.shape, 0 if ek is None else ek.shape[1], heads,
+                w_out.shape[0] // heads)
+
+    def lshape(x, w_qkv, ek, heads):
+        return (*x.shape, 0 if ek is None else ek.shape[1], heads,
+                w_qkv.shape[1] // (3 * heads))
+
+    def add(name, shape):
+        shapes.setdefault(name, set()).add(shape)
+
+    def fwd(x, gamma, w_all, w_out, ek, ev, bias_all, heads, emit_p=False):
+        add("temporal_fwd_p_any" if emit_p else "temporal_block_any",
+            tshape(x, w_out, ek, heads))
+        return fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads,
+                       emit_p=emit_p)
+
+    def bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, heads):
+        add("temporal_bwd_any", tshape(x, w_out, ek, heads))
+        return bwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, g, heads)
+
+    def stats(x, gamma, w_qkv, ek, ev, **kw):
+        add("linear_stats_any", lshape(x, w_qkv, ek, kw["heads"]))
+        return stats_any(x, gamma, w_qkv, ek, ev, **kw)
+
+    def apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, **kw):
+        # the apply takes no tokens: its shape is the stats' before it
+        b, n, c = x.shape
+        d = w_qkv.shape[1] // (3 * kw["heads"])
+        stats_shape = next((s for s in shapes.get("linear_stats_any", ())
+                            if s[:3] == (b, n, c)
+                            and s[4:] == (kw["heads"], d)), None)
+        if stats_shape is None:
+            raise AssertionError(f"an any-shape apply at {(b, n, c)} with "
+                                 "no stats launch before it")
+        add("linear_apply_any", stats_shape)
+        return apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z, **kw)
+
+    def lbwd(x, gamma, w_qkv, w_out, ek, ev, g, **kw):
+        add(f"linear_bwd_{kw['route']}_any",
+            lshape(x, w_qkv, ek, kw["heads"]) + (kw["route"],))
+        return lbwd_any(x, gamma, w_qkv, w_out, ek, ev, g, **kw)
+
+    return _patched(
+        (tmp, "_fwd_any", fwd), (tmp, "_bwd_any", bwd),
+        (lin, "_stats_any", stats), (lin, "_apply_any", apply),
+        (lin, "_bwd_any", lbwd))
+
+
+@contextlib.contextmanager
+def _patched(*patches):
+    from unittest import mock
+
+    with contextlib.ExitStack() as stack:
+        for obj, name, fn in patches:
+            stack.enter_context(mock.patch.object(obj, name, fn))
+        yield
+
+
+def wtrain_temporal_check(a, heads, g, what) -> tuple[float, float, float]:
+    """Rows 2 and 3's any-shape instances on `a`: each two launches
+    bit-equal, one each; row 2's out bit-equal to row 1's any-shape launch
+    and within BF16_TOL of the twin, p within BF16_TOL of the twin's and
+    summing to one within P_SUM_TOL; row 3's cotangents within GRAD_TOL of
+    the twin's max (check_cotangents). Returns (row 2's max error, row
+    3's max error and its largest share of a cotangent's max)."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    b, f, s, c = a["x"].shape
+    d = a["w_out"].shape[0] // heads
+    t_tok = 0 if a["ek"] is None else a["ek"].shape[1]
+    if tmp.forward_instance(f, heads, d, c, t_tok) != tmp.ANY_SHAPE:
+        raise AssertionError(f"{what}: routed to the specialised instance")
+    def emit_p():
+        return tmp.temporal_block_fwd(**a, heads=heads, emit_p=True)
+
+    (out_p, p), n1 = _launched("temporal_fwd_p_any", emit_p)
+    (out_2, p_2), n2 = _launched("temporal_fwd_p_any", emit_p)
+    out, n3 = _launched("temporal_block_any",
+                        lambda: tmp.temporal_block_fwd(**a, heads=heads))
+    if (n1, n2, n3) != (1, 1, 1):
+        raise AssertionError(f"{what}: {n1} + {n2} emit_p launches, {n3} "
+                             "row 1 launches")
+    if not (torch.equal(out_p, out_2) and torch.equal(p, p_2)):
+        raise AssertionError(f"{what}: two emit_p launches differ")
+    if not torch.equal(out_p, out):
+        raise AssertionError(f"{what}: emit_p's out is not bit-equal to row "
+                             "1's any-shape launch")
+    want_out, want_p = tmp.temporal_block_plain_p(**a, heads=heads)
+    err_2 = max(check_close(f"{what} row 2 out", out_p, want_out, BF16_TOL),
+                check_close(f"{what} row 2 p", p, want_p, BF16_TOL))
+    sums = p.float().reshape(b, f, s, f + t_tok, heads).sum(dim=3)
+    sum_err = (sums - 1).abs().max().item()
+    if not sum_err <= P_SUM_TOL:
+        raise AssertionError(f"{what}: p sums to one within {sum_err:.3e}")
+    del out_p, p, out_2, p_2, out, want_out, want_p, sums
+    t_names = ("dx", "dgamma", "dw_all", "dw_out", "dek", "dev", "dbias")
+    got, n1 = _launched("temporal_bwd_any", lambda: tmp.temporal_block_bwd(
+        **a, g=g, heads=heads))
+    again, n2 = _launched("temporal_bwd_any", lambda: tmp.temporal_block_bwd(
+        **a, g=g, heads=heads))
+    if (n1, n2) != (1, 1):
+        raise AssertionError(f"{what}: {n1} + {n2} row 3 launches")
+    if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"{what}: two row 3 launches differ")
+    err_3, share, _ = check_cotangents(
+        f"{what} row 3", t_names, got,
+        tmp.temporal_block_bwd_plain(**a, g=g, heads=heads))
+    return err_2, err_3, share
+
+
+def wtrain_linear_check(a, heads, g, route, what) -> tuple[float, float]:
+    """Row 6 (route 'head') or 7 ('merged')'s any-shape instance on `a`:
+    two launches bit-equal, one each, every cotangent within GRAD_TOL of
+    the twin's max. Returns (the max error, its largest share of a
+    cotangent's max)."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    bf_, n, c = a["x"].shape
+    d = a["w_out"].shape[0] // heads
+    if lin.forward_instance(heads, d, c) != lin.ANY_SHAPE:
+        raise AssertionError(f"{what}: routed to the specialised instance")
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n, route=route)
+    args = {k: a[k] for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
+                              "ek", "ev")}
+    name = f"linear_bwd_{route}_any"
+    got, n1 = _launched(name, lambda: lin.linear_block_bwd(**args, g=g, **kw))
+    again, n2 = _launched(name, lambda: lin.linear_block_bwd(**args, g=g,
+                                                             **kw))
+    if (n1, n2) != (1, 1):
+        raise AssertionError(f"{what}: {n1} + {n2} launches")
+    if not all(u is None or torch.equal(u, v) for u, v in zip(got, again)):
+        raise AssertionError(f"{what}: two launches differ")
+    l_names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    err, share, _ = check_cotangents(
+        f"{what}", l_names, got, lin.linear_block_bwd_plain(**args, g=g, **kw))
+    return err, share
+
+
+def _wtrain_linear_inputs(bf_, n, c, gen, m_c, heads, d):
+    """linear_inputs with the conditioning tokens taking about half of each
+    feature's token softmax (cond_key_shift over N / Mc), so dek, dev and S
+    are seen; no tokens at Mc = 0."""
+    import torch
+
+    a = linear_inputs(bf_, n, c, gen, max(m_c, 1), heads, d)
+    del a["ctx"], a["z"]
+    if m_c:
+        a["ek"] = (a["ek"].float() + cond_key_shift(max(n // m_c, 1))).to(
+            torch.bfloat16)
+    else:
+        a["ek"] = a["ev"] = None
+    return a
+
+
+def _grad_cotangent(shape, gen):
+    import torch
+
+    return torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+
+
+def wtrain_path_kernels(root: Path) -> dict:
+    """14 (a), first: every any-shape instance a train step of each
+    configuration launches at WTRAIN_PATH_BATCHES (`train_path`), against
+    its twin: rows 2-3 and row 1, rows 6-7 on their route and rows 4-5.
+    Returns {name: {batch: the path}}."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+
+    gen = torch.Generator(device="cuda").manual_seed(140)
+    paths = {}
+    for name in WIDTH_CONFIGS:
+        cfg = load_model_yaml(width_yaml(root, name))
+        paths[name] = {}
+        for batch in WTRAIN_PATH_BATCHES[name]:
+            path = paths[name][batch] = train_path(cfg, batch)
+            shapes = {}
+            for plan in WTRAIN_PLANS:
+                for k, v in path[plan][1].items():
+                    shapes.setdefault(k, set()).update(v)
+            worst = [0.0, 0.0, 0.0]
+            for shape in sorted(shapes.get("temporal_bwd_any", ())):
+                b, f, s, c, t, heads, d = shape
+                a = temporal_inputs(b, s, c, t, gen, f, heads, d)
+                what = f"{name} train path B={b} F={f} S={s} C={c} T={t} " \
+                       f"{heads}x{d}"
+                width_temporal_check(a, heads, what)
+                e2, _, e3 = wtrain_temporal_check(
+                    a, heads, _grad_cotangent(a["x"].shape, gen), what)
+                worst[0], worst[1] = max(worst[0], e2), max(worst[1], e3)
+                del a
+            routes = {}
+            for key in ("linear_bwd_head_any", "linear_bwd_merged_any"):
+                for shape in shapes.get(key, ()):
+                    routes[shape[:6]] = shape[6]
+            for (bf_, n, c, m_c, heads, d), route in sorted(routes.items()):
+                a = _wtrain_linear_inputs(bf_, n, c, gen, m_c, heads, d)
+                what = f"{name} train path BF={bf_} N={n} C={c} Mc={m_c} " \
+                       f"{heads}x{d} ({route})"
+                worst[2] = max(worst[2], wtrain_linear_check(
+                    a, heads, _grad_cotangent(a["x"].shape, gen), route,
+                    what)[1])
+                la = linear_inputs(bf_, n, c, gen, max(m_c, 1), heads, d)
+                if not m_c:
+                    la["ek"] = la["ev"] = None
+                width_linear_check(la, heads, what)
+                del a, la
+            log(f"  {name} train path at batch {batch}: rows 1-3 at "
+                f"{len(shapes.get('temporal_bwd_any', ()))} shapes, rows "
+                f"4-7 at {len(routes)} (routes "
+                f"{sorted(set(routes.values()))}); row 2 err "
+                f"{worst[0]:.3e}, row 3 {worst[1]:.2e} of its max, rows "
+                f"6-7 {worst[2]:.2e} of their max (tol {GRAD_TOL}); two "
+                "launches bit-equal")
+    return paths
+
+
+def wtrain_kernels(report, root: Path) -> dict:
+    """14 (a): `wtrain_path_kernels`, then rows 2-3 over WIDTH_F x
+    WIDTH_HEADS x WIDTH_C x WIDTH_T at WIDTH_S positions and at 9191, rows
+    6-7 over WIDTH_HEADS x WIDTH_C x WIDTH_T (as Mc) at N = WIDTH_S on both
+    routes and at 9191, each against its twin with two launches bit-equal;
+    the new instances against the specialised ones at two flagship shapes;
+    each instance's time at the configurations' largest shapes."""
+    import itertools
+
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
+
+    paths = wtrain_path_kernels(root)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = dict.fromkeys(TRAIN_ANY_ROWS, 0.0)      # max abs errors
+    shares = dict.fromkeys(TRAIN_ANY_ROWS, 0.0)     # of a cotangent's max
+    n_t = 0
+    grid = [(f, hd, c, t, WIDTH_S) for f, hd, c, t in itertools.product(
+        WIDTH_F, WIDTH_HEADS, WIDTH_C, WIDTH_T)]
+    grid += [(f, hd, c, t, 9191) for f, hd, c, t in WIDTH_RAGGED_TEMPORAL]
+    for f, (heads, d), c, t_tok, s in grid:
+        a = temporal_inputs(2, s, c, t_tok, gen, f, heads, d)
+        e2, e3, sh = wtrain_temporal_check(
+            a, heads, _grad_cotangent(a["x"].shape, gen),
+            f"train any F={f} {heads}x{d} C={c} T={t_tok} S={s}")
+        worst["temporal_fwd_p_any"] = max(worst["temporal_fwd_p_any"], e2)
+        worst["temporal_bwd_any"] = max(worst["temporal_bwd_any"], e3)
+        shares["temporal_bwd_any"] = max(shares["temporal_bwd_any"], sh)
+        n_t += 1
+        del a
+    log(f"  rows 2-3 any-shape: {n_t} shapes (F in {WIDTH_F}, heads x d in "
+        f"{WIDTH_HEADS}, C in {WIDTH_C}, T in {WIDTH_T}, S = {WIDTH_S}; "
+        f"{len(WIDTH_RAGGED_TEMPORAL)} at S = 9191): two launches bit-equal, "
+        f"row 2 out bit-equal to row 1's, max_abs_err "
+        f"{worst['temporal_fwd_p_any']:.3e} (tol {BF16_TOL}), row 3 "
+        f"{shares['temporal_bwd_any']:.2e} of its max (tol {GRAD_TOL})")
+    n_l = 0
+    lgrid = [(hd, c, m, WIDTH_S) for hd, c, m in itertools.product(
+        WIDTH_HEADS, WIDTH_C, WIDTH_T)]
+    lgrid += [(hd, c, m, 9191) for hd, c, m in WIDTH_RAGGED_LINEAR]
+    for (heads, d), c, m_c, n in lgrid:
+        a = _wtrain_linear_inputs(22, n, c, gen, m_c, heads, d)
+        g = _grad_cotangent(a["x"].shape, gen)
+        for route in ("head", "merged"):
+            key = f"linear_bwd_{route}_any"
+            err, sh = wtrain_linear_check(
+                a, heads, g, route,
+                f"train any {heads}x{d} C={c} Mc={m_c} N={n} ({route})")
+            worst[key], shares[key] = max(worst[key], err), max(shares[key],
+                                                                sh)
+        n_l += 1
+        del a, g
+    log(f"  rows 6-7 any-shape: {n_l} shapes on both routes (heads x d in "
+        f"{WIDTH_HEADS}, C in {WIDTH_C}, Mc in {WIDTH_T}, N = {WIDTH_S}; "
+        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191): two launches bit-equal, "
+        f"row 6 {shares['linear_bwd_head_any']:.2e}, row 7 "
+        f"{shares['linear_bwd_merged_any']:.2e} of their max (tol "
+        f"{GRAD_TOL})")
+
+    # |k| across 60: the merged instance follows its clamped twin, the
+    # per-head one its unclamped twin, and the twins differ
+    n, heads, d, c = 100, 4, 32, 96
+    hd = heads * d
+    a = _wtrain_linear_inputs(22, n, c, gen, 1, heads, d)
+    w = a["w_qkv"].float()
+    w[:, hd:hd + 32] *= HEAD_CLAMP_K_SCALE
+    a["w_qkv"] = w.to(torch.bfloat16)
+    ek = a["ek"].float()
+    ek[..., :32] = torch.randn(ek[..., :32].shape, generator=gen,
+                               device="cuda") * 60.0
+    a["ek"] = ek.to(torch.bfloat16)
+    g = _grad_cotangent(a["x"].shape, gen)
+    for route in ("merged", "head"):
+        wtrain_linear_check(a, heads, g, route,
+                            f"train any |k| across 60 ({route})")
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
+    args = {k: a[k] for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
+                              "ek", "ev")}
+    twins = {r: lin.linear_block_bwd_plain(**args, g=g, **kw, route=r)
+             for r in ("merged", "head")}
+    gap = ((twins["merged"][2] - twins["head"][2]).abs().max().item()
+           / twins["head"][2].abs().max().item())
+    if not gap > GRAD_TOL:
+        raise AssertionError(f"train any |k| across 60: the routes' twins "
+                             f"differ by {gap:.3e} of their max, inside "
+                             f"{GRAD_TOL}: the case cannot tell a clamp")
+    log(f"  rows 6-7 any-shape at |k| across 60 (4x32, C={c}, N={n}): both "
+        f"routes within {GRAD_TOL} of their twins; the twins' dw_qkv differ "
+        f"by {gap:.3f} of their max")
+    del a, g, twins
+
+    # the new instances against the specialised ones (flagship shapes)
+    t_names = ("dx", "dgamma", "dw_all", "dw_out", "dek", "dev", "dbias")
+    l_names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    for b, s, c in ((2, 2304, 128), (2, 144, 512)):
+        a = temporal_inputs(b, s, c, FRAMES, gen)
+        g = _grad_cotangent(a["x"].shape, gen)
+        spec_out, spec_p = tmp.temporal_block_fwd(**a, heads=HEADS,
+                                                  emit_p=True)
+        any_out, any_p = tmp._fwd_any(**a, heads=HEADS, emit_p=True)
+        err_2 = max(check_close(f"emit_p any vs specialised {b, s, c}",
+                                any_out, spec_out, BF16_TOL),
+                    check_close(f"p any vs specialised {b, s, c}", any_p,
+                                spec_p, BF16_TOL))
+        _, share_3, _ = check_cotangents(
+            f"temporal bwd any vs specialised {b, s, c}", t_names,
+            tmp._bwd_any(**a, g=g, heads=HEADS),
+            tmp.temporal_block_bwd(**a, g=g, heads=HEADS))
+        bf_ = b * FRAMES
+        la = _wtrain_linear_inputs(bf_, s, c, gen, 1, HEADS, 32)
+        lg = _grad_cotangent(la["x"].shape, gen)
+        ops = [la[k] for k in ("x", "gamma", "w_qkv", "w_out", "ek", "ev")]
+        args = {k: la[k] for k in ("x", "gamma", "w_qkv", "w_out",
+                                   "out_bias", "ek", "ev")}
+        shares = []
+        for route in ("head", "merged"):
+            kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=s,
+                      route=route)
+            shares.append(check_cotangents(
+                f"linear bwd any vs specialised {bf_, s, c} ({route})",
+                l_names, lin._bwd_any(*ops, lg, **kw),
+                lin.linear_block_bwd(**args, g=lg, **kw))[1])
+        log(f"  flagship shape (B={b}, S={s}, C={c}, T=11): any-shape "
+            f"against specialised, row 2 {err_2:.3e}, row 3 {share_3:.2e}, "
+            f"rows 6 / 7 {shares[0]:.2e} / {shares[1]:.2e} of their max")
+        del a, g, la, lg
+
+    # times at the configurations' largest shapes
+    timed_t = [("wide", 4, 11, 144, 1024, 11, 8, 32),
+               ("heads4x64", 4, 11, 9216, 64, 11, 4, 64),
+               ("tokens96", 4, 11, 9216, 64, 96, 8, 32)]
+    for name, b, f, s, c, t_tok, heads, d in timed_t:
+        a = temporal_inputs(b, s, c, t_tok, gen, f, heads, d)
+        g = _grad_cotangent(a["x"].shape, gen)
+        hidden = heads * d
+        rows = {
+            "temporal_fwd_p_any": (
+                lambda: tmp.temporal_block_fwd(**a, heads=heads, emit_p=True),
+                lambda: tmp.temporal_block_plain_p(**a, heads=heads),
+                temporal_p_cost(b, s, c, t_tok, f, heads, hidden)),
+            "temporal_bwd_any": (
+                lambda: tmp.temporal_block_bwd(**a, g=g, heads=heads),
+                lambda: tmp.temporal_block_bwd_plain(**a, g=g, heads=heads),
+                temporal_bwd_cost(b, s, c, t_tok, f, heads, hidden))}
+        for row, (kernel, plain, cost) in rows.items():
+            ms = cuda_ms(kernel, reps=3, warmup=1)
+            plain_ms = cuda_ms(plain, reps=1, warmup=1)
+            bound_ms, by = bound(*cost)
+            log(f"  {row} ({name}: B={b} F={f} S={s} C={c} T={t_tok} "
+                f"{heads}x{d}): {ms:.3f} ms ({rate(ms, cost[1], bound_ms)}),"
+                f" twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+            if name == "heads4x64":
+                report[row].update(
+                    max_abs_err=worst[row], ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=by,
+                    shape=[b, f, s, c, t_tok, heads, d])
+        del a, g, rows
+        torch.cuda.empty_cache()
+    timed_l = [("wide", 44, 144, 1024, 1, 8, 32, "merged"),
+               ("heads4x64", 44, 9216, 64, 1, 4, 32, "head"),
+               ("heads4x64", 44, 2304, 128, 1, 4, 32, "merged")]
+    for name, bf_, n, c, m_c, heads, d, route in timed_l:
+        a = _wtrain_linear_inputs(bf_, n, c, gen, m_c, heads, d)
+        g = _grad_cotangent(a["x"].shape, gen)
+        kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n, route=route)
+        args = {k: a[k] for k in ("x", "gamma", "w_qkv", "w_out",
+                                  "out_bias", "ek", "ev")}
+        ms = cuda_ms(lambda: lin.linear_block_bwd(**args, g=g, **kw),
+                     reps=3, warmup=1)
+        plain_ms = cuda_ms(lambda: lin.linear_block_bwd_plain(
+            **args, g=g, **kw), reps=1, warmup=1)
+        cost = linear_bwd_cost(bf_, n, c, m_c, heads=heads, d=d)
+        bound_ms, by = bound(*cost)
+        row = f"linear_bwd_{route}_any"
+        log(f"  {row} ({name}: BF={bf_} N={n} C={c} Mc={m_c} {heads}x{d}): "
+            f"{ms:.3f} ms ({rate(ms, cost[1], bound_ms)}), twin "
+            f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+        if name == "heads4x64":
+            report[row].update(
+                max_abs_err=worst[row], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by,
+                shape=[bf_, n, c, m_c, heads, d])
+        del a, g, args
+        torch.cuda.empty_cache()
+    return paths
+
+
+# 14 (b)'s references. Against the recompute plan (the same forward
+# kernels, the JAX package's default backward: autograd of the XLA
+# reference) every fused-block gradient within GRAD_TOL of its own max,
+# phase 5's rule: what differs is the backward instances alone. Against
+# the unfused plan the loss and each group's relative L2 within GRAD_TOL:
+# per parameter that plan is no 5e-2 oracle at C = 1024, where bf16
+# activations move the wide model's level-3 to_k gradient by 1.04e-1 of
+# its max from the same plan in float32 and the recompute plan lies 5.02e-2
+# from it (NVIDIA H100 80GB HBM3, 700 W, scripts/torch_train_plan_gaps.py); its
+# per-parameter shares are printed beside the recompute plan's
+WTRAIN_REFS = ("recompute", "unfused")
+
+
+def _step_grads(cfg, batch) -> tuple:
+    """One step of cfg's model (seed 0) on `batch` (videos, labels, t,
+    noise, mask): (loss, the fused blocks' gradients by name, the launches,
+    the any-shape shapes, the parameter groups)."""
+    import torch
+
+    from videometamaterials_tpu_torch.diffusion.gaussian import (
+        GaussianDiffusion,
+    )
+    from videometamaterials_tpu_torch.models.unet3d import build_unet
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    videos, labels, t, noise, mask = batch
+    model = build_unet(cfg, device="cuda", seed=0)
+    diff = GaussianDiffusion.from_config(model, cfg, "cuda")
+    _build.reset_launch_counts()
+    shapes = {}
+    with _recording_shapes(shapes), \
+            model.fused_plans(cfg.fused_blocks_in_training):
+        loss = diff.loss(videos, labels, t=t, noise=noise,
+                         null_cond_mask=mask)
+        loss.backward()
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCH_COUNTS)
+    groups = _param_groups(model)
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None and groups[n] != "rest"}
+    out = (loss.item(), grads, counts, shapes, groups)
+    del model, diff, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def _grad_gaps(got: dict, want: dict, groups: dict) -> tuple:
+    """(each group's relative L2, the largest per-parameter share of the
+    reference's max, the parameter at it); raises on a zero gradient or
+    other parameters."""
+    if set(got) != set(want):
+        raise AssertionError("the fused blocks' gradients differ in their "
+                             "parameters")
+    rel, worst, at = {}, 0.0, ""
+    for g in sorted({groups[n] for n in want}):
+        names = [n for n in want if groups[n] == g]
+        num = sum((got[n] - want[n]).float().pow(2).sum() for n in names)
+        den = sum(want[n].float().pow(2).sum() for n in names)
+        rel[g] = (num / den).sqrt().item()
+    for n, w in want.items():
+        size = w.float().abs().max().item()
+        if size == 0 or got[n].abs().max().item() == 0:
+            raise AssertionError(f"gradient of {n} is zero")
+        share = (got[n].float() - w.float()).abs().max().item() / size
+        worst, at = max((worst, at), (share, n))
+    return rel, worst, at
+
+
+def wtrain_models(root: Path, paths: dict) -> dict:
+    """14 (b): one step of each configuration at WTRAIN_BATCH on the kernel
+    and the saved plans (fused_bwd_kernels on), on the same weights, batch
+    and draws as the recompute and unfused plans (WTRAIN_REFS): every
+    fused-block gradient within GRAD_TOL of its max of the recompute
+    plan's; the loss and each group's relative L2 within GRAD_TOL of the
+    unfused plan's; the launches a step equal to `train_path`'s and the
+    any-shape instances' shapes equal to those (a) checked. Returns
+    {name: {plan: launches}}."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+    from videometamaterials_tpu_torch.train import bench_batches
+
+    out = {}
+    for name in WIDTH_CONFIGS:
+        t0 = time.perf_counter()
+        cfg = load_model_yaml(width_yaml(root, name)).replace(
+            fused_blocks_in_training=True, fused_bwd_kernels=True,
+            batch_size=WTRAIN_BATCH)
+        gen = torch.Generator(device="cuda").manual_seed(141)
+        videos, labels = next(bench_batches(cfg, gen, "cuda"))
+        b = cfg.batch_size
+        batch = (videos, labels,
+                 torch.randint(0, cfg.train_timesteps, (b,), generator=gen,
+                               device="cuda"),
+                 torch.randn(videos.shape, generator=gen, device="cuda"),
+                 torch.tensor([False, True], device="cuda"))
+        plans = {**{p: cfg.replace(**kw) for p, kw in WTRAIN_PLANS.items()},
+                 "recompute": cfg.replace(fused_bwd_kernels=False),
+                 "unfused": cfg.replace(fused_blocks_in_training=False)}
+        res, out[name] = {}, {}
+        for plan, plan_cfg in plans.items():
+            loss, grads, counts, shapes, groups = _step_grads(plan_cfg,
+                                                              batch)
+            res[plan] = (loss, grads)
+            if plan in WTRAIN_PLANS:
+                want_counts, want_shapes = paths[name][b][plan]
+                want = {k: want_counts.get(k, 0) for k in counts}
+                if counts != want:
+                    raise AssertionError(f"14b {name} {plan} step: launch "
+                                         f"counts {counts}, expected {want}")
+                if shapes != want_shapes:
+                    raise AssertionError(
+                        f"14b {name} {plan} step: any-shape launches at "
+                        f"{shapes}, 14 (a) checked {want_shapes}")
+                out[name][plan] = counts
+            elif plan == "unfused" and any(counts.values()):
+                raise AssertionError(f"14b {name} unfused step launched "
+                                     f"{_nonzero(counts)}")
+        u_loss, u_grads = res["unfused"]
+        _, r_share, r_at = _grad_gaps(res["recompute"][1], u_grads, groups)
+        msg = [f"recompute vs unfused: {r_share:.3e} of a max ({r_at})"]
+        for plan in WTRAIN_PLANS:
+            loss, grads = res[plan]
+            rel_loss = abs(loss - u_loss) / abs(u_loss)
+            if not (math.isfinite(loss) and rel_loss <= GRAD_TOL):
+                raise AssertionError(f"14b {name} {plan}: loss {loss} "
+                                     f"against the unfused {u_loss}")
+            _, share, at = _grad_gaps(grads, res["recompute"][1], groups)
+            if not share <= GRAD_TOL:
+                raise AssertionError(
+                    f"14b {name} {plan}: gradient of {at} {share:.3e} of "
+                    f"its max from the recompute plan's, beyond {GRAD_TOL}")
+            rel, u_share, u_at = _grad_gaps(grads, u_grads, groups)
+            if not max(rel.values()) <= GRAD_TOL:
+                raise AssertionError(f"14b {name} {plan}: relative L2 "
+                                     f"{rel} from the unfused plan's, "
+                                     f"beyond {GRAD_TOL}")
+            msg.append(
+                f"{plan}: loss {rel_loss:.2e} from the unfused plan's; "
+                f"{len(grads)} fused-block gradients within {share:.3e} of "
+                f"their max of the recompute plan's (worst {at}); relative "
+                f"L2 from the unfused plan " + ", ".join(
+                    f"{g} {v:.2e}" for g, v in rel.items())
+                + f", per parameter {u_share:.3e} ({u_at}); launches "
+                f"{_nonzero(out[name][plan])}")
+        log(f"  {name} step at batch {b}: " + "; ".join(msg) + f" | "
+            f"{time.perf_counter() - t0:.1f}s")
+        del res
+    return out
+
+
+def wtrain_cli(root: Path, smi: str, paths: dict,
+               step_ms_phase5: float | None = None) -> dict:
+    """14 (c): the train CLI (videometamaterials_tpu_torch.main) on
+    heads4x64's edit of model.yaml with the kernel plan, batch 4,
+    WTRAIN_CLI_STEPS steps on phase 7's seeded GIF folder, no milestone:
+    the launches equal the steps times `train_path`'s a step, the any-shape
+    shapes those (a) checked, finite losses; the median step ms and the
+    peak memory."""
+    import torch
+
+    from videometamaterials_tpu_torch import main as cli
+    from videometamaterials_tpu_torch.config import (
+        load_model_yaml,
+        save_model_yaml,
+    )
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.training.trainer import Trainer
+
+    name = "heads4x64"
+    cfg = load_model_yaml(width_yaml(root, name)).replace(
+        fused_blocks_in_training=True, fused_bwd_kernels=True,
+        batch_size=WTRAIN_CLI_BATCH)
+    cfg_path = root / f"{name}_train.yaml"
+    save_model_yaml(cfg, cfg_path)
+    data = train_data(root / "data")
+    step_times = []
+    step = Trainer.step
+
+    def timed_step(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(self)
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter() - t0)
+        return loss
+
+    Trainer.step = timed_step
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        shapes = {}
+        with _recording_shapes(shapes):
+            cli.main(["--run-name", "w", "--config", str(cfg_path),
+                      "--data-root", str(data), "--runs-root",
+                      str(root / "runs"), "--train-num-steps",
+                      str(WTRAIN_CLI_STEPS), "--save-and-sample-every",
+                      "1000", "--test-batch-size", "8", "--skip-eval-target",
+                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCH_COUNTS)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        Trainer.step = step
+    per_step, want_shapes = paths[name][WTRAIN_CLI_BATCH]["kernel"]
+    want = {k: per_step.get(k, 0) * WTRAIN_CLI_STEPS for k in counts}
+    if counts != want:
+        raise AssertionError(f"14c train CLI: launch counts {counts}, "
+                             f"expected {want}")
+    if shapes != want_shapes:
+        raise AssertionError(f"14c train CLI: any-shape launches at {shapes},"
+                             f" 14 (a) checked {want_shapes}")
+    losses = [json.loads(line)["training loss"] for line in
+              (root / "runs" / "w" / "metrics.jsonl").read_text().splitlines()
+              if "training loss" in line]
+    if len(losses) != WTRAIN_CLI_STEPS or not all(
+            math.isfinite(v) for v in losses):
+        raise AssertionError(f"14c train CLI: training losses {losses}")
+    med = statistics.median(step_times) * 1e3
+    beside = ("" if step_ms_phase5 is None else
+              f"; the flagship's phase 5 kernel plan {step_ms_phase5:.1f}")
+    log(f"  train CLI, {name}, kernel plan, batch {WTRAIN_CLI_BATCH}: "
+        f"{WTRAIN_CLI_STEPS} steps, median {med:.1f} ms a step (first "
+        f"{step_times[0] * 1e3:.1f}{beside}), peak memory "
+        f"{peak / 2 ** 30:.2f} GiB "
+        f"on {smi}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+        f"{_nonzero(counts)}")
+    return dict(counts=counts, step_ms=med, peak_bytes=peak)
+
+
+def phase_widths_train(smi: str, report: dict,
+                       step_ms_phase5: float | None = None) -> None:
+    """14 widths-train: the training kernels at every shape (see the module
+    docstring). The kernels line's four new rows take `launches` from (b)
+    and (c) together (each run from the counters at zero); every row gains
+    launches_widths_train."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    src = "videometamaterials_tpu_torch/ops/cuda/csrc/"
+    jax_src = "videometamaterials_tpu/ops/pallas/"
+    for row, source, replaces in (
+            ("temporal_fwd_p_any", "any_shape.cu",
+             "fused_temporal_block.py:150"),
+            ("temporal_bwd_any", "any_shape_bwd.cu",
+             "fused_temporal_block.py:240"),
+            ("linear_bwd_head_any", "any_shape_bwd.cu",
+             "fused_linear_block.py:414"),
+            ("linear_bwd_merged_any", "any_shape_bwd.cu",
+             "fused_linear_block.py:196")):
+        report[row].update(source=src + source, replaces=jax_src + replaces)
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="smoke_wtrain_", dir=ROOT / "build"))
+    try:
+        paths = wtrain_kernels(report, root)
+        torch.cuda.synchronize()
+        log(f"[14a kernels] the any-shape training instances match their "
+            f"twins | {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        steps = wtrain_models(root, paths)
+        log(f"[14b model] a train step of each configuration on the kernel "
+            f"and saved plans | {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        cli_run = wtrain_cli(root, smi, paths, step_ms_phase5)
+        totals = dict(cli_run["counts"])
+        for per_plan in steps.values():
+            for counts in per_plan.values():
+                for k, v in counts.items():
+                    totals[k] += v
+        for k, v in totals.items():
+            report[k]["launches_widths_train"] = v
+        for k in TRAIN_ANY_ROWS:
+            if not totals[k]:
+                raise AssertionError(f"14: {k} was launched no time on the "
+                                     "training paths")
+            report[k]["launches"] = totals[k]
+            report[k]["library_ms"] = None
+        log(f"[14c train CLI] heads4x64 {cli_run['step_ms']:.1f} ms a step, "
+            f"{cli_run['peak_bytes'] / 2 ** 30:.2f} GiB | "
             f"{time.perf_counter() - t0:.1f}s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3972,6 +4770,9 @@ def main(argv=None) -> int:
                          "line")
     ap.add_argument("--widths-only", action="store_true",
                     help="run phases 0, 1 and 13 only, and print no result "
+                         "line")
+    ap.add_argument("--widths-train-only", action="store_true",
+                    help="run phases 0, 1 and 14 only, and print no result "
                          "line")
     ap.add_argument("--latency-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--latency-init", help=argparse.SUPPRESS)
@@ -4041,6 +4842,15 @@ def main(argv=None) -> int:
         log(f"[13 widths] passed | {time.perf_counter() - t0:.1f}s")
         log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
             "13 only: no result line)")
+        return 0
+
+    if args.widths_train_only:
+        report = {k: {} for k in _build.LAUNCH_COUNTS}
+        t0 = time.perf_counter()
+        phase_widths_train(smi, report)
+        log(f"[14 widths-train] passed | {time.perf_counter() - t0:.1f}s")
+        log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
+            "14 only: no result line)")
         return 0
 
     if args.variants_only:
@@ -4244,6 +5054,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_widths(smi, report)
     log(f"[13 widths] passed | {time.perf_counter() - t0:.1f}s")
+
+    # ---- 14 widths-train: rows 2, 3, 6, 7 at every shape, training
+    t0 = time.perf_counter()
+    phase_widths_train(smi, report, train["kernel"]["median_ms"])
+    log(f"[14 widths-train] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

@@ -1,0 +1,102 @@
+"""Mutation check of chip_smoke.py phase 14 (a): four copies of the port
+under OUT_DIR, each with one deliberate fault in one any-shape training
+instance (row 2's p halved, row 3's dbias dropped, row 6's S term
+dropped, row 7's clip dropped), built side by side; each copy's
+`chip_smoke.wtrain_kernels` must raise. Exits non-zero if one does not.
+
+Run on one GPU from the root of a checkout, OUT_DIR a directory outside
+its sources (the copies build there):
+
+    python scripts/torch_any_shape_mutants.py build/mutants
+"""
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+CSRC = "videometamaterials_tpu_torch/ops/cuda/csrc/"
+# name: (source, the text replaced once, its replacement)
+MUTANTS = {
+    # row 2: p written at half its value (out untouched)
+    "row2_p_halved": (CSRC + "any_shape.cu",
+                      "__float2bfloat16(p);\n      }",
+                      "__float2bfloat16(0.5f * p);\n      }"),
+    # row 3: dbias dropped
+    "row3_no_dbias": (CSRC + "any_shape_bwd.cu",
+                      "          dbw[i * G + j] += ds;\n", "\n"),
+    # row 6 (per-head, clip 0): the softmax's S term dropped from dk
+    "row6_no_S": (CSRC + "any_shape_bwd.cu",
+                  "dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - S[c]);",
+                  "dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - "
+                  "(clip ? S[c] : 0.f));"),
+    # row 7 (merged, clip 1): dk no longer zero where |k| >= 60
+    "row7_no_clip": (CSRC + "any_shape_bwd.cu",
+                     "const bool dead = clip && fabsf(qr[H + c]) >= kClamp;",
+                     "const bool dead = false;"),
+}
+# run inside a copy: phase 14 (a) must raise AssertionError
+CHECK = """import sys, tempfile
+from pathlib import Path
+import chip_smoke as cs
+from videometamaterials_tpu_torch.ops.cuda import _build
+report = {k: {} for k in _build.LAUNCH_COUNTS}
+try:
+    cs.wtrain_kernels(report, Path(tempfile.mkdtemp(dir='.')))
+except AssertionError as e:
+    print('CAUGHT', str(e)[:300])
+    sys.exit(0)
+print('NOT CAUGHT')
+sys.exit(1)
+"""
+
+
+def make_copy(out: Path, name: str) -> subprocess.Popen:
+    """The mutant's copy (the package, chip_smoke.py, model.yaml) with its
+    fault, and its build started."""
+    path, old, new = MUTANTS[name]
+    d = out / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    shutil.copytree(ROOT / "videometamaterials_tpu_torch",
+                    d / "videometamaterials_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(ROOT / "chip_smoke.py", d)
+    shutil.copy(ROOT / "model.yaml", d)
+    src = (d / path).read_text()
+    if src.count(old) != 1:
+        sys.exit(f"{name}: the mutation's anchor is not in {path} once")
+    (d / path).write_text(src.replace(old, new))
+    return subprocess.Popen(
+        [sys.executable, "-c", "from videometamaterials_tpu_torch.ops.cuda "
+         "import _build; _build.build_info()"], cwd=d)
+
+
+def main(out: Path) -> int:
+    t0 = time.time()
+    builds = {name: make_copy(out, name) for name in MUTANTS}
+    for name, proc in builds.items():
+        if proc.wait() != 0:
+            sys.exit(f"{name}: build failed")
+    print(f"{len(builds)} mutant builds in {time.time() - t0:.1f}s",
+          flush=True)
+    missed = []
+    for name in MUTANTS:
+        t0 = time.time()
+        run = subprocess.run([sys.executable, "-c", CHECK], cwd=out / name,
+                             capture_output=True, text=True)
+        line = [s for s in run.stdout.splitlines() if "CAUGHT" in s]
+        print(f"{name}: "
+              f"{line[-1] if line else run.stdout[-300:] + run.stderr[-500:]}"
+              f" ({time.time() - t0:.1f}s)", flush=True)
+        if run.returncode != 0:
+            missed.append(name)
+    if missed:
+        print(f"not caught: {missed}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(Path(sys.argv[1])))

@@ -203,8 +203,8 @@ def test_linear_head_kernel_does_not_clamp(cuda):
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     """A CUDA tensor of a shape or type no instance takes raises: row 1 in
-    float32, and the training rows (the backward kernel) at C = 48, which
-    only the forward's any-shape instance takes."""
+    float32, and row 8 (the head layout, specialised shapes only) at
+    C = 48, naming its ROADMAP item."""
     x = torch.zeros((2, 11, 16, 48), dtype=torch.bfloat16, device="cuda")
     args = (torch.ones(48, device="cuda"),
             torch.zeros((11, 48, 768), dtype=torch.bfloat16, device="cuda"),
@@ -212,8 +212,14 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
             None, None, torch.zeros((11, 11, 8), device="cuda"))
     with pytest.raises(ValueError, match="bf16"):
         tmp.fused_temporal_block(x.float(), *args, heads=8)
-    with pytest.raises(ValueError, match="C in"):
-        tmp.temporal_block_bwd(x, *args, x, heads=8)
+    xl = torch.zeros((2, 16, 48), dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError, match="row 8"):
+        lin.linear_block_head(
+            xl, torch.ones(48, device="cuda"),
+            torch.zeros((48, 768), dtype=torch.bfloat16, device="cuda"),
+            torch.zeros((256, 48), dtype=torch.bfloat16, device="cuda"),
+            torch.zeros(48, device="cuda"), None, None, heads=8,
+            scale=32 ** -0.5, spatial_size=16)
 
 
 # ------------------------------------------------------------ backward
@@ -776,13 +782,23 @@ def test_temporal_kernels_at_the_ablation_token_counts(cuda, s, c, t_tok):
 
 
 def test_temporal_kernels_refuse_a_count_above_the_maximum(cuda):
-    """Rows 2 and 3 take at most MAX_COND_TOKENS tokens (row 1's any-shape
-    instance takes more)."""
-    args = _temporal_args(cuda, 1, 37, 64, tmp.MAX_COND_TOKENS + 1)
+    """The specialised kernels of rows 1-3 take at most MAX_COND_TOKENS
+    tokens and their checks still refuse more; the wrappers send a launch
+    of more tokens to the any-shape instances, which take it (rows 2 and 3
+    against their twins)."""
+    t_tok = tmp.MAX_COND_TOKENS + 1
+    args = _temporal_args(cuda, 1, 37, 64, t_tok)
     with pytest.raises(ValueError, match="conditioning tokens"):
-        tmp.temporal_block_fwd(**args, heads=8, emit_p=True)
-    with pytest.raises(ValueError, match="conditioning tokens"):
-        tmp.temporal_block_bwd(**args, g=args["x"], heads=8)
+        tmp._check(**args, heads=8)
+    assert tmp.forward_instance(11, 8, 32, 64, t_tok) == tmp.ANY_SHAPE
+    before = dict(_build.LAUNCH_COUNTS)
+    _check_temporal_kernels(args, _rnd(cuda, *args["x"].shape).to(
+        torch.bfloat16))
+    assert _build.LAUNCH_COUNTS["temporal_fwd_p_any"] == \
+        before["temporal_fwd_p_any"] + 2
+    assert _build.LAUNCH_COUNTS["temporal_bwd_any"] == \
+        before["temporal_bwd_any"] + 2
+    assert _build.LAUNCH_COUNTS["temporal_bwd"] == before["temporal_bwd"]
 
 
 @pytest.mark.parametrize("c", [64, 512])
@@ -957,3 +973,130 @@ def test_any_shape_instances_match_the_specialised(cuda):
     assert _update_err(lin._apply_any(*args, **akw),
                        lin.linear_apply(*args, **akw), x, out_bias) <= \
         APPLY_TOL
+
+
+# ------------------------------------------ any-shape training instances
+# rows 2, 3, 6 and 7 at shapes outside the specialised instances' set
+# (chip_smoke.py phase 14 runs the configurations' shapes and the grid)
+
+
+@pytest.mark.parametrize("f,heads,d,c,t_tok", [
+    (5, 4, 64, 96, 96), (16, 16, 32, 32, 150), (11, 8, 32, 1024, 11),
+    (11, 4, 64, 64, 0), (11, 8, 32, 64, 70), (3, 2, 4, 8, 3)])
+def test_temporal_training_any_shape_instances_match_twins(cuda, f, heads, d,
+                                                           c, t_tok):
+    """Row 2: out bit-equal to row 1's any-shape launch, p against the twin
+    and summing to one; row 3: every cotangent within GRAD_TOL of the
+    twin's max; each launch twice with the same bits, one count each."""
+    args = _any_temporal_args(cuda, 2, f, 100, c, t_tok, heads, d)
+    g = _rnd(cuda, *args["x"].shape).to(torch.bfloat16)
+    assert tmp.forward_instance(f, heads, d, c, t_tok) == tmp.ANY_SHAPE
+    before = dict(_build.LAUNCH_COUNTS)
+    out = tmp.temporal_block_fwd(**args, heads=heads)
+    out_p, p = tmp.temporal_block_fwd(**args, heads=heads, emit_p=True)
+    again = tmp.temporal_block_fwd(**args, heads=heads, emit_p=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out_p, out) and torch.equal(p, again[1])
+    _, want_p = tmp.temporal_block_plain_p(**args, heads=heads)
+    torch.testing.assert_close(p.float(), want_p.float(), **BF16_TOL)
+    sums = p.float().reshape(2, f, 100, f + t_tok, heads).sum(dim=3)
+    assert (sums - 1).abs().max() <= 2.0 ** -7
+    got = tmp.temporal_block_bwd(**args, g=g, heads=heads)
+    torch.cuda.synchronize()
+    _assert_cotangents(("dx", "dgamma", "dw_all", "dw_out", "dek", "dev",
+                        "dbias"), got,
+                       tmp.temporal_block_bwd_plain(**args, g=g, heads=heads))
+    for a, b_ in zip(got, tmp.temporal_block_bwd(**args, g=g, heads=heads)):
+        assert a is None or torch.equal(a, b_)
+    counts = {k: _build.LAUNCH_COUNTS[k] - before[k] for k in before}
+    assert {k: v for k, v in counts.items() if v} == dict(
+        temporal_block_any=1, temporal_fwd_p_any=2, temporal_bwd_any=2)
+
+
+def _linear_bwd_args(gen, b, n, c, m_c, heads, d):
+    bf, hd = torch.bfloat16, heads * d
+    return dict(
+        x=_rnd(gen, b, n, c).to(bf), gamma=1 + _rnd(gen, c, scale=0.1),
+        w_qkv=(_rnd(gen, c, 3 * hd) * c ** -0.5).to(bf),
+        w_out=(_rnd(gen, hd, c) * hd ** -0.5).to(bf),
+        out_bias=_rnd(gen, c, scale=0.1),
+        # the conditioning tokens take about half of each feature's token
+        # softmax, so dek, dev and the softmax's S term are seen
+        ek=((_rnd(gen, b, m_c, hd) + math.log(n / m_c) + 0.5).to(bf)
+            if m_c else None),
+        ev=_rnd(gen, b, m_c, hd).to(bf) if m_c else None)
+
+
+@pytest.mark.parametrize("route", ["head", "merged"])
+@pytest.mark.parametrize("heads,d,c,m_c", [
+    (4, 32, 96, 11), (16, 32, 1024, 1), (4, 64, 32, 96), (8, 32, 36, 1),
+    (4, 32, 8, 0)])
+def test_linear_bwd_any_shape_instances_match_twins(cuda, heads, d, c, m_c,
+                                                    route):
+    """Rows 6 and 7 at other head counts and widths (C off 16-byte rows
+    too) and N = 300 (a ragged last tile): every cotangent within GRAD_TOL
+    of the twin's max, the same bits twice, one count each."""
+    args = _linear_bwd_args(cuda, 3, 300, c, m_c, heads, d)
+    g = _rnd(cuda, *args["x"].shape).to(torch.bfloat16)
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=300, route=route)
+    assert lin.forward_instance(heads, d, c) == lin.ANY_SHAPE
+    name = f"linear_bwd_{route}_any"
+    before = dict(_build.LAUNCH_COUNTS)
+    got = lin.linear_block_bwd(**args, g=g, **kw)
+    torch.cuda.synchronize()
+    _assert_cotangents(("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias",
+                        "dek", "dev"), got,
+                       lin.linear_block_bwd_plain(**args, g=g, **kw))
+    for a, b_ in zip(got, lin.linear_block_bwd(**args, g=g, **kw)):
+        assert a is None or torch.equal(a, b_)
+    counts = {k: _build.LAUNCH_COUNTS[k] - before[k] for k in before}
+    assert {k: v for k, v in counts.items() if v} == {name: 2}
+
+
+def test_linear_bwd_any_shape_clamp_routes(cuda):
+    """4 heads of 32 at C = 96, N = 100, head 0's key columns times 40 and
+    its conditioning keys ~ 60 N(0, 1): the merged instance follows its
+    clamped twin (dk, dek zero where |k| >= 60), the per-head one its
+    unclamped twin, and the twins differ."""
+    heads, d, c, n = 4, 32, 96, 100
+    args = _linear_bwd_args(cuda, 3, n, c, 1, heads, d)
+    w = args["w_qkv"].float()
+    w[:, heads * d:heads * d + 32] *= 40.0
+    args["w_qkv"] = w.to(torch.bfloat16)
+    ek = args["ek"].float()
+    ek[..., :32] = _rnd(cuda, 3, 1, 32) * 60.0
+    args["ek"] = ek.to(torch.bfloat16)
+    g = _rnd(cuda, 3, n, c).to(torch.bfloat16)
+    names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    twins = {}
+    for route in ("merged", "head"):
+        kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n, route=route)
+        twins[route] = lin.linear_block_bwd_plain(**args, g=g, **kw)
+        _assert_cotangents(names, lin.linear_block_bwd(**args, g=g, **kw),
+                           twins[route])
+    gap = (twins["merged"][2] - twins["head"][2]).abs().max()
+    assert gap > GRAD_TOL * twins["head"][2].abs().max()
+
+
+def test_training_any_shape_instances_match_the_specialised(cuda):
+    """At a flagship shape (8 heads of 32, C = 64, T = 11) the any-shape
+    instances of rows 2, 3, 6 and 7 agree with the specialised ones within
+    the twins' bounds."""
+    args = _temporal_args(cuda, 2, 100, 64, 11)
+    g = _rnd(cuda, *args["x"].shape).to(torch.bfloat16)
+    spec_out, spec_p = tmp.temporal_block_fwd(**args, heads=8, emit_p=True)
+    any_out, any_p = tmp._fwd_any(**args, heads=8, emit_p=True)
+    torch.testing.assert_close(any_out.float(), spec_out.float(), **BF16_TOL)
+    torch.testing.assert_close(any_p.float(), spec_p.float(), **BF16_TOL)
+    _assert_cotangents(("dx", "dgamma", "dw_all", "dw_out", "dek", "dev",
+                        "dbias"), tmp._bwd_any(**args, g=g, heads=8),
+                       tmp.temporal_block_bwd(**args, g=g, heads=8))
+    largs = _linear_bwd_args(cuda, 3, 300, 64, 1, 8, 32)
+    lg = _rnd(cuda, 3, 300, 64).to(torch.bfloat16)
+    operands = [largs[k] for k in ("x", "gamma", "w_qkv", "w_out", "ek",
+                                   "ev")]
+    for route in ("head", "merged"):
+        kw = dict(heads=8, scale=32 ** -0.5, spatial_size=300, route=route)
+        _assert_cotangents(("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias",
+                            "dek", "dev"), lin._bwd_any(*operands, lg, **kw),
+                           lin.linear_block_bwd(**largs, g=lg, **kw))

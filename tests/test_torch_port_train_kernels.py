@@ -207,12 +207,64 @@ def test_linear_bwd_routes_differ_where_k_is_clamped():
     assert (merged[2] - head[2]).abs().max() > GRAD_TOL * scale
 
 
+def _jax_route(n, hidden):
+    """The backward kernel the JAX _core_bwd picks for the merged layout at
+    N tokens and this hidden: its two pallas runs replaced by markers."""
+    import importlib
+
+    j_mod = importlib.import_module(
+        "videometamaterials_tpu.ops.pallas.fused_linear_block")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_mod, "_run_bwd_kernel", lambda *a, **k: "head")
+        mp.setattr(j_mod, "_run_bwd_kernel_merged", lambda *a, **k: "merged")
+        residuals = (np.zeros((1, n, 8), np.float32), None, None,
+                     np.zeros((hidden, 8), np.float32), None, None, None)
+        return j_mod._core_bwd(HEADS, 1.0, n, True, True, "merged",
+                               residuals, None)
+
+
 def test_bwd_route_is_the_jax_rule():
     """Per-head above 12 * N * hidden * 4 B = 40 MiB: the flagship level 0
-    (N = 9216), merged at the lower levels."""
+    (N = 9216), merged at the lower levels; at hidden 128 and 512 the
+    block's own hidden decides, where hidden 256 would route the other way
+    (N = 4096 at 128, N = 2304 at 512), as the JAX _core_bwd decides."""
     assert t_lin.bwd_route(9216) == "head"
     assert [t_lin.bwd_route(n) for n in (2304, 576, 144)] == ["merged"] * 3
     assert t_lin.bwd_route(3413) == "merged" and t_lin.bwd_route(3414) == "head"
+    for hidden, n, want in ((128, 4096, "merged"), (128, 9216, "head"),
+                            (512, 2304, "head"), (512, 576, "merged")):
+        assert t_lin.bwd_route(n, hidden=hidden) == want == _jax_route(
+            n, hidden), (hidden, n)
+    assert t_lin.bwd_route(4096) != t_lin.bwd_route(4096, hidden=128)
+    assert t_lin.bwd_route(2304) != t_lin.bwd_route(2304, hidden=512)
+
+
+def test_entry_point_kernel_backward_takes_the_jax_route(monkeypatch):
+    """16 heads of 32 (hidden 512) at N = 2304: the entry point's 'kernel'
+    backward routes by the block's hidden, per-head as the JAX _core_bwd
+    does (hidden 256 would take the merged route)."""
+    n, heads, d = 2304, 16, 32
+    hd = heads * d
+    rng = np.random.default_rng(0)
+    args = [torch.tensor(rng.normal(size=s).astype(np.float32) * sc)
+            for s, sc in (((1, n, CL), 1.0), ((CL,), 0.1), ((CL, 3 * hd), 0.1),
+                          ((hd, CL), 0.1), ((CL,), 0.1))]
+    args[1] = args[1] + 1.0
+    routes = []
+    real = t_lin.linear_block_bwd
+
+    def spy(*a, route, **kw):
+        routes.append(route)
+        return real(*a, route=route, **kw)
+
+    monkeypatch.setattr(t_lin, "linear_block_bwd", spy)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = t_lin.fused_linear_block(*leaves, None, None, heads=heads,
+                                   scale=d ** -0.5, spatial_size=n,
+                                   bwd="kernel")
+    out.backward(torch.ones_like(out))
+    assert routes == [_jax_route(n, hd)] == ["head"]
+    assert all(leaf.grad.abs().max() > 0 for leaf in leaves)
 
 
 @pytest.mark.parametrize("bwd", ["recompute", "kernel"])

@@ -33,10 +33,9 @@ as the JAX model builds it: the whole curve through the CNN embedder (its
 hidden joins the time embedding, added or concatenated), and conditioning
 tokens that are the hidden broadcast to `cond_attention_tokens`, the GRU's
 token a curve point, or none; the tokens enter the blocks stacked in front
-of the keys ('self-stacked', on the fused kernels at any token count; the
-training plans that launch the temporal training kernels take at most
-MAX_COND_TOKENS, and raise above it when they run) or as the keys of a
-cross-attention (the generic plan).
+of the keys ('self-stacked', on the fused kernels at any token count,
+sampling and training: above MAX_COND_TOKENS the any-shape instances take
+it) or as the keys of a cross-attention (the generic plan).
 The circular padding modes and `use_sparse_linear_attn: false` are built
 too.
 

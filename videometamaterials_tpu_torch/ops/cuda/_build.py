@@ -48,6 +48,12 @@ LAUNCH_COUNTS: dict[str, int] = {
     "temporal_block_any": 0,
     "linear_stats_any": 0,
     "linear_apply_any": 0,
+    # the any-shape instances of rows 2, 3, 6 and 7 (row 2: csrc/any_shape.cu
+    # with p; the rest csrc/any_shape_bwd.cu)
+    "temporal_fwd_p_any": 0,
+    "temporal_bwd_any": 0,
+    "linear_bwd_head_any": 0,
+    "linear_bwd_merged_any": 0,
 }
 
 _P = ctypes.c_void_p
@@ -73,9 +79,16 @@ _SIGNATURES = {
     # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace, BF, N, C, Mc,
     # heads, apply tile, scale, inv_hw, stream
     "vmt_linear_head": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
-    # x, gamma, w_all, w_out, bias, ek, ev, out, scratch y, qkv, acc,
-    # B, F, S, C, T, heads, d, stream
-    "vmt_temporal_block_any": [_P] * 11 + [_I] * 7 + [_P],
+    # x, gamma, w_all, w_out, bias, ek, ev, out, scratch y, qkv, acc, p
+    # (null: no softmax weights out), B, F, S, C, T, heads, d, stream
+    "vmt_temporal_block_any": [_P] * 12 + [_I] * 7 + [_P],
+    # x, gamma, w_all, w_allT, w_outT, bias, ek, ev, g, dx, dgamma, dw_all,
+    # dw_out, dbias, dekv, workspace, B, F, S, C, T, heads, d, stream
+    "vmt_temporal_block_bwd_any": [_P] * 16 + [_I] * 7 + [_P],
+    # x, gamma, w_qkv, w_qkvT, w_outT, ek, ev, g, dx, dgamma, dw_qkv, dw_out,
+    # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, d, scale, inv_hw,
+    # clip, stream
+    "vmt_linear_block_bwd_any": [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
     # x, gamma, w_qkv, ek, ev, scratch y, kv, part_ctx, part_z, ctx, z,
     # BF, N, C, Mc, heads, d, tile, inv_hw, stream
     "vmt_linear_stats_any": [_P] * 11 + [_I] * 7 + [_F, _P],
@@ -94,6 +107,9 @@ _SIZE_SIGNATURES = {
     "vmt_linear_block_fwd_smem": [_I] * 2,           # C, stage
     "vmt_linear_block_bwd_smem": [_I] * 2,           # C, stage
     "vmt_temporal_block_any_smem": [_I] * 2,         # F, d
+    "vmt_temporal_block_bwd_any_smem": [_I] * 3,     # F, T, d
+    "vmt_temporal_block_bwd_any_workspace": [_I] * 7,  # B, F, S, C, T, heads, d
+    "vmt_linear_block_bwd_any_workspace": [_I] * 5,  # BF, N, C, heads, d
 }
 
 

@@ -1,0 +1,1154 @@
+// Any-shape instances of the training path's backward kernels, for sm_90a.
+//
+// Replaces, at every shape the TPU kernels take outside the specialised
+// instances' set (F = 11 frames, 8 heads of 32, C in {64, 128, 256, 512},
+// at most 69 conditioning tokens):
+//   videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_bwd_kernel
+//     (pallas_call in _run_bwd_kernel)                 -> vmt_temporal_block_bwd_any
+//   videometamaterials_tpu/ops/pallas/fused_linear_block.py:
+//     _bwd_kernel        (per-head, pallas_call in _run_bwd_kernel)  clip = 0
+//     _bwd_kernel_merged (pallas_call in _run_bwd_kernel_merged)     clip = 1
+//                                                      -> vmt_linear_block_bwd_any
+// (row 2, the emit_p forward, is any_shape.cu's forward with p set). The
+// specialised instances (fused_temporal_block_bwd.cu, fused_linear_block_bwd.cu
+// with reduce.cu's contraction) keep their shapes; the wrappers pick an
+// instance from the shape alone.
+//
+// Every size is a launch argument: frames F, positions S (tokens N),
+// channels C, heads and head width d (hidden H = heads * d; the linear
+// block takes d <= 64), conditioning tokens T (Mc). The cotangents and
+// their layouts are the specialised kernels' (see their notes):
+//   temporal: dx bf16, dgamma, dw_all (F, C, 3H), dw_out (H, C), dbias
+//             (F, F+T, heads), dek/dev (B, 2, T, H), all f32;
+//   linear:   dx bf16, dgamma, dw_qkv (C, 3H), dw_out (H, C), dout_bias,
+//             dek, dev (BF, Mc, H), all f32.
+// Roundings. Temporal, where fused_temporal_block_bwd.cu rounds: y, q, k,
+// v and the value weights p in bf16 (as the forward), g_acc = g W_out^T in
+// bf16, dqkv in bf16 for the weight sums and dy, the softmax and every sum
+// in f32; dp = g_acc . v is rounded to bf16 as the plain twin's autograd
+// rounds it. Linear: y in bf16, then f32 (as the plain twins, which
+// differentiate float32 forwards after y): q, k, v and g_oh = g W_out^T
+// from the tensor cores in f32, the softmaxes and the per-head products on
+// the CUDA cores in f32; dqkv and oh go to bf16 only as operands of the
+// tensor-core products (dy, dW_qkv, dW_out).
+//
+// What bounds them on an H100: the same work as the specialised instances
+// (chip_smoke.py prints each launch's bound): the projections, dy and the
+// weight sums, operations at 989 TFLOP/s bf16 at the training shapes.
+//
+// Design: simple and right at any shape, no float atomics (two launches
+// give the same bits), the partial sums added in a fixed order.
+//  - ln_rows_kernel and any_gemm_kernel (any_shape.cuh): y, the QKV
+//    projection, g W_out^T, dy = dqkv W^T (the wrapper hands the weights
+//    transposed).
+//  - temporal_any_bwd_attn_kernel: a block a (64 positions, head, batch
+//    row), its warps (up to four, as shared memory allows) taking the
+//    positions in turn; per position the keys (F frames, then T tokens) in
+//    chunks of 32, one a lane, three passes: the softmax's max and sum; p,
+//    bf16(p) for the value sum acc (kept for dw_out) and D = sum_j p dp;
+//    then ds = p (dp - D), dq (lanes over features), dk and dv (a lane its
+//    key's row). A frame key's dk, dv go to the bf16 dqkv scratch with dq;
+//    a token key's are added to the warp's dek / dev rows, and ds to its
+//    dbias table, over its positions; the block adds its warps in order
+//    and writes one partial, and an ordered reduce sums the partials.
+//  - the linear backward's token sums (ctx, its normaliser, dctx) as
+//    partials over 256-token tiles, one block a (tile, head, frame): the
+//    tile's column max of the (clamped) keys, exp(k - max), its sums with
+//    v and the query softmax's sums with g_oh; a merge a (head, frame),
+//    the conditioning tokens first, then the tiles in order, which also
+//    gives the conditioning tokens' dek / dev; then one warp a token for
+//    dq, dk, dv and oh, a head at a time from the head's ctx / dctx in
+//    shared memory.
+//  - ln_bwd_kernel: dx = g + the LN backward of dy, and per-block partials
+//    of dgamma (and of sum g, the linear block's dout_bias), summed in
+//    order by reduce.cu's column sums.
+//  - the weight gradients dW = A^T B over the rows by
+//    any_contract_partial: a 64 x 64 output tile and a chunk of rows a
+//    block on the tensor cores, any M and N (zero-filled staging, masked
+//    stores), then reduce.cu's ordered column sum over the chunks.
+#include <math_constants.h>
+
+#include <algorithm>
+
+#include "any_shape.cuh"
+#include "reduce.cuh"
+
+namespace {
+
+constexpr float kClamp = 60.f;
+constexpr int kKC = 32;  // keys a chunk, one a lane
+
+// ---- weight gradients: out[g] = sum_rows A[g]^T B[g], any M and N
+
+// row r of group g at p + g group + (r / seg) seg_stride + (r % seg) ld
+struct Rows {
+  const bf16* p;
+  size_t group, seg_stride, ld;
+  int seg;
+};
+
+__device__ __forceinline__ const bf16* row_ptr(const Rows& a, int g, int r) {
+  return a.p + (size_t)g * a.group + (size_t)(r / a.seg) * a.seg_stride +
+         (size_t)(r % a.seg) * a.ld;
+}
+
+constexpr int kCT = 64, kCSlab = 32, kCP = kCT + 8;
+constexpr int kMaxChunks = 128;
+
+// eight columns c.. of one row into shared memory, zeros past the row's
+// end or past r_end
+__device__ __forceinline__ void stage8(bf16* dst, const Rows& a, int g,
+                                       int row, int r_end, int c, int cols) {
+  const bf16 zero = __float2bfloat16(0.f);
+  if (row >= r_end) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dst[e] = zero;
+    return;
+  }
+  const bf16* src = row_ptr(a, g, row) + c;
+  if (c + 8 <= cols && aligned16(src)) {
+    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) dst[e] = c + e < cols ? src[e] : zero;
+}
+
+__global__ void __launch_bounds__(128) any_contract_partial(
+    const Rows A, const Rows B, float* __restrict__ part, int rows, int M,
+    int N, int per, int chunks) {
+  __shared__ __align__(16) bf16 as[kCSlab * kCP];
+  __shared__ __align__(16) bf16 bs[kCSlab * kCP];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int n0 = blockIdx.x * kCT, m0 = blockIdx.y * kCT;
+  const int g = blockIdx.z / chunks, chunk = blockIdx.z % chunks;
+  const int r_begin = chunk * per, r_end = min(rows, r_begin + per);
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  float acc[2][4][4] = {};
+  for (int r0 = r_begin; r0 < r_end; r0 += kCSlab) {
+    for (int i = t; i < kCSlab * kCT / 8; i += 128) {
+      const int r = i / (kCT / 8), o = (i % (kCT / 8)) * 8;
+      stage8(as + r * kCP + o, A, g, r0 + r, r_end, m0 + o, M);
+      stage8(bs + r * kCP + o, B, g, r0 + r, r_end, n0 + o, N);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kCSlab; ks += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        vmt::ldsm_x4_t(af[mt], as + (ks + vmt::at_row_off(lane)) * kCP + wm +
+                                   mt * 16 + vmt::at_col_off(lane));
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bb[4];
+        vmt::ldsm_x4_t(bb, bs + (ks + vmt::bk_row_off(lane)) * kCP + wn +
+                               np * 16 + vmt::bk_col_off(lane));
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          vmt::mma_bf16(acc[mt][2 * np], af[mt], bb[0], bb[1]);
+          vmt::mma_bf16(acc[mt][2 * np + 1], af[mt], bb[2], bb[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+  float* out = part + ((size_t)g * chunks + chunk) * M * N;
+  const int gq = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + wm + mt * 16 + gq + 8 * half;
+      if (m >= M) continue;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + nt * 8 + 2 * tq + e;
+          if (n < N) out[(size_t)m * N + n] = acc[mt][nt][2 * half + e];
+        }
+    }
+}
+
+int contract_chunks(int groups, int rows, int M, int N) {
+  const int tiles = groups * ((M + kCT - 1) / kCT) * ((N + kCT - 1) / kCT);
+  int chunks = (4 * 132 + tiles - 1) / tiles;
+  chunks = std::min(chunks, (rows + 255) / 256);
+  chunks = std::min(chunks, kMaxChunks);
+  return std::max(chunks, 1);
+}
+
+size_t contract_ws(int groups, int rows, int M, int N) {
+  return (size_t)groups * contract_chunks(groups, rows, M, N) * M * N *
+         sizeof(float);
+}
+
+// out (groups, M, N) f32; ws: contract_ws() bytes
+cudaError_t launch_contract(const Rows& A, const Rows& B, float* out,
+                            int groups, int rows, int M, int N, float* ws,
+                            cudaStream_t st) {
+  const int chunks = contract_chunks(groups, rows, M, N);
+  int per = (rows + chunks - 1) / chunks;
+  per = (per + kCSlab - 1) / kCSlab * kCSlab;
+  const dim3 grid((N + kCT - 1) / kCT, (M + kCT - 1) / kCT, groups * chunks);
+  any_contract_partial<<<grid, 128, 0, st>>>(A, B, ws, rows, M, N, per,
+                                             chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // chunks <= 128 rows: one ordered pass, no workspace
+  return vmt::launch_colsum(ws, out, groups, chunks, M * N, nullptr, st);
+}
+
+Rows rows_of(const void* p, size_t ld, size_t group = 0, int seg = 1 << 30,
+             size_t seg_stride = 0) {
+  Rows r;
+  r.p = static_cast<const bf16*>(p);
+  r.group = group;
+  r.seg_stride = seg_stride;
+  r.ld = ld;
+  r.seg = seg;
+  return r;
+}
+
+// ---- LayerNorm backward: dx = g + LN'(dy), partials of dgamma and sum g
+
+constexpr int kLnbWarps = 8;
+constexpr int kLnbRows = 64;  // rows a block, 8 a warp
+
+// x, g, dx (rows, C) bf16; dy (rows, C) f32; part_dgamma (blocks, C) and,
+// if part_g is set, part_g (blocks, C): each block's sums over its rows,
+// its warps added in order
+__global__ void __launch_bounds__(kLnbWarps * 32) ln_bwd_kernel(
+    const bf16* __restrict__ x, const float* __restrict__ gamma,
+    const float* __restrict__ dy, const bf16* __restrict__ g,
+    bf16* __restrict__ dx, float* __restrict__ part_dgamma,
+    float* __restrict__ part_g, size_t rows, int C) {
+  extern __shared__ float smem_f[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* dgw = smem_f + (size_t)warp * C;                  // [warp][C]
+  float* gw = smem_f + (size_t)(kLnbWarps + warp) * C;     // [warp][C]
+  for (int c = lane; c < C; c += 32) {
+    dgw[c] = 0.f;
+    if (part_g != nullptr) gw[c] = 0.f;
+  }
+  const size_t r0 = (size_t)blockIdx.x * kLnbRows;
+  for (int k = warp; k < kLnbRows; k += kLnbWarps) {
+    const size_t row = r0 + k;
+    if (row >= rows) break;
+    const bf16* xr = x + row * C;
+    const float* dyr = dy + row * C;
+    const bf16* gr = g + row * C;
+    float s = 0.f;
+    for (int c = lane; c < C; c += 32) s += bf2f(xr[c]);
+    const float mu = vmt::warp_sum(s) / C;
+    float q = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float dv = bf2f(xr[c]) - mu;
+      q += dv * dv;
+    }
+    const float rstd = rsqrtf(vmt::warp_sum(q) / C + vmt::kLnEps);
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float xh = (bf2f(xr[c]) - mu) * rstd;
+      const float gd = dyr[c] * gamma[c];
+      s1 += gd;
+      s2 += gd * xh;
+      dgw[c] += xh * dyr[c];
+      if (part_g != nullptr) gw[c] += bf2f(gr[c]);
+    }
+    const float m1 = vmt::warp_sum(s1) / C, m2 = vmt::warp_sum(s2) / C;
+    for (int c = lane; c < C; c += 32) {
+      const float xh = (bf2f(xr[c]) - mu) * rstd;
+      const float gd = dyr[c] * gamma[c];
+      dx[row * C + c] =
+          __float2bfloat16(bf2f(gr[c]) + rstd * (gd - m1 - xh * m2));
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < C; c += kLnbWarps * 32) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < kLnbWarps; ++w) {
+      a += smem_f[(size_t)w * C + c];
+      if (part_g != nullptr) b += smem_f[(size_t)(kLnbWarps + w) * C + c];
+    }
+    part_dgamma[(size_t)blockIdx.x * C + c] = a;
+    if (part_g != nullptr) part_g[(size_t)blockIdx.x * C + c] = b;
+  }
+}
+
+size_t ln_bwd_blocks(size_t rows) { return (rows + kLnbRows - 1) / kLnbRows; }
+
+size_t ln_bwd_smem(int C) { return (size_t)2 * kLnbWarps * C * sizeof(float); }
+
+cudaError_t launch_ln_bwd(const bf16* x, const float* gamma, const float* dy,
+                          const bf16* g, bf16* dx, float* part_dgamma,
+                          float* part_g, size_t rows, int C, cudaStream_t st) {
+  const size_t smem = ln_bwd_smem(C);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  ln_bwd_kernel<<<(unsigned)ln_bwd_blocks(rows), kLnbWarps * 32, smem, st>>>(
+      x, gamma, dy, g, dx, part_dgamma, part_g, rows, C);
+  return cudaGetLastError();
+}
+
+// ---- temporal attention backward
+
+constexpr int kTP = 64;          // positions a block
+constexpr int kTWarps = 4;       // warps a block at most
+
+// 32-bit words a staged bf16 key or value row takes: odd, so the lanes'
+// rows (one a lane) fall in 32 different banks
+__host__ __device__ inline int row_words(int d) {
+  const int w = (d + 1) / 2;
+  return w % 2 ? w : w + 1;
+}
+
+// the pitch (floats) of a lane-owned f32 row: odd
+__host__ __device__ inline int frow(int d) { return d % 2 ? d : d + 1; }
+
+// floats of shared memory a warp takes: q, g_acc and dq (F x d each), the
+// key and value chunks (32 rows of row_words(d)), the frame keys' dk and
+// dv rows (32 x frow(d) each), each lane's running max and sum (F x 32
+// each), each query's max, sum and D (F each), a staged row (32), the
+// warp's dbias table (F x (F + T)) and its dek / dev rows (T x frow(d)
+// each)
+__host__ __device__ inline size_t bwd_warp_floats(int F, int T, int d) {
+  return (size_t)3 * F * d + (size_t)2 * kKC * row_words(d) +
+         (size_t)2 * kKC * frow(d) + (size_t)2 * F * kKC + 3 * F + kKC +
+         (size_t)F * (F + T) + (size_t)2 * T * frow(d);
+}
+
+int bwd_warps(int F, int T, int d) {
+  const size_t w = kMaxSmem / (bwd_warp_floats(F, T, d) * sizeof(float));
+  return w >= kTWarps ? kTWarps : (int)w;
+}
+
+struct TemporalBwd {
+  const bf16* qkv;      // (B, F, S, 3H)
+  const bf16* ga;       // (B, F, S, H): g @ w_out^T
+  const bf16* ek;       // (B, T, H) or null
+  const bf16* ev;
+  const float* bias;    // (F, F + T, heads)
+  bf16* acc;            // (B, F, S, H): the value sums, for dw_out
+  bf16* dqkv;           // (B, F, S, 3H)
+  float* part_bias;     // (B, heads, blocks, F, F + T)
+  float* part_tok;      // (B, heads, blocks, 2, T, d)
+  int B, F, S, T, heads, d;
+};
+
+__global__ void __launch_bounds__(kTWarps * 32) temporal_any_bwd_attn_kernel(
+    const TemporalBwd a, int warps) {
+  extern __shared__ float smem_f[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int blk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int F = a.F, T = a.T, G = F + T, d = a.d, H = a.heads * d;
+  const int kw = 2 * row_words(d), fp = frow(d);
+  const size_t per = bwd_warp_floats(F, T, d);
+  float* base = smem_f + (size_t)warp * per;
+  float* q = base;                                    // [F][d]
+  float* ga = q + F * d;                              // [F][d]
+  float* dq = ga + F * d;                             // [F][d], acc in pass 2
+  bf16* kc = reinterpret_cast<bf16*>(dq + F * d);     // [32][kw]
+  bf16* vc = kc + kKC * kw;                           // [32][kw]
+  float* dkc = dq + F * d + kKC * kw;                 // [32][fp]
+  float* dvc = dkc + kKC * fp;                        // [32][fp]
+  float* pm = dvc + kKC * fp;                         // [F][32]
+  float* pl = pm + F * kKC;                           // [F][32]
+  float* qm = pl + F * kKC;                           // [F]
+  float* ql = qm + F;                                 // [F]
+  float* qd = ql + F;                                 // [F]
+  float* pb = qd + F;                                 // [32]
+  float* dbw = pb + kKC;                              // [F][G]
+  float* dekw = dbw + F * G;                          // [T][fp]
+  float* devw = dekw + T * fp;                        // [T][fp]
+  const bool active = warp < warps;
+  if (active) {
+    for (int i = lane; i < F * G; i += 32) dbw[i] = 0.f;
+    for (int i = lane; i < T * fp; i += 32) {
+      dekw[i] = 0.f;
+      devw[i] = 0.f;
+    }
+  }
+  __syncwarp();
+  const int s_begin = blk * kTP, s_end = min(a.S, s_begin + kTP);
+
+  auto key_row = [&](int s, int j, int part) -> const bf16* {
+    if (j < F)
+      return a.qkv + (((size_t)b * F + j) * a.S + s) * 3 * H + part * H + h * d;
+    return (part == 1 ? a.ek : a.ev) + ((size_t)b * T + (j - F)) * H + h * d;
+  };
+  auto stage = [&](int s, int j0, bool values) {
+    __syncwarp();
+    const int nk = min(kKC, G - j0);
+    for (int r = 0; r < nk; ++r) {
+      const bf16* kr = key_row(s, j0 + r, 1);
+      for (int e = lane; e < d; e += 32) kc[r * kw + e] = kr[e];
+      if (values) {
+        const bf16* vr = key_row(s, j0 + r, 2);
+        for (int e = lane; e < d; e += 32) vc[r * kw + e] = vr[e];
+      }
+    }
+    __syncwarp();
+  };
+  auto score = [&](int i, int j) {
+    const float* qi = q + i * d;
+    const bf16* kr = kc + lane * kw;
+    float sc = 0.f;
+    for (int e = 0; e < d; ++e) sc = fmaf(qi[e], bf2f(kr[e]), sc);
+    return sc + a.bias[((size_t)i * G + j) * a.heads + h];
+  };
+  // g_acc_i . v of the lane's key, rounded to bf16 as the twin rounds dp
+  auto dprob = [&](int i) {
+    const float* gi = ga + i * d;
+    const bf16* vr = vc + lane * kw;
+    float dp = 0.f;
+    for (int e = 0; e < d; ++e) dp = fmaf(gi[e], bf2f(vr[e]), dp);
+    return round_bf16(dp);
+  };
+
+  for (int s = s_begin + warp; active && s < s_end; s += warps) {
+    for (int f = 0; f < F; ++f) {
+      const size_t row = ((size_t)b * F + f) * a.S + s;
+      const bf16* qr = a.qkv + row * 3 * H + h * d;
+      const bf16* gr = a.ga + row * H + h * d;
+      for (int e = lane; e < d; e += 32) {
+        q[f * d + e] = bf2f(qr[e]);
+        ga[f * d + e] = bf2f(gr[e]);
+        dq[f * d + e] = 0.f;
+      }
+      pm[f * kKC + lane] = -CUDART_INF_F;
+      pl[f * kKC + lane] = 0.f;
+    }
+    // pass 1: each lane's running max and sum, per query
+    for (int j0 = 0; j0 < G; j0 += kKC) {
+      stage(s, j0, false);
+      const int j = j0 + lane;
+      if (j < G)
+        for (int i = 0; i < F; ++i) {
+          const float sc = score(i, j);
+          const float m = pm[i * kKC + lane], mn = fmaxf(m, sc);
+          pl[i * kKC + lane] =
+              pl[i * kKC + lane] * expf(m - mn) + expf(sc - mn);
+          pm[i * kKC + lane] = mn;
+        }
+    }
+    __syncwarp();
+    for (int i = 0; i < F; ++i) {
+      const float m = pm[i * kKC + lane];
+      const float mx = vmt::warp_max(m);
+      const float l = vmt::warp_sum(pl[i * kKC + lane] * expf(m - mx));
+      __syncwarp();
+      if (lane == 0) {
+        qm[i] = mx;
+        ql[i] = l;
+      }
+      pl[i * kKC + lane] = 0.f;  // from here: the lane's part of D
+    }
+    __syncwarp();
+    // pass 2: the value sums acc (bf16 p, in dq's place) and D
+    for (int j0 = 0; j0 < G; j0 += kKC) {
+      stage(s, j0, true);
+      const int j = j0 + lane, nk = min(kKC, G - j0);
+      for (int i = 0; i < F; ++i) {
+        float pr = 0.f;
+        if (j < G) {
+          const float p = expf(score(i, j) - qm[i]) / ql[i];
+          pr = round_bf16(p);
+          pl[i * kKC + lane] += p * dprob(i);
+        }
+        pb[lane] = pr;
+        __syncwarp();
+        for (int e = lane; e < d; e += 32) {
+          float o = dq[i * d + e];
+          for (int r = 0; r < nk; ++r) o = fmaf(pb[r], bf2f(vc[r * kw + e]), o);
+          dq[i * d + e] = o;
+        }
+        __syncwarp();
+      }
+    }
+    for (int i = 0; i < F; ++i) {
+      const float dsum = vmt::warp_sum(pl[i * kKC + lane]);
+      if (lane == 0) qd[i] = dsum;
+      bf16* orow = a.acc + (((size_t)b * F + i) * a.S + s) * H + h * d;
+      for (int e = lane; e < d; e += 32) {
+        orow[e] = __float2bfloat16(dq[i * d + e]);
+        dq[i * d + e] = 0.f;
+      }
+    }
+    __syncwarp();
+    // pass 3: ds, dq, dk, dv, dbias
+    for (int j0 = 0; j0 < G; j0 += kKC) {
+      stage(s, j0, true);
+      const int j = j0 + lane, nk = min(kKC, G - j0);
+      // the lane's key row: a frame key's in the chunk rows, a token's in
+      // the warp's sums over its positions
+      float* dkr = j < F ? dkc + lane * fp : dekw + (size_t)(j - F) * fp;
+      float* dvr = j < F ? dvc + lane * fp : devw + (size_t)(j - F) * fp;
+      if (j < F)
+        for (int e = 0; e < d; ++e) {
+          dkr[e] = 0.f;
+          dvr[e] = 0.f;
+        }
+      for (int i = 0; i < F; ++i) {
+        float ds = 0.f;
+        if (j < G) {
+          const float p = expf(score(i, j) - qm[i]) / ql[i];
+          const float pr = round_bf16(p);
+          ds = p * (dprob(i) - qd[i]);
+          const float* qi = q + i * d;
+          const float* gi = ga + i * d;
+          for (int e = 0; e < d; ++e) {
+            dkr[e] = fmaf(ds, qi[e], dkr[e]);
+            dvr[e] = fmaf(pr, gi[e], dvr[e]);
+          }
+          dbw[i * G + j] += ds;
+        }
+        pb[lane] = ds;
+        __syncwarp();
+        for (int e = lane; e < d; e += 32) {
+          float o = dq[i * d + e];
+          for (int r = 0; r < nk; ++r) o = fmaf(pb[r], bf2f(kc[r * kw + e]), o);
+          dq[i * d + e] = o;
+        }
+        __syncwarp();
+      }
+      // the chunk's frame keys: dk, dv to dqkv
+      for (int r = 0; r < nk && j0 + r < F; ++r) {
+        bf16* drow = a.dqkv + (((size_t)b * F + j0 + r) * a.S + s) * 3 * H +
+                     h * d;
+        for (int e = lane; e < d; e += 32) {
+          drow[H + e] = __float2bfloat16(dkc[r * fp + e]);
+          drow[2 * H + e] = __float2bfloat16(dvc[r * fp + e]);
+        }
+      }
+      __syncwarp();
+    }
+    for (int i = 0; i < F; ++i) {
+      bf16* drow = a.dqkv + (((size_t)b * F + i) * a.S + s) * 3 * H + h * d;
+      for (int e = lane; e < d; e += 32) drow[e] = __float2bfloat16(dq[i * d + e]);
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  // the block's partials: its warps' sums, in order
+  const size_t pidx = ((size_t)b * a.heads + h) * gridDim.x + blk;
+  float* pbias = a.part_bias + pidx * F * G;
+  for (int i = threadIdx.x; i < F * G; i += blockDim.x) {
+    float v = 0.f;
+    for (int w = 0; w < warps; ++w) v += smem_f[(size_t)w * per + (dbw - base) + i];
+    pbias[i] = v;
+  }
+  if (T > 0) {
+    float* ptok = a.part_tok + pidx * 2 * T * d;
+    for (int i = threadIdx.x; i < 2 * T * d; i += blockDim.x) {
+      const int which = i / (T * d), tt = (i / d) % T, e = i % d;
+      const size_t off = (which ? devw : dekw) - base + (size_t)tt * fp + e;
+      float v = 0.f;
+      for (int w = 0; w < warps; ++w) v += smem_f[(size_t)w * per + off];
+      ptok[i] = v;
+    }
+  }
+}
+
+// dbias[i][j][h] = sum over b, then the blocks, of part_bias
+__global__ void temporal_any_bias_reduce(const float* __restrict__ part,
+                                         float* __restrict__ dbias, int B,
+                                         int heads, int blocks, int FG) {
+  const int o = blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= FG * heads) return;
+  const int h = o % heads, ij = o / heads;
+  float v = 0.f;
+  for (int b = 0; b < B; ++b) {
+    const float* p = part + (((size_t)b * heads + h) * blocks) * FG + ij;
+    for (int k = 0; k < blocks; ++k) v += p[(size_t)k * FG];
+  }
+  dbias[o] = v;
+}
+
+// dekv[b][which][t][h d + e] = sum over the blocks of part_tok
+__global__ void temporal_any_tok_reduce(const float* __restrict__ part,
+                                        float* __restrict__ dekv, int B,
+                                        int heads, int blocks, int T, int d) {
+  const size_t o = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int H = heads * d;
+  if (o >= (size_t)B * 2 * T * H) return;
+  const int col = o % H, h = col / d, e = col % d;
+  const int tt = (o / H) % T, which = (o / ((size_t)T * H)) % 2;
+  const int b = o / ((size_t)2 * T * H);
+  const float* p = part + (((size_t)b * heads + h) * blocks) * 2 * T * d +
+                   ((size_t)which * T + tt) * d + e;
+  float v = 0.f;
+  for (int k = 0; k < blocks; ++k) v += p[(size_t)k * 2 * T * d];
+  dekv[o] = v;
+}
+
+// ---- linear backward: token sums, merge, token gradients
+
+constexpr int kLStatThreads = 256;
+constexpr int kLTile = 256;  // tokens a partial block
+constexpr int kLSub = 32;    // tokens staged at a time
+constexpr int kMaxD = 64;
+constexpr int kLOut = kMaxD * kMaxD / kLStatThreads;  // outputs a thread
+
+__device__ __forceinline__ float clip_k(float k, int clip) {
+  return clip ? fminf(fmaxf(k, -kClamp), kClamp) : k;
+}
+
+// qkv (BF, N, 3H) f32, goh (BF, N, H) f32; per (tile, head, frame): the
+// column max m of the (clamped) keys over the tile, z = sum exp(k - m),
+// ctx = sum exp(k - m)^T v, dctx = sum Q^T g_oh with Q = scale
+// softmax_head(q)
+__global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
+    const float* __restrict__ qkv, const float* __restrict__ goh,
+    float* __restrict__ part_m, float* __restrict__ part_z,
+    float* __restrict__ part_ctx, float* __restrict__ part_dctx, int N,
+    int heads, int d, float scale, int clip) {
+  extern __shared__ float smem_f[];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int tt = blockIdx.x, h = blockIdx.y, bf = blockIdx.z;
+  const int tiles = gridDim.x, H = heads * d, dd = d * d;
+  float* mx = smem_f;                 // [d]
+  float* red = mx + kMaxD;            // [256]
+  float* P = red + kLStatThreads;     // [kLSub][d]
+  float* V = P + kLSub * d;           // [kLSub][d]
+  float* Q = V + kLSub * d;           // [kLSub][d]
+  float* Gs = Q + kLSub * d;          // [kLSub][d]
+  const int n0 = tt * kLTile, n1 = min(N, n0 + kLTile);
+  const float* base = qkv + (size_t)bf * N * 3 * H;
+  // the column max: thread t takes feature t % d of every (256 / d)-th token
+  {
+    const int a = t % d, grp = t / d, ngrp = kLStatThreads / d;
+    float m = -CUDART_INF_F;
+    if (grp < ngrp)
+      for (int n = n0 + grp; n < n1; n += ngrp)
+        m = fmaxf(m, clip_k(base[(size_t)n * 3 * H + H + h * d + a], clip));
+    red[t] = m;
+    __syncthreads();
+    if (t < d) {
+      float v = -CUDART_INF_F;
+      for (int k = 0; k < ngrp; ++k) v = fmaxf(v, red[k * d + t]);
+      mx[t] = v;
+    }
+    __syncthreads();
+  }
+  float cacc[kLOut], dacc[kLOut];
+#pragma unroll
+  for (int u = 0; u < kLOut; ++u) cacc[u] = dacc[u] = 0.f;
+  float zacc = 0.f;
+  for (int sub = n0; sub < n1; sub += kLSub) {
+    const int cnt = min(kLSub, n1 - sub);
+    __syncthreads();
+    for (int i = t; i < cnt * d; i += kLStatThreads) {
+      const int r = i / d, c = i % d;
+      const float* row = base + (size_t)(sub + r) * 3 * H + h * d;
+      P[i] = expf(clip_k(row[H + c], clip) - mx[c]);
+      V[i] = row[2 * H + c];
+      Gs[i] = goh[((size_t)bf * N + sub + r) * H + h * d + c];
+    }
+    // the query softmax over the head's features, one warp a token
+    for (int r = warp; r < cnt; r += kLStatThreads / 32) {
+      const float* qr = base + (size_t)(sub + r) * 3 * H + h * d;
+      float m = -CUDART_INF_F;
+      for (int c = lane; c < d; c += 32) m = fmaxf(m, qr[c]);
+      m = vmt::warp_max(m);
+      float sm = 0.f;
+      for (int c = lane; c < d; c += 32) sm += expf(qr[c] - m);
+      const float sc = scale / vmt::warp_sum(sm);
+      for (int c = lane; c < d; c += 32) Q[r * d + c] = expf(qr[c] - m) * sc;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kLOut; ++u) {
+      const int o = t + u * kLStatThreads;
+      if (o < dd) {
+        const int ai = o / d, e = o % d;
+        float c = cacc[u], dc = dacc[u];
+        for (int r = 0; r < cnt; ++r) {
+          c = fmaf(P[r * d + ai], V[r * d + e], c);
+          dc = fmaf(Q[r * d + ai], Gs[r * d + e], dc);
+        }
+        cacc[u] = c;
+        dacc[u] = dc;
+      }
+    }
+    if (t < d)
+      for (int r = 0; r < cnt; ++r) zacc += P[r * d + t];
+  }
+  const size_t pi = ((size_t)bf * tiles + tt) * heads + h;
+#pragma unroll
+  for (int u = 0; u < kLOut; ++u) {
+    const int o = t + u * kLStatThreads;
+    if (o < dd) {
+      part_ctx[pi * dd + o] = cacc[u];
+      part_dctx[pi * dd + o] = dacc[u];
+    }
+  }
+  if (t < d) {
+    part_m[pi * d + t] = mx[t];
+    part_z[pi * d + t] = zacc;
+  }
+}
+
+// one block a (head, frame): the maximum M, zinv, ctx (with 1 / HW) and
+// dctx from the conditioning tokens first, then the tiles in order; S =
+// sum_e dctx ctx; the conditioning tokens' dek and dev
+__global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_merge(
+    const float* __restrict__ part_m, const float* __restrict__ part_z,
+    const float* __restrict__ part_ctx, const float* __restrict__ part_dctx,
+    const bf16* __restrict__ ek, const bf16* __restrict__ ev,
+    float* __restrict__ ctx, float* __restrict__ dctx, float* __restrict__ mz,
+    float* __restrict__ dek, float* __restrict__ dev, int tiles, int Mc,
+    int heads, int d, float inv_hw, int clip) {
+  extern __shared__ float smem_f[];
+  const int t = threadIdx.x, h = blockIdx.x, bf = blockIdx.y;
+  const int H = heads * d, dd = d * d;
+  float* cs = smem_f;        // [d][d] ctx
+  float* ds = cs + dd;       // [d][d] dctx
+  float* M = ds + dd;        // [d]
+  float* zi = M + d;         // [d]
+  float* S = zi + d;         // [d]
+  const size_t pb = (size_t)bf * tiles * heads + h;  // tile k: pb + k heads
+  const bf16* ekb = ek + (size_t)bf * Mc * H + h * d;
+  const bf16* evb = ev + (size_t)bf * Mc * H + h * d;
+  if (t < d) {
+    float m = -CUDART_INF_F;
+    for (int mc = 0; mc < Mc; ++mc)
+      m = fmaxf(m, clip_k(bf2f(ekb[(size_t)mc * H + t]), clip));
+    for (int k = 0; k < tiles; ++k)
+      m = fmaxf(m, part_m[(pb + (size_t)k * heads) * d + t]);
+    float z = 0.f;
+    for (int mc = 0; mc < Mc; ++mc)
+      z += expf(clip_k(bf2f(ekb[(size_t)mc * H + t]), clip) - m);
+    for (int k = 0; k < tiles; ++k) {
+      const size_t pi = (pb + (size_t)k * heads) * d + t;
+      z += part_z[pi] * expf(part_m[pi] - m);
+    }
+    M[t] = m;
+    zi[t] = 1.f / z;
+  }
+  __syncthreads();
+  for (int o = t; o < dd; o += kLStatThreads) {
+    const int ai = o / d, e = o % d;
+    float c = 0.f, dc = 0.f;
+    for (int mc = 0; mc < Mc; ++mc)
+      c = fmaf(expf(clip_k(bf2f(ekb[(size_t)mc * H + ai]), clip) - M[ai]),
+               bf2f(evb[(size_t)mc * H + e]), c);
+    for (int k = 0; k < tiles; ++k) {
+      const size_t pi = pb + (size_t)k * heads;
+      c = fmaf(part_ctx[pi * dd + o], expf(part_m[pi * d + ai] - M[ai]), c);
+      dc += part_dctx[pi * dd + o];
+    }
+    c *= inv_hw * zi[ai];
+    cs[o] = c;
+    ds[o] = dc;
+    const size_t out = ((size_t)bf * heads + h) * dd + o;
+    ctx[out] = c;
+    dctx[out] = dc;
+  }
+  __syncthreads();
+  if (t < d) {
+    float sv = 0.f;
+    for (int e = 0; e < d; ++e) sv = fmaf(ds[t * d + e], cs[t * d + e], sv);
+    S[t] = sv;
+    const size_t o = (size_t)bf * 3 * H + h * d + t;  // mz: (BF, 3, H)
+    mz[o] = M[t];
+    mz[o + H] = zi[t];
+    mz[o + 2 * H] = sv;
+  }
+  __syncthreads();
+  // the conditioning tokens: dek = P (dP - S) (zero where |k| >= 60 under
+  // clip), dev = P^T dctx / HW
+  for (int i = t; i < Mc * d; i += kLStatThreads) {
+    const int mc = i / d, c = i % d;
+    const float k = bf2f(ekb[(size_t)mc * H + c]);
+    const float p = expf(clip_k(k, clip) - M[c]) * zi[c];
+    float dp = 0.f, dv = 0.f;
+    for (int e = 0; e < d; ++e) {
+      dp = fmaf(ds[c * d + e], bf2f(evb[(size_t)mc * H + e]), dp);
+      const float pe =
+          expf(clip_k(bf2f(ekb[(size_t)mc * H + e]), clip) - M[e]) * zi[e];
+      dv = fmaf(pe, ds[e * d + c], dv);
+    }
+    const bool dead = clip && fabsf(k) >= kClamp;
+    const size_t o = ((size_t)bf * Mc + mc) * H + h * d + c;
+    dek[o] = dead ? 0.f : p * (dp * inv_hw - S[c]);
+    dev[o] = dv * inv_hw;
+  }
+}
+
+constexpr int kLTokWarps = 8;
+constexpr int kLTokRows = 64;  // tokens a block, 8 a warp
+
+// one block a (64 tokens, frame), 8 warps of 8 tokens, a head at a time:
+// dq = Q (dQ - sum Q dQ / scale), dQ = g_oh ctx^T; dk = P (dP - S) with
+// P = exp(k - M) zinv, dP = dctx v / HW (zero where |k| >= 60 under
+// clip); dv = P dctx / HW; oh = Q ctx. dqkv (BF, N, 3H) and oh (BF, N, H)
+// in bf16
+__global__ void __launch_bounds__(kLTokWarps * 32) linear_any_bwd_tokens(
+    const float* __restrict__ qkv, const float* __restrict__ goh,
+    const float* __restrict__ ctx, const float* __restrict__ dctx,
+    const float* __restrict__ mz, bf16* __restrict__ dqkv,
+    bf16* __restrict__ oh, int N, int heads, int d, float scale,
+    float inv_hw, int clip) {
+  extern __shared__ float smem_f[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bf = blockIdx.y, n0 = blockIdx.x * kLTokRows;
+  const int H = heads * d, dp1 = d + 1;
+  float* cs = smem_f;                    // [d][d + 1] ctx
+  float* ds = cs + d * dp1;              // [d][d + 1] dctx
+  float* vec = ds + d * dp1 + warp * 4 * kMaxD;  // the warp's Q, g_oh, P, v
+  float* Qv = vec;
+  float* Gv = vec + kMaxD;
+  float* Pv = vec + 2 * kMaxD;
+  float* Vv = vec + 3 * kMaxD;
+  for (int h = 0; h < heads; ++h) {
+    __syncthreads();
+    const float* cb = ctx + ((size_t)bf * heads + h) * d * d;
+    const float* db = dctx + ((size_t)bf * heads + h) * d * d;
+    for (int o = threadIdx.x; o < d * d; o += kLTokWarps * 32) {
+      cs[(o / d) * dp1 + o % d] = cb[o];
+      ds[(o / d) * dp1 + o % d] = db[o];
+    }
+    __syncthreads();
+    const float* M = mz + (size_t)bf * 3 * H + h * d;
+    const float* zi = M + H;
+    const float* S = M + 2 * H;
+    for (int r = warp; r < kLTokRows; r += kLTokWarps) {
+      const int n = n0 + r;
+      if (n >= N) break;
+      const size_t row = (size_t)bf * N + n;
+      const float* qr = qkv + row * 3 * H + h * d;
+      const float* gr = goh + row * H + h * d;
+      float m = -CUDART_INF_F;
+      for (int c = lane; c < d; c += 32) m = fmaxf(m, qr[c]);
+      m = vmt::warp_max(m);
+      float sm = 0.f;
+      for (int c = lane; c < d; c += 32) sm += expf(qr[c] - m);
+      const float sc = scale / vmt::warp_sum(sm);
+      for (int c = lane; c < d; c += 32) {
+        Qv[c] = expf(qr[c] - m) * sc;
+        Gv[c] = gr[c];
+        Pv[c] = expf(clip_k(qr[H + c], clip) - M[c]) * zi[c];
+        Vv[c] = qr[2 * H + c];
+      }
+      __syncwarp();
+      // lanes over a: dQ[a], dP[a]; lanes over e: dv[e], oh[e]
+      float qdq = 0.f;
+      float dqa[2], dka[2];
+      for (int u = 0; u < 2; ++u) {
+        const int c = lane + 32 * u;
+        dqa[u] = dka[u] = 0.f;
+        if (c >= d) continue;
+        float dQ = 0.f, dP = 0.f;
+        for (int e = 0; e < d; ++e) {
+          dQ = fmaf(Gv[e], cs[c * dp1 + e], dQ);
+          dP = fmaf(ds[c * dp1 + e], Vv[e], dP);
+        }
+        qdq = fmaf(Qv[c] / scale, dQ, qdq);
+        dqa[u] = dQ;
+        const bool dead = clip && fabsf(qr[H + c]) >= kClamp;
+        dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - S[c]);
+      }
+      qdq = vmt::warp_sum(qdq);
+      bf16* drow = dqkv + row * 3 * H + h * d;
+      for (int u = 0; u < 2; ++u) {
+        const int c = lane + 32 * u;
+        if (c >= d) continue;
+        drow[c] = __float2bfloat16(Qv[c] * (dqa[u] - qdq));
+        drow[H + c] = __float2bfloat16(dka[u]);
+        float dv = 0.f, o = 0.f;
+        for (int ai = 0; ai < d; ++ai) {
+          dv = fmaf(Pv[ai], ds[ai * dp1 + c], dv);
+          o = fmaf(Qv[ai], cs[ai * dp1 + c], o);
+        }
+        drow[2 * H + c] = __float2bfloat16(dv * inv_hw);
+        oh[row * H + h * d + c] = __float2bfloat16(o);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---- workspace carving
+
+struct Carve {
+  char* p;
+  size_t used = 0;
+  template <class T>
+  T* take(size_t n) {
+    T* out = reinterpret_cast<T*>(p == nullptr ? nullptr : p + used);
+    used += vmt::align256(n * sizeof(T));
+    return out;
+  }
+};
+
+}  // namespace
+
+// Dynamic shared memory a block of the temporal attention backward asks at
+// (F, T, d), bytes; 0 where one warp's share does not fit (the shape is
+// refused).
+extern "C" size_t vmt_temporal_block_bwd_any_smem(int F, int T, int d) {
+  if (F <= 0 || T < 0 || d <= 0) return 0;
+  const int w = bwd_warps(F, T, d);
+  return w ? w * bwd_warp_floats(F, T, d) * sizeof(float) : 0;
+}
+
+namespace {
+
+// the temporal backward's scratch, carved from one workspace (p null: the
+// size only)
+struct TemporalWs {
+  bf16 *y, *qkv, *ga, *acc, *dqkv;
+  float *dy, *part_bias, *part_tok, *ln_part, *ln_ws, *contract;
+  size_t bytes;
+};
+
+TemporalWs temporal_ws(void* p, int B, int F, int S, int C, int T, int heads,
+                       int d) {
+  Carve c{static_cast<char*>(p)};
+  const size_t R = (size_t)B * F * S, H = (size_t)heads * d;
+  const int blocks = (S + kTP - 1) / kTP;
+  const size_t lnb = ln_bwd_blocks(R);
+  TemporalWs w;
+  w.y = c.take<bf16>(R * C);
+  w.qkv = c.take<bf16>(R * 3 * H);
+  w.ga = c.take<bf16>(R * H);
+  w.acc = c.take<bf16>(R * H);
+  w.dqkv = c.take<bf16>(R * 3 * H);
+  w.dy = c.take<float>(R * C);
+  w.part_bias = c.take<float>((size_t)B * heads * blocks * F * (F + T));
+  w.part_tok = c.take<float>((size_t)B * heads * blocks * 2 * T * d);
+  w.ln_part = c.take<float>(lnb * C);
+  w.ln_ws = c.take<float>(vmt::colsum_workspace(1, (int)lnb, C) / sizeof(float));
+  const size_t c1 = contract_ws(F, B * S, C, 3 * (int)H);
+  const size_t c2 = contract_ws(1, (int)R, (int)H, C);
+  w.contract = c.take<float>((c1 > c2 ? c1 : c2) / sizeof(float));
+  w.bytes = c.used;
+  return w;
+}
+
+}  // namespace
+
+extern "C" size_t vmt_temporal_block_bwd_any_workspace(int B, int F, int S,
+                                                       int C, int T,
+                                                       int heads, int d) {
+  return temporal_ws(nullptr, B, F, S, C, T, heads, d).bytes;
+}
+
+// The temporal block's backward at any shape. x, g (B, F, S, C) bf16;
+// gamma (C); w_all (F, C, 3H) and w_allT (F, 3H, C) bf16; w_outT (C, H)
+// bf16; bias (F, F + T, heads) f32; ek/ev (B, T, H) or null when T == 0.
+// Out: dx (B, F, S, C) bf16; dgamma (C), dw_all (F, C, 3H), dw_out (H, C),
+// dbias (F, F + T, heads), dekv (B, 2, T, H) (null when T == 0), all f32.
+// workspace: vmt_temporal_block_bwd_any_workspace() bytes.
+extern "C" int vmt_temporal_block_bwd_any(
+    const void* x, const void* gamma, const void* w_all, const void* w_allT,
+    const void* w_outT, const void* bias, const void* ek, const void* ev,
+    const void* g, void* dx, void* dgamma, void* dw_all, void* dw_out,
+    void* dbias, void* dekv, void* workspace, int B, int F, int S, int C,
+    int T, int heads, int d, void* stream) {
+  if (B <= 0 || F <= 0 || S <= 0 || C <= 0 || T < 0 || heads <= 0 || d <= 0 ||
+      (T > 0 && (ek == nullptr || ev == nullptr || dekv == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int warps = bwd_warps(F, T, d);
+  if (warps == 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int H = heads * d;
+  const size_t R = (size_t)B * F * S;
+  const TemporalWs w = temporal_ws(workspace, B, F, S, C, T, heads, d);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  cudaError_t err =
+      launch_ln(xb, static_cast<const float*>(gamma), w.y, R, C, st);
+  if (err != cudaSuccess) return (int)err;
+  // qkv[b, f] = y[b, f] @ w_all[f]; g_acc = g @ w_out^T
+  err = launch_gemm(gemm(w.y, C, (size_t)S * C, static_cast<const bf16*>(w_all),
+                         3 * H, (size_t)C * 3 * H, F, w.qkv, 3 * H,
+                         (size_t)S * 3 * H, S, 3 * H, C),
+                    B * F, kStoreBf16, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm(gemm(gb, C, 0, static_cast<const bf16*>(w_outT), H, 0, 1,
+                         w.ga, H, 0, (int)R, H, C),
+                    1, kStoreBf16, st);
+  if (err != cudaSuccess) return (int)err;
+  TemporalBwd a;
+  a.qkv = w.qkv;
+  a.ga = w.ga;
+  a.ek = static_cast<const bf16*>(ek);
+  a.ev = static_cast<const bf16*>(ev);
+  a.bias = static_cast<const float*>(bias);
+  a.acc = w.acc;
+  a.dqkv = w.dqkv;
+  a.part_bias = w.part_bias;
+  a.part_tok = w.part_tok;
+  a.B = B; a.F = F; a.S = S; a.T = T; a.heads = heads; a.d = d;
+  const size_t smem = (size_t)warps * bwd_warp_floats(F, T, d) * sizeof(float);
+  err = cudaFuncSetAttribute(temporal_any_bwd_attn_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (S + kTP - 1) / kTP;
+  temporal_any_bwd_attn_kernel<<<dim3(blocks, heads, B), warps * 32, smem,
+                                 st>>>(a, warps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int FG = F * (F + T);
+  temporal_any_bias_reduce<<<(FG * heads + 255) / 256, 256, 0, st>>>(
+      w.part_bias, static_cast<float*>(dbias), B, heads, blocks, FG);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (T > 0) {
+    const size_t n = (size_t)B * 2 * T * H;
+    temporal_any_tok_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        w.part_tok, static_cast<float*>(dekv), B, heads, blocks, T, d);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  // dy[b, f] = dqkv[b, f] @ w_all[f]^T, then the LN backward
+  err = launch_gemm(gemm(w.dqkv, 3 * H, (size_t)S * 3 * H,
+                         static_cast<const bf16*>(w_allT), C,
+                         (size_t)3 * H * C, F, w.dy, C, (size_t)S * C, S, C,
+                         3 * H),
+                    B * F, kStoreF32, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t lnb = ln_bwd_blocks(R);
+  err = launch_ln_bwd(xb, static_cast<const float*>(gamma), w.dy, gb,
+                      static_cast<bf16*>(dx), w.ln_part, nullptr, R, C, st);
+  if (err != cudaSuccess) return (int)err;
+  err = vmt::launch_colsum(w.ln_part, static_cast<float*>(dgamma), 1,
+                           (int)lnb, C, w.ln_ws, st);
+  if (err != cudaSuccess) return (int)err;
+  // dw_all[f] = sum_{b, s} y[b, f, s]^T dqkv[b, f, s]; dw_out = acc^T g
+  err = launch_contract(
+      rows_of(w.y, C, (size_t)S * C, S, (size_t)F * S * C),
+      rows_of(w.dqkv, 3 * H, (size_t)S * 3 * H, S, (size_t)F * S * 3 * H),
+      static_cast<float*>(dw_all), F, B * S, C, 3 * H, w.contract, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_contract(rows_of(w.acc, H), rows_of(g, C),
+                              static_cast<float*>(dw_out), 1, (int)R, H, C,
+                              w.contract, st);
+}
+
+namespace {
+
+struct LinearWs {
+  bf16 *y, *dqkv, *oh;
+  float *qkv, *goh, *part_m, *part_z, *part_ctx, *part_dctx, *ctx, *dctx, *mz,
+      *dy, *ln_dg, *ln_g, *ln_ws, *contract;
+  size_t bytes;
+};
+
+LinearWs linear_ws(void* p, int BF, int N, int C, int heads, int d) {
+  Carve c{static_cast<char*>(p)};
+  const size_t R = (size_t)BF * N, H = (size_t)heads * d;
+  const int tiles = (N + kLTile - 1) / kLTile;
+  const size_t lnb = ln_bwd_blocks(R);
+  const size_t parts = (size_t)BF * tiles * heads;
+  LinearWs w;
+  w.y = c.take<bf16>(R * C);
+  w.qkv = c.take<float>(R * 3 * H);
+  w.goh = c.take<float>(R * H);
+  w.part_m = c.take<float>(parts * d);
+  w.part_z = c.take<float>(parts * d);
+  w.part_ctx = c.take<float>(parts * d * d);
+  w.part_dctx = c.take<float>(parts * d * d);
+  w.ctx = c.take<float>((size_t)BF * heads * d * d);
+  w.dctx = c.take<float>((size_t)BF * heads * d * d);
+  w.mz = c.take<float>((size_t)BF * 3 * H);
+  w.dqkv = c.take<bf16>(R * 3 * H);
+  w.oh = c.take<bf16>(R * H);
+  w.dy = c.take<float>(R * C);
+  w.ln_dg = c.take<float>(lnb * C);
+  w.ln_g = c.take<float>(lnb * C);
+  w.ln_ws = c.take<float>(vmt::colsum_workspace(1, (int)lnb, C) / sizeof(float));
+  const size_t c1 = contract_ws(1, (int)R, C, 3 * (int)H);
+  const size_t c2 = contract_ws(1, (int)R, (int)H, C);
+  w.contract = c.take<float>((c1 > c2 ? c1 : c2) / sizeof(float));
+  w.bytes = c.used;
+  return w;
+}
+
+}  // namespace
+
+extern "C" size_t vmt_linear_block_bwd_any_workspace(int BF, int N, int C,
+                                                     int heads, int d) {
+  return linear_ws(nullptr, BF, N, C, heads, d).bytes;
+}
+
+// The linear block's backward at any shape (d <= 64). x, g (BF, N, C)
+// bf16; gamma (C); w_qkv (C, 3H), w_qkvT (3H, C), w_outT (C, H) bf16;
+// ek/ev (BF, Mc, H) bf16 or null when Mc == 0. Out: dx (BF, N, C) bf16;
+// dgamma (C), dw_qkv (C, 3H), dw_out (H, C), dout_bias (C), dek/dev
+// (BF, Mc, H), all f32. clip = 1: the merged row (clamped k; dk and dek
+// zero where |k| >= 60); 0: the per-head row. workspace:
+// vmt_linear_block_bwd_any_workspace() bytes.
+extern "C" int vmt_linear_block_bwd_any(
+    const void* x, const void* gamma, const void* w_qkv, const void* w_qkvT,
+    const void* w_outT, const void* ek, const void* ev, const void* g,
+    void* dx, void* dgamma, void* dw_qkv, void* dw_out, void* dout_bias,
+    void* dek, void* dev, void* workspace, int BF, int N, int C, int Mc,
+    int heads, int d, float scale, float inv_hw, int clip, void* stream) {
+  if (BF <= 0 || N <= 0 || C <= 0 || Mc < 0 || heads <= 0 || d <= 0 ||
+      d > kMaxD || (Mc > 0 && (ek == nullptr || ev == nullptr ||
+                               dek == nullptr || dev == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int H = heads * d;
+  const size_t R = (size_t)BF * N;
+  const LinearWs w = linear_ws(workspace, BF, N, C, heads, d);
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* gb = static_cast<const bf16*>(g);
+  cudaError_t err =
+      launch_ln(xb, static_cast<const float*>(gamma), w.y, R, C, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm(gemm(w.y, C, 0, static_cast<const bf16*>(w_qkv), 3 * H, 0,
+                         1, w.qkv, 3 * H, 0, (int)R, 3 * H, C),
+                    1, kStoreF32, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm(gemm(gb, C, 0, static_cast<const bf16*>(w_outT), H, 0, 1,
+                         w.goh, H, 0, (int)R, H, C),
+                    1, kStoreF32, st);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (N + kLTile - 1) / kLTile;
+  const size_t psmem = ((size_t)kMaxD + kLStatThreads + 4 * kLSub * d) *
+                       sizeof(float);
+  linear_any_bwd_partial<<<dim3(tiles, heads, BF), kLStatThreads, psmem, st>>>(
+      w.qkv, w.goh, w.part_m, w.part_z, w.part_ctx, w.part_dctx, N, heads, d,
+      scale, clip);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t msmem = ((size_t)2 * d * d + 3 * d) * sizeof(float);
+  linear_any_bwd_merge<<<dim3(heads, BF), kLStatThreads, msmem, st>>>(
+      w.part_m, w.part_z, w.part_ctx, w.part_dctx,
+      static_cast<const bf16*>(ek), static_cast<const bf16*>(ev), w.ctx,
+      w.dctx, w.mz, static_cast<float*>(dek), static_cast<float*>(dev), tiles,
+      Mc, heads, d, inv_hw, clip);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t tsmem =
+      ((size_t)2 * d * (d + 1) + (size_t)kLTokWarps * 4 * kMaxD) * sizeof(float);
+  linear_any_bwd_tokens<<<dim3((N + kLTokRows - 1) / kLTokRows, BF),
+                          kLTokWarps * 32, tsmem, st>>>(
+      w.qkv, w.goh, w.ctx, w.dctx, w.mz, w.dqkv, w.oh, N, heads, d, scale,
+      inv_hw, clip);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = launch_gemm(gemm(w.dqkv, 3 * H, 0, static_cast<const bf16*>(w_qkvT),
+                         C, 0, 1, w.dy, C, 0, (int)R, C, 3 * H),
+                    1, kStoreF32, st);
+  if (err != cudaSuccess) return (int)err;
+  const size_t lnb = ln_bwd_blocks(R);
+  err = launch_ln_bwd(xb, static_cast<const float*>(gamma), w.dy, gb,
+                      static_cast<bf16*>(dx), w.ln_dg, w.ln_g, R, C, st);
+  if (err != cudaSuccess) return (int)err;
+  err = vmt::launch_colsum(w.ln_dg, static_cast<float*>(dgamma), 1, (int)lnb,
+                           C, w.ln_ws, st);
+  if (err != cudaSuccess) return (int)err;
+  err = vmt::launch_colsum(w.ln_g, static_cast<float*>(dout_bias), 1,
+                           (int)lnb, C, w.ln_ws, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_contract(rows_of(w.y, C), rows_of(w.dqkv, 3 * H),
+                        static_cast<float*>(dw_qkv), 1, (int)R, C, 3 * H,
+                        w.contract, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_contract(rows_of(w.oh, H), rows_of(g, C),
+                              static_cast<float*>(dw_out), 1, (int)R, H, C,
+                              w.contract, st);
+}

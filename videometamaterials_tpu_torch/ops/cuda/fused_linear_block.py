@@ -7,9 +7,10 @@ _merged_stats_kernel and _merged_apply_kernel, and _kernel, the "head"
 layout (csrc/fused_linear_block.cu, the apply's head mode after the
 backward's stats pass), and both
 backward kernels, _bwd_kernel (per-head) and _bwd_kernel_merged
-(csrc/fused_linear_block_bwd.cu, one source with a clip flag); each source
-note gives the bounds and the design. `fused_linear_block` is the JAX
-package's custom VJP as a torch.autograd.Function: the forward of the
+(csrc/fused_linear_block_bwd.cu and csrc/any_shape_bwd.cu, each one source
+with a clip flag); each source note gives the bounds and the design.
+`fused_linear_block` is the JAX package's custom VJP as a
+torch.autograd.Function: the forward of the
 layout ('merged': stats + apply; 'head': the head-layout kernel) on the
 primals, which are saved, and a backward that is autograd through the JAX
 package's reference_linear_block ('recompute', the JAX default) or the
@@ -31,12 +32,13 @@ where the JAX package reads them (fused_linear_block.py:569, :906).
 Only the eight diagonal (32 x 32) blocks of the TPU kernel's masked
 (256 x 256) context are computed: ctx is (B, heads, d, d).
 
-Rows 4 and 5 (stats and apply) have two instances each, picked from the
-shape alone (`forward_instance`): the specialised kernels at the
-flagship's shapes (8 heads of 32, C in CHANNELS; any N and Mc) and the
-any-shape kernels (csrc/any_shape.cu: any heads, d up to 64 in the stats,
-C, N and Mc) at every other. The head layout (row 8) and the backward
-(rows 6, 7) take the flagship's shapes only (ROADMAP Queue 2).
+Rows 4 and 5 (stats and apply) and 6 and 7 (the backward) have two
+instances each, picked from the shape alone (`forward_instance`): the
+specialised kernels at the flagship's shapes (8 heads of 32, C in
+CHANNELS; any N and Mc) and the any-shape kernels (csrc/any_shape.cu,
+csrc/any_shape_bwd.cu: any heads, d up to 64 in the stats and the
+backward, C, N and Mc) at every other. The head layout (row 8) takes the
+flagship's shapes only (HEAD_LAYOUT_ITEM).
 """
 
 from __future__ import annotations
@@ -67,6 +69,7 @@ LAYOUTS = ("merged", "head")
 SPECIALISED, ANY_SHAPE = "specialised", "any"
 # tokens a block of the any-shape stats pass
 ANY_STATS_TILE = 256
+HEAD_LAYOUT_ITEM = "ROADMAP.md Queue 2: row 8 (the head layout) at every shape"
 
 
 def stats_tile(n: int) -> int:
@@ -77,13 +80,17 @@ def stats_tile(n: int) -> int:
 
 
 def forward_instance(heads: int, dim_head: int, c: int) -> str:
-    """The instance of rows 4 and 5 a launch at this shape takes:
-    SPECIALISED (LAUNCH_COUNTS 'linear_stats', 'linear_apply') at the
-    flagship's shapes, ANY_SHAPE ('linear_stats_any', 'linear_apply_any')
-    at every other. A pure function of the shape."""
+    """The instance of rows 4-7 a launch at this shape takes: SPECIALISED
+    (LAUNCH_COUNTS 'linear_stats', 'linear_apply', 'linear_bwd_head',
+    'linear_bwd_merged') at the flagship's shapes, ANY_SHAPE (the same
+    names with '_any') at every other. A pure function of the shape."""
     if heads == HEADS and dim_head * heads == HIDDEN and c in CHANNELS:
         return SPECIALISED
     return ANY_SHAPE
+
+
+def _instance(x, w_qkv, heads: int) -> str:
+    return forward_instance(heads, w_qkv.shape[1] // (3 * heads), x.shape[-1])
 
 
 def _stats_terms(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
@@ -166,8 +173,7 @@ def _check_common(x, gamma, w_qkv, heads,
     c = x.shape[2]
     hidden = w_qkv.shape[1] // 3
     if specialised:
-        later = ("; the head layout and the backward at other shapes are "
-                 "ROADMAP.md Queue 2's next slice")
+        later = f"; other shapes are {HEAD_LAYOUT_ITEM}"
         req(c in CHANNELS,
             f"the kernels take C in {CHANNELS}, got {c}{later}")
         req(heads == HEADS and hidden == HIDDEN,
@@ -205,8 +211,7 @@ def linear_stats(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
     if x.device.type == "cpu":
         return linear_stats_plain(x, gamma, w_qkv, ek, ev, heads=heads,
                                   spatial_size=spatial_size)
-    if forward_instance(heads, w_qkv.shape[1] // (3 * heads),
-                        x.shape[-1]) == ANY_SHAPE:
+    if _instance(x, w_qkv, heads) == ANY_SHAPE:
         return _stats_any(x, gamma, w_qkv, ek, ev, heads=heads,
                           spatial_size=spatial_size)
     _check_common(x, gamma, w_qkv, heads)
@@ -239,8 +244,7 @@ def linear_apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
     if x.device.type == "cpu":
         return linear_apply_plain(x, gamma, w_qkv, w_out, out_bias, ctx, z,
                                   heads=heads, scale=scale)
-    if forward_instance(heads, w_qkv.shape[1] // (3 * heads),
-                        x.shape[-1]) == ANY_SHAPE:
+    if _instance(x, w_qkv, heads) == ANY_SHAPE:
         return _apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z,
                           heads=heads, scale=scale)
     _check_common(x, gamma, w_qkv, heads)
@@ -521,13 +525,12 @@ def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
         return linear_block_bwd_plain(x, gamma, w_qkv, w_out, out_bias, ek,
                                       ev, g, heads=heads, scale=scale,
                                       spatial_size=spatial_size, route=route)
+    if _instance(x, w_qkv, heads) == ANY_SHAPE:
+        return _bwd_any(x, gamma, w_qkv, w_out, ek, ev, g, heads=heads,
+                        scale=scale, spatial_size=spatial_size, route=route)
     _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
-    req = _build.require
-    req(w_out.dtype == torch.bfloat16 and tuple(w_out.shape) == (HIDDEN, c)
-        and w_out.device == x.device, "w_out must be bf16 (hidden, C)")
-    req(g.dtype == x.dtype and g.shape == x.shape and g.is_contiguous()
-        and g.device == x.device, "g must be contiguous, of x's shape and dtype")
+    _check_bwd_operands(x, w_out, g, HIDDEN)
     m_c = _check_cond(ek, ev, x)
     lib = _build.load_library()
     f32 = dict(dtype=torch.float32, device=x.device)
@@ -550,6 +553,53 @@ def linear_block_bwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, g, *,
         int(route == "merged"), _build.stream_handle(x.device))
     _build.check_launch(lib, err, f"linear_block_bwd ({route})")
     _build.LAUNCH_COUNTS[f"linear_bwd_{route}"] += 1
+    return dx, dgamma, dw_qkv, dw_out, dout_bias, dek, dev
+
+
+def _check_bwd_operands(x, w_out, g, hidden: int) -> None:
+    req = _build.require
+    req(w_out.dtype == torch.bfloat16 and tuple(w_out.shape) == (hidden,
+                                                                  x.shape[2])
+        and w_out.device == x.device, "w_out must be bf16 (hidden, C)")
+    req(g.dtype == x.dtype and g.shape == x.shape and g.is_contiguous()
+        and g.device == x.device, "g must be contiguous, of x's shape and dtype")
+
+
+def _bwd_any(x, gamma, w_qkv, w_out, ek, ev, g, *, heads: int, scale: float,
+             spatial_size: int, route: str):
+    """Rows 6 (route 'head', clip 0) and 7 ('merged', clip 1) through the
+    any-shape kernels (csrc/any_shape_bwd.cu): the recomputed LN and
+    projections, the token sums as ordered partials, the per-token
+    cotangents, dy and the LN backward, the weight sums; one workspace
+    allocated here, the weights handed transposed for dy and g_oh."""
+    hidden, d = _check_common(x, gamma, w_qkv, heads, specialised=False)
+    _build.require(d <= 64,
+                   f"the any-shape backward takes d up to 64, got {d}")
+    b, n, c = x.shape
+    _check_bwd_operands(x, w_out, g, hidden)
+    m_c = _check_cond(ek, ev, x, hidden)
+    lib = _build.load_library()
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((c,), **f32)
+    dw_qkv = torch.empty((c, 3 * hidden), **f32)
+    dw_out = torch.empty((hidden, c), **f32)
+    dout_bias = torch.empty((c,), **f32)
+    dek = torch.empty((b, m_c, hidden), **f32) if m_c else None
+    dev = torch.empty((b, m_c, hidden), **f32) if m_c else None
+    ws = _build.workspace(lib.vmt_linear_block_bwd_any_workspace(
+        b, n, c, heads, d), x.device)
+    w_qkv_t = w_qkv.t().contiguous()
+    w_out_t = w_out.t().contiguous()
+    p = _build.ptr
+    err = lib.vmt_linear_block_bwd_any(
+        p(x), p(gamma), p(w_qkv), p(w_qkv_t), p(w_out_t), p(ek), p(ev), p(g),
+        p(dx), p(dgamma), p(dw_qkv), p(dw_out), p(dout_bias), p(dek), p(dev),
+        p(ws), b, n, c, m_c, heads, d, scale, 1.0 / spatial_size,
+        int(route == "merged"), _build.stream_handle(x.device))
+    name = f"linear_bwd_{route}_any"
+    _build.check_launch(lib, err, name)
+    _build.LAUNCH_COUNTS[name] += 1
     return dx, dgamma, dw_qkv, dw_out, dout_bias, dek, dev
 
 
@@ -580,7 +630,8 @@ class _FusedLinearBlock(torch.autograd.Function):
     def backward(ctx, g):
         args = ctx.saved_tensors
         if ctx.bwd == "kernel" or bwd_kernel_env():
-            route = bwd_route(args[0].shape[1], layout=ctx.layout)
+            route = bwd_route(args[0].shape[1], hidden=args[3].shape[0],
+                              layout=ctx.layout)
             grads = linear_block_bwd(*args, g.contiguous(), **ctx.kw,
                                      route=route)
         else:

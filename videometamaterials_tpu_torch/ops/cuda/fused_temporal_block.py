@@ -3,10 +3,11 @@ and the differentiable entry point.
 
 Replaces videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_kernel
 (the split softmax layout, and the merged layout with emit_p, which also
-writes the softmax weights p; both csrc/fused_temporal_block.cu) and
-_bwd_kernel (csrc/fused_temporal_block_bwd.cu); each source note gives the
-bound and the design. `fused_temporal_block` is the JAX package's custom
-VJP as a torch.autograd.Function: the forward kernel, the primal inputs
+writes the softmax weights p; both csrc/fused_temporal_block.cu and
+csrc/any_shape.cu) and _bwd_kernel (csrc/fused_temporal_block_bwd.cu and
+csrc/any_shape_bwd.cu); each source note gives the bound and the design.
+`fused_temporal_block` is the JAX package's custom VJP as a
+torch.autograd.Function: the forward kernel, the primal inputs
 saved, and a backward that is autograd through the plain twin
 ('recompute', the JAX default) or the backward kernel ('kernel'); or the
 'saved' plan (the JAX fused_temporal_block_savedp): the forward kernel
@@ -23,14 +24,12 @@ ablations, any number beside), with LN scale-only and two-pass, rotary and
 the softmax weights and at the value sum (the JAX kernel's :124, :226,
 :235).
 
-Row 1 has two instances, picked from the shape alone (`forward_instance`):
-the specialised kernel (csrc/fused_temporal_block.cu) at the flagship's
-shapes (F = 11, 8 heads of 32, C in CHANNELS, T <= MAX_COND_TOKENS) and
-the any-shape kernel (csrc/any_shape.cu) at every other shape the JAX
-kernel takes. The training rows (2, the emit_p forward, and 3, the
-backward) take the flagship's shapes only; a plan that would launch them
-at more than MAX_COND_TOKENS tokens raises when it is chosen, on every
-device (ROADMAP Queue 2).
+Rows 1, 2 (the emit_p forward) and 3 (the backward) have two instances
+each, picked from the shape alone (`forward_instance`): the specialised
+kernels (csrc/fused_temporal_block.cu, csrc/fused_temporal_block_bwd.cu)
+at the flagship's shapes (F = 11, 8 heads of 32, C in CHANNELS, T <=
+MAX_COND_TOKENS) and the any-shape kernels (csrc/any_shape.cu,
+csrc/any_shape_bwd.cu) at every other shape the JAX kernels take.
 
 The JAX package's switches are read where it reads them: VMT_TEMPORAL_VJP
 in `config.temporal_bwd_mode`, VMT_TEMPORAL_BWD_KERNEL=1 in the backward
@@ -65,31 +64,28 @@ HIDDEN = 256
 # the specialised kernels pad a position's F + T keys to 32, 64 or 80
 # (csrc/fused_temporal_block.cu: kMaxKeys)
 MAX_COND_TOKENS = 80 - FRAMES
-# the instances of row 1 (`forward_instance`)
+# the instances of rows 1-3 (`forward_instance`)
 SPECIALISED, ANY_SHAPE = "specialised", "any"
-TRAINING_ROWS_ITEM = ("ROADMAP.md Queue 2: rows 2, 3, 6 and 7 at every shape "
-                      "(training at other widths and T > 69)")
 
 
 def check_cond_tokens(t_tok: int) -> None:
-    """Raise ValueError for a count of conditioning tokens the training
-    kernels (rows 2 and 3) do not take."""
+    """Raise ValueError for a count of conditioning tokens the specialised
+    kernels of rows 1-3 do not take (the any-shape instances take any)."""
     if not 0 <= t_tok <= MAX_COND_TOKENS:
         raise ValueError(
-            f"the fused temporal training kernels (the emit_p forward and "
-            f"the backward) take 0 to {MAX_COND_TOKENS} conditioning tokens "
-            f"(F + T <= {MAX_COND_TOKENS + FRAMES} keys a position), got "
-            f"{t_tok}; more is {TRAINING_ROWS_ITEM}. Train with "
-            "temporal_vjp 'recompute' and fused_bwd_kernels off, or with "
-            "the unfused plans")
+            f"the specialised fused temporal kernels take 0 to "
+            f"{MAX_COND_TOKENS} conditioning tokens (F + T <= "
+            f"{MAX_COND_TOKENS + FRAMES} keys a position), got {t_tok}; "
+            "more take the any-shape instances")
 
 
 def forward_instance(f: int, heads: int, dim_head: int, c: int,
                      t_tok: int) -> str:
-    """The instance of row 1 a launch at this shape takes: SPECIALISED
-    (LAUNCH_COUNTS entry 'fused_temporal_block') at the flagship's shapes,
-    ANY_SHAPE ('temporal_block_any') at every other. A pure function of
-    the shape."""
+    """The instance of rows 1, 2 and 3 a launch at this shape takes:
+    SPECIALISED (LAUNCH_COUNTS entries 'fused_temporal_block',
+    'temporal_fwd_p', 'temporal_bwd') at the flagship's shapes, ANY_SHAPE
+    ('temporal_block_any', 'temporal_fwd_p_any', 'temporal_bwd_any') at
+    every other. A pure function of the shape."""
     if (f == FRAMES and heads == HEADS and heads * dim_head == HIDDEN
             and c in CHANNELS and 0 <= t_tok <= MAX_COND_TOKENS):
         return SPECIALISED
@@ -237,36 +233,27 @@ def _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads,
     return hidden // heads
 
 
-def _check_training(x, w_out, ek, heads):
-    """Rows 2 and 3 take the flagship's shapes only: raise outside them,
-    naming the ROADMAP item."""
-    check_cond_tokens(0 if ek is None else ek.shape[1])
+def _instance(x, w_out, ek, heads) -> str:
     b, f, s, c = x.shape
-    hidden = w_out.shape[0]
-    _build.require(
-        forward_instance(f, heads, hidden // heads, c, 0) == SPECIALISED,
-        f"the fused temporal training kernels take F = {FRAMES}, {HEADS} "
-        f"heads of 32 and C in {CHANNELS}, got F = {f}, hidden {hidden} in "
-        f"{heads} heads, C = {c}; other shapes are {TRAINING_ROWS_ITEM}")
+    return forward_instance(f, heads, w_out.shape[0] // heads, c,
+                            0 if ek is None else ek.shape[1])
 
 
 def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
                        heads: int, emit_p: bool = False):
     """x + block(x), or (out, p) with emit_p (temporal_block_plain_p's p;
     out bit-equal to the launch without p). A CPU tensor takes the plain
-    twin; a CUDA tensor launches the instance `forward_instance` names
-    (emit_p: the specialised kernel) or raises."""
+    twin; a CUDA tensor launches the instance `forward_instance` names or
+    raises."""
     if x.device.type == "cpu":
         out, p_w = temporal_block_plain_p(x, gamma, w_all, w_out, ek, ev,
                                           bias_all, heads=heads)
         return (out, p_w) if emit_p else out
+    if _instance(x, w_out, ek, heads) == ANY_SHAPE:
+        return _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads,
+                        emit_p=emit_p)
     b, f, s, c = x.shape
     t_tok = 0 if ek is None else ek.shape[1]
-    if not emit_p and forward_instance(f, heads, w_out.shape[0] // heads, c,
-                                       t_tok) == ANY_SHAPE:
-        return _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
-    if emit_p:
-        _check_training(x, w_out, ek, heads)
     _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
     lib = _build.load_library()
     out = torch.empty_like(x)
@@ -285,10 +272,10 @@ def temporal_block_fwd(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     return (out, p_w) if emit_p else out
 
 
-def _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
-    """Row 1 through the any-shape kernel: LN, the QKV projection, the
-    attention and the out-projection with the residual, its bf16 scratch
-    (y, qkv, acc) allocated here."""
+def _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads, emit_p=False):
+    """Row 1 (or, with emit_p, row 2: (out, p)) through the any-shape
+    kernel: LN, the QKV projection, the attention and the out-projection
+    with the residual, its bf16 scratch (y, qkv, acc) allocated here."""
     d = _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads,
                specialised=False)
     b, f, s, c = x.shape
@@ -302,14 +289,17 @@ def _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads):
     y = torch.empty_like(x)
     qkv = torch.empty((b, f, s, 3 * hidden), dtype=x.dtype, device=x.device)
     acc = torch.empty((b, f, s, hidden), dtype=x.dtype, device=x.device)
+    p_w = (torch.empty((b, f, s, (f + t_tok) * heads), dtype=x.dtype,
+                       device=x.device) if emit_p else None)
     p = _build.ptr
     err = lib.vmt_temporal_block_any(
         p(x), p(gamma), p(w_all), p(w_out), p(bias_all), p(ek), p(ev),
-        p(out), p(y), p(qkv), p(acc), b, f, s, c, t_tok, heads, d,
+        p(out), p(y), p(qkv), p(acc), p(p_w), b, f, s, c, t_tok, heads, d,
         _build.stream_handle(x.device))
-    _build.check_launch(lib, err, "temporal_block_any")
-    _build.LAUNCH_COUNTS["temporal_block_any"] += 1
-    return out
+    name = "temporal_fwd_p_any" if emit_p else "temporal_block_any"
+    _build.check_launch(lib, err, name)
+    _build.LAUNCH_COUNTS[name] += 1
+    return (out, p_w) if emit_p else out
 
 
 def temporal_block_bwd_plain(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
@@ -330,15 +320,14 @@ def temporal_block_bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
                        heads: int):
     """All cotangents of the block (the order of temporal_block_bwd_plain's
     result). A CPU tensor takes the plain twin; a CUDA tensor launches the
-    backward kernel or raises."""
+    instance `forward_instance` names or raises."""
     if x.device.type == "cpu":
         return temporal_block_bwd_plain(x, gamma, w_all, w_out, ek, ev,
                                         bias_all, g, heads=heads)
-    _check_training(x, w_out, ek, heads)
+    if _instance(x, w_out, ek, heads) == ANY_SHAPE:
+        return _bwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, g, heads)
     _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads)
-    _build.require(g.dtype == x.dtype and g.shape == x.shape
-                   and g.is_contiguous() and g.device == x.device,
-                   "g must be contiguous, of x's shape and dtype")
+    _check_g(x, g)
     _build.require_aligned(g)
     b, f, s, c = x.shape
     t_tok = 0 if ek is None else ek.shape[1]
@@ -361,6 +350,52 @@ def temporal_block_bwd(x, gamma, w_all, w_out, ek, ev, bias_all, g, *,
         _build.stream_handle(x.device))
     _build.check_launch(lib, err, "temporal_block_bwd")
     _build.LAUNCH_COUNTS["temporal_bwd"] += 1
+    dek = dev = None
+    if t_tok:
+        dek, dev = dekv[:, 0], dekv[:, 1]
+    return dx, dgamma, dw_all, dw_out, dek, dev, dbias
+
+
+def _check_g(x, g) -> None:
+    _build.require(g.dtype == x.dtype and g.shape == x.shape
+                   and g.is_contiguous() and g.device == x.device,
+                   "g must be contiguous, of x's shape and dtype")
+
+
+def _bwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, g, heads):
+    """Row 3 through the any-shape kernels (csrc/any_shape_bwd.cu): the
+    recomputed LN and projections, the attention backward with ordered
+    partials, dy and the LN backward, the weight sums; one workspace
+    allocated here, the weights handed transposed for dy and g_acc."""
+    d = _check(x, gamma, w_all, w_out, ek, ev, bias_all, heads,
+               specialised=False)
+    _check_g(x, g)
+    b, f, s, c = x.shape
+    t_tok = 0 if ek is None else ek.shape[1]
+    hidden = heads * d
+    lib = _build.load_library()
+    _build.require(lib.vmt_temporal_block_bwd_any_smem(f, t_tok, d) > 0,
+                   f"one warp's shared memory of the attention backward does "
+                   f"not fit at F = {f}, T = {t_tok}, dim_head = {d}")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dgamma = torch.empty((c,), **f32)
+    dw_all = torch.empty((f, c, 3 * hidden), **f32)
+    dw_out = torch.empty((hidden, c), **f32)
+    dbias = torch.empty((f, f + t_tok, heads), **f32)
+    dekv = torch.empty((b, 2, t_tok, hidden), **f32) if t_tok else None
+    ws = _build.workspace(lib.vmt_temporal_block_bwd_any_workspace(
+        b, f, s, c, t_tok, heads, d), x.device)
+    w_all_t = w_all.transpose(1, 2).contiguous()
+    w_out_t = w_out.t().contiguous()
+    p = _build.ptr
+    err = lib.vmt_temporal_block_bwd_any(
+        p(x), p(gamma), p(w_all), p(w_all_t), p(w_out_t), p(bias_all), p(ek),
+        p(ev), p(g), p(dx), p(dgamma), p(dw_all), p(dw_out), p(dbias),
+        p(dekv), p(ws), b, f, s, c, t_tok, heads, d,
+        _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "temporal_bwd_any")
+    _build.LAUNCH_COUNTS["temporal_bwd_any"] += 1
     dek = dev = None
     if t_tok:
         dek, dev = dekv[:, 0], dekv[:, 1]
@@ -522,9 +557,6 @@ def fused_temporal_block(x, gamma, w_all, w_out, ek, ev, bias_all, *,
     operands = (x, gamma, w_all, w_out, ek, ev, bias_all)
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in operands)
-    if needs_grad and (bwd != "recompute" or bwd_kernel_env()):
-        # the plan launches rows 2-3, which take at most MAX_COND_TOKENS
-        check_cond_tokens(0 if ek is None else ek.shape[1])
     if bwd == "saved" and needs_grad:
         return _FusedTemporalBlockSavedP.apply(*operands, heads)
     return _FusedTemporalBlock.apply(*operands, heads, bwd)
