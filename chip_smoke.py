@@ -179,7 +179,9 @@ Phases, each printing its wall time as it finishes:
              any-shape instances in a guided step (`width_path_shapes`,
              level by level), then
              row 1 over F in WIDTH_F x heads x d in WIDTH_HEADS x C in
-             WIDTH_C x T in WIDTH_T at S = 144 and two shapes at S = 9191,
+             WIDTH_C x T in WIDTH_T at S = 144, two shapes at S = 9191 and
+             the attention stages' tiles (F = 24: two query tiles; d =
+             40: off the k-steps of 16; WIDTH_TILE_TEMPORAL),
              rows 4-5 over the same heads, C and Mc at N = 144 and two at
              N = 9191, each against its twin at phase 2's tolerances with
              two launches bit-equal, the any-shape instances against the
@@ -205,8 +207,8 @@ Phases, each printing its wall time as it finishes:
              any-shape instances at (b)'s batch 2 and (c)'s batch 4
              (`train_path`, level by level), rows 2-3 (with row 1) and
              rows 6-7 on their route (with rows 4-5), then rows 2-3 over
-             13 (a)'s grid of F x heads x d x C x T at S = 144 and two
-             shapes at S = 9191, rows 6-7 over its heads, C and Mc on both
+             13 (a)'s grid of F x heads x d x C x T at S = 144, two shapes
+             at S = 9191 and 13 (a)'s two tile shapes, rows 6-7 over its heads, C and Mc on both
              routes and two at N = 9191, and |k| across 60 on both routes;
              each against its twin (row 2: out bit-equal to row 1's, p
              summing to one; the cotangents within GRAD_TOL of their max),
@@ -224,6 +226,28 @@ Phases, each printing its wall time as it finishes:
              step ms and peak memory. The kernels line gains the four rows
              (launches: (b) and (c)'s) and launches_widths_train on every
              row
+  15 widths-head  row 8, the head-layout linear forward, at every shape
+             (its any-shape instance, csrc/any_shape_bwd.cu, picked by
+             `forward_instance`; the flagship's shapes keep the specialised
+             vmt_linear_head): (a) against its twin at every shape the wide
+             and heads4x64 configurations give it in a guided step and in a
+             train step at batch 2 (`head_path`), then over 13 (a)'s heads
+             x d x C x Mc in {0, 11, 96, 150} at N = 144 and the two ragged
+             shapes at N = 9191, with |k| across 60 (it must follow its
+             unclamped twin and miss the clamped merged one), at phase 2's
+             head tolerance with two launches bit-equal, at x times 0.01
+             at most HEAD_BITS of the outputs bit-different from the twin
+             (what a dropped lo part of oh would show), against the
+             specialised instance at two flagship shapes, and its time at
+             heads4x64 level 0; (b) VMT_LINEAR_LAYOUT=head on each edit of
+             13 (b): one guided eps within MODEL_TOL of the unfused plans
+             and one kernel-plan train step at batch 2 with every
+             fused-block gradient within GRAD_TOL of the recompute plan's
+             max, each with the launches `head_path` derives and row 8's
+             any-shape shapes those (a) checked; (c) heads4x64's 16-step
+             chain on the head layout through the sampling entry, beside
+             13 (c)'s. The kernels line gains row 8's any-shape row
+             (launches: (b) and (c)'s) and launches_widths_head on every row
 Then a JSON line of per-kernel numbers, the nvidia-smi line, and as the
 last line {"ok": true, "device": {...}}. Any failure raises: non-zero exit
 and no "ok" line. Without a GPU, or outside a checkout, it exits non-zero
@@ -342,14 +366,18 @@ PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
 # the device functions of the tensor-core kernels (rows 1-8 of PERF.md's
 # kernel table: linear_apply_kernel<C, false> row 5, <C, true> row 8's
 # apply, whose stats pass it shares with rows 6-7; the contraction of rows
-# 3, 6 and 7; and the projections of the any-shape rows 1, 4, 5): their
-# ptxas resources are printed and their SASS must hold tensor-core
-# instructions (HMMA) and no atomics
+# 3, 6 and 7; the projections of the any-shape rows 1-8 and the attention
+# stages of the any-shape rows 1-3, with row 3's token keys): their ptxas
+# resources are printed and their SASS must hold tensor-core instructions
+# (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                        "contract_partial", "linear_stats_partial",
                        "linear_apply_kernel", "linear_bwd_stats_kernel",
-                       "linear_bwd_dx_kernel", "any_gemm_kernel")
+                       "linear_bwd_dx_kernel", "any_gemm_kernel",
+                       "temporal_any_attn_kernel",
+                       "temporal_any_bwd_attn_kernel",
+                       "temporal_any_bwd_tok_kernel")
 
 
 def log(msg: str) -> None:
@@ -467,10 +495,13 @@ def kernel_resources(info: dict) -> None:
             f"{lib.vmt_linear_block_bwd_smem(c, 0)} B (head layout "
             f"{lib.vmt_linear_block_bwd_smem(c, 2)} B), dx "
             f"{lib.vmt_linear_block_bwd_smem(c, 1)} B")
-    log("  dynamic shared memory of the any-shape attention stage (a block "
-        "of up to 4 warps) at F x d = " + ", ".join(
-            f"{f} x {d}: {lib.vmt_temporal_block_any_smem(f, d)} B"
-            for f, d in ((5, 32), (11, 32), (11, 64), (16, 32), (16, 64))))
+    log("  dynamic shared memory of the any-shape attention stages (a "
+        "block of up to 4 warps each) at F x T x d = "
+        + ", ".join(
+            f"{f} x {t} x {d}: {lib.vmt_temporal_block_any_smem(f, t, d)} / "
+            f"{lib.vmt_temporal_block_bwd_any_smem(f, t, d)} B"
+            for f, t, d in ((11, 11, 64), (11, 96, 32), (5, 150, 32),
+                            (16, 11, 32), (24, 11, 64), (11, 11, 40))))
     dump = Path(_build._nvcc()).with_name("cuobjdump")
     if not dump.exists():
         log("  cuobjdump not in the toolkit: SASS not counted")
@@ -612,7 +643,7 @@ def temporal_p_cost(b, s, c, t_tok, f=FRAMES, heads=HEADS, hidden=HIDDEN):
     return nbytes + b * f * s * (f + t_tok) * heads * 2, flops
 
 
-def head_cost(bf_, n, c, m_c=1):
+def head_cost(bf_, n, c, m_c=1, heads=HEADS, d=32):
     """(bytes, flops): x read and out written once, the weights and cond
     tokens read once; on the tensor cores, in bf16 products: the QKV
     projection and ctx = P^T v (2 H d a token; the stats pass shared with
@@ -620,10 +651,11 @@ def head_cost(bf_, n, c, m_c=1):
     split into bf16 hi + lo: Q ctx as three products (3 x 2 H d a token)
     and the out-projection as two (2 x 2 H C)."""
     rows = bf_ * n
-    nbytes = (2 * rows * c * 2 + (c * 3 * HIDDEN + HIDDEN * c) * 2
-              + 2 * bf_ * m_c * HIDDEN * 2 + c * 8)
-    return nbytes, rows * (2 * c * 3 * HIDDEN + 2 * HIDDEN * 32
-                           + 3 * 2 * HIDDEN * 32 + 2 * 2 * HIDDEN * c)
+    hidden = heads * d
+    nbytes = (2 * rows * c * 2 + (c * 3 * hidden + hidden * c) * 2
+              + 2 * bf_ * m_c * hidden * 2 + c * 8)
+    return nbytes, rows * (2 * c * 3 * hidden + 2 * hidden * d
+                           + 3 * 2 * hidden * d + 2 * 2 * hidden * c)
 
 
 def stats_cost(bf_, n, c, m_c=1, heads=HEADS, d=32):
@@ -853,17 +885,22 @@ def phase_emit_p(report):
                 bound_by=by, shape=[b, FRAMES, s, c, t_tok])
 
 
-def head_inputs(bf_, n, c, gen, k_scale=HEAD_K_SCALE, m_c=1):
+def head_inputs(bf_, n, c, gen, k_scale=HEAD_K_SCALE, m_c=1, heads=HEADS,
+                d=32):
     """linear_inputs with an O(1) update: the v columns of w_qkv times
-    HW * HEAD_V_SCALE, the key columns times k_scale."""
+    HW * HEAD_V_SCALE, the key columns times k_scale; no conditioning
+    tokens at Mc = 0."""
     import torch
 
-    a = linear_inputs(bf_, n, c, gen, m_c=m_c)
+    a = linear_inputs(bf_, n, c, gen, max(m_c, 1), heads, d)
     del a["ctx"], a["z"]
+    hd = heads * d
     w = a["w_qkv"].float()
-    w[:, HIDDEN:2 * HIDDEN] *= k_scale
-    w[:, 2 * HIDDEN:] *= n * HEAD_V_SCALE
+    w[:, hd:2 * hd] *= k_scale
+    w[:, 2 * hd:] *= n * HEAD_V_SCALE
     a["w_qkv"] = w.to(torch.bfloat16)
+    if not m_c:
+        a["ek"] = a["ev"] = None
     return a
 
 
@@ -3464,6 +3501,9 @@ WIDTH_S = 144
 # ((heads, d), C, Mc) of rows 4-5 at N = 9191
 WIDTH_RAGGED_TEMPORAL = [(11, (4, 64), 96, 96), (5, (16, 32), 32, 150)]
 WIDTH_RAGGED_LINEAR = [((4, 32), 96, 11), ((8, 32), 32, 0)]
+# the attention stages' tiles at S = WIDTH_S: two query tiles (F = 24) and
+# a head width off the k-steps of 16 (d = 40), (F, (heads, d), C, T)
+WIDTH_TILE_TEMPORAL = [(24, (4, 64), 96, 11), (11, (4, 40), 96, 11)]
 # (b), (c): model.yaml with these keys changed, and each eps's launches a
 # kernel of a guided step (the CFG pair one batch of 2)
 WIDTH_CONFIGS = {
@@ -3718,9 +3758,16 @@ def width_kernels(report, root: Path) -> dict:
                                    f"{heads}x{d} C={c} T={t_tok} S=9191")
         worst["temporal_block_any"] = max(worst["temporal_block_any"], err)
         n_t += 1
+    for f, (heads, d), c, t_tok in WIDTH_TILE_TEMPORAL:
+        a = temporal_inputs(2, WIDTH_S, c, t_tok, gen, f, heads, d)
+        err = width_temporal_check(a, heads, f"temporal any F={f} "
+                                   f"{heads}x{d} C={c} T={t_tok}")
+        worst["temporal_block_any"] = max(worst["temporal_block_any"], err)
+        n_t += 1
     log(f"  row 1 any-shape: {n_t} shapes (F in {WIDTH_F}, heads x d in "
         f"{WIDTH_HEADS}, C in {WIDTH_C}, T in {WIDTH_T}, S = {WIDTH_S}; "
-        f"{len(WIDTH_RAGGED_TEMPORAL)} at S = 9191): two launches bit-equal, "
+        f"{len(WIDTH_RAGGED_TEMPORAL)} at S = 9191; {WIDTH_TILE_TEMPORAL} "
+        f"as (F, (heads, d), C, T)): two launches bit-equal, "
         f"max_abs_err {worst['temporal_block_any']:.3e} (tol {BF16_TOL})")
     n_l = 0
     for (heads, d), c, m_c in itertools.product(WIDTH_HEADS, WIDTH_C,
@@ -3879,11 +3926,13 @@ def _nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
 
 
-def width_chain(root: Path, name: str, steps: int, smi: str) -> dict:
+def width_chain(root: Path, name: str, steps: int, smi: str,
+                per_step: dict | None = None, what: str = "13c") -> dict:
     """13 (c): the guided DDPM chain of one video through the sampling
     entry (videometamaterials_tpu_torch.sample, --config), from the
-    counters at zero: its launches (WIDTH_CONFIGS' a step), seconds, and
-    finite videos of the right shape (in [0, 1] after the whole chain)."""
+    counters at zero: its launches (per_step a step, by default
+    WIDTH_CONFIGS'), seconds, and finite videos of the right shape (in
+    [0, 1] after the whole chain)."""
     import numpy as np
     import torch
 
@@ -3899,18 +3948,19 @@ def width_chain(root: Path, name: str, steps: int, smi: str) -> dict:
     meta = sample.main(argv)
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCH_COUNTS)
-    want = {k: WIDTH_CONFIGS[name][1].get(k, 0) * steps for k in counts}
+    per_step = WIDTH_CONFIGS[name][1] if per_step is None else per_step
+    want = {k: per_step.get(k, 0) * steps for k in counts}
     if counts != want:
-        raise AssertionError(f"13c {name} chain: launch counts {counts}, "
+        raise AssertionError(f"{what} {name} chain: launch counts {counts}, "
                              f"expected {want}")
     videos = np.load(out / "videos.npy")
     if videos.shape != (1, FRAMES, 96, 96, 3) or not np.isfinite(
             videos).all():
-        raise AssertionError(f"13c {name}: videos {videos.shape}, finite "
+        raise AssertionError(f"{what} {name}: videos {videos.shape}, finite "
                              f"{np.isfinite(videos).all()}")
     lo, hi = float(videos.min()), float(videos.max())
     if steps == 256 and (lo < 0.0 or hi > 1.0):
-        raise AssertionError(f"13c {name}: videos outside [0, 1]")
+        raise AssertionError(f"{what} {name}: videos outside [0, 1]")
     log(f"  {name} chain through sample.py --config, {steps} steps, batch 1 "
         f"(CFG pair 2), w=5: {meta['seconds']:.2f}s "
         f"({meta['seconds'] / steps * 1e3:.1f} ms a step) on {smi}; "
@@ -3919,11 +3969,12 @@ def width_chain(root: Path, name: str, steps: int, smi: str) -> dict:
     return dict(counts=counts, seconds=meta["seconds"])
 
 
-def phase_widths(smi: str, report: dict) -> None:
+def phase_widths(smi: str, report: dict) -> dict:
     """13 widths: the sampling kernels at every shape (see the module
     docstring). The kernels line gains launches_widths (the wide chain),
     launches_heads4x64 and launches_tokens96 (their 16-step chains); the
-    any-shape rows' `launches` is the wide chain's."""
+    any-shape rows' `launches` is the wide chain's. Returns the chains'
+    {name: {'counts', 'seconds'}}."""
     import shutil
     import tempfile
 
@@ -3967,6 +4018,7 @@ def phase_widths(smi: str, report: dict) -> None:
             f"{chains['heads4x64']['seconds']:.2f}s / "
             f"{chains['tokens96']['seconds']:.2f}s | "
             f"{time.perf_counter() - t0:.1f}s")
+        return chains
     finally:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
@@ -4035,8 +4087,8 @@ def train_path(cfg, batch: int) -> dict:
 def _recording_shapes(shapes: dict):
     """A context in which each launch of an any-shape instance adds its
     shape to shapes[its LAUNCH_COUNTS name]: temporal (B, F, S, C, T,
-    heads, d), linear (BF, N, C, Mc, heads, d) and, for rows 6-7, the
-    route (as `width_path_shapes` and `train_path` write them). The
+    heads, d), linear (BF, N, C, Mc, heads, d; rows 4-8) and, for rows
+    6-7, the route (as `width_path_shapes` and `train_path` write them). The
     apply's is the stats' before it (it takes no tokens)."""
     from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
     from videometamaterials_tpu_torch.ops.cuda import fused_temporal_block as tmp
@@ -4044,6 +4096,7 @@ def _recording_shapes(shapes: dict):
     fwd_any, bwd_any = tmp._fwd_any, tmp._bwd_any
     stats_any, apply_any, lbwd_any = lin._stats_any, lin._apply_any, \
         lin._bwd_any
+    head_any = lin._head_any
 
     def tshape(x, w_out, ek, heads):
         return (*x.shape, 0 if ek is None else ek.shape[1], heads,
@@ -4088,10 +4141,14 @@ def _recording_shapes(shapes: dict):
             lshape(x, w_qkv, ek, kw["heads"]) + (kw["route"],))
         return lbwd_any(x, gamma, w_qkv, w_out, ek, ev, g, **kw)
 
+    def head(x, gamma, w_qkv, w_out, out_bias, ek, ev, **kw):
+        add("linear_head_any", lshape(x, w_qkv, ek, kw["heads"]))
+        return head_any(x, gamma, w_qkv, w_out, out_bias, ek, ev, **kw)
+
     return _patched(
         (tmp, "_fwd_any", fwd), (tmp, "_bwd_any", bwd),
         (lin, "_stats_any", stats), (lin, "_apply_any", apply),
-        (lin, "_bwd_any", lbwd))
+        (lin, "_bwd_any", lbwd), (lin, "_head_any", head))
 
 
 @contextlib.contextmanager
@@ -4290,6 +4347,7 @@ def wtrain_kernels(report, root: Path) -> dict:
     grid = [(f, hd, c, t, WIDTH_S) for f, hd, c, t in itertools.product(
         WIDTH_F, WIDTH_HEADS, WIDTH_C, WIDTH_T)]
     grid += [(f, hd, c, t, 9191) for f, hd, c, t in WIDTH_RAGGED_TEMPORAL]
+    grid += [(f, hd, c, t, WIDTH_S) for f, hd, c, t in WIDTH_TILE_TEMPORAL]
     for f, (heads, d), c, t_tok, s in grid:
         a = temporal_inputs(2, s, c, t_tok, gen, f, heads, d)
         e2, e3, sh = wtrain_temporal_check(
@@ -4302,7 +4360,8 @@ def wtrain_kernels(report, root: Path) -> dict:
         del a
     log(f"  rows 2-3 any-shape: {n_t} shapes (F in {WIDTH_F}, heads x d in "
         f"{WIDTH_HEADS}, C in {WIDTH_C}, T in {WIDTH_T}, S = {WIDTH_S}; "
-        f"{len(WIDTH_RAGGED_TEMPORAL)} at S = 9191): two launches bit-equal, "
+        f"{len(WIDTH_RAGGED_TEMPORAL)} at S = 9191; {WIDTH_TILE_TEMPORAL} "
+        f"as (F, (heads, d), C, T)): two launches bit-equal, "
         f"row 2 out bit-equal to row 1's, max_abs_err "
         f"{worst['temporal_fwd_p_any']:.3e} (tol {BF16_TOL}), row 3 "
         f"{shares['temporal_bwd_any']:.2e} of its max (tol {GRAD_TOL})")
@@ -4745,6 +4804,332 @@ def phase_widths_train(smi: str, report: dict,
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 15
+
+# (a) row 8's any-shape instance (the head layout, csrc/any_shape_bwd.cu)
+# at every shape the wide and heads4x64 configurations give it in a guided
+# step and in a WTRAIN_BATCH train step, then over 13 (a)'s heads x d x C
+# and WHEAD_MC at N = WIDTH_S (22 folded frames) and at the two
+# WIDTH_RAGGED_LINEAR shapes at N = 9191, |k| across 60, and against the
+# specialised instance at WHEAD_FLAGSHIP; (b) each WIDTH_CONFIGS edit under
+# VMT_LINEAR_LAYOUT=head: one guided eps and one kernel-plan train step at
+# WTRAIN_BATCH; (c) heads4x64's chain on the head layout
+WHEAD_MC = (0, 11, 96, 150)
+WHEAD_FLAGSHIP = [(22, 9216, 64), (22, 144, 512)]
+WHEAD_CHAIN_STEPS = 16
+# the share of outputs bit-different from the twin where x is times 0.01
+# (the bf16 output then resolves the update): oh meets W_out as bf16 hi +
+# lo, about 16 significant bits, so only the float32 sums' order moves a
+# rounding (1.5e-2 of the outputs; without the lo part 4.1e-1; NVIDIA H100
+# 80GB HBM3, 700 W, tests/test_torch_port_cuda.py -k rounding_model). An
+# update comparison within APPLY_TOL cannot see a dropped lo part
+HEAD_BITS = 3e-2
+
+
+def head_path(cfg, batch: int, train: bool) -> tuple[dict, set]:
+    """What one guided eps of `batch` latents (the CFG pair doubles them)
+    or, with `train`, one kernel-plan train step of `batch` videos of cfg's
+    model launches with the linear blocks on the head layout, UNet3D's
+    blocks level by level (`fused_blocks`): ({name: count}, the shapes
+    (BF, N, C, Mc, heads, d) of row 8's any-shape launches)."""
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    b = batch if train else 2 * batch
+    b_init = batch if train or cfg.cfg_shared_init else b
+    counts, shapes = {}, set()
+    for kind, *shape in fused_blocks(cfg, b_init, b):
+        sfx = "_any" if instance_of(kind, shape) == "any" else ""
+        if kind == "temporal":
+            names = ["temporal_block_any" if sfx else "fused_temporal_block"]
+            names += ["temporal_bwd" + sfx] if train else []
+        else:
+            route = lin.bwd_route(shape[1], layout="head")
+            names = ["linear_head" + sfx]
+            names += [f"linear_bwd_{route}{sfx}"] if train else []
+            if sfx:
+                shapes.add(tuple(shape))
+        for name in names:
+            counts[name] = counts.get(name, 0) + 1
+    return counts, shapes
+
+
+def whead_check(a, heads, what) -> float:
+    """Row 8's any-shape instance on `a`: two launches bit-equal, one each,
+    the update within APPLY_TOL of the twin's (check_update); returns the
+    max error."""
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    bf_, n, c = a["x"].shape
+    d = a["w_out"].shape[0] // heads
+    if lin.forward_instance(heads, d, c) != lin.ANY_SHAPE:
+        raise AssertionError(f"{what}: routed to the specialised instance")
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
+    out, n1 = _launched("linear_head_any",
+                        lambda: lin.linear_block_head(**a, **kw))
+    again, n2 = _launched("linear_head_any",
+                          lambda: lin.linear_block_head(**a, **kw))
+    if (n1, n2) != (1, 1) or not torch.equal(out, again):
+        raise AssertionError(f"{what}: launches {n1} + {n2}, or different "
+                             "bits")
+    return check_update(what, out, lin.linear_block_head_plain(**a, **kw),
+                        a["x"], a["out_bias"])
+
+
+def whead_kernels(report, root: Path) -> dict:
+    """15 (a): row 8's any-shape instance against its twin at the wide and
+    heads4x64 path shapes (`head_path`, guided step and train step), over
+    the grid, with |k| across 60, against the specialised instance at two
+    flagship shapes, and its time at heads4x64 level 0. Returns {name: the
+    path shapes}."""
+    import itertools
+
+    import torch
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+    from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
+
+    gen = torch.Generator(device="cuda").manual_seed(150)
+    paths, worst = {}, 0.0
+    for name in ("wide", "heads4x64"):
+        cfg = load_model_yaml(width_yaml(root, name))
+        shapes = paths[name] = (head_path(cfg, 1, False)[1]
+                                | head_path(cfg, WTRAIN_BATCH, True)[1])
+        for bf_, n, c, m_c, heads, d in sorted(shapes):
+            a = head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads, d=d)
+            worst = max(worst, whead_check(
+                a, heads, f"{name} path: head any BF={bf_} N={n} C={c} "
+                f"Mc={m_c} {heads}x{d}"))
+            del a
+        log(f"  {name} head-layout path (guided eps and a train step at "
+            f"batch {WTRAIN_BATCH}): row 8 any-shape at {len(shapes)} "
+            f"(BF, N, C, Mc, heads, d) {sorted(shapes)}")
+    grid = [(hd, c, m, WIDTH_S) for hd, c, m in itertools.product(
+        WIDTH_HEADS, WIDTH_C, WHEAD_MC)]
+    grid += [(hd, c, m, 9191) for hd, c, m in WIDTH_RAGGED_LINEAR]
+    for (heads, d), c, m_c, n in grid:
+        a = head_inputs(22, n, c, gen, m_c=m_c, heads=heads, d=d)
+        worst = max(worst, whead_check(
+            a, heads, f"head any {heads}x{d} C={c} Mc={m_c} N={n}"))
+        del a
+    log(f"  row 8 any-shape: {len(grid)} grid shapes (heads x d in "
+        f"{WIDTH_HEADS}, C in {WIDTH_C}, Mc in {WHEAD_MC}, N = {WIDTH_S}; "
+        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191) and the path shapes: two "
+        f"launches bit-equal, update err {worst:.3e} (tol {APPLY_TOL} of "
+        "its max)")
+
+    # |k| across 60: the unclamped twin, and the clamped merged twin misses
+    n, heads, d, c = 9216, 4, 32, 64
+    a = head_inputs(22, n, c, gen, HEAD_CLAMP_K_SCALE, heads=heads, d=d)
+    hd = heads * d
+    keys = (channel_layer_norm(a["x"], a["gamma"], one_pass=False).float()
+            @ a["w_qkv"][:, hd:2 * hd].float())
+    if not ((keys.abs() > 60).any() and (keys.abs() < 60).any()):
+        raise AssertionError("the clamp case has no |k| on both sides of 60")
+    del keys
+    err = whead_check(a, heads, "head any, |k| across 60")
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
+    base = a["x"].float() + a["out_bias"]
+    got = lin.linear_block_head(**a, **kw).float() - base
+    size = (lin.linear_block_head_plain(**a, **kw).float() - base).abs().max(
+        ).item()
+    gap = ((lin.linear_block_plain(**a, **kw).float() - base) - got).abs(
+        ).max().item()
+    if not gap > APPLY_TOL * size:
+        raise AssertionError(f"head any, |k| across 60: the clamped merged "
+                             f"twin is within {gap:.3e}, inside {APPLY_TOL} "
+                             f"* {size:.3e}: the case cannot tell a clamp")
+    log(f"  head any BF=22 N={n} C={c} {heads}x{d}, keys "
+        f"x{HEAD_CLAMP_K_SCALE:g} (|k| across 60): update err {err:.3e} "
+        f"against the unclamped twin; the clamped merged twin "
+        f"{gap / size:.2f} of the update's max away")
+    del a, base, got
+
+    # the lo part of oh: x times 0.01, v as the other checks, keys x 1
+    bf_, n, c, heads, d = 2, 1100, 96, 4, 32
+    a = head_inputs(bf_, n, c, gen, 1.0, heads=heads, d=d)
+    a["x"] = (a["x"].float() * 0.01).to(torch.bfloat16)
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
+    share = (lin.linear_block_head(**a, **kw)
+             != lin.linear_block_head_plain(**a, **kw)).float().mean().item()
+    if not share <= HEAD_BITS:
+        raise AssertionError(f"head any, x times 0.01: {share:.3e} of the "
+                             f"outputs differ from the twin, beyond "
+                             f"{HEAD_BITS}")
+    log(f"  head any BF={bf_} N={n} C={c} {heads}x{d}, x times 0.01: "
+        f"{share:.3e} of the outputs bit-different from the twin (limit "
+        f"{HEAD_BITS})")
+    del a
+
+    # against the specialised instance at two flagship shapes
+    errs = []
+    for bf_, n, c in WHEAD_FLAGSHIP:
+        a = head_inputs(bf_, n, c, gen)
+        kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n)
+        errs.append(check_update(
+            f"head any vs specialised {bf_, n, c}", lin._head_any(**a, **kw),
+            lin.linear_block_head(**a, **kw), a["x"], a["out_bias"]))
+        del a
+    log(f"  flagship shapes {WHEAD_FLAGSHIP}: any-shape against specialised "
+        f"update err " + ", ".join(f"{e:.3e}" for e in errs))
+
+    # the time at heads4x64 level 0 (the guided step's shape)
+    bf_, n, c, m_c, heads, d = 22, 9216, 64, 1, 4, 32
+    a = head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads, d=d)
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
+    ms = cuda_ms(lambda: lin.linear_block_head(**a, **kw))
+    plain_ms = cuda_ms(lambda: lin.linear_block_head_plain(**a, **kw),
+                       reps=2, warmup=1)
+    cost = head_cost(bf_, n, c, m_c, heads=heads, d=d)
+    bound_ms, by = bound(*cost)
+    log(f"  linear_head_any (heads4x64: BF={bf_} N={n} C={c} Mc={m_c} "
+        f"{heads}x{d}): {ms:.3f} ms ({rate(ms, cost[1], bound_ms)}), twin "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+    report["linear_head_any"].update(
+        max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+        bound_by=by, shape=[bf_, n, c, m_c, heads, d])
+    return paths
+
+
+def whead_models(root: Path, paths: dict) -> dict:
+    """15 (b): each WIDTH_CONFIGS edit with the linear blocks on the head
+    layout: one guided eps at batch 1 within MODEL_TOL of the unfused
+    plans, one kernel-plan train step at WTRAIN_BATCH with every
+    fused-block gradient within GRAD_TOL of its max of the recompute
+    plan's, each with the launches `head_path` derives and row 8's
+    any-shape launches at shapes (a) checked. Returns the launches of the
+    eps and the kernel-plan step together."""
+    import torch
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.sample import build_sampler
+    from videometamaterials_tpu_torch.train import bench_batches
+
+    totals = {}
+    for name in WIDTH_CONFIGS:
+        t0 = time.perf_counter()
+        cfg = load_model_yaml(width_yaml(root, name))
+        checked = paths.get(name, set())
+        diffusion = build_sampler(cfg, device="cuda", seed=0)
+        want, want_shapes = head_path(cfg, 1, False)
+        _build.reset_launch_counts()
+        shapes = {}
+        with linear_layout("head"), _recording_shapes(shapes):
+            rel = phase_model(diffusion, cfg)
+        torch.cuda.synchronize()
+        counts = dict(_build.LAUNCH_COUNTS)
+        got_shapes = shapes.get("linear_head_any", set())
+        if counts != {k: want.get(k, 0) for k in counts}:
+            raise AssertionError(f"15b {name} eps: launch counts {counts}, "
+                                 f"expected {want}")
+        if got_shapes != want_shapes or not got_shapes <= checked:
+            raise AssertionError(f"15b {name} eps: row 8 any-shape at "
+                                 f"{sorted(got_shapes)}, derived "
+                                 f"{sorted(want_shapes)}, 15 (a) checked "
+                                 f"{sorted(checked)}")
+        del diffusion
+        torch.cuda.empty_cache()
+        tcfg = cfg.replace(fused_blocks_in_training=True,
+                           fused_bwd_kernels=True, batch_size=WTRAIN_BATCH)
+        gen = torch.Generator(device="cuda").manual_seed(151)
+        videos, labels = next(bench_batches(tcfg, gen, "cuda"))
+        b = tcfg.batch_size
+        batch = (videos, labels,
+                 torch.randint(0, tcfg.train_timesteps, (b,), generator=gen,
+                               device="cuda"),
+                 torch.randn(videos.shape, generator=gen, device="cuda"),
+                 torch.tensor([False, True], device="cuda"))
+        with linear_layout("head"):
+            loss, grads, tcounts, tshapes, groups = _step_grads(tcfg, batch)
+            r_loss, r_grads, _, _, _ = _step_grads(
+                tcfg.replace(fused_bwd_kernels=False), batch)
+        twant, twant_shapes = head_path(tcfg, WTRAIN_BATCH, True)
+        if tcounts != {k: twant.get(k, 0) for k in tcounts}:
+            raise AssertionError(f"15b {name} train step: launch counts "
+                                 f"{tcounts}, expected {twant}")
+        t_shapes = tshapes.get("linear_head_any", set())
+        if t_shapes != twant_shapes or not t_shapes <= checked:
+            raise AssertionError(f"15b {name} train step: row 8 any-shape at "
+                                 f"{sorted(t_shapes)}, derived "
+                                 f"{sorted(twant_shapes)}")
+        rel_loss = abs(loss - r_loss) / abs(r_loss)
+        if not (math.isfinite(loss) and rel_loss <= GRAD_TOL):
+            raise AssertionError(f"15b {name}: loss {loss} against the "
+                                 f"recompute plan's {r_loss}")
+        _, share, at = _grad_gaps(grads, r_grads, groups)
+        if not share <= GRAD_TOL:
+            raise AssertionError(f"15b {name}: gradient of {at} {share:.3e} "
+                                 f"of its max from the recompute plan's, "
+                                 f"beyond {GRAD_TOL}")
+        for k in counts:
+            totals[k] = totals.get(k, 0) + counts[k] + tcounts[k]
+        log(f"  {name}, head layout: guided eps fused vs unfused plans "
+            f"{rel:.3e} (limit {MODEL_TOL}), launches {_nonzero(counts)}; "
+            f"kernel-plan step at batch {b}: loss {rel_loss:.2e} from the "
+            f"recompute plan's, {len(grads)} fused-block gradients within "
+            f"{share:.3e} of their max (worst {at}), launches "
+            f"{_nonzero(tcounts)} | {time.perf_counter() - t0:.1f}s")
+        del grads, r_grads
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_widths_head(smi: str, report: dict,
+                      chain13_s: float | None = None) -> None:
+    """15 widths-head: row 8 at every shape (see the module docstring).
+    The kernels line gains row 8's any-shape row (`launches`: (b) and (c)
+    together) and launches_widths_head on every row."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+
+    report["linear_head_any"].update(
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/any_shape_bwd.cu",
+        replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:336")
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="smoke_whead_", dir=ROOT / "build"))
+    try:
+        t0 = time.perf_counter()
+        paths = whead_kernels(report, root)
+        torch.cuda.synchronize()
+        log(f"[15a kernels] row 8's any-shape instance matches its twin | "
+            f"{time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        totals = whead_models(root, paths)
+        log(f"[15b model] guided eps and a train step of each configuration "
+            f"on the head layout | {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        name = "heads4x64"
+        per_step = head_path(load_model_yaml(width_yaml(root, name)), 1,
+                             False)[0]
+        with linear_layout("head"):
+            chain = width_chain(root, name, WHEAD_CHAIN_STEPS, smi, per_step,
+                                "15c")
+        for k, v in chain["counts"].items():
+            totals[k] = totals.get(k, 0) + v
+        for k, v in totals.items():
+            report[k]["launches_widths_head"] = v
+        if not totals["linear_head_any"]:
+            raise AssertionError("15: linear_head_any was launched no time "
+                                 "on the head-layout paths")
+        report["linear_head_any"]["launches"] = totals["linear_head_any"]
+        report["linear_head_any"]["library_ms"] = None
+        beside = ("" if chain13_s is None else
+                  f", phase 13's merged-layout chain {chain13_s:.2f}s")
+        log(f"[15c chain] heads4x64 on the head layout, "
+            f"{WHEAD_CHAIN_STEPS} steps {chain['seconds']:.2f}s{beside} | "
+            f"{time.perf_counter() - t0:.1f}s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=256,
@@ -4773,6 +5158,9 @@ def main(argv=None) -> int:
                          "line")
     ap.add_argument("--widths-train-only", action="store_true",
                     help="run phases 0, 1 and 14 only, and print no result "
+                         "line")
+    ap.add_argument("--widths-head-only", action="store_true",
+                    help="run phases 0, 1 and 15 only, and print no result "
                          "line")
     ap.add_argument("--latency-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--latency-init", help=argparse.SUPPRESS)
@@ -4851,6 +5239,15 @@ def main(argv=None) -> int:
         log(f"[14 widths-train] passed | {time.perf_counter() - t0:.1f}s")
         log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
             "14 only: no result line)")
+        return 0
+
+    if args.widths_head_only:
+        report = {k: {} for k in _build.LAUNCH_COUNTS}
+        t0 = time.perf_counter()
+        phase_widths_head(smi, report)
+        log(f"[15 widths-head] passed | {time.perf_counter() - t0:.1f}s")
+        log(f"total {time.perf_counter() - t_start:.1f}s (phases 0, 1 and "
+            "15 only: no result line)")
         return 0
 
     if args.variants_only:
@@ -5052,13 +5449,18 @@ def main(argv=None) -> int:
 
     # ---- 13 widths: rows 1, 4, 5 at every shape, three configurations
     t0 = time.perf_counter()
-    phase_widths(smi, report)
+    chains13 = phase_widths(smi, report)
     log(f"[13 widths] passed | {time.perf_counter() - t0:.1f}s")
 
     # ---- 14 widths-train: rows 2, 3, 6, 7 at every shape, training
     t0 = time.perf_counter()
     phase_widths_train(smi, report, train["kernel"]["median_ms"])
     log(f"[14 widths-train] passed | {time.perf_counter() - t0:.1f}s")
+
+    # ---- 15 widths-head: row 8 at every shape, the head layout
+    t0 = time.perf_counter()
+    phase_widths_head(smi, report, chains13["heads4x64"]["seconds"])
+    log(f"[15 widths-head] passed | {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": list(report.values())}), flush=True)
     print(smi, flush=True)

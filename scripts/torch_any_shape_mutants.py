@@ -1,8 +1,10 @@
-"""Mutation check of chip_smoke.py phase 14 (a): four copies of the port
-under OUT_DIR, each with one deliberate fault in one any-shape training
+"""Mutation check of chip_smoke.py phases 14 (a) and 15 (a): five copies
+of the port under OUT_DIR, each with one deliberate fault in one any-shape
 instance (row 2's p halved, row 3's dbias dropped, row 6's S term
-dropped, row 7's clip dropped), built side by side; each copy's
-`chip_smoke.wtrain_kernels` must raise. Exits non-zero if one does not.
+dropped, row 7's clip dropped, row 8's lo part of oh dropped), built side
+by side; each copy's phase check (`chip_smoke.wtrain_kernels`, or
+`chip_smoke.whead_kernels` for row 8) must raise. Exits non-zero if one
+does not.
 
 Run on one GPU from the root of a checkout, OUT_DIR a directory outside
 its sources (the copies build there):
@@ -17,33 +19,40 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 CSRC = "videometamaterials_tpu_torch/ops/cuda/csrc/"
-# name: (source, the text replaced once, its replacement)
+# name: (source, the text replaced once, its replacement, the check)
 MUTANTS = {
     # row 2: p written at half its value (out untouched)
     "row2_p_halved": (CSRC + "any_shape.cu",
-                      "__float2bfloat16(p);\n      }",
-                      "__float2bfloat16(0.5f * p);\n      }"),
+                      "__float2bfloat16(pr[nt][2 * half + e]);",
+                      "__float2bfloat16(0.5f * pr[nt][2 * half + e]);",
+                      "wtrain_kernels"),
     # row 3: dbias dropped
     "row3_no_dbias": (CSRC + "any_shape_bwd.cu",
-                      "          dbw[i * G + j] += ds;\n", "\n"),
+                      "dbw[i * gp + j] += ds[nt][2 * half + e];",
+                      "dbw[i * gp + j] += 0.f;", "wtrain_kernels"),
     # row 6 (per-head, clip 0): the softmax's S term dropped from dk
     "row6_no_S": (CSRC + "any_shape_bwd.cu",
                   "dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - S[c]);",
                   "dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - "
-                  "(clip ? S[c] : 0.f));"),
+                  "(clip ? S[c] : 0.f));", "wtrain_kernels"),
     # row 7 (merged, clip 1): dk no longer zero where |k| >= 60
     "row7_no_clip": (CSRC + "any_shape_bwd.cu",
                      "const bool dead = clip && fabsf(qr[H + c]) >= kClamp;",
-                     "const bool dead = false;"),
+                     "const bool dead = false;", "wtrain_kernels"),
+    # row 8: oh meets W_out as its bf16 hi part alone
+    "row8_no_lo": (CSRC + "any_shape_bwd.cu",
+                   "orow[H + h * d + e] = __float2bfloat16(o - hi);",
+                   "orow[H + h * d + e] = __float2bfloat16(0.f);",
+                   "whead_kernels"),
 }
-# run inside a copy: phase 14 (a) must raise AssertionError
+# run inside a copy: the mutant's phase check must raise AssertionError
 CHECK = """import sys, tempfile
 from pathlib import Path
 import chip_smoke as cs
 from videometamaterials_tpu_torch.ops.cuda import _build
 report = {k: {} for k in _build.LAUNCH_COUNTS}
 try:
-    cs.wtrain_kernels(report, Path(tempfile.mkdtemp(dir='.')))
+    cs.%s(report, Path(tempfile.mkdtemp(dir='.')))
 except AssertionError as e:
     print('CAUGHT', str(e)[:300])
     sys.exit(0)
@@ -55,7 +64,7 @@ sys.exit(1)
 def make_copy(out: Path, name: str) -> subprocess.Popen:
     """The mutant's copy (the package, chip_smoke.py, model.yaml) with its
     fault, and its build started."""
-    path, old, new = MUTANTS[name]
+    path, old, new, _ = MUTANTS[name]
     d = out / name
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
@@ -84,7 +93,8 @@ def main(out: Path) -> int:
     missed = []
     for name in MUTANTS:
         t0 = time.time()
-        run = subprocess.run([sys.executable, "-c", CHECK], cwd=out / name,
+        run = subprocess.run([sys.executable, "-c",
+                              CHECK % MUTANTS[name][3]], cwd=out / name,
                              capture_output=True, text=True)
         line = [s for s in run.stdout.splitlines() if "CAUGHT" in s]
         print(f"{name}: "

@@ -7,7 +7,12 @@ to the temporal forward (table row 1), the emit_p forward (row 2), the
 temporal backward (row 3), the linear stats and apply (rows 4-5), the
 linear backward (rows 6-7) and the head-layout linear forward (row 8), on
 chip_smoke.py's seeded inputs, through the wrappers of the tree given by
---tree. Prints one JSON line: the card (nvidia-smi's name and power
+--tree; and the any-shape instances of rows 1-3 and 8 at the largest shapes
+of the three widths configurations of chip_smoke.py phase 13 (ANY_SHAPES;
+rows 1-3 also the specialised instance at the flagship's level-0 shape, the
+same work as heads4x64's, and each plain twin). A tree whose
+instance refuses a shape (row 8 off the flagship's shapes before it took
+every shape) records the refusal. Prints one JSON line: the card (nvidia-smi's name and power
 limit), the tree, and per row and shape the ms, the bound ms, the
 achieved TFLOP/s and the share of the bound; with --profile also each CUDA
 kernel's device time in one launch of each row at its level-0 shape (row
@@ -43,6 +48,21 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+# the any-shape rows at the largest shapes of the widths configurations:
+# rows 1-3 (B, F, S, C, T, heads, d), rows 2-3 at the training batch 4,
+# row 8 (BF, N, C, Mc, heads, d); tokens96's linear blocks take the
+# specialised instance
+ANY_SHAPES = {
+    "temporal_fwd_any": [("wide", (2, 11, 144, 1024, 11, 8, 32)),
+                         ("heads4x64", (2, 11, 9216, 64, 11, 4, 64)),
+                         ("tokens96", (2, 11, 9216, 64, 96, 8, 32))],
+    "temporal_fwd_p_any": [("wide", (4, 11, 144, 1024, 11, 8, 32)),
+                           ("heads4x64", (4, 11, 9216, 64, 11, 4, 64)),
+                           ("tokens96", (4, 11, 9216, 64, 96, 8, 32))],
+    "linear_head_any": [("wide", (22, 144, 1024, 1, 8, 32)),
+                        ("heads4x64", (22, 9216, 64, 1, 4, 32))],
+}
+ANY_SHAPES["temporal_bwd_any"] = ANY_SHAPES["temporal_fwd_p_any"]
 
 
 def _chip_smoke():
@@ -76,7 +96,9 @@ def main(argv=None) -> int:
                     "and 5) are bit-equal to its last line's")
     ap.add_argument("--rows", help="comma-separated rows to time (default "
                     "all): temporal_fwd, temporal_fwd_p, temporal_bwd, "
-                    "linear_stats, linear_apply, linear_bwd, linear_head")
+                    "linear_stats, linear_apply, linear_bwd, linear_head, "
+                    "temporal_fwd_any, temporal_fwd_p_any, temporal_bwd_any, "
+                    "linear_head_any")
     args = ap.parse_args(argv)
 
     import torch
@@ -100,7 +122,7 @@ def main(argv=None) -> int:
     rows: dict[str, list] = {"temporal_fwd": [], "temporal_fwd_p": [],
                              "temporal_bwd": [], "linear_stats": [],
                              "linear_apply": [], "linear_bwd": [],
-                             "linear_head": []}
+                             "linear_head": [], **{k: [] for k in ANY_SHAPES}}
 
     want = set(args.rows.split(",")) if args.rows else set(rows)
     if want - set(rows):
@@ -198,6 +220,65 @@ def main(argv=None) -> int:
         if e is not None:
             e["route"] = route
         del a
+    for name, shapes in ANY_SHAPES.items():
+        if name not in want:
+            continue
+        for config, shape in shapes:
+            if name == "linear_head_any":
+                bf_, n, c, m_c, heads, d = shape
+                a = cs.head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
+                                   d=d)
+                kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
+                run = lambda: lin.linear_block_head(**a, **kw)
+                plain = lambda: lin.linear_block_head_plain(**a, **kw)
+                cost = cs.head_cost(bf_, n, c, m_c, heads=heads, d=d)
+                spec = None
+            else:
+                b, f, s, c, t_tok, heads, d = shape
+                a = cs.temporal_inputs(b, s, c, t_tok, gen, f, heads, d)
+                g = torch.randn(a["x"].shape, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                spec_a = cs.temporal_inputs(b, s, 64, 11, gen)
+                if name == "temporal_fwd_any":
+                    run = lambda: tmp.temporal_block_fwd(**a, heads=heads)
+                    plain = lambda: tmp.temporal_block_plain(**a, heads=heads)
+                    cost = cs.temporal_cost(b, s, c, t_tok, f, heads,
+                                            heads * d)
+                    spec = lambda: tmp.temporal_block_fwd(**spec_a,
+                                                          heads=cs.HEADS)
+                elif name == "temporal_fwd_p_any":
+                    run = lambda: tmp.temporal_block_fwd(**a, heads=heads,
+                                                         emit_p=True)
+                    plain = lambda: tmp.temporal_block_plain_p(**a,
+                                                               heads=heads)
+                    cost = cs.temporal_p_cost(b, s, c, t_tok, f, heads,
+                                              heads * d)
+                    spec = lambda: tmp.temporal_block_fwd(
+                        **spec_a, heads=cs.HEADS, emit_p=True)
+                else:
+                    run = lambda: tmp.temporal_block_bwd(**a, g=g,
+                                                         heads=heads)
+                    plain = lambda: tmp.temporal_block_bwd_plain(
+                        **a, g=g, heads=heads)
+                    cost = cs.temporal_bwd_cost(b, s, c, t_tok, f, heads,
+                                                heads * d)
+                    spec_g = torch.randn(spec_a["x"].shape, generator=gen,
+                                         device="cuda").to(torch.bfloat16)
+                    spec = lambda: tmp.temporal_block_bwd(
+                        **spec_a, g=spec_g, heads=cs.HEADS)
+            try:
+                run()
+            except ValueError as e:
+                rows[name].append(dict(config=config, shape=list(shape),
+                                       refused=str(e)))
+                continue
+            e = timed(name, shape, run, cost, reps=3, warmup=1)
+            e["config"] = config
+            if spec is not None and config == "heads4x64":
+                e["specialised_ms"] = cs.cuda_ms(spec, reps=3, warmup=1)
+            e["plain_ms"] = cs.cuda_ms(plain, reps=1, warmup=1)
+            del a
+            torch.cuda.empty_cache()
     stages = {}
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -257,6 +338,43 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
             stages[name] = _device_ms(prof)
         del a, h, b6, b7, g6, g7
+        # the any-shape rows: one launch at heads4x64's level-0 shape (row
+        # 3 also at tokens96's)
+        for name, config in (("temporal_fwd_any", "heads4x64"),
+                             ("temporal_fwd_p_any", "heads4x64"),
+                             ("temporal_bwd_any", "heads4x64"),
+                             ("temporal_bwd_any", "tokens96"),
+                             ("linear_head_any", "heads4x64")):
+            if name not in want:
+                continue
+            shape = dict(ANY_SHAPES[name])[config]
+            if name == "linear_head_any":
+                bf_, n, c, m_c, heads, d = shape
+                a = cs.head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
+                                   d=d)
+                run = lambda: lin.linear_block_head(
+                    **a, heads=heads, scale=d ** -0.5, spatial_size=n)
+            else:
+                b, f, s, c, t_tok, heads, d = shape
+                a = cs.temporal_inputs(b, s, c, t_tok, gen, f, heads, d)
+                g = torch.randn(a["x"].shape, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                run = {"temporal_fwd_any": lambda: tmp.temporal_block_fwd(
+                           **a, heads=heads),
+                       "temporal_fwd_p_any": lambda: tmp.temporal_block_fwd(
+                           **a, heads=heads, emit_p=True),
+                       "temporal_bwd_any": lambda: tmp.temporal_block_bwd(
+                           **a, g=g, heads=heads)}[name]
+            try:
+                run()
+            except ValueError:
+                continue
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            stages[f"{name} {config}"] = _device_ms(prof)
+            del a
         # rows 5 and 8 at every path shape: the device time of a launch,
         # which at the small shapes the host's launch overhead hides from
         # the event times

@@ -142,11 +142,11 @@ def test_temporal_emit_p_kernel(cuda, t_tok):
     assert torch.equal(out, out2) and torch.equal(p, p2)
 
 
-def _head_args(gen, b, n, c, k_scale):
+def _head_args(gen, b, n, c, k_scale, heads=8, d=32, m_c=1):
     """Head-layout inputs with an O(1) update beside x: the v columns of
     w_qkv times HW (undoing v / HW) and 32, the key columns times k_scale
     (8: the token softmax picks few tokens, so ctx is no average near 0)."""
-    bf, hd = torch.bfloat16, 256
+    bf, hd = torch.bfloat16, heads * d
     w_qkv = _rnd(gen, c, 3 * hd) * c ** -0.5
     w_qkv[:, hd:2 * hd] *= k_scale
     w_qkv[:, 2 * hd:] *= n * 32.0
@@ -154,7 +154,8 @@ def _head_args(gen, b, n, c, k_scale):
                 w_qkv=w_qkv.to(bf),
                 w_out=(_rnd(gen, hd, c) * hd ** -0.5).to(bf),
                 out_bias=_rnd(gen, c, scale=0.1),
-                ek=_rnd(gen, b, 1, hd).to(bf), ev=_rnd(gen, b, 1, hd).to(bf))
+                ek=_rnd(gen, b, m_c, hd).to(bf) if m_c else None,
+                ev=_rnd(gen, b, m_c, hd).to(bf) if m_c else None)
 
 
 def _update_err(got, want, x, out_bias):
@@ -203,8 +204,8 @@ def test_linear_head_kernel_does_not_clamp(cuda):
 
 def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     """A CUDA tensor of a shape or type no instance takes raises: row 1 in
-    float32, and row 8 (the head layout, specialised shapes only) at
-    C = 48, naming its ROADMAP item."""
+    float32; row 8 (the head layout, which takes every shape the JAX
+    kernel takes with d <= 64) with x in float32, and at 2 heads of 128."""
     x = torch.zeros((2, 11, 16, 48), dtype=torch.bfloat16, device="cuda")
     args = (torch.ones(48, device="cuda"),
             torch.zeros((11, 48, 768), dtype=torch.bfloat16, device="cuda"),
@@ -213,13 +214,16 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="bf16"):
         tmp.fused_temporal_block(x.float(), *args, heads=8)
     xl = torch.zeros((2, 16, 48), dtype=torch.bfloat16, device="cuda")
-    with pytest.raises(ValueError, match="row 8"):
-        lin.linear_block_head(
-            xl, torch.ones(48, device="cuda"),
-            torch.zeros((48, 768), dtype=torch.bfloat16, device="cuda"),
-            torch.zeros((256, 48), dtype=torch.bfloat16, device="cuda"),
-            torch.zeros(48, device="cuda"), None, None, heads=8,
-            scale=32 ** -0.5, spatial_size=16)
+    largs = (torch.ones(48, device="cuda"),
+             torch.zeros((48, 768), dtype=torch.bfloat16, device="cuda"),
+             torch.zeros((256, 48), dtype=torch.bfloat16, device="cuda"),
+             torch.zeros(48, device="cuda"), None, None)
+    with pytest.raises(ValueError, match="bf16"):
+        lin.linear_block_head(xl.float(), *largs, heads=8, scale=32 ** -0.5,
+                              spatial_size=16)
+    with pytest.raises(ValueError, match="d up to 64"):
+        lin.linear_block_head(xl, *largs, heads=2, scale=128 ** -0.5,
+                              spatial_size=16)
 
 
 # ------------------------------------------------------------ backward
@@ -345,8 +349,8 @@ MODEL_NEAR = 0.5
 MODEL_BITS = 0.03
 
 
-def _model_args(gen, b, n, c, n_cond):
-    bf, hd = torch.bfloat16, 256
+def _model_args(gen, b, n, c, n_cond, heads=8):
+    bf, hd = torch.bfloat16, heads * 32
     return dict(
         x=_rnd(gen, b, n, c).to(bf), gamma=1 + _rnd(gen, c, scale=0.1),
         w_qkv=(_rnd(gen, c, 3 * hd) * c ** -0.5).to(bf),
@@ -399,46 +403,71 @@ def test_linear_bwd_kernel_matches_its_rounding_model(cuda, route, n_cond):
     assert bits[True] <= MODEL_BITS, bits
 
 
+# the head layout's plain versions (name, stats rounded, parts, Q ctxn in
+# float32) per instance: the first rounds where the instance rounds. The
+# specialised instance (8 heads of 32) rounds its stats' operands and takes
+# Q, ctxn and oh as bf16 hi + lo on the tensor cores; the any-shape
+# instance keeps its stats and Q ctxn in float32 and takes oh as hi + lo in
+# its out-projection ("hi only": the same without the lo part)
+HEAD_MODELS = {
+    "specialised": (8, 64, (("split", True, 2, False),
+                            ("f32", True, None, False),
+                            ("unrounded", False, None, False))),
+    "any": (4, 96, (("split", False, 2, True), ("hi only", False, 1, True),
+                    ("f32", False, None, False))),
+}
+
+
+@pytest.mark.parametrize("instance", sorted(HEAD_MODELS))
 @pytest.mark.parametrize("k_scale", [1.0, 40.0])
-def test_linear_head_kernel_matches_its_rounding_model(cuda, k_scale):
-    """The head-layout forward at N = 1100, C = 64, one cond token, v times
-    HW * 32 (an O(1) update, as chip_smoke.py's head inputs), head 0's keys
-    times k_scale, x times 0.01 (the LN output does not change; the bf16
-    output then resolves the update): at most MODEL_BITS of the outputs
-    differ from the plain version whose stats round as the kernel's and
-    whose apply splits Q, ctxn and oh into bf16 hi + lo as the kernel's.
-    The shares against that version with a float32 apply and against the
-    unrounded version are printed beside it."""
+def test_linear_head_kernel_matches_its_rounding_model(cuda, k_scale,
+                                                       instance):
+    """The head-layout forward at N = 1100, one cond token, v times HW * 32
+    (an O(1) update, as chip_smoke.py's head inputs), head 0's keys times
+    k_scale, x times 0.01 (the LN output does not change; the bf16 output
+    then resolves the update), on each instance (HEAD_MODELS: the
+    specialised one at 8 heads of 32 and C = 64, the any-shape one at 4
+    heads of 32 and C = 96): at most MODEL_BITS of the outputs differ from
+    the plain version that rounds where the instance rounds. The shares
+    against the other versions are printed beside it; for the any-shape
+    instance the version without oh's lo part differs in more than
+    MODEL_BITS (what a dropped lo part shows)."""
     from test_torch_port_linear_bwd_rounding import kernel_rounding_head_fwd
 
-    b, n, c, hd = 2, 1100, 64, 256
-    a = _model_args(cuda, b, n, c, 1)
+    heads, c, models = HEAD_MODELS[instance]
+    b, n, hd = 2, 1100, heads * 32
+    assert lin.forward_instance(heads, 32, c) == (
+        lin.SPECIALISED if instance == "specialised" else lin.ANY_SHAPE)
+    a = _model_args(cuda, b, n, c, 1, heads=heads)
     w = a["w_qkv"].float()
     w[:, hd:hd + 32] *= k_scale
     w[:, 2 * hd:] *= n * 32.0
     a["w_qkv"] = w.to(torch.bfloat16)
     a["x"] = (a["x"].float() * 0.01).to(torch.bfloat16)
-    got = lin.linear_block_head(**a, heads=8, scale=32 ** -0.5,
+    name = "linear_head" if instance == "specialised" else "linear_head_any"
+    before = _build.LAUNCH_COUNTS[name]
+    got = lin.linear_block_head(**a, heads=heads, scale=32 ** -0.5,
                                 spatial_size=n).float().cpu()
+    assert _build.LAUNCH_COUNTS[name] == before + 1
     x = _cpu(a["x"])
     args = [_cpu(a[k]) for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
                                  "ek", "ev")]
-    shares, bits = {}, {}
-    for name, rounded, parts in (("split", True, 2), ("f32", True, None),
-                                 ("unrounded", False, None)):
-        want = kernel_rounding_head_fwd(*args, heads=8, scale=32 ** -0.5,
-                                        spatial_size=n, rounded=rounded,
-                                        parts=parts)
-        shares[name] = ((got - want).abs().max()
-                        / (want - x).abs().max()).item()
-        bits[name] = (got != want).float().mean().item()
-    print(f"\nhead layout, keys x{k_scale:g}: outputs different "
-          + ", ".join(f"{bits[k]:.2e}" for k in bits)
-          + "; update within "
-          + ", ".join(f"{shares[k]:.2e}" for k in shares)
-          + " of its max (the model rounded as the kernel with the apply "
-          "split / with a float32 apply / unrounded)")
+    shares, bits, wants = {}, {}, {}
+    for model, rounded, parts, qc_f32 in models:
+        want = wants[model] = kernel_rounding_head_fwd(
+            *args, heads=heads, scale=32 ** -0.5, spatial_size=n,
+            rounded=rounded, parts=parts, qc_f32=qc_f32)
+        shares[model] = ((got - want).abs().max()
+                         / (want - x).abs().max()).item()
+        bits[model] = (got != want).float().mean().item()
+    print(f"\nhead layout, {instance} instance, keys x{k_scale:g}: outputs "
+          "different " + ", ".join(f"{k} {v:.2e}" for k, v in bits.items())
+          + "; update within " + ", ".join(
+              f"{k} {v:.2e}" for k, v in shares.items()) + " of its max")
     assert bits["split"] <= MODEL_BITS, bits
+    if instance == "any":
+        assert (wants["split"] != wants["hi only"]).float().mean() > \
+            MODEL_BITS
 
 
 @pytest.mark.parametrize("bwd", ["recompute", "kernel", "saved"])
@@ -1100,3 +1129,55 @@ def test_training_any_shape_instances_match_the_specialised(cuda):
         _assert_cotangents(("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias",
                             "dek", "dev"), lin._bwd_any(*operands, lg, **kw),
                            lin.linear_block_bwd(**largs, g=lg, **kw))
+
+
+# ------------------------------------------- row 8 and rows 1-3 any shape
+
+
+@pytest.mark.parametrize("heads,d,c,m_c", [
+    (4, 32, 64, 1), (4, 64, 96, 0), (12, 32, 1024, 11), (8, 32, 40, 96)])
+def test_linear_head_any_shape_instance_matches_twin(cuda, heads, d, c, m_c):
+    """Row 8 off the flagship's shapes (other head counts and widths, C
+    off 16-byte rows, N = 300, 0 to 96 cond tokens): the update within
+    APPLY_TOL of the twin's, the same bits twice, one count each and none
+    of the specialised instance."""
+    args = _head_args(cuda, 6, 300, c, 8.0, heads=heads, d=d, m_c=m_c)
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=300)
+    assert lin.forward_instance(heads, d, c) == lin.ANY_SHAPE
+    before = dict(_build.LAUNCH_COUNTS)
+    got = lin.linear_block_head(**args, **kw)
+    again = lin.linear_block_head(**args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = lin.linear_block_head_plain(**args, **kw)
+    assert _update_err(got, want, args["x"], args["out_bias"]) <= APPLY_TOL
+    counts = {k: _build.LAUNCH_COUNTS[k] - before[k] for k in before}
+    assert {k: v for k, v in counts.items() if v} == dict(linear_head_any=2)
+
+
+@pytest.mark.parametrize("f,heads,d", [(24, 4, 64), (11, 4, 40)])
+def test_temporal_any_shape_tensor_core_stages_are_bit_stable(cuda, f, heads,
+                                                              d):
+    """Rows 1-3's attention stages on the tensor cores at two query tiles
+    (F = 24) and at a head width off the k-steps of 16 (d = 40), T = 11,
+    S = 144: each row twice with the same bits, row 2's out bit-equal to
+    row 1's, and each within the twins' bounds."""
+    args = _any_temporal_args(cuda, 2, f, 144, 96, 11, heads, d)
+    g = _rnd(cuda, *args["x"].shape).to(torch.bfloat16)
+    assert tmp.forward_instance(f, heads, d, 96, 11) == tmp.ANY_SHAPE
+    out = tmp.temporal_block_fwd(**args, heads=heads)
+    out_p, p = tmp.temporal_block_fwd(**args, heads=heads, emit_p=True)
+    again_p = tmp.temporal_block_fwd(**args, heads=heads, emit_p=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tmp.temporal_block_fwd(**args, heads=heads))
+    assert torch.equal(out_p, out)
+    assert torch.equal(again_p[0], out) and torch.equal(again_p[1], p)
+    want_out, want_p = tmp.temporal_block_plain_p(**args, heads=heads)
+    torch.testing.assert_close(out.float(), want_out.float(), **BF16_TOL)
+    torch.testing.assert_close(p.float(), want_p.float(), **BF16_TOL)
+    got = tmp.temporal_block_bwd(**args, g=g, heads=heads)
+    for a, b_ in zip(got, tmp.temporal_block_bwd(**args, g=g, heads=heads)):
+        assert torch.equal(a, b_)
+    _assert_cotangents(("dx", "dgamma", "dw_all", "dw_out", "dek", "dev",
+                        "dbias"), got,
+                       tmp.temporal_block_bwd_plain(**args, g=g, heads=heads))

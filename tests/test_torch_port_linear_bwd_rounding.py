@@ -253,7 +253,7 @@ def bf16_parts(t, k):
 
 def kernel_rounding_head_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
                              heads, scale, spatial_size, rounded=True,
-                             parts=2):
+                             parts=2, qc_f32=False):
     """The CUDA head-layout forward's arithmetic: the stats pass as
     kernel_rounding_stats on the unclamped keys (bf16 operands of ctx with
     rounded=True), then its apply: Q = scale softmax_head(q), oh = Q ctx,
@@ -261,9 +261,11 @@ def kernel_rounding_head_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
     as the kernel takes them on the tensor cores, as bf16 hi + lo, with the
     products it keeps (Q_hi c_hi + Q_hi c_lo + Q_lo c_hi; oh_hi W +
     oh_lo W, W bf16-valued); parts=1 the bf16 parts alone; parts=None
-    float32 throughout, as the JAX head kernel computes it. Inputs: float32
-    tensors holding bf16 values (gamma, out_bias float32). Returns the bf16
-    output as float32."""
+    float32 throughout, as the JAX head kernel computes it. qc_f32: Q ctxn
+    in float32 and only oh in `parts` (the any-shape instance, whose
+    per-head products run on the CUDA cores). Inputs: float32 tensors
+    holding bf16 values (gamma, out_bias float32). Returns the bf16 output
+    as float32."""
     b, n, _ = x.shape
     hd = w_out.shape[0]
     d = hd // heads
@@ -276,12 +278,13 @@ def kernel_rounding_head_fwd(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
     q = q.reshape(b, n, heads, d)
     e = torch.exp(q - q.amax(dim=-1, keepdim=True))
     Q = e * (scale / e.sum(dim=-1, keepdim=True))
-    if parts is None:
+    if parts is None or qc_f32:
         oh = torch.einsum("bnha,bhae->bnhe", Q, ctxn)
     else:
         qs, cs = bf16_parts(Q, parts), bf16_parts(ctxn, parts)
         oh = sum(torch.einsum("bnha,bhae->bnhe", qs[i], cs[j])
                  for i in range(parts) for j in range(parts - i))
+    if parts is not None:
         oh = sum(bf16_parts(oh, parts))
     out = x + out_bias + oh.reshape(b, n, hd) @ w_out
     return out.to(torch.bfloat16).float()

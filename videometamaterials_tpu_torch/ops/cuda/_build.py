@@ -54,6 +54,8 @@ LAUNCH_COUNTS: dict[str, int] = {
     "temporal_bwd_any": 0,
     "linear_bwd_head_any": 0,
     "linear_bwd_merged_any": 0,
+    # the any-shape instance of row 8, the head layout (csrc/any_shape_bwd.cu)
+    "linear_head_any": 0,
 }
 
 _P = ctypes.c_void_p
@@ -95,6 +97,9 @@ _SIGNATURES = {
     # x, gamma, w_qkv, w_out, out_bias, ctx, z, out, scratch y, q, oh,
     # BF, N, C, heads, d, scale, stream
     "vmt_linear_apply_any": [_P] * 11 + [_I] * 5 + [_F, _P],
+    # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace, BF, N, C, Mc,
+    # heads, d, scale, inv_hw, stream
+    "vmt_linear_head_any": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
 }
 # sizes in bytes: the workspaces of the entry points that take one, and
 # the dynamic shared memory of the temporal and linear kernels' stages
@@ -106,10 +111,11 @@ _SIZE_SIGNATURES = {
     "vmt_temporal_block_bwd_smem": [_I] * 3,         # C, T, stage
     "vmt_linear_block_fwd_smem": [_I] * 2,           # C, stage
     "vmt_linear_block_bwd_smem": [_I] * 2,           # C, stage
-    "vmt_temporal_block_any_smem": [_I] * 2,         # F, d
+    "vmt_temporal_block_any_smem": [_I] * 3,         # F, T, d
     "vmt_temporal_block_bwd_any_smem": [_I] * 3,     # F, T, d
     "vmt_temporal_block_bwd_any_workspace": [_I] * 7,  # B, F, S, C, T, heads, d
     "vmt_linear_block_bwd_any_workspace": [_I] * 5,  # BF, N, C, heads, d
+    "vmt_linear_head_any_workspace": [_I] * 5,       # BF, N, C, heads, d
 }
 
 

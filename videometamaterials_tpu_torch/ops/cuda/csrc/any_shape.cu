@@ -34,17 +34,21 @@
 //  - any_gemm_kernel (any_shape.cuh): every projection (QKV, q, k || v,
 //    the two out-projections with the residual in the epilogue) on the
 //    tensor cores, at any M, N, K and any row pitch.
-//  - temporal_any_attn_kernel: one warp a (batch row, position, head),
-//    four a block; the keys (F frames, then T tokens) in chunks of 32, one
-//    a lane, staged in shared memory as bf16; two passes over the chunks,
-//    so any F + T fits: the running max and sum of each query's scores,
-//    then the scores again, bf16 p and the value sum (lanes over the
-//    head's features). Where one chunk holds every key (F + T <= 32) it
-//    is staged once and each lane keeps its score from the first pass.
-//    With a p pointer (row 2, the saved plan's forward) the second pass
-//    also writes each bf16 p into the (B, F, S, (F+T) heads) layout with
-//    key-group-major lanes; nothing else changes, so out is bit-equal to
-//    the launch without p.
+//  - temporal_any_attn_kernel (on the tensor cores, any_attn.cuh): a
+//    block a (32 positions, head, batch row) stages the head's token rows
+//    and bias once; each warp takes a position at a time, its q, k, v
+//    rows of the head arriving by cp.async, and runs mma.sync over key
+//    chunks of 32 (the F frames, then the T tokens), the query frames as
+//    m16 tiles and d in k-steps of 16. Two passes
+//    keep the rounding points of the twin: the scores by mma give each
+//    row's running max and sum; then the scores again (kept in registers
+//    where one chunk holds every key), p = bf16(softmax) from the final
+//    max and sum, and acc = bf16(sum_j p v) by mma with p as the A operand
+//    (no rescaled accumulator), 32 features at a time; the next position's
+//    rows arrive during this one's products. With a p pointer (row 2,
+//    the saved plan's forward) the second pass also writes each bf16 p
+//    into the (B, F, S, (F+T) heads) layout with key-group-major lanes;
+//    nothing else changes, so out is bit-equal to the launch without p.
 //  - linear stats as partial sums over 256-token tiles, one block a
 //    (tile, head, frame), and an ordered reduce (no atomics: two launches
 //    give the same bits); the apply's per-head softmax and q ctx one warp a
@@ -54,31 +58,37 @@
 // the stats partials) comes from the wrapper.
 #include <math_constants.h>
 
-#include "any_shape.cuh"
+#include "any_attn.cuh"
 
 namespace {
 
 constexpr float kClamp = 60.f;
 
-// ---- temporal attention, one warp a (batch row, position, head)
+// ---- temporal attention on the tensor cores (any_attn.cuh), one warp a
+// position at a time, a block a (kFwdPos positions, head, batch row)
 
-constexpr int kKC = 32;        // keys a chunk, one a lane
-constexpr int kAttnWarps = 4;  // a block at most, as shared memory allows
+constexpr int kFwdPos = 32;     // positions a block
+constexpr int kFwdWarps = 4;    // warps a block at most, as shared memory allows
+// blocks an SM the registers leave room for: at most 170 registers a
+// thread, which the stage fits without spilling
+constexpr int kFwdBlocks = 3;
 
-// 32-bit words a staged key row takes: odd, so the lanes' rows (one a
-// lane) fall in 32 different banks
-__host__ __device__ inline int key_words(int d) {
-  const int w = (d + 1) / 2;
-  return w % 2 ? w : w + 1;
+// shared memory, bytes: a warp's share (two buffers of a position's q, k,
+// v rows of the head, 3 x F x pitch bf16 each: the next position's arrive
+// during this one's products), then the block's (attn_block_bytes)
+__host__ __device__ inline size_t fwd_rows_bytes(int F, int d) {
+  return (size_t)3 * F * attn_pitch(d) * 2;
+}
+__host__ __device__ inline size_t fwd_warp_bytes(int F, int d) {
+  return 2 * fwd_rows_bytes(F, d);
 }
 
-// 32-bit words of shared memory a warp takes: q and acc (F x d floats
-// each), the key chunk (32 rows of key_words(d), bf16) and the value chunk
-// (32 x d bf16), each lane's running max and sum (F x 32 floats each),
-// each query's max and sum (F each), bf16(p) of a chunk (32)
-__host__ __device__ inline size_t attn_warp_floats(int F, int d) {
-  return (size_t)2 * F * d + (size_t)kKC * key_words(d) +
-         (size_t)kKC * ((d + 1) / 2) + (size_t)2 * F * kKC + 2 * F + kKC;
+// warps a block (0: one warp's share does not fit)
+int attn_warps(int F, int T, int d) {
+  const size_t base = attn_block_bytes(F, T, d), per = fwd_warp_bytes(F, d);
+  if (base + per > kMaxSmem) return 0;
+  const size_t w = (kMaxSmem - base) / per;
+  return w >= kFwdWarps ? kFwdWarps : (int)w;
 }
 
 struct TemporalAttn {
@@ -89,128 +99,134 @@ struct TemporalAttn {
   bf16* acc;         // (B, F, S, H)
   bf16* p;           // (B, F, S, (F + T) heads) or null
   int B, F, S, T, heads, d;
+  int ppb;           // positions a block: kFwdPos, fewer on small grids
 };
 
-__global__ void __launch_bounds__(kAttnWarps * 32) temporal_any_attn_kernel(
-    const TemporalAttn a, int warps) {
-  extern __shared__ float smem_f[];
+// features of an output chunk: a wider head takes its value sums 32
+// features at a time (the scores again for each, but where one chunk of
+// keys holds them all)
+constexpr int kFwdFC = 32;
+
+__global__ void __launch_bounds__(kFwdWarps * 32, kFwdBlocks)
+    temporal_any_attn_kernel(
+    const TemporalAttn a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kNT = kFwdFC / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t item = (size_t)blockIdx.x * warps + warp;
-  if (warp >= warps || item >= (size_t)a.B * a.S * a.heads) return;
-  const int h = item % a.heads;
-  const size_t bs = item / a.heads;
-  const int s = bs % a.S, b = bs / a.S;
+  const int warps = blockDim.x >> 5;
+  const int h = blockIdx.y, b = blockIdx.z, s0 = blockIdx.x * a.ppb;
   const int F = a.F, T = a.T, G = F + T, d = a.d, H = a.heads * d;
-  const int kp = 2 * key_words(d);  // pitch of a staged key row (bf16)
-  float* q = smem_f + (size_t)warp * attn_warp_floats(F, d);  // [F][d]
-  float* accs = q + F * d;                                   // [F][d]
-  bf16* kc = reinterpret_cast<bf16*>(accs + F * d);          // [32][kp]
-  bf16* vc = kc + kKC * kp;                                  // [32][d]
-  float* pm = accs + F * d + kKC * key_words(d) + kKC * ((d + 1) / 2);
-  float* pl = pm + F * kKC;                                  // [F][32]
-  float* qm = pl + F * kKC;                                  // [F]
-  float* ql = qm + F;                                        // [F]
-  float* pb = ql + F;                                        // [32]
-  // one chunk holds every key: staged once, and each lane's one score
-  // kept from the first pass (its running max)
-  const bool one_chunk = G <= kKC;
-
-  // key j's row of part 1 (k) or 2 (v): a frame's, then a token's
-  auto key_row = [&](int j, int part) -> const bf16* {
-    if (j < F)
-      return a.qkv + (((size_t)b * F + j) * a.S + s) * 3 * H + part * H + h * d;
-    return (part == 1 ? a.ek : a.ev) + ((size_t)b * T + (j - F)) * H + h * d;
-  };
-  auto stage = [&](int j0, bool values) {
-    __syncwarp();
-    const int nk = min(kKC, G - j0);
-    for (int r = 0; r < nk; ++r) {
-      const bf16* kr = key_row(j0 + r, 1);
-      for (int e = lane; e < d; e += 32) kc[r * kp + e] = kr[e];
-      if (values) {
-        const bf16* vr = key_row(j0 + r, 2);
-        for (int e = lane; e < d; e += 32) vc[r * d + e] = vr[e];
+  const int dp = attn_dp(d), pitch = dp + 8, ksteps = dp / 16;
+  const int nqt = attn_fq(F) / 16;
+  // one chunk of keys: the scores of pass 1 are kept for pass 2
+  const bool one = G <= kAttnKeys;
+  const size_t per = fwd_warp_bytes(F, d);
+  // two buffers of [3][F][pitch]
+  bf16* frs = reinterpret_cast<bf16*>(smem_raw + warp * per);
+  const size_t rows_elems = fwd_rows_bytes(F, d) / sizeof(bf16);
+  bf16* tok = reinterpret_cast<bf16*>(smem_raw + warps * per);
+  bf16* zrow = tok + (size_t)2 * T * pitch;
+  float* bias_h = reinterpret_cast<float*>(zrow + pitch);     // [F][G]
+  attn_stage_block(smem_raw, warps * per + attn_block_bytes(F, T, d), tok,
+                   bias_h, a.ek, a.ev, a.bias, b, F, T, H, h, a.heads, d,
+                   pitch);
+  const int gq = lane >> 2, tq = lane & 3;
+  const int npos = min(a.ppb, a.S - s0);
+  if (warp < npos)
+    attn_load_rows(frs, a.qkv, nullptr, 3, -1, b, F, a.S, s0 + warp, H, h, d,
+                    pitch, lane);
+  for (int pos = warp, buf = 0; pos < npos; pos += warps, buf ^= 1) {
+    const int s = s0 + pos;
+    const bool ahead = pos + warps < npos;
+    if (ahead)
+      attn_load_rows(frs + (buf ^ 1) * rows_elems, a.qkv, nullptr, 3, -1, b, F,
+                      a.S, s + warps, H, h, d, pitch, lane);
+    attn_wait_rows(ahead);
+    const AttnRows rows{frs + buf * rows_elems, tok, zrow, F, T, pitch};
+    for (int qt = 0; qt < nqt; ++qt) {
+      const int i0 = qt * 16;
+      auto qrow = [&](int i) { return rows.frame(i0 + i, 0); };
+      // bf16(p) of a chunk (keys j0..) into the (B, F, S, (F+T) heads)
+      // layout
+      auto store_p = [&](const float (&pr)[4][4], int j0) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + gq + 8 * half;
+          if (i >= F) continue;
+          bf16* prow = a.p + (((size_t)b * F + i) * a.S + s) * G * a.heads;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = j0 + nt * 8 + 2 * tq + e;
+              if (j < G)
+                prow[(size_t)j * a.heads + h] =
+                    __float2bfloat16(pr[nt][2 * half + e]);
+            }
+        }
+      };
+      // the weights of a chunk: softmax from the final max and sum, bf16
+      auto weights = [&](float (&pr)[4][4], const float (&m)[2],
+                         const float (&l)[2]) {
+        attn_probs(pr, m, l);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pr[nt][e] = round_bf16(pr[nt][e]);
+      };
+      // pass 1: the running max and sum of each query row
+      float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+      float keep[4][4];
+      for (int j0 = 0; j0 < G; j0 += kAttnKeys) {
+        attn_scores(keep, qrow, [&](int j) { return rows.key(j0 + j, 1); },
+                    ksteps, lane);
+        attn_bias_mask(keep, bias_h, i0, j0, F, G, lane);
+        attn_online(keep, m, l);
+      }
+      if (one) {
+        weights(keep, m, l);
+        if (a.p != nullptr) store_p(keep, 0);
+      }
+      // pass 2, a chunk of features at a time: p = bf16(softmax) from the
+      // final max and sum (the scores again where there are several key
+      // chunks; written once, with p set) and acc = bf16(sum_j p v)
+      for (int f0 = 0; f0 < dp; f0 += kFwdFC) {
+        const int npairs = min(kFwdFC, dp - f0) / 16;
+        float acc[kNT][4] = {};
+        if (one) {
+          attn_mma_frag<false, kNT>(
+              acc, keep, [&](int j) { return rows.key(j, 2); }, f0, npairs,
+              lane);
+        } else {
+          for (int j0 = 0; j0 < G; j0 += kAttnKeys) {
+            float pr[4][4];
+            attn_scores(pr, qrow, [&](int j) { return rows.key(j0 + j, 1); },
+                        ksteps, lane);
+            attn_bias_mask(pr, bias_h, i0, j0, F, G, lane);
+            weights(pr, m, l);
+            if (a.p != nullptr && f0 == 0) store_p(pr, j0);
+            attn_mma_frag<false, kNT>(
+                acc, pr, [&](int j) { return rows.key(j0 + j, 2); }, f0,
+                npairs, lane);
+          }
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + gq + 8 * half;
+          if (i >= F) continue;
+          bf16* orow = a.acc + (((size_t)b * F + i) * a.S + s) * H + h * d;
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int f = f0 + nt * 8 + 2 * tq + e;
+              if (f < d) orow[f] = __float2bfloat16(acc[nt][2 * half + e]);
+            }
+        }
       }
     }
-    __syncwarp();
-  };
-  auto score = [&](int i, int j) {
-    const float* qi = q + i * d;
-    const bf16* kr = kc + lane * kp;
-    float sc = 0.f;
-    for (int e = 0; e < d; ++e) sc = fmaf(qi[e], bf2f(kr[e]), sc);
-    return sc + a.bias[((size_t)i * G + j) * a.heads + h];
-  };
-
-  for (int f = 0; f < F; ++f) {
-    const bf16* qr = a.qkv + (((size_t)b * F + f) * a.S + s) * 3 * H + h * d;
-    for (int e = lane; e < d; e += 32) {
-      q[f * d + e] = bf2f(qr[e]);
-      accs[f * d + e] = 0.f;
-    }
+    __syncwarp();  // this buffer's reads are done before it is refilled
   }
-  for (int i = 0; i < F; ++i) {
-    pm[i * kKC + lane] = -CUDART_INF_F;
-    pl[i * kKC + lane] = 0.f;
-  }
-  // pass 1: each lane's running max and sum of its keys' exp, per query
-  for (int j0 = 0; j0 < G; j0 += kKC) {
-    stage(j0, one_chunk);
-    const int j = j0 + lane;
-    if (j < G) {
-      for (int i = 0; i < F; ++i) {
-        const float sc = score(i, j);
-        const float m = pm[i * kKC + lane], mn = fmaxf(m, sc);
-        pl[i * kKC + lane] = pl[i * kKC + lane] * expf(m - mn) + expf(sc - mn);
-        pm[i * kKC + lane] = mn;
-      }
-    }
-  }
-  __syncwarp();
-  for (int i = 0; i < F; ++i) {
-    const float m = pm[i * kKC + lane];
-    const float mx = vmt::warp_max(m);
-    const float l = vmt::warp_sum(pl[i * kKC + lane] * expf(m - mx));
-    if (lane == 0) {
-      qm[i] = mx;
-      ql[i] = l;
-    }
-  }
-  // pass 2: bf16(p) and the value sums, lanes over the head's features
-  for (int j0 = 0; j0 < G; j0 += kKC) {
-    if (one_chunk) __syncwarp();
-    else stage(j0, true);
-    const int j = j0 + lane, nk = min(kKC, G - j0);
-    for (int i = 0; i < F; ++i) {
-      float p = 0.f;
-      if (j < G) {
-        const float sc = one_chunk ? pm[i * kKC + lane] : score(i, j);
-        p = round_bf16(expf(sc - qm[i]) / ql[i]);
-        if (a.p != nullptr)
-          a.p[(((size_t)b * F + i) * a.S + s) * G * a.heads + j * a.heads + h] =
-              __float2bfloat16(p);
-      }
-      pb[lane] = p;
-      __syncwarp();
-      for (int e = lane; e < d; e += 32) {
-        float o = accs[i * d + e];
-        for (int r = 0; r < nk; ++r) o = fmaf(pb[r], bf2f(vc[r * d + e]), o);
-        accs[i * d + e] = o;
-      }
-      __syncwarp();
-    }
-  }
-  for (int f = 0; f < F; ++f) {
-    bf16* orow = a.acc + (((size_t)b * F + f) * a.S + s) * H + h * d;
-    for (int e = lane; e < d; e += 32) orow[e] = __float2bfloat16(accs[f * d + e]);
-  }
-}
-
-// warps a block of the attention stage (0: one warp does not fit)
-int attn_warps(int F, int d) {
-  const size_t per = attn_warp_floats(F, d) * sizeof(float);
-  const size_t w = kMaxSmem / per;
-  return w >= kAttnWarps ? kAttnWarps : (int)w;
 }
 
 // ---- linear stats: partials over token tiles, then an ordered reduce
@@ -346,12 +362,13 @@ __global__ void __launch_bounds__(kApplyWarps * 32) linear_any_apply_heads(
 
 }  // namespace
 
-// Dynamic shared memory of the temporal attention stage at (F, d), bytes
-// a block; 0 where one warp's share does not fit (the shape is refused).
-extern "C" size_t vmt_temporal_block_any_smem(int F, int d) {
-  if (F <= 0 || d <= 0) return 0;
-  const int w = attn_warps(F, d);
-  return w ? w * attn_warp_floats(F, d) * sizeof(float) : 0;
+// Dynamic shared memory of the temporal attention stage at (F, T, d),
+// bytes a block; 0 where one warp's share does not fit (the shape is
+// refused).
+extern "C" size_t vmt_temporal_block_any_smem(int F, int T, int d) {
+  if (F <= 0 || T < 0 || d <= 0) return 0;
+  const int w = attn_warps(F, T, d);
+  return w ? w * fwd_warp_bytes(F, d) + attn_block_bytes(F, T, d) : 0;
 }
 
 // The temporal block at any shape. x (B, F, S, C); gamma (C); w_all
@@ -367,7 +384,7 @@ extern "C" int vmt_temporal_block_any(
   if (B <= 0 || F <= 0 || S <= 0 || C <= 0 || T < 0 || heads <= 0 || d <= 0 ||
       (T > 0 && (ek == nullptr || ev == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int warps = attn_warps(F, d);
+  const int warps = attn_warps(F, T, d);
   if (warps == 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int H = heads * d;
@@ -391,14 +408,18 @@ extern "C" int vmt_temporal_block_any(
   a.acc = static_cast<bf16*>(acc);
   a.p = static_cast<bf16*>(p);
   a.B = B; a.F = F; a.S = S; a.T = T; a.heads = heads; a.d = d;
-  const size_t smem = (size_t)warps * attn_warp_floats(F, d) * sizeof(float);
+  // positions a block: kFwdPos, or one a warp where that leaves fewer than
+  // two blocks an SM (the deep levels' small S)
+  a.ppb = (size_t)B * heads * ((S + kFwdPos - 1) / kFwdPos) >= 2 * 132
+              ? kFwdPos
+              : warps;
+  const size_t smem = warps * fwd_warp_bytes(F, d) + attn_block_bytes(F, T, d);
   err = cudaFuncSetAttribute(temporal_any_attn_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const size_t items = (size_t)B * S * heads;
-  temporal_any_attn_kernel<<<(unsigned)((items + warps - 1) / warps),
-                             warps * 32, smem, st>>>(a, warps);
+  const dim3 grid((S + a.ppb - 1) / a.ppb, heads, B);
+  temporal_any_attn_kernel<<<grid, warps * 32, smem, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   // out = bf16(x + acc @ w_out)
   Gemm g = gemm(static_cast<const bf16*>(acc), H, 0,

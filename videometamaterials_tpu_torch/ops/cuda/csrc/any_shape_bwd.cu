@@ -1,4 +1,5 @@
-// Any-shape instances of the training path's backward kernels, for sm_90a.
+// Any-shape instances of the training path's backward kernels and of the
+// head-layout linear forward, for sm_90a.
 //
 // Replaces, at every shape the TPU kernels take outside the specialised
 // instances' set (F = 11 frames, 8 heads of 32, C in {64, 128, 256, 512},
@@ -9,6 +10,8 @@
 //     _bwd_kernel        (per-head, pallas_call in _run_bwd_kernel)  clip = 0
 //     _bwd_kernel_merged (pallas_call in _run_bwd_kernel_merged)     clip = 1
 //                                                      -> vmt_linear_block_bwd_any
+//     _kernel, layout "head" (pallas_call in _run_kernel) -> vmt_linear_head_any
+//       (row 8's forward from the backward's token sums, at the end)
 // (row 2, the emit_p forward, is any_shape.cu's forward with p set). The
 // specialised instances (fused_temporal_block_bwd.cu, fused_linear_block_bwd.cu
 // with reduce.cu's contraction) keep their shapes; the wrappers pick an
@@ -25,8 +28,9 @@
 // Roundings. Temporal, where fused_temporal_block_bwd.cu rounds: y, q, k,
 // v and the value weights p in bf16 (as the forward), g_acc = g W_out^T in
 // bf16, dqkv in bf16 for the weight sums and dy, the softmax and every sum
-// in f32; dp = g_acc . v is rounded to bf16 as the plain twin's autograd
-// rounds it. Linear: y in bf16, then f32 (as the plain twins, which
+// in f32 (ds enters its tensor-core products as bf16 hi + lo, about 16
+// significant bits, as in the specialised backward); dp = g_acc . v is
+// rounded to bf16 as the plain twin's autograd rounds it. Linear: y in bf16, then f32 (as the plain twins, which
 // differentiate float32 forwards after y): q, k, v and g_oh = g W_out^T
 // from the tensor cores in f32, the softmaxes and the per-head products on
 // the CUDA cores in f32; dqkv and oh go to bf16 only as operands of the
@@ -41,16 +45,27 @@
 //  - ln_rows_kernel and any_gemm_kernel (any_shape.cuh): y, the QKV
 //    projection, g W_out^T, dy = dqkv W^T (the wrapper hands the weights
 //    transposed).
-//  - temporal_any_bwd_attn_kernel: a block a (64 positions, head, batch
-//    row), its warps (up to four, as shared memory allows) taking the
-//    positions in turn; per position the keys (F frames, then T tokens) in
-//    chunks of 32, one a lane, three passes: the softmax's max and sum; p,
-//    bf16(p) for the value sum acc (kept for dw_out) and D = sum_j p dp;
-//    then ds = p (dp - D), dq (lanes over features), dk and dv (a lane its
-//    key's row). A frame key's dk, dv go to the bf16 dqkv scratch with dq;
-//    a token key's are added to the warp's dek / dev rows, and ds to its
-//    dbias table, over its positions; the block adds its warps in order
-//    and writes one partial, and an ordered reduce sums the partials.
+//  - temporal_any_bwd_attn_kernel (on the tensor cores, any_attn.cuh): a
+//    block a (64 positions, head, batch row) stages the head's token rows
+//    and bias once, its warps (up to four, as shared memory allows) taking
+//    the positions in turn, their q, k, v and g_acc rows by cp.async; per
+//    position three passes of mma.sync over the key chunks of 32 (F
+//    frames, then T tokens), the query frames as m16 tiles: the softmax's
+//    max and sum; p, bf16(p) for the value sum acc (kept for dw_out) and
+//    D = sum_j p dp; then ds = p (dp - D), dq = ds k, dk = ds^T q (ds as
+//    bf16 hi + lo, two products each, as the specialised backward) and dv
+//    = bf16(p)^T g_acc; where one chunk holds every key and d <= 64 the
+//    three passes share the scores of the first. A frame key's dk, dv go
+//    to the bf16 dqkv scratch with dq; up to kTokInline tokens a token
+//    key's are added to the warp's dek / dev rows, and ds to its dbias
+//    table, over its positions; the block adds its warps in order and
+//    writes one partial, and an ordered reduce sums the partials.
+//  - temporal_any_bwd_tok_kernel, above kTokInline tokens (T-sized sums a
+//    warp would hold the attention backward's occupancy down): a block a
+//    (64 positions, head, chunk of 32 tokens) recomputes the chunk's p, dp
+//    and ds from each query row's m, l, D (saved by the attention
+//    backward) and sums dek = ds^T q, dev = bf16(p)^T g_acc over its
+//    positions in registers on the tensor cores; the same partials.
 //  - the linear backward's token sums (ctx, its normaliser, dctx) as
 //    partials over 256-token tiles, one block a (tile, head, frame): the
 //    tile's column max of the (clamped) keys, exp(k - max), its sums with
@@ -70,13 +85,12 @@
 
 #include <algorithm>
 
-#include "any_shape.cuh"
+#include "any_attn.cuh"
 #include "reduce.cuh"
 
 namespace {
 
 constexpr float kClamp = 60.f;
-constexpr int kKC = 32;  // keys a chunk, one a lane
 
 // ---- weight gradients: out[g] = sum_rows A[g]^T B[g], any M and N
 
@@ -294,35 +308,46 @@ cudaError_t launch_ln_bwd(const bf16* x, const float* gamma, const float* dy,
   return cudaGetLastError();
 }
 
-// ---- temporal attention backward
+// ---- temporal attention backward on the tensor cores (any_attn.cuh)
 
 constexpr int kTP = 64;          // positions a block
 constexpr int kTWarps = 4;       // warps a block at most
+// conditioning tokens up to which a warp of the attention backward sums
+// the token keys' dk, dv itself (one key chunk of them); above, its shared
+// memory would hold its occupancy down, and temporal_any_bwd_tok_kernel
+// takes them
+constexpr int kTokInline = 32;
 
-// 32-bit words a staged bf16 key or value row takes: odd, so the lanes'
-// rows (one a lane) fall in 32 different banks
-__host__ __device__ inline int row_words(int d) {
-  const int w = (d + 1) / 2;
-  return w % 2 ? w : w + 1;
+// shared memory of a warp, bytes: two buffers of a position's q, k, v and
+// g_acc rows of the head (4 x F x pitch bf16 each: the next position's
+// arrive during this one's products), the transpose scratch (two 16 x
+// kAttnScrP bf16 tiles), its dbias table (F x accp(F + T) f32, over its
+// positions), with more than 16 frames (the query tiles add into them)
+// the frame keys' dk, dv (2 x F x accp(d) f32) and, with T <=
+// kTokInline, the token sums dek, dev (2 x T x accp(d) f32, over its
+// positions). The block's own follow (attn_block_bytes).
+__host__ __device__ inline size_t bwd_rows_bytes(int F, int d) {
+  return (size_t)4 * F * attn_pitch(d) * 2;
 }
-
-// the pitch (floats) of a lane-owned f32 row: odd
-__host__ __device__ inline int frow(int d) { return d % 2 ? d : d + 1; }
-
-// floats of shared memory a warp takes: q, g_acc and dq (F x d each), the
-// key and value chunks (32 rows of row_words(d)), the frame keys' dk and
-// dv rows (32 x frow(d) each), each lane's running max and sum (F x 32
-// each), each query's max, sum and D (F each), a staged row (32), the
-// warp's dbias table (F x (F + T)) and its dek / dev rows (T x frow(d)
-// each)
-__host__ __device__ inline size_t bwd_warp_floats(int F, int T, int d) {
-  return (size_t)3 * F * d + (size_t)2 * kKC * row_words(d) +
-         (size_t)2 * kKC * frow(d) + (size_t)2 * F * kKC + 3 * F + kKC +
-         (size_t)F * (F + T) + (size_t)2 * T * frow(d);
+__host__ __device__ inline size_t bwd_dbias_off(int F, int d) {
+  return 2 * bwd_rows_bytes(F, d) + (size_t)2 * 16 * kAttnScrP * 2;
+}
+__host__ __device__ inline size_t bwd_fk_off(int F, int T, int d) {
+  return bwd_dbias_off(F, d) + attn_align16((size_t)F * attn_accp(F + T) * 4);
+}
+__host__ __device__ inline size_t bwd_tok_off(int F, int T, int d) {
+  return bwd_fk_off(F, T, d) +
+         (F > 16 ? (size_t)2 * F * attn_accp(d) * 4 : 0);
+}
+__host__ __device__ inline size_t bwd_warp_bytes(int F, int T, int d) {
+  return bwd_tok_off(F, T, d) +
+         (T <= kTokInline ? (size_t)2 * T * attn_accp(d) * 4 : 0);
 }
 
 int bwd_warps(int F, int T, int d) {
-  const size_t w = kMaxSmem / (bwd_warp_floats(F, T, d) * sizeof(float));
+  const size_t base = attn_block_bytes(F, T, d), per = bwd_warp_bytes(F, T, d);
+  if (base + per > kMaxSmem) return 0;
+  const size_t w = (kMaxSmem - base) / per;
   return w >= kTWarps ? kTWarps : (int)w;
 }
 
@@ -336,220 +361,502 @@ struct TemporalBwd {
   bf16* dqkv;           // (B, F, S, 3H)
   float* part_bias;     // (B, heads, blocks, F, F + T)
   float* part_tok;      // (B, heads, blocks, 2, T, d)
+  float* mld;           // (B, heads, S, F, 3): each query row's m, l, D,
+                        // with T > kTokInline; else null
   int B, F, S, T, heads, d;
 };
 
-__global__ void __launch_bounds__(kTWarps * 32) temporal_any_bwd_attn_kernel(
-    const TemporalBwd a, int warps) {
-  extern __shared__ float smem_f[];
+// A block a (kTP positions, head, batch row), its warps taking the
+// positions in turn. Per position and query tile three passes of mma.sync
+// over the key chunks: (1) the scores, each row's running max and sum;
+// (2) the scores again, p from the final max and sum, acc = bf16(sum
+// bf16(p) v) and, with the first feature chunk, D = sum_j p dp with dp =
+// bf16(g_acc . v); (3) p and dp again, ds = p (dp - D), dq = ds k, dk =
+// ds^T q (ds split into bf16(ds) + its rounding error, two products each)
+// and dv = bf16(p)^T g_acc. A frame key's dk, dv go to the bf16 dqkv
+// scratch with dq; up to kTokInline tokens a token key's are added to the
+// warp's dek / dev rows, above them each query row's m, l and D go to mld
+// for temporal_any_bwd_tok_kernel; ds is added to the warp's dbias table
+// over its positions. The block adds its warps in order and writes one
+// partial. kFC: features of an output chunk (32, or 64 with d > 32, the
+// scores again for each chunk).
+template <int kFC>
+__global__ void __launch_bounds__(kTWarps * 32, 1) temporal_any_bwd_attn_kernel(
+    const TemporalBwd a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kNT = kFC / 8;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
   const int blk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int F = a.F, T = a.T, G = F + T, d = a.d, H = a.heads * d;
-  const int kw = 2 * row_words(d), fp = frow(d);
-  const size_t per = bwd_warp_floats(F, T, d);
-  float* base = smem_f + (size_t)warp * per;
-  float* q = base;                                    // [F][d]
-  float* ga = q + F * d;                              // [F][d]
-  float* dq = ga + F * d;                             // [F][d], acc in pass 2
-  bf16* kc = reinterpret_cast<bf16*>(dq + F * d);     // [32][kw]
-  bf16* vc = kc + kKC * kw;                           // [32][kw]
-  float* dkc = dq + F * d + kKC * kw;                 // [32][fp]
-  float* dvc = dkc + kKC * fp;                        // [32][fp]
-  float* pm = dvc + kKC * fp;                         // [F][32]
-  float* pl = pm + F * kKC;                           // [F][32]
-  float* qm = pl + F * kKC;                           // [F]
-  float* ql = qm + F;                                 // [F]
-  float* qd = ql + F;                                 // [F]
-  float* pb = qd + F;                                 // [32]
-  float* dbw = pb + kKC;                              // [F][G]
-  float* dekw = dbw + F * G;                          // [T][fp]
-  float* devw = dekw + T * fp;                        // [T][fp]
-  const bool active = warp < warps;
-  if (active) {
-    for (int i = lane; i < F * G; i += 32) dbw[i] = 0.f;
-    for (int i = lane; i < T * fp; i += 32) {
-      dekw[i] = 0.f;
-      devw[i] = 0.f;
-    }
-  }
-  __syncwarp();
+  const int dp = attn_dp(d), pitch = dp + 8, ksteps = dp / 16;
+  const int nqt = attn_fq(F) / 16, ap = attn_accp(d), gp = attn_accp(G);
+  // one query tile: a frame key's dk, dv are whole after it and go
+  // straight to dqkv; more: they add up in the warp's f32 rows first
+  const bool direct = nqt == 1;
+  const size_t per = bwd_warp_bytes(F, T, d);
+  unsigned char* wbase = smem_raw + warp * per;
+  bf16* frs = reinterpret_cast<bf16*>(wbase);         // two of [4][F][pitch]
+  const size_t rows_elems = bwd_rows_bytes(F, d) / sizeof(bf16);
+  bf16* scr = frs + 2 * rows_elems;                    // [2][16][kAttnScrP]
+  float* dbw = reinterpret_cast<float*>(wbase + bwd_dbias_off(F, d));  // [F][gp]
+  float* fkw = reinterpret_cast<float*>(wbase + bwd_fk_off(F, T, d));  // [2][F][ap]
+  float* tokw = reinterpret_cast<float*>(wbase + bwd_tok_off(F, T, d));  // [2][T][ap]
+  const bool tok_in = a.mld == nullptr;  // the token keys' dk, dv here
+  bf16* tok = reinterpret_cast<bf16*>(smem_raw + warps * per);
+  bf16* zrow = tok + (size_t)2 * T * pitch;
+  float* bias_h = reinterpret_cast<float*>(zrow + pitch);      // [F][G]
+  attn_stage_block(smem_raw, warps * per + attn_block_bytes(F, T, d), tok,
+                   bias_h, a.ek, a.ev, a.bias, b, F, T, H, h, a.heads, d,
+                   pitch);
+  const int gq = lane >> 2, tq = lane & 3;
   const int s_begin = blk * kTP, s_end = min(a.S, s_begin + kTP);
 
-  auto key_row = [&](int s, int j, int part) -> const bf16* {
-    if (j < F)
-      return a.qkv + (((size_t)b * F + j) * a.S + s) * 3 * H + part * H + h * d;
-    return (part == 1 ? a.ek : a.ev) + ((size_t)b * T + (j - F)) * H + h * d;
-  };
-  auto stage = [&](int s, int j0, bool values) {
-    __syncwarp();
-    const int nk = min(kKC, G - j0);
-    for (int r = 0; r < nk; ++r) {
-      const bf16* kr = key_row(s, j0 + r, 1);
-      for (int e = lane; e < d; e += 32) kc[r * kw + e] = kr[e];
-      if (values) {
-        const bf16* vr = key_row(s, j0 + r, 2);
-        for (int e = lane; e < d; e += 32) vc[r * kw + e] = vr[e];
-      }
-    }
-    __syncwarp();
-  };
-  auto score = [&](int i, int j) {
-    const float* qi = q + i * d;
-    const bf16* kr = kc + lane * kw;
-    float sc = 0.f;
-    for (int e = 0; e < d; ++e) sc = fmaf(qi[e], bf2f(kr[e]), sc);
-    return sc + a.bias[((size_t)i * G + j) * a.heads + h];
-  };
-  // g_acc_i . v of the lane's key, rounded to bf16 as the twin rounds dp
-  auto dprob = [&](int i) {
-    const float* gi = ga + i * d;
-    const bf16* vr = vc + lane * kw;
-    float dp = 0.f;
-    for (int e = 0; e < d; ++e) dp = fmaf(gi[e], bf2f(vr[e]), dp);
-    return round_bf16(dp);
-  };
-
-  for (int s = s_begin + warp; active && s < s_end; s += warps) {
-    for (int f = 0; f < F; ++f) {
-      const size_t row = ((size_t)b * F + f) * a.S + s;
-      const bf16* qr = a.qkv + row * 3 * H + h * d;
-      const bf16* gr = a.ga + row * H + h * d;
-      for (int e = lane; e < d; e += 32) {
-        q[f * d + e] = bf2f(qr[e]);
-        ga[f * d + e] = bf2f(gr[e]);
-        dq[f * d + e] = 0.f;
-      }
-      pm[f * kKC + lane] = -CUDART_INF_F;
-      pl[f * kKC + lane] = 0.f;
-    }
-    // pass 1: each lane's running max and sum, per query
-    for (int j0 = 0; j0 < G; j0 += kKC) {
-      stage(s, j0, false);
-      const int j = j0 + lane;
-      if (j < G)
-        for (int i = 0; i < F; ++i) {
-          const float sc = score(i, j);
-          const float m = pm[i * kKC + lane], mn = fmaxf(m, sc);
-          pl[i * kKC + lane] =
-              pl[i * kKC + lane] * expf(m - mn) + expf(sc - mn);
-          pm[i * kKC + lane] = mn;
-        }
-    }
-    __syncwarp();
-    for (int i = 0; i < F; ++i) {
-      const float m = pm[i * kKC + lane];
-      const float mx = vmt::warp_max(m);
-      const float l = vmt::warp_sum(pl[i * kKC + lane] * expf(m - mx));
+  if (s_begin + warp < s_end)
+    attn_load_rows(frs, a.qkv, a.ga, 4, 3, b, F, a.S, s_begin + warp, H, h,
+                    d, pitch, lane);
+  for (int s = s_begin + warp, buf = 0; s < s_end; s += warps, buf ^= 1) {
+    const bool ahead = s + warps < s_end;
+    if (ahead)
+      attn_load_rows(frs + (buf ^ 1) * rows_elems, a.qkv, a.ga, 4, 3, b, F,
+                      a.S, s + warps, H, h, d, pitch, lane);
+    attn_wait_rows(ahead);
+    const AttnRows rows{frs + buf * rows_elems, tok, zrow, F, T, pitch};
+    if (!direct) {
+      for (int i = lane; i < 2 * F * ap; i += 32) fkw[i] = 0.f;
       __syncwarp();
-      if (lane == 0) {
-        qm[i] = mx;
-        ql[i] = l;
-      }
-      pl[i * kKC + lane] = 0.f;  // from here: the lane's part of D
     }
-    __syncwarp();
-    // pass 2: the value sums acc (bf16 p, in dq's place) and D
-    for (int j0 = 0; j0 < G; j0 += kKC) {
-      stage(s, j0, true);
-      const int j = j0 + lane, nk = min(kKC, G - j0);
-      for (int i = 0; i < F; ++i) {
-        float pr = 0.f;
-        if (j < G) {
-          const float p = expf(score(i, j) - qm[i]) / ql[i];
-          pr = round_bf16(p);
-          pl[i * kKC + lane] += p * dprob(i);
+    const size_t row0 = (size_t)b * F * a.S + s;  // row (b, f, s): row0 + f S
+    // part 1 (dk) or 2 (dv) of a transposed chunk (keys j0.., features
+    // c0..c0 + 15): a frame key's to dqkv or its f32 row, a token key's
+    // added to the warp's token sums (with tok_in)
+    auto put_keys = [&](const float (&t)[2][2][4], int part, int j0, int c0) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int j = j0 + mt * 16 + gq + 8 * half;
+          if (j >= (tok_in ? G : F)) continue;
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int f = c0 + nt * 8 + 2 * tq + e;
+              if (f >= d) continue;
+              const float v = t[mt][nt][2 * half + e];
+              if (j >= F)
+                tokw[((size_t)(part - 1) * T + j - F) * ap + f] += v;
+              else if (direct)
+                a.dqkv[(row0 + (size_t)j * a.S) * 3 * H + part * H + h * d +
+                       f] = __float2bfloat16(v);
+              else
+                fkw[((size_t)(part - 1) * F + j) * ap + f] += v;
+            }
         }
-        pb[lane] = pr;
-        __syncwarp();
-        for (int e = lane; e < d; e += 32) {
-          float o = dq[i * d + e];
-          for (int r = 0; r < nk; ++r) o = fmaf(pb[r], bf2f(vc[r * kw + e]), o);
-          dq[i * d + e] = o;
+    };
+    for (int qt = 0; qt < nqt; ++qt) {
+      const int i0 = qt * 16;
+      auto qrow = [&](int i) { return rows.frame(i0 + i, 0); };
+      auto grow = [&](int i) { return rows.frame(i0 + i, 3); };
+      auto krow = [&](int j0) {
+        return [&rows, j0](int j) { return rows.key(j0 + j, 1); };
+      };
+      auto vrow = [&](int j0) {
+        return [&rows, j0](int j) { return rows.key(j0 + j, 2); };
+      };
+      // acc (the value sums, for dw_out) of a feature chunk to its scratch
+      auto store_acc = [&](const float (&acc)[kNT][4], int f0) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + gq + 8 * half;
+          if (i >= F) continue;
+          bf16* orow = a.acc + (row0 + (size_t)i * a.S) * H + h * d;
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int f = f0 + nt * 8 + 2 * tq + e;
+              if (f < d) orow[f] = __float2bfloat16(acc[nt][2 * half + e]);
+            }
         }
-        __syncwarp();
-      }
-    }
-    for (int i = 0; i < F; ++i) {
-      const float dsum = vmt::warp_sum(pl[i * kKC + lane]);
-      if (lane == 0) qd[i] = dsum;
-      bf16* orow = a.acc + (((size_t)b * F + i) * a.S + s) * H + h * d;
-      for (int e = lane; e < d; e += 32) {
-        orow[e] = __float2bfloat16(dq[i * d + e]);
-        dq[i * d + e] = 0.f;
-      }
-    }
-    __syncwarp();
-    // pass 3: ds, dq, dk, dv, dbias
-    for (int j0 = 0; j0 < G; j0 += kKC) {
-      stage(s, j0, true);
-      const int j = j0 + lane, nk = min(kKC, G - j0);
-      // the lane's key row: a frame key's in the chunk rows, a token's in
-      // the warp's sums over its positions
-      float* dkr = j < F ? dkc + lane * fp : dekw + (size_t)(j - F) * fp;
-      float* dvr = j < F ? dvc + lane * fp : devw + (size_t)(j - F) * fp;
-      if (j < F)
-        for (int e = 0; e < d; ++e) {
-          dkr[e] = 0.f;
-          dvr[e] = 0.f;
-        }
-      for (int i = 0; i < F; ++i) {
-        float ds = 0.f;
-        if (j < G) {
-          const float p = expf(score(i, j) - qm[i]) / ql[i];
-          const float pr = round_bf16(p);
-          ds = p * (dprob(i) - qd[i]);
-          const float* qi = q + i * d;
-          const float* gi = ga + i * d;
-          for (int e = 0; e < d; ++e) {
-            dkr[e] = fmaf(ds, qi[e], dkr[e]);
-            dvr[e] = fmaf(pr, gi[e], dvr[e]);
+      };
+      // a chunk's (keys j0..) gradients from ds and bf16(p), features
+      // f0..: dbias += ds (with the first feature chunk), dq += ds k, dk =
+      // ds^T q and dv = bf16(p)^T g_acc (16 features at a time)
+      auto grads = [&](const float (&pr)[4][4], const float (&ds)[4][4],
+                       float (&dq)[kNT][4], int j0, int f0, int npairs) {
+        if (f0 == 0) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int i = i0 + gq + 8 * half;
+            if (i >= F) continue;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int j = j0 + nt * 8 + 2 * tq + e;
+                if (j < G) dbw[i * gp + j] += ds[nt][2 * half + e];
+              }
           }
-          dbw[i * G + j] += ds;
         }
-        pb[lane] = ds;
-        __syncwarp();
-        for (int e = lane; e < d; e += 32) {
-          float o = dq[i * d + e];
-          for (int r = 0; r < nk; ++r) o = fmaf(pb[r], bf2f(kc[r * kw + e]), o);
-          dq[i * d + e] = o;
+        attn_mma_frag<true, kNT>(dq, ds, krow(j0), f0, npairs, lane);
+        if (j0 >= F && !tok_in) return;  // no key of this kernel's
+        attn_stage_t<true>(scr, ds, lane);
+        for (int c0 = f0; c0 < f0 + kFC && c0 < dp; c0 += 16) {
+          float t[2][2][4] = {};
+          attn_mma_t<true>(t, scr, qrow, c0, lane);
+          put_keys(t, 1, j0, c0);
         }
-        __syncwarp();
+        attn_stage_t<false>(scr, pr, lane);
+        for (int c0 = f0; c0 < f0 + kFC && c0 < dp; c0 += 16) {
+          float t[2][2][4] = {};
+          attn_mma_t<false>(t, scr, grow, c0, lane);
+          put_keys(t, 2, j0, c0);
+        }
+      };
+      // each query row's m, l, D for the token keys' kernel
+      auto store_mld = [&](const float (&m)[2], const float (&l)[2],
+                           const float (&D)[2]) {
+        if (a.mld == nullptr || tq != 0) return;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + gq + 8 * half;
+          if (i >= F) continue;
+          float* o = a.mld + ((((size_t)b * a.heads + h) * a.S + s) * F + i) * 3;
+          o[0] = m[half];
+          o[1] = l[half];
+          o[2] = D[half];
+        }
+      };
+      auto store_dq = [&](const float (&dq)[kNT][4], int f0) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + gq + 8 * half;
+          if (i >= F) continue;
+          bf16* drow = a.dqkv + (row0 + (size_t)i * a.S) * 3 * H + h * d;
+#pragma unroll
+          for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int f = f0 + nt * 8 + 2 * tq + e;
+              if (f < d) drow[f] = __float2bfloat16(dq[nt][2 * half + e]);
+            }
+        }
+      };
+      // ds = p (dp - D) in place of dp, and p to bf16(p) in place
+      auto dsoft = [&](float (&pr)[4][4], float (&ds)[4][4],
+                       const float (&D)[2]) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& dv = ds[nt][2 * half + e];
+              float& p = pr[nt][2 * half + e];
+              dv = p * (round_bf16(dv) - D[half]);
+              p = round_bf16(p);
+            }
+      };
+      // D += sum_j p dp over a chunk, dp = bf16(g_acc . v)
+      auto dsum = [&](const float (&pr)[4][4], const float (&dpv)[4][4],
+                      float (&D)[2]) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              D[half] = fmaf(pr[nt][2 * half + e],
+                             round_bf16(dpv[nt][2 * half + e]), D[half]);
+      };
+      auto quad_sum = [](float (&D)[2]) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          D[half] += __shfl_xor_sync(0xffffffffu, D[half], 1);
+          D[half] += __shfl_xor_sync(0xffffffffu, D[half], 2);
+        }
+      };
+      // pass 1: each query row's running max and sum
+      float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+      float pr[4][4];
+      for (int j0 = 0; j0 < G; j0 += kAttnKeys) {
+        attn_scores(pr, qrow, krow(j0), ksteps, lane);
+        attn_bias_mask(pr, bias_h, i0, j0, F, G, lane);
+        attn_online(pr, m, l);
       }
-      // the chunk's frame keys: dk, dv to dqkv
-      for (int r = 0; r < nk && j0 + r < F; ++r) {
-        bf16* drow = a.dqkv + (((size_t)b * F + j0 + r) * a.S + s) * 3 * H +
-                     h * d;
-        for (int e = lane; e < d; e += 32) {
-          drow[H + e] = __float2bfloat16(dkc[r * fp + e]);
-          drow[2 * H + e] = __float2bfloat16(dvc[r * fp + e]);
+      if (G <= kAttnKeys && dp <= kFC) {
+        // one key chunk and one feature chunk: passes 2 and 3 on the
+        // scores of pass 1
+        float ds[4][4], D[2] = {0.f, 0.f};
+        attn_probs(pr, m, l);
+        attn_scores(ds, grow, vrow(0), ksteps, lane);
+        dsum(pr, ds, D);
+        quad_sum(D);
+        store_mld(m, l, D);
+        dsoft(pr, ds, D);
+        {
+          float acc[kNT][4] = {};
+          attn_mma_frag<false, kNT>(acc, pr, vrow(0), 0, dp / 16, lane);
+          store_acc(acc, 0);
         }
+        float dq[kNT][4] = {};
+        grads(pr, ds, dq, 0, 0, dp / 16);
+        store_dq(dq, 0);
+        continue;
       }
+      // pass 2: the value sums acc a feature chunk at a time, and with the
+      // first chunk D = sum_j p dp
+      float D[2] = {0.f, 0.f};
+      for (int f0 = 0; f0 < dp; f0 += kFC) {
+        const int npairs = min(kFC, dp - f0) / 16;
+        float acc[kNT][4] = {};
+        for (int j0 = 0; j0 < G; j0 += kAttnKeys) {
+          attn_scores(pr, qrow, krow(j0), ksteps, lane);
+          attn_bias_mask(pr, bias_h, i0, j0, F, G, lane);
+          attn_probs(pr, m, l);
+          if (f0 == 0) {
+            float dpv[4][4];
+            attn_scores(dpv, grow, vrow(j0), ksteps, lane);
+            dsum(pr, dpv, D);
+          }
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pr[nt][e] = round_bf16(pr[nt][e]);
+          attn_mma_frag<false, kNT>(acc, pr, vrow(j0), f0, npairs, lane);
+        }
+        store_acc(acc, f0);
+      }
+      quad_sum(D);
+      store_mld(m, l, D);
+      // pass 3: ds = p (dp - D); dq = ds k; dk = ds^T q; dv = bf16(p)^T
+      // g_acc; with the first feature chunk dbias += ds
+      for (int f0 = 0; f0 < dp; f0 += kFC) {
+        const int npairs = min(kFC, dp - f0) / 16;
+        float dq[kNT][4] = {};
+        for (int j0 = 0; j0 < G; j0 += kAttnKeys) {
+          float ds[4][4];
+          attn_scores(pr, qrow, krow(j0), ksteps, lane);
+          attn_bias_mask(pr, bias_h, i0, j0, F, G, lane);
+          attn_probs(pr, m, l);
+          attn_scores(ds, grow, vrow(j0), ksteps, lane);
+          dsoft(pr, ds, D);
+          grads(pr, ds, dq, j0, f0, npairs);
+        }
+        store_dq(dq, f0);
+      }
+    }
+    if (!direct) {
       __syncwarp();
+      for (int i = lane; i < 2 * F * d; i += 32) {
+        const int f = i % d, j = (i / d) % F, part = 1 + i / (d * F);
+        a.dqkv[(row0 + (size_t)j * a.S) * 3 * H + part * H + h * d + f] =
+            __float2bfloat16(fkw[((size_t)(part - 1) * F + j) * ap + f]);
+      }
     }
-    for (int i = 0; i < F; ++i) {
-      bf16* drow = a.dqkv + (((size_t)b * F + i) * a.S + s) * 3 * H + h * d;
-      for (int e = lane; e < d; e += 32) drow[e] = __float2bfloat16(dq[i * d + e]);
-    }
-    __syncwarp();
+    __syncwarp();  // this buffer's reads are done before it is refilled
   }
   __syncthreads();
   // the block's partials: its warps' sums, in order
   const size_t pidx = ((size_t)b * a.heads + h) * gridDim.x + blk;
   float* pbias = a.part_bias + pidx * F * G;
+  const size_t dboff = bwd_dbias_off(F, d) / sizeof(float);
+  const float* wf = reinterpret_cast<const float*>(smem_raw);
+  const size_t wper = per / sizeof(float);
   for (int i = threadIdx.x; i < F * G; i += blockDim.x) {
+    const size_t o = dboff + (size_t)(i / G) * gp + i % G;
     float v = 0.f;
-    for (int w = 0; w < warps; ++w) v += smem_f[(size_t)w * per + (dbw - base) + i];
+    for (int w = 0; w < warps; ++w) v += wf[w * wper + o];
     pbias[i] = v;
   }
-  if (T > 0) {
+  if (tok_in && T > 0) {
+    const size_t tkoff = bwd_tok_off(F, T, d) / sizeof(float);
     float* ptok = a.part_tok + pidx * 2 * T * d;
     for (int i = threadIdx.x; i < 2 * T * d; i += blockDim.x) {
       const int which = i / (T * d), tt = (i / d) % T, e = i % d;
-      const size_t off = (which ? devw : dekw) - base + (size_t)tt * fp + e;
+      const size_t o = tkoff + ((size_t)which * T + tt) * ap + e;
       float v = 0.f;
-      for (int w = 0; w < warps; ++w) v += smem_f[(size_t)w * per + off];
+      for (int w = 0; w < warps; ++w) v += wf[w * wper + o];
       ptok[i] = v;
     }
+  }
+}
+
+// ---- the token keys' dk, dv (dek, dev): a kernel of their own, so the
+// attention backward keeps no T-sized sums a warp and its occupancy does
+// not fall with T
+
+constexpr int kTokWarps = 4;
+
+// shared memory, bytes: a warp's two buffers of a position's q and g_acc
+// rows (2 x F x pitch bf16 each) and its transpose scratch; the block's 32
+// token rows of ek and of ev and a zero row (bf16), the bias of its token
+// columns (F x 32 f32), and the warps' sums for their ordered reduction
+// (warps x 2 x 32 x (kFC + 8) f32)
+__host__ __device__ inline size_t tok_warp_bytes(int F, int d) {
+  return (size_t)2 * 2 * F * attn_pitch(d) * 2 + (size_t)2 * 16 * kAttnScrP * 2;
+}
+__host__ __device__ inline size_t tok_block_bytes(int F, int d, int warps,
+                                                  int fc) {
+  return (size_t)65 * attn_pitch(d) * 2 + (size_t)F * 32 * 4 +
+         (size_t)warps * 2 * 32 * (fc + 8) * 4;
+}
+int tok_fc(int d) { return d <= 32 ? 32 : 64; }
+
+int tok_warps(int F, int d) {
+  for (int w = kTokWarps; w > 0; --w)
+    if (w * tok_warp_bytes(F, d) + tok_block_bytes(F, d, w, tok_fc(d)) <=
+        kMaxSmem)
+      return w;
+  return 0;
+}
+
+// A block a (kTP positions, head, chunk of 32 tokens, batch row), its
+// warps taking the positions in turn, as the attention backward's blocks.
+// Per position and query tile, from each query row's m, l and D (mld):
+// the scores of the chunk's token keys, p = exp(s - m) / l, dp =
+// bf16(g_acc . v), ds = p (dp - D); dek += ds^T q (ds as bf16 hi + lo) and
+// dev += bf16(p)^T g_acc on the tensor cores, summed over the warp's
+// positions in registers, 16 features a group, kFC features a pass over
+// the positions. The block adds its warps in order and writes its rows of
+// the partial part_tok (the attention backward's layout).
+template <int kFC>
+__global__ void __launch_bounds__(kTokWarps * 32, 1) temporal_any_bwd_tok_kernel(
+    const TemporalBwd a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kGroups = kFC / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int tchunks = (a.T + kAttnKeys - 1) / kAttnKeys;
+  const int blk = blockIdx.x, h = blockIdx.y;
+  const int b = blockIdx.z / tchunks, t0 = (blockIdx.z % tchunks) * kAttnKeys;
+  const int F = a.F, T = a.T, G = F + T, d = a.d, H = a.heads * d;
+  const int dp = attn_dp(d), pitch = dp + 8, ksteps = dp / 16;
+  const int nqt = attn_fq(F) / 16, nt_tok = min(kAttnKeys, T - t0);
+  const size_t per = tok_warp_bytes(F, d);
+  const size_t rows_elems = (size_t)2 * F * pitch;
+  bf16* frs = reinterpret_cast<bf16*>(smem_raw + warp * per);  // two [2][F][pitch]
+  bf16* scr = frs + 2 * rows_elems;
+  bf16* tk = reinterpret_cast<bf16*>(smem_raw + warps * per);  // [32][pitch]
+  bf16* tv = tk + kAttnKeys * pitch;
+  bf16* zrow = tv + kAttnKeys * pitch;
+  float* bias_t = reinterpret_cast<float*>(zrow + pitch);      // [F][32]
+  float* red = bias_t + F * kAttnKeys;          // [warps][2][32][kFC + 8]
+  const int t = threadIdx.x;
+  const size_t bytes = warps * per + tok_block_bytes(F, d, warps, kFC);
+  for (size_t i = t; i < bytes / 16; i += blockDim.x)
+    reinterpret_cast<uint4*>(smem_raw)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  for (int i = t; i < 2 * nt_tok * d; i += blockDim.x) {
+    const int e = i % d, r = (i / d) % nt_tok, p = i / (d * nt_tok);
+    const size_t src = ((size_t)b * T + t0 + r) * H + h * d + e;
+    (p ? tv : tk)[r * pitch + e] = (p ? a.ev : a.ek)[src];
+  }
+  for (int i = t; i < F * kAttnKeys; i += blockDim.x) {
+    const int r = i / kAttnKeys, j = i % kAttnKeys;
+    if (j < nt_tok)
+      bias_t[i] = a.bias[((size_t)r * G + F + t0 + j) * a.heads + h];
+  }
+  __syncthreads();
+  const int gq = lane >> 2, tq = lane & 3;
+  const int s_begin = blk * kTP, s_end = min(a.S, s_begin + kTP);
+  auto krow = [&](int j) { return tk + j * pitch; };
+  auto vrow = [&](int j) { return tv + j * pitch; };
+
+  for (int f0 = 0; f0 < dp; f0 += kFC) {
+    float sk[kGroups][2][2][4] = {}, sv[kGroups][2][2][4] = {};
+    if (s_begin + warp < s_end)
+      attn_load_rows(frs, a.qkv, a.ga, 2, 1, b, F, a.S, s_begin + warp, H,
+                      h, d, pitch, lane);
+    for (int s = s_begin + warp, buf = 0; s < s_end; s += warps, buf ^= 1) {
+      const bool ahead = s + warps < s_end;
+      if (ahead)
+        attn_load_rows(frs + (buf ^ 1) * rows_elems, a.qkv, a.ga, 2, 1, b,
+                        F, a.S, s + warps, H, h, d, pitch, lane);
+      attn_wait_rows(ahead);
+      const bf16* fr = frs + buf * rows_elems;  // [q, g_acc][F][pitch]
+      const float* mld =
+          a.mld + (((size_t)b * a.heads + h) * a.S + s) * F * 3;
+      for (int qt = 0; qt < nqt; ++qt) {
+        const int i0 = qt * 16;
+        auto qrow = [&](int i) {
+          return i0 + i < F ? fr + (size_t)(i0 + i) * pitch : zrow;
+        };
+        auto grow = [&](int i) {
+          return i0 + i < F ? fr + (size_t)(F + i0 + i) * pitch : zrow;
+        };
+        float m[2], l[2], D[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + gq + 8 * half;
+          m[half] = i < F ? mld[i * 3] : 0.f;
+          l[half] = i < F ? mld[i * 3 + 1] : 1.f;
+          D[half] = i < F ? mld[i * 3 + 2] : 0.f;
+        }
+        float pr[4][4], ds[4][4];
+        attn_scores(pr, qrow, krow, ksteps, lane);
+        attn_scores(ds, grow, vrow, ksteps, lane);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = i0 + gq + 8 * half;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = nt * 8 + 2 * tq + e;
+              float& p = pr[nt][2 * half + e];
+              float& dv = ds[nt][2 * half + e];
+              p = i < F && j < nt_tok
+                      ? expf(p + bias_t[i * kAttnKeys + j] - m[half]) / l[half]
+                      : 0.f;
+              dv = p * (round_bf16(dv) - D[half]);
+              p = round_bf16(p);
+            }
+        }
+        attn_stage_t<true>(scr, ds, lane);
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g)
+          if (f0 + 16 * g < dp)
+            attn_mma_t<true>(sk[g], scr, qrow, f0 + 16 * g, lane);
+        attn_stage_t<false>(scr, pr, lane);
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g)
+          if (f0 + 16 * g < dp)
+            attn_mma_t<false>(sv[g], scr, grow, f0 + 16 * g, lane);
+      }
+      __syncwarp();  // this buffer's reads are done before it is refilled
+    }
+    // the warps' sums to `red`, then added in warp order
+    float* rw = red + (size_t)warp * 2 * kAttnKeys * (kFC + 8);
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = mt * 16 + gq + 8 * half;
+              const int f = 16 * g + nt * 8 + 2 * tq + e;
+              rw[j * (kFC + 8) + f] = sk[g][mt][nt][2 * half + e];
+              rw[(kAttnKeys + j) * (kFC + 8) + f] = sv[g][mt][nt][2 * half + e];
+            }
+    __syncthreads();
+    const size_t pidx = ((size_t)b * a.heads + h) * gridDim.x + blk;
+    float* ptok = a.part_tok + pidx * 2 * T * d;
+    for (int i = t; i < 2 * kAttnKeys * kFC; i += blockDim.x) {
+      const int which = i / (kAttnKeys * kFC), j = (i / kFC) % kAttnKeys;
+      const int f = i % kFC;
+      if (j >= nt_tok || f0 + f >= d) continue;
+      float v = 0.f;
+      for (int w = 0; w < warps; ++w)
+        v += red[((size_t)(w * 2 + which) * kAttnKeys + j) * (kFC + 8) + f];
+      ptok[((size_t)which * T + t0 + j) * d + f0 + f] = v;
+    }
+    __syncthreads();  // `red` is rewritten by the next pass
   }
 }
 
@@ -600,7 +907,8 @@ __device__ __forceinline__ float clip_k(float k, int clip) {
 // qkv (BF, N, 3H) f32, goh (BF, N, H) f32; per (tile, head, frame): the
 // column max m of the (clamped) keys over the tile, z = sum exp(k - m),
 // ctx = sum exp(k - m)^T v, dctx = sum Q^T g_oh with Q = scale
-// softmax_head(q)
+// softmax_head(q). goh null (the head layout's forward): no dctx, and
+// part_dctx is not written
 __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
     const float* __restrict__ qkv, const float* __restrict__ goh,
     float* __restrict__ part_m, float* __restrict__ part_z,
@@ -616,6 +924,7 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
   float* V = P + kLSub * d;           // [kLSub][d]
   float* Q = V + kLSub * d;           // [kLSub][d]
   float* Gs = Q + kLSub * d;          // [kLSub][d]
+  const bool cot = goh != nullptr;
   const int n0 = tt * kLTile, n1 = min(N, n0 + kLTile);
   const float* base = qkv + (size_t)bf * N * 3 * H;
   // the column max: thread t takes feature t % d of every (256 / d)-th token
@@ -646,10 +955,10 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
       const float* row = base + (size_t)(sub + r) * 3 * H + h * d;
       P[i] = expf(clip_k(row[H + c], clip) - mx[c]);
       V[i] = row[2 * H + c];
-      Gs[i] = goh[((size_t)bf * N + sub + r) * H + h * d + c];
+      if (cot) Gs[i] = goh[((size_t)bf * N + sub + r) * H + h * d + c];
     }
     // the query softmax over the head's features, one warp a token
-    for (int r = warp; r < cnt; r += kLStatThreads / 32) {
+    for (int r = warp; cot && r < cnt; r += kLStatThreads / 32) {
       const float* qr = base + (size_t)(sub + r) * 3 * H + h * d;
       float m = -CUDART_INF_F;
       for (int c = lane; c < d; c += 32) m = fmaxf(m, qr[c]);
@@ -666,9 +975,13 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
       if (o < dd) {
         const int ai = o / d, e = o % d;
         float c = cacc[u], dc = dacc[u];
-        for (int r = 0; r < cnt; ++r) {
-          c = fmaf(P[r * d + ai], V[r * d + e], c);
-          dc = fmaf(Q[r * d + ai], Gs[r * d + e], dc);
+        if (cot) {
+          for (int r = 0; r < cnt; ++r) {
+            c = fmaf(P[r * d + ai], V[r * d + e], c);
+            dc = fmaf(Q[r * d + ai], Gs[r * d + e], dc);
+          }
+        } else {
+          for (int r = 0; r < cnt; ++r) c = fmaf(P[r * d + ai], V[r * d + e], c);
         }
         cacc[u] = c;
         dacc[u] = dc;
@@ -683,7 +996,7 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
     const int o = t + u * kLStatThreads;
     if (o < dd) {
       part_ctx[pi * dd + o] = cacc[u];
-      part_dctx[pi * dd + o] = dacc[u];
+      if (cot) part_dctx[pi * dd + o] = dacc[u];
     }
   }
   if (t < d) {
@@ -694,7 +1007,8 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
 
 // one block a (head, frame): the maximum M, zinv, ctx (with 1 / HW) and
 // dctx from the conditioning tokens first, then the tiles in order; S =
-// sum_e dctx ctx; the conditioning tokens' dek and dev
+// sum_e dctx ctx; the conditioning tokens' dek and dev. part_dctx null
+// (the head layout's forward): the normalised ctx alone
 __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_merge(
     const float* __restrict__ part_m, const float* __restrict__ part_z,
     const float* __restrict__ part_ctx, const float* __restrict__ part_dctx,
@@ -713,6 +1027,7 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_merge(
   const size_t pb = (size_t)bf * tiles * heads + h;  // tile k: pb + k heads
   const bf16* ekb = ek + (size_t)bf * Mc * H + h * d;
   const bf16* evb = ev + (size_t)bf * Mc * H + h * d;
+  const bool cot = part_dctx != nullptr;
   if (t < d) {
     float m = -CUDART_INF_F;
     for (int mc = 0; mc < Mc; ++mc)
@@ -739,15 +1054,17 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_merge(
     for (int k = 0; k < tiles; ++k) {
       const size_t pi = pb + (size_t)k * heads;
       c = fmaf(part_ctx[pi * dd + o], expf(part_m[pi * d + ai] - M[ai]), c);
-      dc += part_dctx[pi * dd + o];
+      if (cot) dc += part_dctx[pi * dd + o];
     }
     c *= inv_hw * zi[ai];
-    cs[o] = c;
-    ds[o] = dc;
     const size_t out = ((size_t)bf * heads + h) * dd + o;
     ctx[out] = c;
+    if (!cot) continue;
+    cs[o] = c;
+    ds[o] = dc;
     dctx[out] = dc;
   }
+  if (!cot) return;
   __syncthreads();
   if (t < d) {
     float sv = 0.f;
@@ -872,6 +1189,55 @@ __global__ void __launch_bounds__(kLTokWarps * 32) linear_any_bwd_tokens(
   }
 }
 
+// ---- the head layout's forward (row 8 at any shape): the apply
+
+// one block a (`rows` tokens, frame: 64, or 8 where that leaves fewer
+// than two blocks an SM), 8 warps, a head at a time (the head's ctxn
+// staged in shared memory, as linear_any_bwd_tokens does): Q = scale softmax_head(q) and oh = Q ctxn in f32 (ctxn: the
+// merge's normalised ctx), oh leaving as its bf16 hi and lo parts in ohs
+// (BF N, 2H) = [oh_hi | oh_lo], the A operand of the out-projection
+// against [W_out; W_out]
+__global__ void __launch_bounds__(kLTokWarps * 32) linear_any_head_apply(
+    const float* __restrict__ qkv, const float* __restrict__ ctxn,
+    bf16* __restrict__ ohs, int N, int rows, int heads, int d, float scale) {
+  extern __shared__ float smem_f[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bf = blockIdx.y, n0 = blockIdx.x * rows;
+  const int H = heads * d, dp1 = d + 1;
+  float* cs = smem_f;                           // [d][d + 1] ctxn
+  float* Qv = cs + d * dp1 + warp * kMaxD;      // the warp's Q
+  for (int h = 0; h < heads; ++h) {
+    __syncthreads();
+    const float* cb = ctxn + ((size_t)bf * heads + h) * d * d;
+    for (int o = threadIdx.x; o < d * d; o += kLTokWarps * 32)
+      cs[(o / d) * dp1 + o % d] = cb[o];
+    __syncthreads();
+    for (int r = warp; r < rows; r += kLTokWarps) {
+      const int n = n0 + r;
+      if (n >= N) break;
+      const size_t row = (size_t)bf * N + n;
+      const float* qh = qkv + row * 3 * H + h * d;
+      float m = -CUDART_INF_F;
+      for (int c = lane; c < d; c += 32) m = fmaxf(m, qh[c]);
+      m = vmt::warp_max(m);
+      float sm = 0.f;
+      for (int c = lane; c < d; c += 32) sm += expf(qh[c] - m);
+      const float sc = scale / vmt::warp_sum(sm);
+      for (int c = lane; c < d; c += 32) Qv[c] = expf(qh[c] - m) * sc;
+      __syncwarp();
+      bf16* orow = ohs + row * 2 * H;
+      for (int e = lane; e < d; e += 32) {
+        float o = 0.f;
+        for (int a = 0; a < d; ++a) o = fmaf(Qv[a], cs[a * dp1 + e], o);
+        const float hi = round_bf16(o);
+        orow[h * d + e] = __float2bfloat16(hi);
+        orow[H + h * d + e] = __float2bfloat16(o - hi);
+      }
+      __syncwarp();
+    }
+  }
+}
+
 // ---- workspace carving
 
 struct Carve {
@@ -893,7 +1259,8 @@ struct Carve {
 extern "C" size_t vmt_temporal_block_bwd_any_smem(int F, int T, int d) {
   if (F <= 0 || T < 0 || d <= 0) return 0;
   const int w = bwd_warps(F, T, d);
-  return w ? w * bwd_warp_floats(F, T, d) * sizeof(float) : 0;
+  if (w == 0 || (T > kTokInline && tok_warps(F, d) == 0)) return 0;
+  return w * bwd_warp_bytes(F, T, d) + attn_block_bytes(F, T, d);
 }
 
 namespace {
@@ -902,7 +1269,7 @@ namespace {
 // size only)
 struct TemporalWs {
   bf16 *y, *qkv, *ga, *acc, *dqkv;
-  float *dy, *part_bias, *part_tok, *ln_part, *ln_ws, *contract;
+  float *dy, *part_bias, *part_tok, *mld, *ln_part, *ln_ws, *contract;
   size_t bytes;
 };
 
@@ -921,6 +1288,7 @@ TemporalWs temporal_ws(void* p, int B, int F, int S, int C, int T, int heads,
   w.dy = c.take<float>(R * C);
   w.part_bias = c.take<float>((size_t)B * heads * blocks * F * (F + T));
   w.part_tok = c.take<float>((size_t)B * heads * blocks * 2 * T * d);
+  w.mld = c.take<float>(T > kTokInline ? (size_t)B * heads * S * F * 3 : 0);
   w.ln_part = c.take<float>(lnb * C);
   w.ln_ws = c.take<float>(vmt::colsum_workspace(1, (int)lnb, C) / sizeof(float));
   const size_t c1 = contract_ws(F, B * S, C, 3 * (int)H);
@@ -954,7 +1322,8 @@ extern "C" int vmt_temporal_block_bwd_any(
       (T > 0 && (ek == nullptr || ev == nullptr || dekv == nullptr)))
     return (int)cudaErrorInvalidValue;
   const int warps = bwd_warps(F, T, d);
-  if (warps == 0) return (int)cudaErrorInvalidValue;
+  if (warps == 0 || (T > kTokInline && tok_warps(F, d) == 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int H = heads * d;
   const size_t R = (size_t)B * F * S;
@@ -984,20 +1353,36 @@ extern "C" int vmt_temporal_block_bwd_any(
   a.dqkv = w.dqkv;
   a.part_bias = w.part_bias;
   a.part_tok = w.part_tok;
+  a.mld = T > kTokInline ? w.mld : nullptr;
   a.B = B; a.F = F; a.S = S; a.T = T; a.heads = heads; a.d = d;
-  const size_t smem = (size_t)warps * bwd_warp_floats(F, T, d) * sizeof(float);
-  err = cudaFuncSetAttribute(temporal_any_bwd_attn_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem =
+      warps * bwd_warp_bytes(F, T, d) + attn_block_bytes(F, T, d);
+  auto kern = d <= 32 ? temporal_any_bwd_attn_kernel<32>
+                      : temporal_any_bwd_attn_kernel<64>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (S + kTP - 1) / kTP;
-  temporal_any_bwd_attn_kernel<<<dim3(blocks, heads, B), warps * 32, smem,
-                                 st>>>(a, warps);
+  kern<<<dim3(blocks, heads, B), warps * 32, smem, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int FG = F * (F + T);
   temporal_any_bias_reduce<<<(FG * heads + 255) / 256, 256, 0, st>>>(
       w.part_bias, static_cast<float*>(dbias), B, heads, blocks, FG);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (T > kTokInline) {
+    // the token keys' dk, dv from each query row's m, l, D
+    const int tw = tok_warps(F, d), fc = tok_fc(d);
+    const size_t tsmem = tw * tok_warp_bytes(F, d) + tok_block_bytes(F, d, tw, fc);
+    auto tkern = fc == 32 ? temporal_any_bwd_tok_kernel<32>
+                          : temporal_any_bwd_tok_kernel<64>;
+    err = cudaFuncSetAttribute(tkern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)tsmem);
+    if (err != cudaSuccess) return (int)err;
+    const int tchunks = (T + kAttnKeys - 1) / kAttnKeys;
+    tkern<<<dim3(blocks, heads, B * tchunks), tw * 32, tsmem, st>>>(a);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
   if (T > 0) {
     const size_t n = (size_t)B * 2 * T * H;
     temporal_any_tok_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -1151,4 +1536,113 @@ extern "C" int vmt_linear_block_bwd_any(
   return (int)launch_contract(rows_of(w.oh, H), rows_of(g, C),
                               static_cast<float*>(dw_out), 1, (int)R, H, C,
                               w.contract, st);
+}
+
+namespace {
+
+struct HeadWs {
+  bf16 *y, *ohs, *w2;
+  float *qkv, *part_m, *part_z, *part_ctx, *ctxn;
+  size_t bytes;
+};
+
+HeadWs head_ws(void* p, int BF, int N, int C, int heads, int d) {
+  Carve c{static_cast<char*>(p)};
+  const size_t R = (size_t)BF * N, H = (size_t)heads * d;
+  const size_t parts = (size_t)BF * ((N + kLTile - 1) / kLTile) * heads;
+  HeadWs w;
+  w.y = c.take<bf16>(R * C);
+  w.qkv = c.take<float>(R * 3 * H);
+  w.part_m = c.take<float>(parts * d);
+  w.part_z = c.take<float>(parts * d);
+  w.part_ctx = c.take<float>(parts * d * d);
+  w.ctxn = c.take<float>((size_t)BF * heads * d * d);
+  w.ohs = c.take<bf16>(R * 2 * H);
+  w.w2 = c.take<bf16>(2 * H * C);
+  w.bytes = c.used;
+  return w;
+}
+
+}  // namespace
+
+extern "C" size_t vmt_linear_head_any_workspace(int BF, int N, int C,
+                                                int heads, int d) {
+  return head_ws(nullptr, BF, N, C, heads, d).bytes;
+}
+
+// The head layout's forward at any shape (d <= 64), row 8's any-shape
+// instance: replaces videometamaterials_tpu/ops/pallas/fused_linear_block.py
+// :_kernel (pallas_call in _run_kernel) outside the specialised set of
+// vmt_linear_head. x (BF, N, C) bf16; gamma (C) f32; w_qkv (C, 3H), w_out
+// (H, C) bf16; out_bias (C) f32; ek/ev (BF, Mc, H) bf16 or null when
+// Mc == 0. Out: out (BF, N, C) bf16. workspace:
+// vmt_linear_head_any_workspace() bytes. The arithmetic of the JAX head
+// kernel and of the specialised instance, from the pieces above:
+//   y = bf16(LN(x) gamma); q, k, v = y @ w_qkv in f32 (any_gemm_kernel);
+//   the token sums of the backward (linear_any_bwd_partial / _merge, clip
+//   0, no cotangent): the column max of the unclamped keys, exp(k - m)^T v
+//   over 256-token tiles, merged with the conditioning tokens first, ctx
+//   normalised by z, all f32;
+//   Q = scale softmax_head(q), oh = Q ctxn in f32 (linear_any_head_apply);
+//   out = bf16(x + out_bias + oh @ W_out), oh meeting the bf16 W_out as
+//   its bf16 hi + lo parts: one product [oh_hi | oh_lo] @ [W_out; W_out]
+//   with K = 2H on the tensor cores (any_gemm_kernel, residual epilogue).
+// What bounds it on an H100: the specialised instance's work (the QKV
+// projection, two per-head d x d products a token, the out-projection
+// twice over): operations at the bf16 tensor-core rate at the path shapes;
+// it is simple first (the per-head products on the CUDA cores, the f32
+// q, k, v through device memory), not fast.
+extern "C" int vmt_linear_head_any(
+    const void* x, const void* gamma, const void* w_qkv, const void* w_out,
+    const void* out_bias, const void* ek, const void* ev, void* out,
+    void* workspace, int BF, int N, int C, int Mc, int heads, int d,
+    float scale, float inv_hw, void* stream) {
+  if (BF <= 0 || N <= 0 || C <= 0 || Mc < 0 || heads <= 0 || d <= 0 ||
+      d > kMaxD || (Mc > 0 && (ek == nullptr || ev == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int H = heads * d;
+  const size_t R = (size_t)BF * N;
+  const HeadWs w = head_ws(workspace, BF, N, C, heads, d);
+  cudaError_t err = launch_ln(static_cast<const bf16*>(x),
+                              static_cast<const float*>(gamma), w.y, R, C, st);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm(gemm(w.y, C, 0, static_cast<const bf16*>(w_qkv), 3 * H, 0,
+                         1, w.qkv, 3 * H, 0, (int)R, 3 * H, C),
+                    1, kStoreF32, st);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (N + kLTile - 1) / kLTile;
+  const size_t psmem = ((size_t)kMaxD + kLStatThreads + 4 * kLSub * d) *
+                       sizeof(float);
+  linear_any_bwd_partial<<<dim3(tiles, heads, BF), kLStatThreads, psmem, st>>>(
+      w.qkv, nullptr, w.part_m, w.part_z, w.part_ctx, nullptr, N, heads, d,
+      1.f, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t msmem = ((size_t)2 * d * d + 3 * d) * sizeof(float);
+  linear_any_bwd_merge<<<dim3(heads, BF), kLStatThreads, msmem, st>>>(
+      w.part_m, w.part_z, w.part_ctx, nullptr, static_cast<const bf16*>(ek),
+      static_cast<const bf16*>(ev), w.ctxn, nullptr, nullptr, nullptr,
+      nullptr, tiles, Mc, heads, d, inv_hw, 0);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t asmem =
+      ((size_t)d * (d + 1) + (size_t)kLTokWarps * kMaxD) * sizeof(float);
+  const int arows =
+      (size_t)BF * ((N + kLTokRows - 1) / kLTokRows) >= 2 * 132 ? kLTokRows
+                                                                 : kLTokWarps;
+  linear_any_head_apply<<<dim3((N + arows - 1) / arows, BF), kLTokWarps * 32,
+                          asmem, st>>>(w.qkv, w.ctxn, w.ohs, N, arows, heads,
+                                       d, scale);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  // [W_out; W_out]: the K = 2H operand of the split out-projection
+  const size_t wbytes = (size_t)H * C * sizeof(bf16);
+  err = cudaMemcpyAsync(w.w2, w_out, wbytes, cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemcpyAsync(w.w2 + (size_t)H * C, w_out, wbytes,
+                        cudaMemcpyDeviceToDevice, st);
+  if (err != cudaSuccess) return (int)err;
+  Gemm g = gemm(w.ohs, 2 * H, 0, w.w2, C, 0, 1, out, C, 0, (int)R, C, 2 * H);
+  g.res = static_cast<const bf16*>(x);
+  g.ldr = C;
+  g.bias = static_cast<const float*>(out_bias);
+  return (int)launch_gemm(g, 1, kResidual, st);
 }

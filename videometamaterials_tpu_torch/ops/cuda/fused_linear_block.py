@@ -5,7 +5,8 @@ point.
 Replaces videometamaterials_tpu/ops/pallas/fused_linear_block.py:
 _merged_stats_kernel and _merged_apply_kernel, and _kernel, the "head"
 layout (csrc/fused_linear_block.cu, the apply's head mode after the
-backward's stats pass), and both
+backward's stats pass; csrc/any_shape_bwd.cu off the flagship's shapes),
+and both
 backward kernels, _bwd_kernel (per-head) and _bwd_kernel_merged
 (csrc/fused_linear_block_bwd.cu and csrc/any_shape_bwd.cu, each one source
 with a clip flag); each source note gives the bounds and the design.
@@ -32,13 +33,12 @@ where the JAX package reads them (fused_linear_block.py:569, :906).
 Only the eight diagonal (32 x 32) blocks of the TPU kernel's masked
 (256 x 256) context are computed: ctx is (B, heads, d, d).
 
-Rows 4 and 5 (stats and apply) and 6 and 7 (the backward) have two
-instances each, picked from the shape alone (`forward_instance`): the
-specialised kernels at the flagship's shapes (8 heads of 32, C in
-CHANNELS; any N and Mc) and the any-shape kernels (csrc/any_shape.cu,
-csrc/any_shape_bwd.cu: any heads, d up to 64 in the stats and the
-backward, C, N and Mc) at every other. The head layout (row 8) takes the
-flagship's shapes only (HEAD_LAYOUT_ITEM).
+Rows 4 and 5 (stats and apply), 6 and 7 (the backward) and 8 (the head
+layout) have two instances each, picked from the shape alone
+(`forward_instance`): the specialised kernels at the flagship's shapes (8
+heads of 32, C in CHANNELS; any N and Mc) and the any-shape kernels
+(csrc/any_shape.cu, csrc/any_shape_bwd.cu: any heads, d up to 64 in the
+stats, the head layout and the backward, C, N and Mc) at every other.
 """
 
 from __future__ import annotations
@@ -69,7 +69,6 @@ LAYOUTS = ("merged", "head")
 SPECIALISED, ANY_SHAPE = "specialised", "any"
 # tokens a block of the any-shape stats pass
 ANY_STATS_TILE = 256
-HEAD_LAYOUT_ITEM = "ROADMAP.md Queue 2: row 8 (the head layout) at every shape"
 
 
 def stats_tile(n: int) -> int:
@@ -80,10 +79,11 @@ def stats_tile(n: int) -> int:
 
 
 def forward_instance(heads: int, dim_head: int, c: int) -> str:
-    """The instance of rows 4-7 a launch at this shape takes: SPECIALISED
+    """The instance of rows 4-8 a launch at this shape takes: SPECIALISED
     (LAUNCH_COUNTS 'linear_stats', 'linear_apply', 'linear_bwd_head',
-    'linear_bwd_merged') at the flagship's shapes, ANY_SHAPE (the same
-    names with '_any') at every other. A pure function of the shape."""
+    'linear_bwd_merged', 'linear_head') at the flagship's shapes,
+    ANY_SHAPE (the same names with '_any') at every other. A pure function
+    of the shape."""
     if heads == HEADS and dim_head * heads == HIDDEN and c in CHANNELS:
         return SPECIALISED
     return ANY_SHAPE
@@ -162,22 +162,15 @@ def linear_block_plain(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
                               heads=heads, scale=scale)
 
 
-def _check_common(x, gamma, w_qkv, heads,
-                  specialised: bool = True) -> tuple[int, int]:
-    """x, gamma and w_qkv of a launch; `specialised` adds the specialised
-    kernels' shapes (8 heads of 32, C in CHANNELS). Returns (hidden, d)."""
+def _check_common(x, gamma, w_qkv, heads) -> tuple[int, int]:
+    """x, gamma and w_qkv of a launch (the instance comes from the shape,
+    `forward_instance`). Returns (hidden, d)."""
     req = _build.require
     req(x.is_cuda, "the kernels take CUDA tensors")
     req(x.dtype == torch.bfloat16 and x.dim() == 3 and x.is_contiguous(),
         "x must be contiguous bf16 (B, N, C)")
     c = x.shape[2]
     hidden = w_qkv.shape[1] // 3
-    if specialised:
-        later = f"; other shapes are {HEAD_LAYOUT_ITEM}"
-        req(c in CHANNELS,
-            f"the kernels take C in {CHANNELS}, got {c}{later}")
-        req(heads == HEADS and hidden == HIDDEN,
-            f"the kernels take {HEADS} heads of 32{later}")
     req(heads > 0 and hidden > 0 and hidden % heads == 0,
         f"hidden {hidden} is not a multiple of {heads} heads")
     req(gamma.dtype == torch.float32 and tuple(gamma.shape) == (c,)
@@ -279,7 +272,7 @@ def _stats_any(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
     """Row 4 through the any-shape kernel: LN, k || v in float32, partial
     sums over ANY_STATS_TILE tokens and the ordered reduce, its scratch
     allocated here."""
-    hidden, d = _check_common(x, gamma, w_qkv, heads, specialised=False)
+    hidden, d = _check_common(x, gamma, w_qkv, heads)
     _build.require(d <= 64, f"the any-shape stats take d up to 64, got {d}")
     b, n, c = x.shape
     m_c = _check_cond(ek, ev, x, hidden)
@@ -307,7 +300,7 @@ def _apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
     """Row 5 through the any-shape kernel: LN, q in float32, the per-head
     softmax and q ctx, the out-projection with out_bias and the residual,
     its scratch allocated here."""
-    hidden, d = _check_common(x, gamma, w_qkv, heads, specialised=False)
+    hidden, d = _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
     req = _build.require
     req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous()
@@ -384,15 +377,18 @@ def linear_block_head(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
                       heads: int, scale: float, spatial_size: int):
     """x + block(x) through the head-layout kernel (its operands as
     linear_block_fwd's). A CPU tensor takes the plain twin; a CUDA tensor
-    launches the kernel (online-max stats, ordered merge, apply) or
-    raises. W_out is bf16 here: the JAX model hands its kernel a weight
-    cast to the compute dtype, which it then reads in float32; the
-    kernel's out-projection takes those bf16 values exactly against the hi
-    and lo bf16 parts of the float32 oh."""
+    launches the instance `forward_instance` names (online-max stats,
+    ordered merge, apply) or raises. W_out is bf16 here: the JAX model
+    hands its kernel a weight cast to the compute dtype, which it then
+    reads in float32; the kernel's out-projection takes those bf16 values
+    exactly against the hi and lo bf16 parts of the float32 oh."""
     if x.device.type == "cpu":
         return linear_block_head_plain(x, gamma, w_qkv, w_out, out_bias, ek,
                                        ev, heads=heads, scale=scale,
                                        spatial_size=spatial_size)
+    if _instance(x, w_qkv, heads) == ANY_SHAPE:
+        return _head_any(x, gamma, w_qkv, w_out, out_bias, ek, ev,
+                         heads=heads, scale=scale, spatial_size=spatial_size)
     _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
     req = _build.require
@@ -414,6 +410,39 @@ def linear_block_head(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
         1.0 / spatial_size, _build.stream_handle(x.device))
     _build.check_launch(lib, err, "linear_block_head")
     _build.LAUNCH_COUNTS["linear_head"] += 1
+    return out
+
+
+def _head_any(x, gamma, w_qkv, w_out, out_bias, ek, ev, *, heads: int,
+              scale: float, spatial_size: int):
+    """Row 8 through the any-shape kernel (csrc/any_shape_bwd.cu): LN, q,
+    k, v in float32, the backward's token sums without a cotangent (ctx
+    normalised, keys unclamped), the per-head float32 apply and the
+    out-projection of oh's bf16 hi + lo parts; one workspace allocated
+    here."""
+    hidden, d = _check_common(x, gamma, w_qkv, heads)
+    _build.require(d <= 64,
+                   f"the any-shape head layout takes d up to 64, got {d}")
+    b, n, c = x.shape
+    req = _build.require
+    req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous()
+        and tuple(w_out.shape) == (hidden, c) and w_out.device == x.device,
+        "w_out must be contiguous bf16 (hidden, C)")
+    req(out_bias.dtype == torch.float32 and out_bias.is_contiguous()
+        and tuple(out_bias.shape) == (c,) and out_bias.device == x.device,
+        "out_bias must be float32 (C,)")
+    m_c = _check_cond(ek, ev, x, hidden)
+    lib = _build.load_library()
+    out = torch.empty_like(x)
+    ws = _build.workspace(lib.vmt_linear_head_any_workspace(b, n, c, heads,
+                                                            d), x.device)
+    p = _build.ptr
+    err = lib.vmt_linear_head_any(
+        p(x), p(gamma), p(w_qkv), p(w_out), p(out_bias), p(ek), p(ev),
+        p(out), p(ws), b, n, c, m_c, heads, d, scale, 1.0 / spatial_size,
+        _build.stream_handle(x.device))
+    _build.check_launch(lib, err, "linear_head_any")
+    _build.LAUNCH_COUNTS["linear_head_any"] += 1
     return out
 
 
@@ -572,7 +601,7 @@ def _bwd_any(x, gamma, w_qkv, w_out, ek, ev, g, *, heads: int, scale: float,
     projections, the token sums as ordered partials, the per-token
     cotangents, dy and the LN backward, the weight sums; one workspace
     allocated here, the weights handed transposed for dy and g_oh."""
-    hidden, d = _check_common(x, gamma, w_qkv, heads, specialised=False)
+    hidden, d = _check_common(x, gamma, w_qkv, heads)
     _build.require(d <= 64,
                    f"the any-shape backward takes d up to 64, got {d}")
     b, n, c = x.shape

@@ -281,9 +281,9 @@ def _fwd_any(x, gamma, w_all, w_out, ek, ev, bias_all, heads, emit_p=False):
     b, f, s, c = x.shape
     t_tok = 0 if ek is None else ek.shape[1]
     lib = _build.load_library()
-    _build.require(lib.vmt_temporal_block_any_smem(f, d) > 0,
+    _build.require(lib.vmt_temporal_block_any_smem(f, t_tok, d) > 0,
                    f"one warp's shared memory of the attention stage does "
-                   f"not fit at F = {f}, dim_head = {d}")
+                   f"not fit at F = {f}, T = {t_tok}, dim_head = {d}")
     hidden = heads * d
     out = torch.empty_like(x)
     y = torch.empty_like(x)
