@@ -182,11 +182,20 @@ Phases, each printing its wall time as it finishes:
              WIDTH_C x T in WIDTH_T at S = 144, two shapes at S = 9191 and
              the attention stages' tiles (F = 24: two query tiles; d =
              40: off the k-steps of 16; WIDTH_TILE_TEMPORAL),
-             rows 4-5 over the same heads, C and Mc at N = 144 and two at
-             N = 9191, each against its twin at phase 2's tolerances with
-             two launches bit-equal, the any-shape instances against the
-             specialised ones at two flagship shapes, and their times at
-             the configurations' largest shapes; (b) three edits of
+             rows 4-5 over the same heads, C and Mc at N = 144, two at
+             N = 9191 and the tiles of their plan (WIDTH_TILE_LINEAR: d
+             = 40 and 20 off the k-steps of 16, C streaming several
+             K-chunks and off 16-byte rows, 12 heads in two groups, 3
+             heads in stats groups of 2 at 9191 tokens, and 32 and 40
+             heads of 64, whose oh tile shrinks the apply's token tile
+             to 32 and 16; `wlinear_kernels`), each against
+             its twin at phase 2's tolerances with two launches
+             bit-equal and the C launch plan equal to
+             `fused_linear_block.any_plan`, the any-shape instances
+             against the specialised ones at two flagship shapes, and
+             their times at the configurations' largest shapes (rows
+             4-5: every heads4x64 level, wide's C = 1024, and the
+             flagship's level 0 beside the specialised instances); (b) three edits of
              model.yaml with the fused plans on and seeded weights, wide
              (unet_dim 128: C = 1024 any-shape), heads4x64 (4 heads of
              64: every block any-shape) and tokens96 (the CNN hidden
@@ -366,14 +375,16 @@ PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
 # the device functions of the tensor-core kernels (rows 1-8 of PERF.md's
 # kernel table: linear_apply_kernel<C, false> row 5, <C, true> row 8's
 # apply, whose stats pass it shares with rows 6-7; the contraction of rows
-# 3, 6 and 7; the projections of the any-shape rows 1-8 and the attention
-# stages of the any-shape rows 1-3, with row 3's token keys): their ptxas
+# 3, 6 and 7; the projections of the any-shape rows 1-3 and 6-8, the
+# fused any-shape rows 4-5, and the attention stages of the any-shape rows
+# 1-3, with row 3's token keys): their ptxas
 # resources are printed and their SASS must hold tensor-core instructions
 # (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "temporal_bwd_attn_kernel", "temporal_bwd_dx_kernel",
                        "contract_partial", "linear_stats_partial",
-                       "linear_apply_kernel", "linear_bwd_stats_kernel",
+                       "linear_apply_kernel", "linear_any_stats_kernel",
+                       "linear_any_apply_kernel", "linear_bwd_stats_kernel",
                        "linear_bwd_dx_kernel", "any_gemm_kernel",
                        "temporal_any_attn_kernel",
                        "temporal_any_bwd_attn_kernel",
@@ -3504,6 +3515,19 @@ WIDTH_RAGGED_LINEAR = [((4, 32), 96, 11), ((8, 32), 32, 0)]
 # the attention stages' tiles at S = WIDTH_S: two query tiles (F = 24) and
 # a head width off the k-steps of 16 (d = 40), (F, (heads, d), C, T)
 WIDTH_TILE_TEMPORAL = [(24, (4, 64), 96, 11), (11, (4, 40), 96, 11)]
+# the any-shape rows 4-5's plans, ((heads, d), C, Mc, BF, N): d = 40 and
+# 20 (a head's padded columns), C = 96 and 1024 (three and 32 K-chunks), C
+# = 36 and d = 20 (x and weight rows off 16 bytes), 12 heads of 16 (two q
+# groups), 3 heads of 40 at 9191 tokens (256-token stats tiles, head
+# groups of 2 and 1, the 64-token apply tile), 32 and 40 heads of 64 (the
+# oh tile sets the apply's token tile to 32 and 16)
+WIDTH_TILE_LINEAR = [((4, 40), 96, 11, 22, WIDTH_S),
+                     ((3, 40), 1024, 0, 22, WIDTH_S),
+                     ((5, 20), 36, 3, 22, WIDTH_S),
+                     ((12, 16), 40, 1, 22, WIDTH_S),
+                     ((3, 40), 96, 5, 4, 9191),
+                     ((32, 64), 64, 1, 2, 9191),
+                     ((40, 64), 32, 0, 2, 2304)]
 # (b), (c): model.yaml with these keys changed, and each eps's launches a
 # kernel of a guided step (the CFG pair one batch of 2)
 WIDTH_CONFIGS = {
@@ -3695,6 +3719,7 @@ def width_linear_check(a, heads, what):
     d = a["w_out"].shape[0] // heads
     if lin.forward_instance(heads, d, c) != lin.ANY_SHAPE:
         raise AssertionError(f"{what}: routed to the specialised instances")
+    check_any_plan(bf_, n, c, heads, d, what)
     kw = dict(heads=heads, spatial_size=n)
     sargs = (a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"])
     (ctx_k, z_k), n1 = _launched("linear_stats_any",
@@ -3725,15 +3750,109 @@ def width_linear_check(a, heads, what):
     return err_s, err_a
 
 
+def check_any_plan(bf_, n, c, heads, d, what) -> dict:
+    """The launch plan of the any-shape rows 4-5 that the library takes
+    (vmt_linear_any_plan) must be `fused_linear_block.any_plan`'s."""
+    import ctypes
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    want = lin.any_plan(bf_, n, c, heads, d)
+    keys = ("dp", "stats_tile", "stats_group", "stats_res", "stats_stages",
+            "stats_smem", "apply_tile", "apply_span", "apply_group",
+            "apply_res", "apply_stages", "apply_smem")
+    got = (ctypes.c_int * len(keys))()
+    err = _build.load_library().vmt_linear_any_plan(bf_, n, c, heads, d,
+                                                    ctypes.addressof(got))
+    if err or dict(zip(keys, got)) != want:
+        raise AssertionError(f"{what}: the C launch plan {list(got)} (error "
+                             f"{err}) is not the Python plan {want}")
+    return want
+
+
+def any_occupancy(bf_, n, c, heads, d) -> tuple[int, int]:
+    """Blocks an SM of the any-shape stats and apply kernels at their plan
+    for this shape (vmt_linear_any_occupancy)."""
+    import ctypes
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+
+    lib = _build.load_library()
+    out = (ctypes.c_int * 2)()
+    err = lib.vmt_linear_any_occupancy(bf_, n, c, heads, d,
+                                       ctypes.addressof(out))
+    _build.check_launch(lib, err, "vmt_linear_any_occupancy")
+    return out[0], out[1]
+
+
+def wlinear_kernels(report, root: Path) -> dict:
+    """13 (a), rows 4-5: the any-shape instances over WIDTH_HEADS x WIDTH_C
+    x WIDTH_T (as Mc) at 22 frames of WIDTH_S tokens, WIDTH_RAGGED_LINEAR
+    at 9191 tokens and WIDTH_TILE_LINEAR (`width_linear_check`: the twins'
+    tolerances, two launches bit-equal, the C plan the Python plan's).
+    Returns the largest errors {row: err}. Alone, the quick check of a
+    broken copy of the rows 4-5 kernels (scripts/torch_any_shape_mutants.py;
+    root unused)."""
+    import itertools
+
+    import torch
+
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    gen = torch.Generator(device="cuda").manual_seed(131)
+    worst = dict(linear_stats_any=0.0, linear_apply_any=0.0)
+    shapes = ([(hd, c, m_c, 22, WIDTH_S) for hd, c, m_c in
+               itertools.product(WIDTH_HEADS, WIDTH_C, WIDTH_T)]
+              + [(hd, c, m_c, 22, 9191) for hd, c, m_c in WIDTH_RAGGED_LINEAR]
+              + WIDTH_TILE_LINEAR)
+    plans = set()
+    for (heads, d), c, m_c, bf_, n in shapes:
+        a = linear_inputs(bf_, n, c, gen, m_c, heads, d)
+        err_s, err_a = width_linear_check(
+            a, heads, f"linear any {heads}x{d} C={c} Mc={m_c} BF={bf_} "
+            f"N={n}")
+        worst["linear_stats_any"] = max(worst["linear_stats_any"], err_s)
+        worst["linear_apply_any"] = max(worst["linear_apply_any"], err_a)
+        plan = lin.any_plan(bf_, n, c, heads, d)
+        plans.add((plan["dp"], plan["stats_tile"], plan["stats_group"],
+                   plan["stats_res"], plan["apply_span"], plan["apply_tile"],
+                   plan["apply_res"]))
+        del a
+    torch.cuda.empty_cache()
+    log(f"  rows 4-5 any-shape: {len(shapes)} shapes (heads x d in "
+        f"{WIDTH_HEADS}, C in {WIDTH_C}, Mc in {WIDTH_T}, N = {WIDTH_S}; "
+        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191; {WIDTH_TILE_LINEAR} as "
+        f"((heads, d), C, Mc, BF, N)), plans (dp, stats tile, stats group, "
+        f"stats resident, apply span, apply tile, apply resident) "
+        f"{sorted(plans)}: each two launches bit-equal, the C plan the "
+        f"Python plan's, stats max_abs_err {worst['linear_stats_any']:.3e} "
+        f"(ctx tol {CTX_SHARE:.2e} of its summands' magnitude, z "
+        f"{STATS_TOL}), apply update err {worst['linear_apply_any']:.3e} "
+        f"(tol {APPLY_TOL} of its max)")
+    return worst
+
+
+# rows 4-5 any-shape timed: (config, BF, N, C, Mc, heads, d) at every
+# heads4x64 level, wide's C = 1024, and the flagship's level 0 (the
+# specialised instances' own shape and work, launched through the
+# any-shape wrappers beside them)
+WIDTH_LINEAR_TIMED = ([("wide", 22, 144, 1024, 1, 8, 32)]
+                      + [("heads4x64", 22, n, c, 1, 4, 32)
+                         for n, c in ((9216, 64), (2304, 128), (576, 256),
+                                      (144, 512))]
+                      + [("flagship", 22, 9216, 64, 1, 8, 32)])
+
+
 def width_kernels(report, root: Path) -> dict:
     """13 (a): the any-shape instances against their twins at the
     configurations' path shapes (`width_path_kernels`, whose shapes it
-    returns), then over the grid (WIDTH_F x WIDTH_HEADS x WIDTH_C x WIDTH_T for row 1, WIDTH_HEADS x
-    WIDTH_C x WIDTH_T as Mc for rows 4-5, 2 batch rows / 22 frames of
-    WIDTH_S positions) and at 9191 positions, two launches bit-equal; the
-    any-shape instances against the specialised ones at two flagship
-    shapes; and each instance's time at the three configurations'
-    largest shapes."""
+    returns), then over the grid (WIDTH_F x WIDTH_HEADS x WIDTH_C x
+    WIDTH_T for row 1 at 2 batch rows of WIDTH_S positions, with
+    WIDTH_TILE_TEMPORAL; rows 4-5 in `wlinear_kernels`) and at 9191
+    positions, two launches bit-equal; the any-shape instances against
+    the specialised ones at two flagship shapes; and each instance's time
+    at the configurations' largest shapes (rows 4-5: WIDTH_LINEAR_TIMED)."""
     import itertools
 
     import torch
@@ -3769,29 +3888,7 @@ def width_kernels(report, root: Path) -> dict:
         f"{len(WIDTH_RAGGED_TEMPORAL)} at S = 9191; {WIDTH_TILE_TEMPORAL} "
         f"as (F, (heads, d), C, T)): two launches bit-equal, "
         f"max_abs_err {worst['temporal_block_any']:.3e} (tol {BF16_TOL})")
-    n_l = 0
-    for (heads, d), c, m_c in itertools.product(WIDTH_HEADS, WIDTH_C,
-                                                WIDTH_T):
-        a = linear_inputs(22, WIDTH_S, c, gen, m_c, heads, d)
-        err_s, err_a = width_linear_check(
-            a, heads, f"linear any {heads}x{d} C={c} Mc={m_c}")
-        worst["linear_stats_any"] = max(worst["linear_stats_any"], err_s)
-        worst["linear_apply_any"] = max(worst["linear_apply_any"], err_a)
-        n_l += 1
-    for (heads, d), c, m_c in WIDTH_RAGGED_LINEAR:
-        a = linear_inputs(22, 9191, c, gen, m_c, heads, d)
-        err_s, err_a = width_linear_check(
-            a, heads, f"linear any {heads}x{d} C={c} Mc={m_c} N=9191")
-        worst["linear_stats_any"] = max(worst["linear_stats_any"], err_s)
-        worst["linear_apply_any"] = max(worst["linear_apply_any"], err_a)
-        n_l += 1
-    log(f"  rows 4-5 any-shape: {n_l} shapes (heads x d in {WIDTH_HEADS}, "
-        f"C in {WIDTH_C}, Mc in {WIDTH_T}, N = {WIDTH_S}; "
-        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191): each two launches "
-        f"bit-equal, stats max_abs_err {worst['linear_stats_any']:.3e} "
-        f"(ctx tol {CTX_SHARE:.2e} of its summands' magnitude, z "
-        f"{STATS_TOL}), apply update err {worst['linear_apply_any']:.3e} "
-        f"(tol {APPLY_TOL} of its max)")
+    worst.update(wlinear_kernels(report, root))
 
     # the any-shape instances against the specialised ones (flagship)
     for b, s, c in ((2, 9216, 64), (2, 144, 512)):
@@ -3841,37 +3938,57 @@ def width_kernels(report, root: Path) -> dict:
                 max_abs_err=worst["temporal_block_any"], ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
                 shape=[b, f, s, c, t_tok, heads, d])
-    for name, bf_, n, c, m_c, heads, d in (
-            ("wide", 22, 144, 1024, 1, 8, 32),
-            ("heads4x64", 22, 9216, 64, 1, 4, 32)):
+    for name, bf_, n, c, m_c, heads, d in WIDTH_LINEAR_TIMED:
         a = linear_inputs(bf_, n, c, gen, m_c, heads, d)
         kw = dict(heads=heads, spatial_size=n)
         sargs = (a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"])
         aargs = (a["x"], a["gamma"], a["w_qkv"], a["w_out"], a["out_bias"],
                  a["ctx"], a["z"])
         akw = dict(heads=heads, scale=d ** -0.5)
-        width_linear_check(a, heads, f"linear any timed ({name})")
+        level0 = n == 9216
+        plan = lin.any_plan(bf_, n, c, heads, d)
+        occ = dict(zip(("linear_stats_any", "linear_apply_any"),
+                       any_occupancy(bf_, n, c, heads, d)))
+        if name == "flagship":
+            check_any_plan(bf_, n, c, heads, d, "linear any timed (flagship)")
+            stats, apply_ = lin._stats_any, lin._apply_any
+        else:
+            width_linear_check(a, heads, f"linear any timed ({name} N={n})")
+            stats, apply_ = lin.linear_stats, lin.linear_apply
         rows = {
             "linear_stats_any": (
+                lambda: stats(*sargs, **kw),
                 lambda: lin.linear_stats(*sargs, **kw),
                 lambda: lin.linear_stats_plain(*sargs, **kw),
                 stats_cost(bf_, n, c, m_c, heads=heads, d=d)),
             "linear_apply_any": (
+                lambda: apply_(*aargs, **akw),
                 lambda: lin.linear_apply(*aargs, **akw),
                 lambda: lin.linear_apply_plain(*aargs, **akw),
                 apply_cost(bf_, n, c, heads=heads, d=d))}
-        for row, (kernel, plain, cost) in rows.items():
+        for row, (kernel, spec, plain, cost) in rows.items():
             ms = cuda_ms(kernel)
-            plain_ms = cuda_ms(plain, reps=2, warmup=1)
             bound_ms, by = bound(*cost)
+            extra = ""
+            if name == "flagship":
+                extra = f", specialised instance {cuda_ms(spec):.3f} ms"
+            plain_ms = None
+            if name == "wide" or (name == "heads4x64" and level0):
+                plain_ms = cuda_ms(plain, reps=2, warmup=1)
+                extra = f", twin {plain_ms:.3f} ms"
+            kind = row.split("_")[1]
+            mode = "resident" if plan[f"{kind}_res"] else "streamed"
             log(f"  {row} ({name}: BF={bf_} N={n} C={c} Mc={m_c} "
-                f"{heads}x{d}): {ms:.3f} ms ({rate(ms, cost[1], bound_ms)}), "
-                f"twin {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
-            if name == "heads4x64":
+                f"{heads}x{d}): {ms:.3f} ms ({rate(ms, cost[1], bound_ms)})"
+                f"{extra}, bound {bound_ms:.4f} ms ({by}); {mode}, "
+                f"{occ[row]} blocks an SM")
+            if name == "heads4x64" and level0:
                 report[row].update(
                     max_abs_err=worst[row], ms=ms, plain_ms=plain_ms,
                     bound_ms=bound_ms, bound_by=by,
                     shape=[bf_, n, c, m_c, heads, d])
+        del a
+        torch.cuda.empty_cache()
     return path_shapes
 
 

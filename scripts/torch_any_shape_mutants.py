@@ -1,10 +1,12 @@
-"""Mutation check of chip_smoke.py phases 14 (a) and 15 (a): five copies
-of the port under OUT_DIR, each with one deliberate fault in one any-shape
-instance (row 2's p halved, row 3's dbias dropped, row 6's S term
-dropped, row 7's clip dropped, row 8's lo part of oh dropped), built side
-by side; each copy's phase check (`chip_smoke.wtrain_kernels`, or
-`chip_smoke.whead_kernels` for row 8) must raise. Exits non-zero if one
-does not.
+"""Mutation check of chip_smoke.py phases 13 (a), 14 (a) and 15 (a): seven
+copies of the port under OUT_DIR, each with one deliberate fault in one
+any-shape instance (row 2's p halved, row 3's dbias dropped, row 4's last
+ragged token sub-tile dropped, row 5's padded head columns counted in the
+softmax sum, row 6's S term dropped, row 7's clip dropped, row 8's lo
+part of oh dropped), built side by side; each copy's phase check
+(`chip_smoke.wlinear_kernels` for rows 4-5, `chip_smoke.whead_kernels`
+for row 8, `chip_smoke.wtrain_kernels` for the rest) must raise. Exits
+non-zero if one does not.
 
 Run on one GPU from the root of a checkout, OUT_DIR a directory outside
 its sources (the copies build there):
@@ -30,6 +32,18 @@ MUTANTS = {
     "row3_no_dbias": (CSRC + "any_shape_bwd.cu",
                       "dbw[i * gp + j] += ds[nt][2 * half + e];",
                       "dbw[i * gp + j] += 0.f;", "wtrain_kernels"),
+    # row 4: a tile's last sub-tile dropped where it is ragged (N = 144:
+    # tiles of 64, 64 and 16 tokens)
+    "row4_no_ragged_subtile": (
+        CSRC + "any_shape.cu",
+        "const int n_sub = (n_end - n_begin + kLinStatM - 1) / kLinStatM;",
+        "const int n_sub = (n_end - n_begin) / kLinStatM;",
+        "wlinear_kernels"),
+    # row 5: a head's padded columns (d = 40 and 20 pad to 48 and 32)
+    # counted in its feature softmax's sum
+    "row5_pad_in_softmax": (CSRC + "any_shape.cu",
+                            "return in_head ? expf(q - m) : 0.f;",
+                            "return expf(q - m);", "wlinear_kernels"),
     # row 6 (per-head, clip 0): the softmax's S term dropped from dk
     "row6_no_S": (CSRC + "any_shape_bwd.cu",
                   "dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - S[c]);",

@@ -2,13 +2,15 @@
 """Time the port's temporal kernels and linear kernels of one tree.
 
 Times, with CUDA events (chip_smoke.py's `cuda_ms`: 2 launches to warm,
-then the mean of 5), every shape that the sampling and training paths give
+then the mean of 5; the any-shape rows 1-3 and 8 1 and 3, rows 4-5 3 and
+20), every shape that the sampling and training paths give
 to the temporal forward (table row 1), the emit_p forward (row 2), the
 temporal backward (row 3), the linear stats and apply (rows 4-5), the
 linear backward (rows 6-7) and the head-layout linear forward (row 8), on
 chip_smoke.py's seeded inputs, through the wrappers of the tree given by
---tree; and the any-shape instances of rows 1-3 and 8 at the largest shapes
+--tree; and the any-shape instances of rows 1-5 and 8 at the largest shapes
 of the three widths configurations of chip_smoke.py phase 13 (ANY_SHAPES;
+rows 4-5 at wide's C = 1024 and at every heads4x64 level;
 rows 1-3 also the specialised instance at the flagship's level-0 shape, the
 same work as heads4x64's, and each plain twin). A tree whose
 instance refuses a shape (row 8 off the flagship's shapes before it took
@@ -17,13 +19,18 @@ limit), the tree, and per row and shape the ms, the bound ms, the
 achieved TFLOP/s and the share of the bound; with --profile also each CUDA
 kernel's device time in one launch of each row at its level-0 shape (row
 6 per-head at (44, 9216, 64), row 7 merged at (44, 2304, 128), row 8 at
-(22, 9216, 64): its stats, merge and apply) and rows 5 and 8's device
+(22, 9216, 64): its stats, merge and apply; rows 4-5 any-shape at
+heads4x64's level 0 and wide's C = 1024) and rows 5 and 8's device
 time a launch at every path shape. With row 5 it also digests
 row 5's output at every path shape on one input seeded per shape
-(`apply_digests`), and with rows 1-3 their outputs (row 2: out and p; row
+(`apply_digests`; row 5 any-shape's at its ANY_SHAPES, keyed
+"any <config>"), and with rows 1-3 their outputs (row 2: out and p; row
 3: every cotangent) at every path shape (`temporal_digests`); --against
 FILE compares them with the last line of an earlier run's --out FILE and
-prints whether each is bit-equal.
+prints whether each is bit-equal. --outputs FILE keeps row 5
+any-shape's outputs themselves: a run that finds FILE prints the share of
+its bf16 outputs that differ in their bits from FILE's (and leaves it), a
+run that does not writes it.
 
 To compare two versions on one card, unpack the other one's port into a
 gitignored directory that the copy to the card keeps (`git archive
@@ -63,6 +70,12 @@ ANY_SHAPES = {
                         ("heads4x64", (22, 9216, 64, 1, 4, 32))],
 }
 ANY_SHAPES["temporal_bwd_any"] = ANY_SHAPES["temporal_fwd_p_any"]
+# rows 4-5 (BF, N, C, Mc, heads, d): wide's C = 1024 and heads4x64's four
+# levels (its linear blocks' 4 heads of 32)
+ANY_SHAPES["linear_stats_any"] = [("wide", (22, 144, 1024, 1, 8, 32))] + [
+    (f"heads4x64 L{i}", (22, n, c, 1, 4, 32)) for i, (n, c) in enumerate(
+        ((9216, 64), (2304, 128), (576, 256), (144, 512)))]
+ANY_SHAPES["linear_apply_any"] = ANY_SHAPES["linear_stats_any"]
 
 
 def _chip_smoke():
@@ -94,11 +107,14 @@ def main(argv=None) -> int:
     ap.add_argument("--against", help="a JSON-lines file of an earlier run "
                     "(--out): print whether the digested outputs (rows 1-3 "
                     "and 5) are bit-equal to its last line's")
+    ap.add_argument("--outputs", help="a .pt file of row 5 any-shape's "
+                    "outputs: compared with (share of bit-different bf16 "
+                    "elements) if it exists, else written")
     ap.add_argument("--rows", help="comma-separated rows to time (default "
                     "all): temporal_fwd, temporal_fwd_p, temporal_bwd, "
                     "linear_stats, linear_apply, linear_bwd, linear_head, "
                     "temporal_fwd_any, temporal_fwd_p_any, temporal_bwd_any, "
-                    "linear_head_any")
+                    "linear_head_any, linear_stats_any, linear_apply_any")
     args = ap.parse_args(argv)
 
     import torch
@@ -206,6 +222,34 @@ def main(argv=None) -> int:
         timed("linear_head", (bf_, n, c), lambda: lin.linear_block_head(
             **a, **akw, spatial_size=n), cs.head_cost(bf_, n, c))
         del a
+    any_out = {}
+    if "linear_apply_any" in want:
+        for config, (bf_, n, c, m_c, heads, d) in ANY_SHAPES[
+                "linear_apply_any"]:
+            a = cs.linear_inputs(bf_, n, c, torch.Generator(
+                device="cuda").manual_seed(5), m_c, heads, d)
+            out = lin.linear_apply(a["x"], a["gamma"], a["w_qkv"],
+                                   a["w_out"], a["out_bias"], a["ctx"],
+                                   a["z"], heads=heads, scale=d ** -0.5)
+            digests[f"any {config}"] = hashlib.sha256(
+                out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            any_out[config] = out.cpu()
+            del a, out
+    bits = None
+    if args.outputs and any_out:
+        path = Path(args.outputs)
+        if path.exists():
+            then = torch.load(path)
+            bits = {k: (v.view(torch.int16) != then[k].view(torch.int16))
+                    .float().mean().item() for k, v in any_out.items()}
+            print("row 5 any-shape outputs, share of bf16 elements whose bits "
+                  f"differ from {path}'s: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in bits.items()),
+                  flush=True)
+        else:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            torch.save(any_out, path)
+    del any_out
     for bf_, n, c in sorted(set(cs.TRAIN_LINEAR), key=lambda v: -v[1]):
         a = cs.linear_inputs(bf_, n, c, gen)
         del a["ctx"], a["z"]
@@ -224,7 +268,25 @@ def main(argv=None) -> int:
         if name not in want:
             continue
         for config, shape in shapes:
-            if name == "linear_head_any":
+            if name in ("linear_stats_any", "linear_apply_any"):
+                bf_, n, c, m_c, heads, d = shape
+                a = cs.linear_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
+                                     d=d)
+                sargs = (a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"])
+                aargs = (a["x"], a["gamma"], a["w_qkv"], a["w_out"],
+                         a["out_bias"], a["ctx"], a["z"])
+                skw = dict(heads=heads, spatial_size=n)
+                akw_ = dict(heads=heads, scale=d ** -0.5)
+                if name == "linear_stats_any":
+                    run = lambda: lin.linear_stats(*sargs, **skw)
+                    plain = lambda: lin.linear_stats_plain(*sargs, **skw)
+                    cost = cs.stats_cost(bf_, n, c, m_c, heads=heads, d=d)
+                else:
+                    run = lambda: lin.linear_apply(*aargs, **akw_)
+                    plain = lambda: lin.linear_apply_plain(*aargs, **akw_)
+                    cost = cs.apply_cost(bf_, n, c, heads=heads, d=d)
+                spec = None
+            elif name == "linear_head_any":
                 bf_, n, c, m_c, heads, d = shape
                 a = cs.head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
                                    d=d)
@@ -272,7 +334,10 @@ def main(argv=None) -> int:
                 rows[name].append(dict(config=config, shape=list(shape),
                                        refused=str(e)))
                 continue
-            e = timed(name, shape, run, cost, reps=3, warmup=1)
+            # rows 4-5 take tens of microseconds: more launches a mean
+            fast = name in ("linear_stats_any", "linear_apply_any")
+            e = timed(name, shape, run, cost, reps=20 if fast else 3,
+                      warmup=3 if fast else 1)
             e["config"] = config
             if spec is not None and config == "heads4x64":
                 e["specialised_ms"] = cs.cuda_ms(spec, reps=3, warmup=1)
@@ -344,11 +409,27 @@ def main(argv=None) -> int:
                              ("temporal_fwd_p_any", "heads4x64"),
                              ("temporal_bwd_any", "heads4x64"),
                              ("temporal_bwd_any", "tokens96"),
-                             ("linear_head_any", "heads4x64")):
+                             ("linear_head_any", "heads4x64"),
+                             ("linear_stats_any", "heads4x64 L0"),
+                             ("linear_stats_any", "wide"),
+                             ("linear_apply_any", "heads4x64 L0"),
+                             ("linear_apply_any", "wide")):
             if name not in want:
                 continue
             shape = dict(ANY_SHAPES[name])[config]
-            if name == "linear_head_any":
+            if name in ("linear_stats_any", "linear_apply_any"):
+                bf_, n, c, m_c, heads, d = shape
+                a = cs.linear_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
+                                     d=d)
+                run = ((lambda: lin.linear_stats(
+                           a["x"], a["gamma"], a["w_qkv"], a["ek"], a["ev"],
+                           heads=heads, spatial_size=n))
+                       if name == "linear_stats_any" else
+                       (lambda: lin.linear_apply(
+                           a["x"], a["gamma"], a["w_qkv"], a["w_out"],
+                           a["out_bias"], a["ctx"], a["z"], heads=heads,
+                           scale=d ** -0.5)))
+            elif name == "linear_head_any":
                 bf_, n, c, m_c, heads, d = shape
                 a = cs.head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
                                    d=d)
@@ -420,6 +501,7 @@ def main(argv=None) -> int:
     line = json.dumps({"card": smi, "tree": str(tree), "nvcc_s": build_s,
                        "rows": rows, "stages_ms": stages,
                        "apply_digests": digests, "apply_bit_equal": equal,
+                       "apply_any_bits_differ": bits,
                        "temporal_digests": t_digests,
                        "temporal_bit_equal": t_equal})
     print(line, flush=True)

@@ -936,11 +936,18 @@ def test_temporal_any_shape_instance_matches_twin(cuda, f, heads, d, c,
         **BF16_TOL)
 
 
-@pytest.mark.parametrize("heads,d,c,m_c", [
-    (4, 32, 96, 11), (16, 32, 1024, 0), (4, 64, 32, 96), (8, 32, 36, 1),
-    (4, 32, 8, 1)])
-def test_linear_any_shape_instances_match_twins(cuda, heads, d, c, m_c):
-    bf, b, n, hd = torch.bfloat16, 6, 300, heads * d
+# (heads, d, C, Mc, N): 300 tokens (ids as before), d = 40 padded to 48,
+# and N = 9191 (a ragged last stats tile and sub-tile)
+LINEAR_ANY_CASES = (
+    [pytest.param(h, d, c, m, 300, id=f"{h}-{d}-{c}-{m}") for h, d, c, m in (
+        (4, 32, 96, 11), (16, 32, 1024, 0), (4, 64, 32, 96), (8, 32, 36, 1),
+        (4, 32, 8, 1), (3, 40, 96, 11))]
+    + [pytest.param(4, 32, 64, 1, 9191, id="4-32-64-1-N9191")])
+
+
+@pytest.mark.parametrize("heads,d,c,m_c,n", LINEAR_ANY_CASES)
+def test_linear_any_shape_instances_match_twins(cuda, heads, d, c, m_c, n):
+    bf, b, hd = torch.bfloat16, 6, heads * d
     x = _rnd(cuda, b, n, c).to(bf)
     gamma = 1 + _rnd(cuda, c, scale=0.1)
     w_qkv = (_rnd(cuda, c, 3 * hd) * c ** -0.5).to(bf)
@@ -973,6 +980,55 @@ def test_linear_any_shape_instances_match_twins(cuda, heads, d, c, m_c):
     assert _build.LAUNCH_COUNTS["linear_apply_any"] == \
         before["linear_apply_any"] + 2
     assert _build.LAUNCH_COUNTS["linear_stats"] == before["linear_stats"]
+
+
+def test_linear_any_apply_per_head_shift(cuda):
+    """Row 5 any-shape at 4 heads of 64: head 0's q logits ~1000x the
+    others' (as test_linear_apply_kernel_per_head_shift for the specialised
+    instance): the per-head max shift keeps the output finite and the other
+    heads exact; head 0's context is zero."""
+    bf, b, n, c, heads, d = torch.bfloat16, 4, 100, 64, 4, 64
+    hd = heads * d
+    w_qkv = _rnd(cuda, c, 3 * hd) * c ** -0.5
+    w_qkv[:, :d] *= 1000.0
+    ctx = _rnd(cuda, b, heads, d, d, scale=64.0)
+    ctx[:, 0] = 0.0
+    x = _rnd(cuda, b, n, c).to(bf)
+    out_bias = _rnd(cuda, c, scale=0.1)
+    args = (x, 1 + _rnd(cuda, c, scale=0.1), w_qkv.to(bf),
+            (_rnd(cuda, hd, c) * hd ** -0.5).to(bf), out_bias, ctx,
+            1 + _rnd(cuda, b, hd).abs())
+    akw = dict(heads=heads, scale=d ** -0.5)
+    assert lin.forward_instance(heads, d, c) == lin.ANY_SHAPE
+    got = lin.linear_apply(*args, **akw)
+    torch.cuda.synchronize()
+    assert _update_err(got, lin.linear_apply_plain(*args, **akw), x,
+                       out_bias) <= APPLY_TOL
+
+
+def test_linear_any_stats_clamp_at_60(cuda):
+    """Row 4 any-shape with the key columns scaled so |k| lies on both
+    sides of 60: the clamp of exp(clip(k, +-60)) in the kernel follows the
+    twin's (ctx within CTX_SHARE of its summands, z within STATS_TOL)."""
+    bf, b, n, c, heads, d = torch.bfloat16, 6, 300, 96, 4, 32
+    hd = heads * d
+    w_qkv = _rnd(cuda, c, 3 * hd) * c ** -0.5
+    w_qkv[:, hd:2 * hd] *= 40.0
+    x = _rnd(cuda, b, n, c).to(bf)
+    gamma = 1 + _rnd(cuda, c, scale=0.1)
+    w_qkv = w_qkv.to(bf)
+    ek, ev = _rnd(cuda, b, 2, hd).to(bf), _rnd(cuda, b, 2, hd).to(bf)
+    kw = dict(heads=heads, spatial_size=n)
+    y = (x.float() - x.float().mean(-1, keepdim=True))
+    k = y @ w_qkv[:, hd:2 * hd].float()
+    assert (k.abs() > 70).any() and (k.abs() < 50).any()
+    ctx_k, z_k = lin.linear_stats(x, gamma, w_qkv, ek, ev, **kw)
+    torch.cuda.synchronize()
+    ctx_p, z_p = lin.linear_stats_plain(x, gamma, w_qkv, ek, ev, **kw)
+    mag = lin.linear_stats_magnitude(x, gamma, w_qkv, ek, ev, **kw)
+    assert torch.isfinite(ctx_k).all() and torch.isfinite(z_k).all()
+    assert ((ctx_k - ctx_p).abs() <= CTX_SHARE * mag).all()
+    torch.testing.assert_close(z_k, z_p, **STATS_TOL)
 
 
 def test_any_shape_instances_match_the_specialised(cuda):

@@ -100,19 +100,29 @@ def test_temporal_twin_matches_the_jax_kernel(heads, d, t_tok):
     assert not np.allclose(want, t["x"].float().numpy(), atol=1e-2)
 
 
-@pytest.mark.parametrize("m_c", TOKENS)
-def test_linear_twins_match_the_jax_merged_kernel(m_c):
+# (heads, d, Mc, C, N): 4 x 32 at every token count (ids as before), 2 x 64
+# and 3 x 40 (d off the k-steps of 16 that the any-shape instances pad to
+# 48), and C = 96 at N = 70 (three K-chunks, a ragged last tile)
+LINEAR_TWIN_CASES = (
+    [pytest.param(4, 32, m_c, C, N, id=str(m_c)) for m_c in TOKENS]
+    + [pytest.param(h, d, m_c, C, N, id=f"{h}x{d}-{m_c}")
+       for h, d in ((2, 64), (3, 40)) for m_c in (0, 5)]
+    + [pytest.param(3, 40, 5, 96, 70, id="3x40-5-C96-N70")])
+
+
+@pytest.mark.parametrize("heads,d,m_c,c,n", LINEAR_TWIN_CASES)
+def test_linear_twins_match_the_jax_merged_kernel(heads, d, m_c, c, n):
     """Rows 4 and 5 in float32: stats then apply on CPU tensors (the twins
     the any-shape instances follow) against the JAX merged kernel in
-    interpret mode, 4 heads of 32 (hidden 128) at C = 8."""
-    heads, d = 4, 32
+    interpret mode, at head counts and widths only the any-shape instances
+    take on the card."""
     hd = heads * d
-    a = dict(x=_rand((BF, N, C), 0), gamma=_rand((C,), 1, 0.2) + 1.0,
-             w_qkv=_rand((C, 3 * hd), 2, 0.1), w_out=_rand((hd, C), 3, 0.1),
-             out_bias=_rand((C,), 4, 0.1),
+    a = dict(x=_rand((BF, n, c), 0), gamma=_rand((c,), 1, 0.2) + 1.0,
+             w_qkv=_rand((c, 3 * hd), 2, 0.1), w_out=_rand((hd, c), 3, 0.1),
+             out_bias=_rand((c,), 4, 0.1),
              ek=_rand((BF, m_c, hd), 5, 0.5) if m_c else None,
              ev=_rand((BF, m_c, hd), 6, 0.5) if m_c else None)
-    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=N)
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
     want = np.asarray(j_linear(
         *(None if v is None else jnp.asarray(v) for v in a.values()), **kw,
         interpret=True, layout="merged"))
@@ -120,8 +130,84 @@ def test_linear_twins_match_the_jax_merged_kernel(m_c):
     got = lin.linear_block_fwd(
         *(None if v is None else torch.tensor(v) for v in a.values()), **kw)
     assert _build.LAUNCH_COUNTS == before     # CPU tensor: the twins ran
-    assert lin.forward_instance(heads, d, C) == lin.ANY_SHAPE
+    assert lin.forward_instance(heads, d, c) == lin.ANY_SHAPE
     np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+    assert not np.allclose(want, a["x"], atol=1e-3)
+
+
+# the any-shape rows 4-5's launch plan (`any_plan`, the mirror of
+# csrc/any_shape.cu's lin_plan, which chip_smoke.py holds it to on the
+# card) over heads, every d up to 64, C and N
+PLAN_HEADS = (1, 2, 3, 4, 8, 12, 16, 32, 64)
+PLAN_C = (8, 32, 96, 1024, 4096)
+PLAN_N = (1, 144, 9191)
+
+
+@pytest.mark.parametrize("heads", PLAN_HEADS)
+def test_any_plan_fits_and_covers_every_head(heads):
+    for d in range(1, lin.ANY_MAX_D + 1):
+        for c in PLAN_C:
+            for n in PLAN_N:
+                plan = lin.any_plan(22, n, c, heads, d)
+                assert plan["dp"] % 16 == 0 and d <= plan["dp"] < d + 16
+                for stage in ("stats", "apply"):
+                    group = plan[f"{stage}_group"]
+                    assert 0 < plan[f"{stage}_smem"] <= lin.MAX_SMEM
+                    assert 1 <= group <= heads
+                    # the groups a block (stats) or a q pass (apply) walks
+                    # cover every head once
+                    covered = sorted({h for g0 in range(0, heads, group)
+                                      for h in range(g0, min(heads,
+                                                             g0 + group))})
+                    assert covered == list(range(heads))
+                    # a column half of the stats, a warp's share of the
+                    # apply's q: at most 128 columns
+                    parts = (1 if stage == "stats"
+                             else 8 // (plan["apply_tile"] // 16))
+                    assert -(-group // parts) * plan["dp"] <= 128
+                assert plan["stats_tile"] == lin.stats_tile(n)
+                assert plan["apply_tile"] in (16, 32, 64)
+                # the resident modes fit two blocks an SM; a resident apply
+                # block walks whole 64-token tiles, every head in one pass
+                for stage in ("stats", "apply"):
+                    if plan[f"{stage}_res"]:
+                        assert plan[f"{stage}_smem"] <= lin.RES_SMEM
+                        assert plan[f"{stage}_stages"] == 0
+                    else:
+                        assert (lin.ANY_MIN_STAGES <= plan[f"{stage}_stages"]
+                                <= lin.ANY_MAX_STAGES)
+                # a stats group is one head or an even number (each column
+                # half of a block holds the k and v of half of them)
+                assert plan["stats_group"] == 1 or plan["stats_group"] % 2 == 0
+                if plan["stats_res"] or plan["apply_res"]:
+                    assert c <= 128     # the resident LN's four chunks
+                if plan["apply_res"]:
+                    assert plan["apply_group"] == heads
+                    assert plan["apply_span"] in (64, 128, 256)
+                else:
+                    assert plan["apply_span"] == plan["apply_tile"]
+    for d in (65, 80, 128):
+        with pytest.raises(ValueError):
+            lin.any_plan(22, 144, 64, heads, d)
+
+
+def test_any_plan_shrinks_tiles_and_groups():
+    """The oh tile (tokens x heads dp) bounds the apply's shared memory:
+    at 9191 tokens its token tile goes from 64 to 32 and 16 as heads x d
+    grows. A small grid shrinks the apply's tile and the stats' head group
+    until the blocks fill (most of) the SMs."""
+    tiles = [lin.any_plan(22, 9191, 64, h, 64)["apply_tile"]
+             for h in (4, 16, 32, 40, 64)]
+    assert tiles == sorted(tiles, reverse=True) and tiles[0] == 64
+    assert tiles[-1] == 16 and 32 in tiles
+    big, small = lin.any_plan(22, 9216, 64, 4, 32), lin.any_plan(
+        22, 144, 512, 4, 32)
+    assert (big["apply_tile"], big["stats_group"]) == (64, 4)
+    assert (small["apply_tile"], small["stats_group"]) == (32, 2)
+    for plan, n in ((big, 9216), (small, 144)):
+        assert -(-n // plan["stats_tile"]) * 22 * -(
+            -4 // plan["stats_group"]) >= lin.ANY_GRID_BLOCKS or \
+            plan["stats_group"] == 1
 
 
 # ------------------------------------------------------ the model

@@ -91,12 +91,16 @@ _SIGNATURES = {
     # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, d, scale, inv_hw,
     # clip, stream
     "vmt_linear_block_bwd_any": [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
-    # x, gamma, w_qkv, ek, ev, scratch y, kv, part_ctx, part_z, ctx, z,
-    # BF, N, C, Mc, heads, d, tile, inv_hw, stream
-    "vmt_linear_stats_any": [_P] * 11 + [_I] * 7 + [_F, _P],
-    # x, gamma, w_qkv, w_out, out_bias, ctx, z, out, scratch y, q, oh,
+    # x, gamma, w_qkv, ek, ev, scratch part_ctx, part_z, ctx, z,
+    # BF, N, C, Mc, heads, d, stats tile (the plan's), inv_hw, stream
+    "vmt_linear_stats_any": [_P] * 9 + [_I] * 7 + [_F, _P],
+    # x, gamma, w_qkv, w_out, out_bias, ctx, z, out,
     # BF, N, C, heads, d, scale, stream
-    "vmt_linear_apply_any": [_P] * 11 + [_I] * 5 + [_F, _P],
+    "vmt_linear_apply_any": [_P] * 8 + [_I] * 5 + [_F, _P],
+    # BF, N, C, heads, d, int[12] out: the any-shape rows 4-5's launch plan
+    "vmt_linear_any_plan": [_I] * 5 + [_P],
+    # BF, N, C, heads, d, int[2] out: blocks an SM of their two kernels
+    "vmt_linear_any_occupancy": [_I] * 5 + [_P],
     # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace, BF, N, C, Mc,
     # heads, d, scale, inv_hw, stream
     "vmt_linear_head_any": [_P] * 9 + [_I] * 6 + [_F, _F, _P],

@@ -26,14 +26,17 @@
 //             oh = bf16(qn_h @ bf16(ctx_h)); out = bf16(x + out_bias + oh @ Wout)
 //
 // What bounds them on an H100: the same work as the specialised instances
-// (PERF.md's table; chip_smoke.py prints each launch's bound), operations at
-// 989 TFLOP/s bf16 for the projections at every path shape.
+// (PERF.md's table; chip_smoke.py prints each launch's bound). At
+// heads4x64's level 0 (22 frames of 9216 tokens, C = 64, 4 heads of 32)
+// the stats are bounded by operations (8.3 GFLOP, 8.4 us at 989 TFLOP/s
+// bf16), the apply by bytes (x read and out written, 51.9 MB, 15.6 us at
+// 3.35 TB/s).
 //
-// Design: simple and right at any shape, in launches of four kinds.
+// Design. The temporal block (rows 1, 2) in launches of three kinds:
 //  - ln_rows_kernel (any_shape.cuh): one warp a row, two-pass, C any.
-//  - any_gemm_kernel (any_shape.cuh): every projection (QKV, q, k || v,
-//    the two out-projections with the residual in the epilogue) on the
-//    tensor cores, at any M, N, K and any row pitch.
+//  - any_gemm_kernel (any_shape.cuh): its QKV projection and its
+//    out-projection with the residual in the epilogue, on the tensor
+//    cores, at any M, N, K and any row pitch.
 //  - temporal_any_attn_kernel (on the tensor cores, any_attn.cuh): a
 //    block a (32 positions, head, batch row) stages the head's token rows
 //    and bias once; each warp takes a position at a time, its q, k, v
@@ -49,13 +52,20 @@
 //    the saved plan's forward) the second pass also writes each bf16 p
 //    into the (B, F, S, (F+T) heads) layout with key-group-major lanes;
 //    nothing else changes, so out is bit-equal to the launch without p.
-//  - linear stats as partial sums over 256-token tiles, one block a
-//    (tile, head, frame), and an ordered reduce (no atomics: two launches
-//    give the same bits); the apply's per-head softmax and q ctx one warp a
-//    token. The stats take d up to 64 (the JAX model's linear blocks have
-//    d = 32).
-// The scratch between the launches (y, qkv or k || v in f32, acc or oh,
-// the stats partials) comes from the wrapper.
+// The linear block (rows 4, 5), d up to 64 (the JAX model's linear blocks
+// have d = 32): one fused kernel each, every product on mma.sync, k || v
+// and q never in device memory (the notes above linear_any_stats_kernel).
+//  - stats: one block a (token tile, head group, frame) reads x and writes
+//    its tile's partial ctx and z; an ordered reduce adds the
+//    conditioning tokens and the tiles in order (no atomics: two launches
+//    give the same bits).
+//  - apply: one block a (frame, 64 tokens) reads x and writes out.
+// A plan (lin_plan, exported as vmt_linear_any_plan) sets each one's
+// tiles, head groups and shared memory from the shape: C streams through
+// the kernels in K-chunks, the heads in groups; a large heads x d shrinks
+// the apply's token tile to 32 or 16.
+// The temporal block's scratch (y, qkv, acc) and the stats' partials come
+// from the wrapper.
 #include <math_constants.h>
 
 #include "any_attn.cuh"
@@ -229,78 +239,878 @@ __global__ void __launch_bounds__(kFwdWarps * 32, kFwdBlocks)
   }
 }
 
-// ---- linear stats: partials over token tiles, then an ordered reduce
+// ---- linear stats and apply (rows 4, 5) on the tensor cores
+//
+// Both kernels: 256 threads a block, every product on mma.sync. The x
+// rows are staged raw (bf16, by cp.async) in K-chunks of kLinKC columns.
+// A head's weight columns are staged as a block of DP = 16 ceil(d / 16)
+// columns, zeros past d, so a head starts on a fragment boundary; DP is a
+// template parameter (16, 32, 48, 64), so the fragments' registers are
+// indexed at compile time. y = bf16(LN(x) gamma) is ln_rows_kernel's, bit
+// for bit: eight threads a row play its warp's lanes and sum in its order.
+// Two modes, picked by the plan (lin_plan):
+//  - resident (kRes; C <= 128, the weights and two or three tiles of x rows
+//    beside two blocks an SM: heads4x64's full-resolution level): the
+//    weights are loaded once a block and stay; the next tile's x rows
+//    arrive during this one's products; LN runs on the staged rows, its
+//    values in registers (lin_ln_tile), writing y to shared memory; an
+//    apply block walks up to four 64-token tiles of its frame;
+//  - streamed: every other shape; a ring of 3 to kLinMaxStages stages (as
+//    many as the plan's shared memory takes), each one K-chunk of x rows,
+//    their gamma and the matching weight rows, so C bounds no buffer; the
+//    LN statistics come from device memory (lin_row_stats: bf16 pairs,
+//    two rows' loads in flight) and the x fragments are normalised to y as
+//    they are read (ldmatrix, then (x - mu) rstd gamma in registers).
+// Measured (PERF.md): the LN, the stats' exp epilogue and the
+// apply's softmax and stores take most of a resident block's time, the
+// chunk loads and the device-memory LN most of a streamed one's.
 
-constexpr int kStatThreads = 256;
-constexpr int kSubT = 64;      // tokens staged at a time
-constexpr int kMaxStatD = 64;  // d x d outputs, at most 16 a thread
-constexpr int kOut = kMaxStatD * kMaxStatD / kStatThreads;
+constexpr int kLinThreads = 256;
+constexpr int kLinKC = 32;            // K-chunk: x columns, weight rows
+constexpr int kLinXP = kLinKC + 8;    // pitch of a chunk's x rows (bf16)
+constexpr int kLinMinStages = 3, kLinMaxStages = 6;
+constexpr int kLinMaxCols = 256;      // weight columns a stage holds at most
+constexpr int kLinStatM = 64;         // tokens a stats sub-tile
+constexpr int kMaxLinD = 64;
+// dynamic shared memory of a block where two blocks share an SM
+constexpr int kLinResSmem = 115712;
+// blocks that keep the card's 132 SMs busy: one a SM for the stats' head
+// groups, two for the resident apply's span; the streamed apply takes its
+// largest token tile with three quarters of that (each block reads all of
+// W_q and W_out: a smaller tile reads them more often)
+constexpr int kLinGridBlocks = 132, kLinSpanBlocks = 264;
+constexpr int kLinApplyBlocks = 3 * kLinGridBlocks / 4;
+constexpr int kLinSpanTiles = 4;      // 64-token tiles a resident apply block
+
+// The launch plan of rows 4 and 5 at a shape (vmt_linear_any_plan;
+// fused_linear_block.any_plan mirrors it).
+struct LinPlan {
+  int dp;            // d padded to k-steps of 16
+  int stats_tile;    // tokens a stats block (sub-tiles of kLinStatM)
+  int stats_group;   // heads a stats block: its k || v columns
+  int stats_res;     // 1: the resident mode
+  int stats_stages;  // streamed: ring stages
+  int stats_smem;    // bytes
+  int apply_tile;    // tokens an apply block's pass: 64, 32 or 16
+  int apply_span;    // tokens an apply block (resident: up to 4 passes)
+  int apply_group;   // heads a q pass of an apply block
+  int apply_res;     // 1: the resident mode
+  int apply_stages;  // streamed: ring stages
+  int apply_smem;    // bytes
+};
+
+__host__ __device__ inline int lin_stage_bytes(int rows, int wp) {
+  return rows * kLinXP * 2 + kLinKC * 4 + kLinKC * wp * 2;
+}
+
+// stats: resident: the W chunks, gamma, two sub-tiles of x chunks;
+// streamed: the ring; then pkv [64][wp] bf16, zs [4][half] f32, mu, rstd
+__host__ __device__ inline int lin_stats_smem(int group, int dp, int C,
+                                              bool res, int stages) {
+  const int half = group * dp, wp = 2 * half + 8;
+  const int nkc = (C + kLinKC - 1) / kLinKC;
+  const int tail = kLinStatM * wp * 2 + 4 * half * 4 + kLinStatM * 8;
+  return (res ? nkc * kLinKC * (wp * 2 + 4) +
+                    2 * nkc * kLinStatM * kLinXP * 2
+              : stages * lin_stage_bytes(kLinStatM, wp)) +
+         tail;
+}
+
+// apply: columns a warp takes in the out-projection (parts warps across a
+// block of W_out columns): at most 64, and at most 256 a block
+constexpr int kLinWC = 64;
+__host__ __device__ inline int lin_apply_wc(int tile, int C) {
+  const int parts = 8 / (tile / 16), per = (C + parts - 1) / parts;
+  const int wc = (per + 15) / 16 * 16, cap = 256 / parts < kLinWC ? 256 / parts : kLinWC;
+  return wc < cap ? wc : cap;
+}
+
+// apply, streamed: the pitch of a ring stage's weight rows
+__host__ __device__ inline int lin_apply_wp(int tile, int group, int dp,
+                                            int C) {
+  const int cb = (8 / (tile / 16)) * lin_apply_wc(tile, C);
+  return (group * dp > cb ? group * dp : cb) + 8;
+}
+
+// apply: resident: W_q's chunks, gamma, W_out's chunks, two tiles of x
+// chunks and one of y chunks; streamed: the ring; then the group's bf16 context
+// [group][dp][dp + 8] and 1/z, mu and rstd, the oh tile [tile][heads dp
+// rounded to kLinKC, + 8] bf16
+__host__ __device__ inline int lin_apply_smem(int tile, int group, int heads,
+                                              int dp, int C, bool res,
+                                              int stages) {
+  const int hpk = (heads * dp + kLinKC - 1) / kLinKC * kLinKC;
+  const int nkc = (C + kLinKC - 1) / kLinKC;
+  const int cb = (8 / (tile / 16)) * lin_apply_wc(tile, C);
+  const int tail = group * dp * (dp + 8) * 2 + group * dp * 4 + tile * 8 +
+                   tile * (hpk + 8) * 2;
+  return (res ? nkc * kLinKC * ((group * dp + 8) * 2 + 4) +
+                    hpk * (cb + 8) * 2 + 3 * nkc * tile * kLinXP * 2
+              : stages *
+                    lin_stage_bytes(tile, lin_apply_wp(tile, group, dp, C))) +
+         tail;
+}
+
+// false: a shape no plan takes (d > kMaxLinD, or an oh tile of 16 tokens
+// that does not fit)
+// the most ring stages (kLinMinStages at least) whose shared memory,
+// smem(stages), stays within `limit`
+template <class F>
+int lin_stages(F smem, int limit) {
+  int s = kLinMinStages;
+  while (s < kLinMaxStages && smem(s + 1) <= limit) ++s;
+  return s;
+}
+
+bool lin_plan(int BF, int N, int C, int heads, int d, LinPlan* p) {
+  if (BF <= 0 || N <= 0 || C <= 0 || heads <= 0 || d <= 0 || d > kMaxLinD)
+    return false;
+  p->dp = (d + 15) / 16 * 16;
+  // stats: each column half (k, v) of a block holds at most 128 columns;
+  // smaller head groups where the grid would leave SMs idle (one head, or
+  // an even number: stats_col)
+  p->stats_tile = N >= 4096 ? 256 : 64;   // stats_tile (fused_linear_block.py)
+  int group = heads < 128 / p->dp ? heads : 128 / p->dp;
+  if (group > 1 && group % 2) --group;
+  const long tiles = (N + p->stats_tile - 1) / p->stats_tile;
+  while (group > 1 &&
+         tiles * ((heads + group - 1) / group) * BF < kLinGridBlocks) {
+    group /= 2;
+    if (group > 1 && group % 2) --group;
+  }
+  p->stats_group = group;
+  // resident: C <= 128 (lin_ln_tile) and two blocks an SM
+  p->stats_res =
+      C <= 128 && lin_stats_smem(group, p->dp, C, true, 0) <= kLinResSmem;
+  // streamed: as many stages as fit two blocks an SM where the grid has
+  // more blocks than SMs, else one
+  const long sblocks = tiles * ((heads + group - 1) / group) * BF;
+  const int slimit = sblocks > kLinGridBlocks ? kLinResSmem : (int)kMaxSmem;
+  p->stats_stages = p->stats_res ? 0 : lin_stages([&](int s) {
+    return lin_stats_smem(group, p->dp, C, false, s);
+  }, slimit);
+  p->stats_smem =
+      lin_stats_smem(group, p->dp, C, p->stats_res, p->stats_stages);
+  // apply, resident: one q pass over every head (at most 64 q columns a
+  // warp), the out-projection's columns in one block, two blocks an SM
+  const int cap = 2 * (64 / p->dp);
+  const int ga = heads < cap ? heads : cap;
+  if (ga == heads && 2 * lin_apply_wc(64, C) >= C &&
+      lin_apply_smem(64, ga, heads, p->dp, C, true, 0) <= kLinResSmem) {
+    int span = kLinSpanTiles;
+    while (span > 1 &&
+           (long)((N + 64 * span - 1) / (64 * span)) * BF < kLinSpanBlocks)
+      span /= 2;
+    p->apply_tile = 64;
+    p->apply_span = 64 * span;
+    p->apply_group = ga;
+    p->apply_res = 1;
+    p->apply_stages = 0;
+    p->apply_smem = lin_apply_smem(64, ga, heads, p->dp, C, true, 0);
+    return true;
+  }
+  // apply, streamed: the largest token tile whose oh tile fits and whose
+  // grid has kLinApplyBlocks blocks, else the smallest that fits; a warp's
+  // q columns (a group over 8 / (tile / 16) column parts) stay within 128
+  bool found = false;
+  for (int tile = 64; tile >= 16; tile /= 2) {
+    const int parts = 8 / (tile / 16);
+    int g = parts * (128 / p->dp);
+    if (g > kLinMaxCols / p->dp) g = kLinMaxCols / p->dp;
+    if (g > heads) g = heads;
+    auto smem = [&](int s) {
+      return lin_apply_smem(tile, g, heads, p->dp, C, false, s);
+    };
+    if (smem(kLinMinStages) > (int)kMaxSmem) continue;
+    const long blocks = (long)((N + tile - 1) / tile) * BF;
+    p->apply_tile = p->apply_span = tile;
+    p->apply_group = g;
+    p->apply_res = 0;
+    p->apply_stages = lin_stages(
+        smem, blocks > kLinGridBlocks ? kLinResSmem : (int)kMaxSmem);
+    p->apply_smem = smem(p->apply_stages);
+    found = true;
+    if (blocks >= kLinApplyBlocks) break;
+  }
+  return found;
+}
+
+struct LinAny {
+  const bf16* x;         // (BF, N, C)
+  const float* gamma;    // (C)
+  const bf16* w_qkv;     // (C, 3H)
+  const bf16* w_out;     // (H, C)
+  const float* out_bias; // (C)
+  const float* ctx;      // (BF, heads, d, d)
+  const float* z;        // (BF, H)
+  bf16* out;             // (BF, N, C)
+  float* part_ctx;       // (BF, tiles, heads, d, d)
+  float* part_z;         // (BF, tiles, H)
+  int N, C, heads, d, tile, span, group, stages;
+  float inv_hw, scale;
+};
 
 __device__ __forceinline__ float clamp_k(float k) {
   return fminf(fmaxf(k, -kClamp), kClamp);
 }
 
-// one block a (tile of `tile` tokens, head, frame); kv (BF, N, 2H) f32
-__global__ void __launch_bounds__(kStatThreads) linear_any_stats_partial(
-    const float* __restrict__ kv, float* __restrict__ part_ctx,
-    float* __restrict__ part_z, int N, int tile, int heads, int d,
-    float inv_hw) {
-  extern __shared__ float smem_f[];
-  const int t = threadIdx.x;
-  const int tt = blockIdx.x, h = blockIdx.y, bf = blockIdx.z;
-  const int tiles = gridDim.x, H = heads * d, dd = d * d;
-  float* pkr = smem_f;             // [kSubT][d] bf16(exp(clip(k)))
-  float* vr = pkr + kSubT * d;     // [kSubT][d] bf16(v / HW)
-  float* pku = vr + kSubT * d;     // [kSubT][d] exp(clip(k))
-  float acc[kOut];
+// warp_sum's butterfly over the 32 lanes of ln_rows_kernel's warp that
+// eight threads of a row play (thread j: lanes j, j + 8, j + 16, j + 24 as
+// layer_norm_tile8 in common.cuh; with `pairs`, lanes 2j, 2j + 1, 2j + 16,
+// 2j + 17, whose step 1 then comes last, within the thread): ps holds the
+// four played lanes' sums in that order; every thread returns lane 0's
+// result
+__device__ __forceinline__ float lin_row_sum(const float (&ps)[4],
+                                             bool pairs) {
+  float e = ps[0] + ps[2], o = ps[1] + ps[3];
+  if (!pairs) {
+    float s = e + o;
 #pragma unroll
-  for (int u = 0; u < kOut; ++u) acc[u] = 0.f;
-  float zacc = 0.f;
-  const int n0 = tt * tile, n1 = min(N, n0 + tile);
-  for (int sub = n0; sub < n1; sub += kSubT) {
-    const int cnt = min(kSubT, n1 - sub);
-    __syncthreads();
-    for (int i = t; i < cnt * d; i += kStatThreads) {
-      const int r = i / d, c = i % d;
-      const float* row = kv + ((size_t)bf * N + sub + r) * 2 * H + h * d;
-      const float pk = expf(clamp_k(row[c]));
-      pku[i] = pk;
-      pkr[i] = round_bf16(pk);
-      vr[i] = round_bf16(row[H + c] * inv_hw);
-    }
-    __syncthreads();
+    for (int k = 4; k > 0; k >>= 1) s += __shfl_xor_sync(0xffffffffu, s, k);
+    return s;
+  }
 #pragma unroll
-    for (int u = 0; u < kOut; ++u) {
-      const int o = t + u * kStatThreads;
-      if (o < dd) {
-        const int ai = o / d, e = o % d;
-        float c = acc[u];
-        for (int r = 0; r < cnt; ++r) c = fmaf(pkr[r * d + ai], vr[r * d + e], c);
-        acc[u] = c;
+  for (int k = 4; k > 0; k >>= 1) {
+    e += __shfl_xor_sync(0xffffffffu, e, k);
+    o += __shfl_xor_sync(0xffffffffu, o, k);
+  }
+  return e + o;
+}
+
+// mean and rstd of rows n0.. of a frame in device memory (at most 64 rows;
+// 0 and 0 from `valid` on) into mu_s and rs_s, ln_rows_kernel's sums in
+// its order (each played lane's elements lane + 32 u in turn, then
+// lin_row_sum): its bits. Eight threads a row, both 32-row halves at once.
+// Rows of an even C, 4-byte aligned, are read as bf16 pairs, 256 columns
+// of both rows in flight; else one value at a time, 128 columns.
+__device__ __forceinline__ void lin_row_stats(const bf16* xb, int n0,
+                                              int valid, int rows, int C,
+                                              float* mu_s, float* rs_s,
+                                              int t) {
+  constexpr int kRR = 2;           // rows a thread: r and r + 32
+  const int j = t & 7;
+  const bool pairs = C % 2 == 0 && (reinterpret_cast<uintptr_t>(xb) & 3) == 0;
+  const bf16* xr[kRR];
+  bool ok[kRR];
+#pragma unroll
+  for (int rr = 0; rr < kRR; ++rr) {
+    const int r = (t >> 3) + 32 * rr;
+    ok[rr] = r < valid && r < rows;
+    xr[rr] = xb + (size_t)(n0 + (ok[rr] ? r : 0)) * C;
+  }
+  float ps[kRR][4] = {};
+  // pass 0: the sums; pass 1: the squares about the mean
+  float mu[kRR] = {0.f, 0.f};
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pairs) {
+      for (int u0 = 0; u0 < C; u0 += 256) {
+        uint32_t v[kRR][8][2];   // [row][32-column group][pair]
+#pragma unroll
+        for (int rr = 0; rr < kRR; ++rr)
+#pragma unroll
+          for (int s = 0; s < 8; ++s)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int c = u0 + 32 * s + 16 * h + 2 * j;
+              v[rr][s][h] = ok[rr] && c < C
+                                ? *reinterpret_cast<const uint32_t*>(xr[rr] + c)
+                                : 0u;
+            }
+#pragma unroll
+        for (int rr = 0; rr < kRR; ++rr)
+#pragma unroll
+          for (int s = 0; s < 8; ++s)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              if (u0 + 32 * s + 16 * h + 2 * j >= C) continue;
+              const float lo = __uint_as_float(v[rr][s][h] << 16);
+              const float hi = __uint_as_float(v[rr][s][h] & 0xffff0000u);
+              if (pass == 0) {
+                ps[rr][2 * h] += lo;
+                ps[rr][2 * h + 1] += hi;
+              } else {
+                const float dl = lo - mu[rr], dh = hi - mu[rr];
+                ps[rr][2 * h] += dl * dl;
+                ps[rr][2 * h + 1] += dh * dh;
+              }
+            }
+      }
+    } else {
+      for (int u0 = 0; u0 < C; u0 += 128) {
+        float v[kRR][4][4];   // [row][32-column group][played lane]
+#pragma unroll
+        for (int rr = 0; rr < kRR; ++rr)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              const int c = u0 + 32 * b + 8 * a + j;
+              v[rr][b][a] = ok[rr] && c < C ? bf2f(xr[rr][c]) : 0.f;
+            }
+#pragma unroll
+        for (int rr = 0; rr < kRR; ++rr)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+#pragma unroll
+            for (int a = 0; a < 4; ++a) {
+              if (u0 + 32 * b + 8 * a + j >= C) continue;
+              if (pass == 0) {
+                ps[rr][a] += v[rr][b][a];
+              } else {
+                const float dv = v[rr][b][a] - mu[rr];
+                ps[rr][a] += dv * dv;
+              }
+            }
       }
     }
-    if (t < d)
-      for (int r = 0; r < cnt; ++r) zacc += pku[r * d + t];
-  }
-  float* pc = part_ctx + (((size_t)bf * tiles + tt) * heads + h) * dd;
 #pragma unroll
-  for (int u = 0; u < kOut; ++u) {
-    const int o = t + u * kStatThreads;
-    if (o < dd) pc[o] = acc[u];
+    for (int rr = 0; rr < kRR; ++rr) {
+      const float s = lin_row_sum(ps[rr], pairs);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ps[rr][a] = 0.f;
+      if (pass == 0) {
+        mu[rr] = s / C;
+      } else {
+        const int r = (t >> 3) + 32 * rr;
+        const float rs = rsqrtf(s / C + vmt::kLnEps);
+        if (j == 0 && r < rows) {
+          mu_s[r] = ok[rr] ? mu[rr] : 0.f;
+          rs_s[r] = ok[rr] ? rs : 0.f;
+        }
+      }
+    }
   }
-  if (t < d) part_z[((size_t)bf * tiles + tt) * H + h * d + t] = zacc;
+}
+
+// The resident modes' LN of a staged tile (C <= 128, at most four K-chunk
+// slots of [rows][kLinXP], kXS elements apart): as lin_row_stats (eight
+// threads a row, ln_rows_kernel's sums and bits), the row's values held in
+// registers for all three passes; y = bf16((x - mu) rstd gamma) into ys
+// (which may be xs), zeros past C and from `valid` on.
+__device__ __forceinline__ void lin_ln_tile(const bf16* xs, bf16* ys,
+                                            int kXS, const float* gs,
+                                            int valid, int rows, int C,
+                                            int t) {
+  const int j = t & 7;
+  auto row_sum = [](const float (&ps)[4]) {
+    float s = (ps[0] + ps[2]) + (ps[1] + ps[3]);
+#pragma unroll
+    for (int o = 4; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    return s;
+  };
+  for (int r0 = 0; r0 < rows; r0 += kLinThreads / 8) {
+    const int r = r0 + (t >> 3);
+    const bool in = r < rows, ok = in && r < valid;
+    const int off = (in ? r : 0) * kLinXP + j;
+    float v[4][4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        v[b][a] = ok && 32 * b + 8 * a + j < C ? bf2f(xs[b * kXS + off + 8 * a])
+                                               : 0.f;
+    float ps[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        if (32 * b + 8 * a + j < C) ps[a] += v[b][a];
+    const float mu = row_sum(ps) / C;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) ps[a] = 0.f;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+        if (32 * b + 8 * a + j < C) {
+          const float dv = v[b][a] - mu;
+          ps[a] += dv * dv;
+        }
+    const float rs = rsqrtf(row_sum(ps) / C + vmt::kLnEps);
+    if (in) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (32 * b >= C) break;
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int c = 32 * b + 8 * a + j;
+          ys[b * kXS + off + 8 * a] = __float2bfloat16(
+              ok && c < C ? (v[b][a] - mu) * rs * gs[c] : 0.f);
+        }
+      }
+    }
+  }
+}
+
+// cp.async.wait_group with a count known at run time (0..kLinMaxStages - 2)
+__device__ __forceinline__ void lin_wait(int n) {
+  switch (n) {
+    case 0: vmt::cp_async_wait<0>(); break;
+    case 1: vmt::cp_async_wait<1>(); break;
+    case 2: vmt::cp_async_wait<2>(); break;
+    case 3: vmt::cp_async_wait<3>(); break;
+    default: vmt::cp_async_wait<4>(); break;
+  }
+}
+static_assert(kLinMaxStages - 2 <= 4, "lin_wait takes counts up to 4");
+
+// x[r][c] of a tile staged as K-chunk slots of [rows][kLinXP], slot_elems
+// apart
+__device__ __forceinline__ float lin_x_at(const bf16* xs, int slot_elems,
+                                          int r, int c) {
+  return bf2f(xs[(c / kLinKC) * slot_elems + r * kLinXP + c % kLinKC]);
+}
+
+// x rows n0.. (zeros from `valid` on) of the frame, columns k0..k0+31
+// (zeros from C on), into [rows][kLinXP]: 16 bytes a cp.async where rows
+// are 16-byte aligned (vx: C % 8 == 0), else element by element. Each
+// thread takes the same (row, 8 columns) pieces in every call.
+__device__ __forceinline__ void lin_load_x(bf16* dst, const bf16* xb, int n0,
+                                           int valid, int rows, int k0,
+                                           int C, bool vx, int t) {
+  const bf16 zero = __float2bfloat16(0.f);
+  for (int i = t; i < rows * (kLinKC / 8); i += kLinThreads) {
+    const int r = i >> 2, o = (i & 3) * 8, k = k0 + o;
+    bf16* d = dst + r * kLinXP + o;
+    const bf16* s = xb + (size_t)(n0 + r) * C + k;
+    if (vx) {
+      const bool ok = r < valid && k < C;
+      vmt::cp_async16(d, ok ? s : xb, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        d[e] = (r < valid && k + e < C) ? s[e] : zero;
+    }
+  }
+}
+static_assert(kLinKC / 8 == 4, "lin_load_x takes four 8-column pieces a row");
+
+// gamma[k0..k0+31] (zeros from C on) into gs (vg: C % 4 == 0, aligned)
+__device__ __forceinline__ void lin_load_gamma(float* gs, const float* gamma,
+                                               int k0, int C, bool vg,
+                                               int t) {
+  if (t < kLinKC / 4) {
+    const int k = k0 + 4 * t;
+    if (vg) {
+      vmt::cp_async16(gs + 4 * t, k < C ? gamma + k : gamma, k < C);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gs[4 * t + e] = k + e < C ? gamma[k + e] : 0.f;
+    }
+  }
+}
+
+// a thread's share of a chunk of `units` 16-byte pieces a row (units <=
+// kLinThreads): piece u (in elements) of rows r0, r0 + rstep, ...; the
+// same in every chunk, so no chunk divides
+struct LinUnit {
+  int r0, rstep, u;
+};
+__device__ __forceinline__ LinUnit lin_unit(int units, int t) {
+  const int rows = kLinThreads / units;
+  return {t < rows * units ? t / units : kLinKC, rows, (t % units) * 8};
+}
+
+// a chunk of weights: rows k0..k0+kLinKC-1 (zeros from C on) of w (row
+// pitch ldw), column blocks of `group` heads of dp columns; head hl of
+// block p is w's columns off[p] + (h0 + hl) d .. + d - 1 (zeros past d and
+// past the last head). vw: every head's columns 16-byte aligned
+template <int dp>
+__device__ __forceinline__ void lin_load_w(bf16* dst, int wp, const bf16* w,
+                                           int ldw, int k0, int C, int off0,
+                                           int off1, int group, int h0,
+                                           int heads, int d, bool vw,
+                                           LinUnit un) {
+  const bf16 zero = __float2bfloat16(0.f);
+  const int width = group * dp, u = un.u;
+  const int p = u / width, hl = (u % width) / dp, a = u % dp, h = h0 + hl;
+  const bool col_ok = h < heads;
+  const int col = (p ? off1 : off0) + h * d + a;
+  for (int r = un.r0; r < kLinKC; r += un.rstep) {
+    const int k = k0 + r;
+    const bool row_ok = k < C && col_ok;
+    bf16* dd = dst + r * wp + u;
+    const bf16* s = w + (size_t)k * ldw + col;
+    if (vw) {
+      const bool ok = row_ok && a < d;
+      vmt::cp_async16(dd, ok ? s : w, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dd[e] = (row_ok && a + e < d) ? s[e] : zero;
+    }
+  }
+}
+
+// the stats' layout of a group's columns: two parts, one a column half of
+// the block (`half` columns each). A group of one head: part 0 its k, part
+// 1 its v. An even group: part p the k and then the v of heads p G / 2 ..,
+// so both halves' warps exponentiate. Of a part's column `col` (< half):
+// whether it is a v column, its head within the group, its feature
+struct KvCol {
+  bool v;
+  int hl, a;
+};
+template <int dp>
+__device__ __forceinline__ KvCol stats_col(int part, int col, int G) {
+  if (G == 1) return {part == 1, 0, col};
+  const int kw = (G / 2) * dp;   // k columns of a part
+  const bool v = col >= kw;
+  const int c = v ? col - kw : col;
+  return {v, part * (G / 2) + c / dp, c % dp};
+}
+
+// a chunk of W_k || W_v in the stats' layout (stats_col): rows
+// k0..k0+kLinKC-1 (zeros from C on) of w_qkv (C, 3H); zeros past d and
+// past the last head. vw: every head's columns 16-byte aligned
+template <int dp>
+__device__ __forceinline__ void lin_load_wkv(bf16* dst, int wp,
+                                             const bf16* w_qkv, int k0, int C,
+                                             int G, int h0, int heads, int d,
+                                             bool vw, LinUnit un) {
+  const bf16 zero = __float2bfloat16(0.f);
+  const int H = heads * d, half = G * dp, u = un.u;
+  const KvCol kc = stats_col<dp>(u / half, u % half, G);
+  const int h = h0 + kc.hl;
+  const bool col_ok = h < heads;
+  const int col = (kc.v ? 2 * H : H) + h * d + kc.a;
+  for (int r = un.r0; r < kLinKC; r += un.rstep) {
+    const int k = k0 + r;
+    const bool row_ok = k < C && col_ok;
+    bf16* dd = dst + r * wp + u;
+    const bf16* s = w_qkv + (size_t)k * 3 * H + col;
+    if (vw) {
+      const bool ok = row_ok && kc.a < d;
+      vmt::cp_async16(dd, ok ? s : w_qkv, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        dd[e] = (row_ok && kc.a + e < d) ? s[e] : zero;
+    }
+  }
+}
+
+// a chunk of W_out: rows kp0..kp0+kLinKC-1 of the head-padded hidden axis
+// (row h dp + a is W_out's row h d + a, zeros for a >= d), columns c0..
+// (zeros from C on). vw: C % 8 == 0 and W_out aligned
+template <int dp>
+__device__ __forceinline__ void lin_load_wout(bf16* dst, int wp,
+                                              const bf16* w_out, int kp0,
+                                              int c0, int C, int heads, int d,
+                                              bool vw, LinUnit un) {
+  const bf16 zero = __float2bfloat16(0.f);
+  const int o = un.u, c = c0 + o;
+  for (int r = un.r0; r < kLinKC; r += un.rstep) {
+    const int kp = kp0 + r, h = kp / dp, a = kp % dp;
+    const bool row_ok = h < heads && a < d;
+    bf16* dd = dst + r * wp + o;
+    const bf16* s = w_out + (size_t)(h * d + a) * C + c;
+    if (vw) {
+      const bool ok = row_ok && c < C;
+      vmt::cp_async16(dd, ok ? s : w_out, ok);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) dd[e] = (row_ok && c + e < C) ? s[e] : zero;
+    }
+  }
+}
+
+// two raw x values (a packed bf16 pair of one row) -> the packed pair of
+// y = bf16((x - mu) rstd gamma), ln_rows_kernel's expression
+__device__ __forceinline__ uint32_t lin_norm2(uint32_t v, float mu, float rs,
+                                              float2 g) {
+  const float lo = __uint_as_float(v << 16), hi = __uint_as_float(v & 0xffff0000u);
+  return vmt::pack_bf16x2((lo - mu) * rs * g.x, (hi - mu) * rs * g.y);
+}
+
+// acc[0..nt) += y[m0..m0+15][chunk] @ W[chunk][col0 + 8 n ..]: with kNorm
+// the chunk holds raw x, whose fragments are normalised to y as they are
+// read; else it holds y
+template <int kNT, bool kNorm = true>
+__device__ __forceinline__ void lin_project(float (&acc)[kNT][4],
+                                            const bf16* xs, const float* gs,
+                                            const bf16* ws, int wp, int m0,
+                                            int col0, int nt,
+                                            const float (&mu)[2],
+                                            const float (&rs)[2], int lane) {
+  const int tq = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < kLinKC / 16; ++ks) {
+    uint32_t a[4];
+    vmt::ldsm_x4(a, xs + (m0 + vmt::a_row_off(lane)) * kLinXP + ks * 16 +
+                        vmt::a_col_off(lane));
+    if (kNorm) {
+      const float2 g0 = *reinterpret_cast<const float2*>(gs + ks * 16 + 2 * tq);
+      const float2 g1 =
+          *reinterpret_cast<const float2*>(gs + ks * 16 + 2 * tq + 8);
+      a[0] = lin_norm2(a[0], mu[0], rs[0], g0);
+      a[1] = lin_norm2(a[1], mu[1], rs[1], g0);
+      a[2] = lin_norm2(a[2], mu[0], rs[0], g1);
+      a[3] = lin_norm2(a[3], mu[1], rs[1], g1);
+    }
+    const bf16* wrow = ws + (ks * 16 + vmt::bk_row_off(lane)) * wp + col0 +
+                       vmt::bk_col_off(lane);
+#pragma unroll
+    for (int np = 0; np < kNT / 2; ++np) {
+      if (2 * np < nt) {
+        uint32_t bb[4];
+        vmt::ldsm_x4_t(bb, wrow + np * 16);
+        vmt::mma_bf16(acc[2 * np], a, bb[0], bb[1]);
+        vmt::mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+}
+
+// Row 4. One block a (token tile, head group, frame); warp (rg, ch): token
+// rows 16 rg.. of each 64-token sub-tile, column half ch of the group's k
+// and v columns (stats_col: half the heads' k and v each, or for a group
+// of one head its k, then its v; dp columns a head). From the k fragments
+// pk = exp(clip(k)) and z (rows, then a shared row a row group); bf16(pk)
+// and bf16(v / HW) into pkv [token][the same columns]; then ctx_h =
+// bf16(pk_h)^T v_h over the sub-tile's tokens on mma.sync, A read
+// transposed by ldmatrix, one warp a 16-row strip (head, 16 context rows)
+// of the group. The tile's partials go to scratch; the ordered reduce
+// adds the conditioning tokens and the tiles in order.
+template <int DP, bool kRes>
+__global__ void __launch_bounds__(kLinThreads, 2) linear_any_stats_kernel(
+    const LinAny p) {
+  constexpr int kNTD = DP / 8;                 // n8 tiles a head
+  constexpr int kNT = (128 / DP) * kNTD;       // n8 tiles a warp at most
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int tt = blockIdx.x, bf = blockIdx.z;
+  const int G = p.group, h0 = blockIdx.y * G, half = G * DP, wp = 2 * half + 8;
+  const int N = p.N, C = p.C, heads = p.heads, d = p.d, H = heads * d;
+  const int n_begin = tt * p.tile, n_end = min(N, n_begin + p.tile);
+  const int n_sub = (n_end - n_begin + kLinStatM - 1) / kLinStatM;
+  const int nkc = (C + kLinKC - 1) / kLinKC, nq = n_sub * nkc;
+  const bf16* xb = p.x + (size_t)bf * N * C;
+  const bool vx = aligned16(p.x) && C % 8 == 0;
+  const bool vg = aligned16(p.gamma) && C % 4 == 0;
+  const bool vw = aligned16(p.w_qkv) && d % 8 == 0;
+  const int rg = warp & 3, ch = warp >> 2, m0 = rg * 16;
+  // the ctx strip of this warp: head hh of the group, context rows am0..
+  const int strips = half / 16;
+  const int hh = warp / (DP / 16), am0 = (warp % (DP / 16)) * 16;
+
+  // shared memory: the chunks (resident: W, gamma, two sub-tiles of x;
+  // streamed: the ring), then pkv, zs, mu, rstd
+  constexpr int kXS = kLinStatM * kLinXP;      // elements of an x chunk
+  const int stage = lin_stage_bytes(kLinStatM, wp);
+  unsigned char* tail = smem_raw + (kRes ? nkc * kLinKC * (wp * 2 + 4) +
+                                               2 * nkc * kXS * 2
+                                         : p.stages * stage);
+  bf16* pkv = reinterpret_cast<bf16*>(tail);                    // [64][wp]
+  float* zs = reinterpret_cast<float*>(pkv + kLinStatM * wp);   // [4][half]
+  float* mu_s = zs + 4 * half;                                  // [64]
+  float* rs_s = mu_s + kLinStatM;                               // [64]
+  bf16* wres = reinterpret_cast<bf16*>(smem_raw);
+  float* gres = reinterpret_cast<float*>(wres + nkc * kLinKC * wp);
+  bf16* xres = reinterpret_cast<bf16*>(gres + nkc * kLinKC);
+  // the x, gamma and W of chunk kc of sub-tile s
+  const int S = p.stages;
+  auto ring = [&](int s, int kc) { return smem_raw + ((s * nkc + kc) % S) * stage; };
+  auto xs = [&](int s, int kc) {
+    return kRes ? xres + ((s & 1) * nkc + kc) * kXS
+                : reinterpret_cast<bf16*>(ring(s, kc));
+  };
+  auto gs = [&](int s, int kc) {
+    return kRes ? gres + kc * kLinKC
+                : reinterpret_cast<float*>(reinterpret_cast<bf16*>(ring(s, kc)) + kXS);
+  };
+  auto ws = [&](int s, int kc) {
+    return kRes ? wres + kc * kLinKC * wp
+                : reinterpret_cast<bf16*>(gs(s, kc) + kLinKC);
+  };
+  const LinUnit wun = lin_unit(2 * half / 8, t);
+  auto load_x = [&](int s, int kc) {
+    const int ns = n_begin + s * kLinStatM;
+    lin_load_x(xs(s, kc), xb, ns, n_end - ns, kLinStatM, kc * kLinKC, C, vx, t);
+  };
+  auto load_w = [&](int s, int kc) {
+    lin_load_gamma(gs(s, kc), p.gamma, kc * kLinKC, C, vg, t);
+    lin_load_wkv<DP>(ws(s, kc), wp, p.w_qkv, kc * kLinKC, C, G, h0, heads, d,
+                     vw, wun);
+  };
+
+  if (kRes) {
+    // group 0: the weights, gamma and sub-tile 0's x; group 1: sub-tile 1's
+    for (int kc = 0; kc < nkc; ++kc) {
+      load_w(0, kc);
+      if (n_sub > 0) load_x(0, kc);
+    }
+    vmt::cp_async_commit();
+    if (n_sub > 1)
+      for (int kc = 0; kc < nkc; ++kc) load_x(1, kc);
+    vmt::cp_async_commit();
+  } else {
+    for (int q = 0; q < S - 1; ++q) {
+      if (q < nq) {
+        load_x(q / nkc, q % nkc);
+        load_w(q / nkc, q % nkc);
+      }
+      vmt::cp_async_commit();
+    }
+  }
+  for (int i = t; i < 4 * half; i += kLinThreads) zs[i] = 0.f;
+
+  float cacc[kNTD][4];
+#pragma unroll
+  for (int n = 0; n < kNTD; ++n) cacc[n][0] = cacc[n][1] = cacc[n][2] = cacc[n][3] = 0.f;
+  for (int s = 0; s < n_sub; ++s) {
+    const int ns = n_begin + s * kLinStatM;
+    const int valid = min(kLinStatM, n_end - ns);
+    float acc[kNT][4];
+    float mu[2], rs[2];
+    auto zero_acc = [&]() {
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    };
+    if (kRes) {
+      vmt::cp_async_wait<1>();
+      __syncthreads();  // sub-tile s's x (s = 0: the weights) visible; the
+                        // last sub-tile's readers of pkv, mu, rstd done
+      // y over the sub-tile's x rows, in place
+      bf16* xsub = xs(s, 0);
+      lin_ln_tile(xsub, xsub, kXS, gres, valid, kLinStatM, C, t);
+      __syncthreads();  // y visible
+      zero_acc();
+      for (int kc = 0; kc < nkc; ++kc)
+        lin_project<kNT, false>(acc, xs(s, kc), gs(s, kc), ws(s, kc), wp, m0,
+                                ch * half, half / 8, mu, rs, lane);
+    } else {
+      // the last sub-tile's readers of mu and rstd are past its pkv barrier
+      lin_row_stats(xb, ns, valid, kLinStatM, C, mu_s, rs_s, t);
+      zero_acc();
+      for (int kc = 0; kc < nkc; ++kc) {
+        const int q = s * nkc + kc;
+        lin_wait(S - 2);
+        __syncthreads();  // chunk q (and mu, rstd) visible; slot q - 1 free
+        if (kc == 0) {
+          mu[0] = mu_s[m0 + g];
+          rs[0] = rs_s[m0 + g];
+          mu[1] = mu_s[m0 + g + 8];
+          rs[1] = rs_s[m0 + g + 8];
+        }
+        const int qn = q + S - 1;
+        if (qn < nq) {
+          load_x(qn / nkc, qn % nkc);
+          load_w(qn / nkc, qn % nkc);
+        }
+        vmt::cp_async_commit();
+        lin_project<kNT>(acc, xs(s, kc), gs(s, kc), ws(s, kc), wp, m0,
+                         ch * half, half / 8, mu, rs, lane);
+      }
+    }
+
+    // pk and z from the k fragments, v / HW from the v fragments; rows past
+    // the tile's end and columns past a head's d count nothing
+    const bool v0 = m0 + g < valid, v1 = m0 + g + 8 < valid;
+    bf16* prow0 = pkv + (m0 + g) * wp + ch * half + 2 * tq;
+    bf16* prow1 = prow0 + 8 * wp;
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      if (n * 8 >= half) continue;
+      const KvCol kc = stats_col<DP>(ch, n * 8 + 2 * tq, G);
+      const bool hv = h0 + kc.hl < heads;
+      const bool c0 = kc.a < d && hv, c1 = kc.a + 1 < d && hv;
+      // z's column: the k column's index in the group
+      const int col = kc.hl * DP + kc.a;
+      float e[4];
+      if (!kc.v) {
+        e[0] = v0 && c0 ? expf(clamp_k(acc[n][0])) : 0.f;
+        e[1] = v0 && c1 ? expf(clamp_k(acc[n][1])) : 0.f;
+        e[2] = v1 && c0 ? expf(clamp_k(acc[n][2])) : 0.f;
+        e[3] = v1 && c1 ? expf(clamp_k(acc[n][3])) : 0.f;
+        float z0 = e[0] + e[2], z1 = e[1] + e[3];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          z0 += __shfl_xor_sync(0xffffffffu, z0, o);
+          z1 += __shfl_xor_sync(0xffffffffu, z1, o);
+        }
+        if (g == 0) {
+          zs[rg * half + col] += z0;
+          zs[rg * half + col + 1] += z1;
+        }
+      } else {
+        e[0] = v0 && c0 ? acc[n][0] * p.inv_hw : 0.f;
+        e[1] = v0 && c1 ? acc[n][1] * p.inv_hw : 0.f;
+        e[2] = v1 && c0 ? acc[n][2] * p.inv_hw : 0.f;
+        e[3] = v1 && c1 ? acc[n][3] * p.inv_hw : 0.f;
+      }
+      *reinterpret_cast<uint32_t*>(prow0 + n * 8) = vmt::pack_bf16x2(e[0], e[1]);
+      *reinterpret_cast<uint32_t*>(prow1 + n * 8) = vmt::pack_bf16x2(e[2], e[3]);
+    }
+    __syncthreads();  // pkv and this sub-tile's z rows visible; resident:
+                      // sub-tile s's x read by every warp
+    if (kRes) {
+      if (s + 2 < n_sub)
+        for (int kc = 0; kc < nkc; ++kc) load_x(s + 2, kc);
+      vmt::cp_async_commit();
+    }
+
+    // ctx_h[a][e] += sum_tok bf16(pk)[tok][a] bf16(v / HW)[tok][e]
+    if (warp < strips) {
+      // head hh's k and v columns in the stats' layout
+      const int gh = G == 1 ? 1 : G / 2, part = hh / gh;
+      const int k_off = G == 1 ? 0 : part * half + (hh % gh) * DP;
+      const int v_off = G == 1 ? half : k_off + gh * DP;
+      const bf16* pkh = pkv + k_off + am0;
+      const bf16* vh = pkv + v_off;
+#pragma unroll
+      for (int ks = 0; ks < kLinStatM / 16; ++ks) {
+        uint32_t a[4];
+        vmt::ldsm_x4_t(a, pkh + (ks * 16 + vmt::at_row_off(lane)) * wp +
+                              vmt::at_col_off(lane));
+#pragma unroll
+        for (int np = 0; np < kNTD / 2; ++np) {
+          uint32_t bb[4];
+          vmt::ldsm_x4_t(bb, vh + (ks * 16 + vmt::bk_row_off(lane)) * wp +
+                                 np * 16 + vmt::bk_col_off(lane));
+          vmt::mma_bf16(cacc[2 * np], a, bb[0], bb[1]);
+          vmt::mma_bf16(cacc[2 * np + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  }
+
+  // the tile's partials: ctx of the warp's strip; z of the group's columns,
+  // the four row groups in order (zs is complete: its last writes precede
+  // the last sub-tile's pkv barrier)
+  const size_t pidx = (size_t)bf * gridDim.x + tt;
+  if (warp < strips && h0 + hh < heads) {
+    float* pc = p.part_ctx + (pidx * heads + h0 + hh) * d * d;
+#pragma unroll
+    for (int n = 0; n < kNTD; ++n)
+#pragma unroll
+      for (int half8 = 0; half8 < 2; ++half8) {
+        const int a = am0 + g + 8 * half8;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = n * 8 + 2 * tq + e;
+          if (a < d && col < d) pc[a * d + col] = cacc[n][2 * half8 + e];
+        }
+      }
+  }
+  for (int i = t; i < half; i += kLinThreads) {
+    const int h = h0 + i / DP, a = i % DP;
+    if (h < heads && a < d)
+      p.part_z[pidx * H + h * d + a] =
+          ((zs[i] + zs[half + i]) + zs[2 * half + i]) + zs[3 * half + i];
+  }
 }
 
 // one block a (head, frame): the conditioning tokens first, once, then the
 // tiles in order
-__global__ void __launch_bounds__(kStatThreads) linear_any_stats_reduce(
+__global__ void __launch_bounds__(kLinThreads) linear_any_stats_reduce(
     const float* __restrict__ part_ctx, const float* __restrict__ part_z,
     const bf16* __restrict__ ek, const bf16* __restrict__ ev,
     float* __restrict__ ctx, float* __restrict__ z, int tiles, int Mc,
     int heads, int d, float inv_hw) {
   const int t = threadIdx.x, h = blockIdx.x, bf = blockIdx.y;
   const int H = heads * d, dd = d * d;
-  for (int o = t; o < dd; o += kStatThreads) {
+  for (int o = t; o < dd; o += kLinThreads) {
     const int ai = o / d, e = o % d;
     float c = 0.f;
     for (int m = 0; m < Mc; ++m) {
@@ -322,42 +1132,449 @@ __global__ void __launch_bounds__(kStatThreads) linear_any_stats_reduce(
   }
 }
 
-// ---- linear apply: the per-head softmax of q and q ctx, one warp a token
+// exp(q - m) of a head's column; 0 in the padding past d
+__device__ __forceinline__ float head_exp_col(float q, float m, bool in_head) {
+  return in_head ? expf(q - m) : 0.f;
+}
 
-constexpr int kApplyWarps = 8;
-
-// q (BF, N, H) f32, ctx (BF, heads, d, d), z (BF, H) -> oh (BF, N, H) bf16
-__global__ void __launch_bounds__(kApplyWarps * 32) linear_any_apply_heads(
-    const float* __restrict__ q, const float* __restrict__ ctx,
-    const float* __restrict__ z, bf16* __restrict__ oh, int BF, int N,
-    int heads, int d, float scale) {
-  extern __shared__ float smem_f[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * kApplyWarps + warp;
-  if (row >= (size_t)BF * N) return;
-  const int bf = row / N, H = heads * d;
-  float* qn = smem_f + warp * d;
-  const float* qr = q + row * H;
-  for (int h = 0; h < heads; ++h) {
-    const float* qh = qr + h * d;
-    float m = -CUDART_INF_F;
-    for (int ai = lane; ai < d; ai += 32) m = fmaxf(m, qh[ai]);
-    m = vmt::warp_max(m);
-    float s = 0.f;
-    for (int ai = lane; ai < d; ai += 32) s += expf(qh[ai] - m);
-    const float brd = scale / vmt::warp_sum(s);
-    const float* zh = z + (size_t)bf * H + h * d;
-    for (int ai = lane; ai < d; ai += 32)
-      qn[ai] = round_bf16(expf(qh[ai] - m) * brd * (1.f / zh[ai]));
-    __syncwarp();
-    const float* ch = ctx + ((size_t)bf * heads + h) * d * d;
-    for (int e = lane; e < d; e += 32) {
-      float o = 0.f;
-      for (int ai = 0; ai < d; ++ai) o = fmaf(qn[ai], round_bf16(ch[ai * d + e]), o);
-      oh[row * H + h * d + e] = __float2bfloat16(o);
+// the apply's bf16 context blocks [head][a][e] of heads h0..h0+group-1 and
+// their 1/z, zeros past d and past the last head
+template <int DP>
+__device__ __forceinline__ void apply_stage_ctx(const LinAny& p, bf16* cs,
+                                                float* iz, int bf, int h0,
+                                                int group, int t) {
+  const int heads = p.heads, d = p.d, H = heads * d;
+  const int total = group * DP * DP;
+  // eight loads of a thread in flight at a time
+  for (int i0 = t; i0 < total; i0 += 8 * kLinThreads) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kLinThreads;
+      const int hl = i / (DP * DP), a = (i / DP) % DP, e = i % DP;
+      const int h = h0 + hl;
+      v[u] = (i < total && h < heads && a < d && e < d)
+                 ? p.ctx[(((size_t)bf * heads + h) * d + a) * d + e]
+                 : 0.f;
     }
-    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int i = i0 + u * kLinThreads;
+      if (i < total)
+        cs[((i / (DP * DP)) * DP + (i / DP) % DP) * (DP + 8) + i % DP] =
+            __float2bfloat16(v[u]);
+    }
   }
+  for (int i = t; i < group * DP; i += kLinThreads) {
+    const int h = h0 + i / DP, a = i % DP;
+    iz[i] = (h < heads && a < d) ? 1.f / p.z[(size_t)bf * H + h * d + a] : 0.f;
+  }
+}
+
+// the warp's heads hw0..hw0+nhw-1 of the group at h0 (q in acc, DP
+// columns a head): the feature softmax on the fragments (a head's row lies
+// in one quad: two shuffles for its max and its sum; the padding past d
+// is -inf to the max, 0 to the sum and 0 in qn); oh_h = qn_h bf16(ctx_h)
+// with qn = bf16(e (scale / s) (1 / z)) repacked from the accumulators as
+// A fragments; bf16(oh) into the oh tile's rows m0.., columns h dp..
+template <int DP, int kNT>
+__device__ __forceinline__ void apply_heads(float (&acc)[kNT][4],
+                                            const bf16* cs, const float* iz,
+                                            bf16* oh, int ohp, int h0,
+                                            int hw0, int nhw, int d,
+                                            float scale, int m0, int lane) {
+  constexpr int kNTD = DP / 8, kCP = DP + 8;
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kNT / kNTD; ++i) {
+    if (i >= nhw) continue;
+    const int hl = hw0 + i;
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < kNTD; ++j) {
+      const float (&qv)[4] = acc[i * kNTD + j];
+      const int c = j * 8 + 2 * tq;
+      if (c < d) {
+        mx0 = fmaxf(mx0, qv[0]);
+        mx1 = fmaxf(mx1, qv[2]);
+      }
+      if (c + 1 < d) {
+        mx0 = fmaxf(mx0, qv[1]);
+        mx1 = fmaxf(mx1, qv[3]);
+      }
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+    }
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNTD; ++j) {
+      float (&ev)[4] = acc[i * kNTD + j];
+      const int c = j * 8 + 2 * tq;
+      ev[0] = head_exp_col(ev[0], mx0, c < d);
+      ev[1] = head_exp_col(ev[1], mx0, c + 1 < d);
+      ev[2] = head_exp_col(ev[2], mx1, c < d);
+      ev[3] = head_exp_col(ev[3], mx1, c + 1 < d);
+      s0 += ev[0] + ev[1];
+      s1 += ev[2] + ev[3];
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+    }
+    const float r0 = scale / s0, r1 = scale / s1;
+    float o[kNTD][4];
+#pragma unroll
+    for (int n = 0; n < kNTD; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+    const float* izh = iz + hl * DP + 2 * tq;
+    const bf16* cb = cs + hl * DP * kCP;
+#pragma unroll
+    for (int kk = 0; kk < kNTD / 2; ++kk) {
+      const float (&x0)[4] = acc[i * kNTD + 2 * kk];
+      const float (&x1)[4] = acc[i * kNTD + 2 * kk + 1];
+      const float* zc = izh + 16 * kk;
+      uint32_t af[4];
+      af[0] = vmt::pack_bf16x2(x0[0] * r0 * zc[0], x0[1] * r0 * zc[1]);
+      af[1] = vmt::pack_bf16x2(x0[2] * r1 * zc[0], x0[3] * r1 * zc[1]);
+      af[2] = vmt::pack_bf16x2(x1[0] * r0 * zc[8], x1[1] * r0 * zc[9]);
+      af[3] = vmt::pack_bf16x2(x1[2] * r1 * zc[8], x1[3] * r1 * zc[9]);
+#pragma unroll
+      for (int np = 0; np < kNTD / 2; ++np) {
+        uint32_t bb[4];
+        vmt::ldsm_x4_t(bb, cb + (kk * 16 + vmt::bk_row_off(lane)) * kCP +
+                               np * 16 + vmt::bk_col_off(lane));
+        vmt::mma_bf16(o[2 * np], af, bb[0], bb[1]);
+        vmt::mma_bf16(o[2 * np + 1], af, bb[2], bb[3]);
+      }
+    }
+    bf16* orow = oh + (m0 + g) * ohp + (h0 + hl) * DP + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < kNTD; ++n) {
+      *reinterpret_cast<uint32_t*>(orow + n * 8) =
+          vmt::pack_bf16x2(o[n][0], o[n][1]);
+      *reinterpret_cast<uint32_t*>(orow + 8 * ohp + n * 8) =
+          vmt::pack_bf16x2(o[n][2], o[n][3]);
+    }
+  }
+}
+
+// dacc += oh[m0..m0+15][kh chunk] @ W_out chunk [kLinKC][wc columns at wsq]
+__device__ __forceinline__ void apply_out_chunk(float (&dacc)[kLinWC / 8][4],
+                                                const bf16* oh, int ohp,
+                                                int kh, const bf16* wsq,
+                                                int wp, int wc, int m0,
+                                                int lane) {
+#pragma unroll
+  for (int ks = 0; ks < kLinKC / 16; ++ks) {
+    uint32_t a[4];
+    vmt::ldsm_x4(a, oh + (m0 + vmt::a_row_off(lane)) * ohp + kh * kLinKC +
+                        ks * 16 + vmt::a_col_off(lane));
+#pragma unroll
+    for (int np = 0; np < kLinWC / 16; ++np) {
+      if (np * 16 >= wc) continue;
+      uint32_t bb[4];
+      vmt::ldsm_x4_t(bb, wsq + (ks * 16 + vmt::bk_row_off(lane)) * wp +
+                             np * 16 + vmt::bk_col_off(lane));
+      vmt::mma_bf16(dacc[2 * np], a, bb[0], bb[1]);
+      vmt::mma_bf16(dacc[2 * np + 1], a, bb[2], bb[3]);
+    }
+  }
+}
+
+// out = bf16(x + out_bias + dacc) of rows m0.. (< valid) of the tile at
+// row0 (frame rows), columns c0 + 8 n + 2 tq (+1) < C, in bf16 pairs where
+// C is even; xr(r, c) reads x
+template <class Xr>
+__device__ __forceinline__ void apply_store(const float (&dacc)[kLinWC / 8][4],
+                                            const LinAny& p, Xr xr,
+                                            size_t row0, int valid, int c0,
+                                            int wc, int m0, int lane) {
+  const int g = lane >> 2, tq = lane & 3, C = p.C;
+  const bool pairs = C % 2 == 0;
+#pragma unroll
+  for (int half8 = 0; half8 < 2; ++half8) {
+    const int r = m0 + g + 8 * half8;
+    if (r >= valid) continue;
+    bf16* orow = p.out + (row0 + r) * C;
+#pragma unroll
+    for (int n = 0; n < kLinWC / 8; ++n) {
+      if (n * 8 >= wc) continue;
+      const int c = c0 + n * 8 + 2 * tq;
+      if (pairs) {
+        if (c < C)
+          *reinterpret_cast<uint32_t*>(orow + c) = vmt::pack_bf16x2(
+              xr(r, c) + p.out_bias[c] + dacc[n][2 * half8],
+              xr(r, c + 1) + p.out_bias[c + 1] + dacc[n][2 * half8 + 1]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (c + e < C)
+            orow[c + e] = __float2bfloat16(xr(r, c + e) + p.out_bias[c + e] +
+                                           dacc[n][2 * half8 + e]);
+      }
+    }
+  }
+}
+
+// Row 5. One block a (frame, span tokens), walked `tile` tokens at a time
+// (resident: 64-token tiles, up to four; streamed: one tile of 64, 32 or
+// 16); warp (rg, ch), rg < tile / 16 over the token rows, ch over 8 /
+// (tile / 16) column parts. The q pass walks the heads in groups (the
+// resident mode: one): q = y W_q on mma.sync (a part: a run of the group's
+// heads, dp columns each), then `apply_heads`; bf16(oh) into the oh tile.
+// Then oh W_out on mma.sync, parts x wc columns a block of W_out (the
+// resident mode: all C in one), with bf16(x + out_bias + .) in the
+// epilogue.
+template <int DP, bool kRes>
+__global__ void __launch_bounds__(kLinThreads, 2) linear_any_apply_kernel(
+    const LinAny p) {
+  constexpr int kNTD = DP / 8;
+  // n8 tiles a warp at most: 128 q columns, the resident mode 64 (its
+  // registers also hold the tile loop's state)
+  constexpr int kNT = ((kRes ? 64 : 128) / DP) * kNTD;
+  constexpr int kCP = DP + 8;                  // pitch of the context blocks
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int M = p.tile, RG = M / 16, parts = 8 / RG;
+  const int GA = p.group, heads = p.heads, d = p.d, N = p.N, C = p.C;
+  const int H = heads * d, hpk = (heads * DP + kLinKC - 1) / kLinKC * kLinKC;
+  const int WC = lin_apply_wc(M, C), CB = parts * WC;
+  const int nkc = (C + kLinKC - 1) / kLinKC, nkh = hpk / kLinKC;
+  const int ncb = (C + CB - 1) / CB, groups = (heads + GA - 1) / GA;
+  const int ohp = hpk + 8;
+  // pitches of the W_q and W_out chunks
+  const int wpq = kRes ? GA * DP + 8 : lin_apply_wp(M, GA, DP, C);
+  const int wpo = kRes ? CB + 8 : wpq;
+  const int kXS = M * kLinXP;                  // elements of an x chunk
+  const int stage = lin_stage_bytes(M, wpq);
+  // shared memory: resident: W_q's chunks, gamma, W_out's chunks, two
+  // tiles of x chunks, a tile of y chunks; streamed: the ring; then cs, iz,
+  // mu, rstd, oh
+  bf16* wq_res = reinterpret_cast<bf16*>(smem_raw);
+  float* g_res = reinterpret_cast<float*>(wq_res + nkc * kLinKC * wpq);
+  bf16* wo_res = reinterpret_cast<bf16*>(g_res + nkc * kLinKC);
+  bf16* x_res = wo_res + hpk * wpo;
+  bf16* y_res = x_res + 2 * nkc * kXS;
+  unsigned char* tail =
+      kRes ? reinterpret_cast<unsigned char*>(y_res + nkc * kXS)
+           : smem_raw + p.stages * stage;
+  bf16* cs = reinterpret_cast<bf16*>(tail);                   // [GA][DP][kCP]
+  float* iz = reinterpret_cast<float*>(cs + GA * DP * kCP);   // [GA DP]
+  float* mu_s = iz + GA * DP;                                 // [M]
+  float* rs_s = mu_s + M;                                     // [M]
+  bf16* oh = reinterpret_cast<bf16*>(rs_s + M);               // [M][ohp]
+
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int g = lane >> 2;
+  const int bf = blockIdx.y, n_blk = blockIdx.x * p.span;
+  const int ntiles = (min(p.span, N - n_blk) + M - 1) / M;
+  const bf16* xb = p.x + (size_t)bf * N * C;
+  const bool vx = aligned16(p.x) && C % 8 == 0;
+  const bool vg = aligned16(p.gamma) && C % 4 == 0;
+  const bool vw = aligned16(p.w_qkv) && d % 8 == 0;
+  const bool vo = aligned16(p.w_out) && C % 8 == 0;
+  const int rg = warp % RG, ch = warp / RG, m0 = rg * 16;
+  const int hpw = (GA + parts - 1) / parts;    // heads a warp in a q pass
+  // this thread's pieces of the W_q and W_out chunks
+  const LinUnit qun = lin_unit(GA * DP / 8, t), oun = lin_unit(CB / 8, t);
+
+  // the oh tile's columns past the last head (zeros into W_out's zero rows)
+  for (int i = t; i < M * (hpk - heads * DP); i += kLinThreads) {
+    const int r = i / (hpk - heads * DP), c = heads * DP + i % (hpk - heads * DP);
+    oh[r * ohp + c] = __float2bfloat16(0.f);
+  }
+
+  if constexpr (kRes) {
+    // one q group (GA >= heads), the out-projection's columns in one block
+    // (CB >= C). Group 0: the weights, gamma and tile 0's x; group 1: tile
+    // 1's x; then one a tile, the tile two ahead
+    auto xt = [&](int it, int kc) { return x_res + ((it & 1) * nkc + kc) * kXS; };
+    auto load_x = [&](int it) {
+      const int n0 = n_blk + it * M;
+      for (int kc = 0; kc < nkc; ++kc)
+        lin_load_x(xt(it, kc), xb, n0, N - n0, M, kc * kLinKC, C, vx, t);
+    };
+    for (int kc = 0; kc < nkc; ++kc) {
+      lin_load_gamma(g_res + kc * kLinKC, p.gamma, kc * kLinKC, C, vg, t);
+      lin_load_w<DP>(wq_res + kc * kLinKC * wpq, wpq, p.w_qkv, 3 * H,
+                     kc * kLinKC, C, 0, 0, GA, 0, heads, d, vw, qun);
+    }
+    for (int kh = 0; kh < nkh; ++kh)
+      lin_load_wout<DP>(wo_res + kh * kLinKC * wpo, wpo, p.w_out, kh * kLinKC,
+                        0, C, heads, d, vo, oun);
+    load_x(0);
+    vmt::cp_async_commit();
+    if (ntiles > 1) load_x(1);
+    vmt::cp_async_commit();
+    apply_stage_ctx<DP>(p, cs, iz, bf, 0, GA, t);
+    const int nhw = max(0, min(hpw, heads - ch * hpw));
+    for (int it = 0; it < ntiles; ++it) {
+      const int n0 = n_blk + it * M, valid = min(M, N - n0);
+      vmt::cp_async_wait<1>();
+      __syncthreads();  // tile it's x (it = 0: the weights, cs, iz) visible;
+                        // the last tile's readers of mu, rstd, oh done
+      // y of tile it into y_res (x stays for the residual)
+      const bf16* xtile = xt(it, 0);
+      lin_ln_tile(xtile, y_res, kXS, g_res, valid, M, C, t);
+      __syncthreads();  // y visible
+      const float mu[2] = {0.f, 0.f}, rs[2] = {0.f, 0.f};
+      float acc[kNT][4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      for (int kc = 0; kc < nkc; ++kc)
+        lin_project<kNT, false>(acc, y_res + kc * kXS, g_res + kc * kLinKC,
+                                wq_res + kc * kLinKC * wpq, wpq, m0,
+                                ch * hpw * DP, nhw * kNTD, mu, rs, lane);
+      apply_heads<DP>(acc, cs, iz, oh, ohp, 0, ch * hpw, nhw, d, p.scale, m0,
+                      lane);
+      __syncthreads();  // the oh tile visible
+      float dacc[kLinWC / 8][4];
+#pragma unroll
+      for (int n = 0; n < kLinWC / 8; ++n) dacc[n][0] = dacc[n][1] = dacc[n][2] = dacc[n][3] = 0.f;
+      for (int kh = 0; kh < nkh; ++kh)
+        apply_out_chunk(dacc, oh, ohp, kh, wo_res + kh * kLinKC * wpo + ch * WC,
+                        wpo, WC, m0, lane);
+      apply_store(dacc, p,
+                  [&](int r, int c) { return lin_x_at(xtile, kXS, r, c); },
+                  (size_t)bf * N + n0, valid, ch * WC, WC, m0, lane);
+      __syncthreads();  // every warp done with tile it's x
+      if (it + 2 < ntiles) load_x(it + 2);
+      vmt::cp_async_commit();
+    }
+  } else {
+    const int n0 = n_blk, valid = min(M, N - n0);
+    const int nq1 = groups * nkc, nq = nq1 + ncb * nkh;
+    const int S = p.stages;
+    auto ring = [&](int q) { return smem_raw + (q % S) * stage; };
+    auto xs = [&](int q) { return reinterpret_cast<bf16*>(ring(q)); };
+    auto gs = [&](int q) { return reinterpret_cast<float*>(xs(q) + kXS); };
+    auto ws = [&](int q) { return reinterpret_cast<bf16*>(gs(q) + kLinKC); };
+    auto load_chunk = [&](int q) {
+      if (q < nq1) {
+        const int k0 = (q % nkc) * kLinKC;
+        lin_load_x(xs(q), xb, n0, valid, M, k0, C, vx, t);
+        lin_load_gamma(gs(q), p.gamma, k0, C, vg, t);
+        lin_load_w<DP>(ws(q), wpq, p.w_qkv, 3 * H, k0, C, 0, 0, GA,
+                       (q / nkc) * GA, heads, d, vw, qun);
+      } else {
+        const int r = q - nq1;
+        lin_load_wout<DP>(ws(q), wpq, p.w_out, (r % nkh) * kLinKC,
+                          (r / nkh) * CB, C, heads, d, vo, oun);
+      }
+    };
+    for (int q = 0; q < S - 1; ++q) {
+      if (q < nq) load_chunk(q);
+      vmt::cp_async_commit();
+    }
+    lin_row_stats(xb, n0, valid, M, C, mu_s, rs_s, t);
+
+    int q = 0;
+    float mu[2], rs[2];
+    for (int gi = 0; gi < groups; ++gi) {
+      const int h0 = gi * GA;
+      if (gi > 0) __syncthreads();  // the last group's readers of cs, iz done
+      apply_stage_ctx<DP>(p, cs, iz, bf, h0, GA, t);
+      const int hw0 = ch * hpw;
+      const int nhw = max(0, min(hpw, min(GA, heads - h0) - hw0));
+      float acc[kNT][4];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+      for (int kc = 0; kc < nkc; ++kc, ++q) {
+        lin_wait(S - 2);
+        __syncthreads();  // chunk q visible (q = 0: mu, rstd, cs, iz too)
+        if (q == 0) {
+          mu[0] = mu_s[m0 + g];
+          rs[0] = rs_s[m0 + g];
+          mu[1] = mu_s[m0 + g + 8];
+          rs[1] = rs_s[m0 + g + 8];
+        }
+        if (q + S - 1 < nq) load_chunk(q + S - 1);
+        vmt::cp_async_commit();
+        lin_project<kNT>(acc, xs(q), gs(q), ws(q), wpq, m0, hw0 * DP,
+                         nhw * kNTD, mu, rs, lane);
+      }
+      apply_heads<DP>(acc, cs, iz, oh, ohp, h0, hw0, nhw, d, p.scale, m0,
+                      lane);
+    }
+
+    for (int cbi = 0; cbi < ncb; ++cbi) {
+      float dacc[kLinWC / 8][4];
+#pragma unroll
+      for (int n = 0; n < kLinWC / 8; ++n) dacc[n][0] = dacc[n][1] = dacc[n][2] = dacc[n][3] = 0.f;
+      for (int kh = 0; kh < nkh; ++kh, ++q) {
+        lin_wait(S - 2);
+        __syncthreads();  // chunk q visible (the first: the oh tile too)
+        if (q + S - 1 < nq) load_chunk(q + S - 1);
+        vmt::cp_async_commit();
+        apply_out_chunk(dacc, oh, ohp, kh, ws(q) + ch * WC, wpq, WC, m0,
+                        lane);
+      }
+      apply_store(dacc, p,
+                  [&](int r, int c) {
+                    return bf2f(xb[(size_t)(n0 + r) * C + c]);
+                  },
+                  (size_t)bf * N + n0, valid, cbi * CB + ch * WC, WC, m0,
+                  lane);
+    }
+  }
+}
+
+// a kernel's dynamic shared memory, with the SM's split of L1 and shared
+// memory set to the most shared memory (else two blocks of the plan may
+// not fit on an SM)
+template <class K>
+cudaError_t lin_smem_attrs(K* kern, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+// blocks an SM of the stats and the apply kernel of a plan
+template <int DP>
+cudaError_t lin_occupancy(const LinPlan& pl, int* out) {
+  auto ks = pl.stats_res ? linear_any_stats_kernel<DP, true>
+                         : linear_any_stats_kernel<DP, false>;
+  auto ka = pl.apply_res ? linear_any_apply_kernel<DP, true>
+                         : linear_any_apply_kernel<DP, false>;
+  cudaError_t err = lin_smem_attrs(ks, pl.stats_smem);
+  if (err == cudaSuccess) err = lin_smem_attrs(ka, pl.apply_smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out, ks, kLinThreads, pl.stats_smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        out + 1, ka, kLinThreads, pl.apply_smem);
+  return err;
+}
+
+template <int DP>
+cudaError_t lin_stats_launch(const LinAny& p, const LinPlan& pl, int BF,
+                             int heads, cudaStream_t st) {
+  auto kern = pl.stats_res ? linear_any_stats_kernel<DP, true>
+                           : linear_any_stats_kernel<DP, false>;
+  cudaError_t err = lin_smem_attrs(kern, pl.stats_smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + pl.stats_tile - 1) / pl.stats_tile,
+                  (heads + pl.stats_group - 1) / pl.stats_group, BF);
+  kern<<<grid, kLinThreads, pl.stats_smem, st>>>(p);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t lin_apply_launch(const LinAny& p, const LinPlan& pl, int BF,
+                             cudaStream_t st) {
+  auto kern = pl.apply_res ? linear_any_apply_kernel<DP, true>
+                           : linear_any_apply_kernel<DP, false>;
+  cudaError_t err = lin_smem_attrs(kern, pl.apply_smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.N + pl.apply_span - 1) / pl.apply_span, BF);
+  kern<<<grid, kLinThreads, pl.apply_smem, st>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -430,39 +1647,74 @@ extern "C" int vmt_temporal_block_any(
   return (int)launch_gemm(g, 1, kResidual, st);
 }
 
+// The launch plan of rows 4 and 5 at (BF, N, C, heads, d), as twelve ints
+// into plan: dp; stats tile, head group, resident (0 or 1), ring stages (0
+// when resident), shared memory bytes; apply tile, span, head group,
+// resident, ring stages, shared memory bytes.
+// Returns 0, or cudaErrorInvalidValue for a shape no plan takes (d > 64).
+// fused_linear_block.any_plan is its mirror.
+extern "C" int vmt_linear_any_plan(int BF, int N, int C, int heads, int d,
+                                   int* plan) {
+  LinPlan pl;
+  if (BF <= 0 || C <= 0 || !lin_plan(BF, N, C, heads, d, &pl))
+    return (int)cudaErrorInvalidValue;
+  const int v[12] = {pl.dp,          pl.stats_tile,  pl.stats_group,
+                     pl.stats_res,   pl.stats_stages, pl.stats_smem,
+                     pl.apply_tile,  pl.apply_span,  pl.apply_group,
+                     pl.apply_res,   pl.apply_stages, pl.apply_smem};
+  for (int i = 0; i < 12; ++i) plan[i] = v[i];
+  return 0;
+}
+
+// Blocks an SM of the stats and the apply kernel (out[0], out[1]) at the
+// plan of (BF, N, C, heads, d): the occupancy the plan's shared memory and
+// the kernels' registers allow.
+extern "C" int vmt_linear_any_occupancy(int BF, int N, int C, int heads,
+                                        int d, int* out) {
+  LinPlan pl;
+  if (!lin_plan(BF, N, C, heads, d, &pl)) return (int)cudaErrorInvalidValue;
+  switch (pl.dp) {
+    case 16: return (int)lin_occupancy<16>(pl, out);
+    case 32: return (int)lin_occupancy<32>(pl, out);
+    case 48: return (int)lin_occupancy<48>(pl, out);
+    default: return (int)lin_occupancy<64>(pl, out);
+  }
+}
+
 // The linear stats at any shape (d <= 64). x (BF, N, C); w_qkv (C, 3H);
-// ek/ev (BF, Mc, H) or null when Mc == 0; scratch y (BF, N, C) bf16, kv
-// (BF, N, 2H) f32, part_ctx (BF, tiles, heads, d, d) and part_z
-// (BF, tiles, H) f32 with tiles = ceil(N / tile); out ctx (BF, heads, d, d)
-// and z (BF, H) f32.
+// ek/ev (BF, Mc, H) or null when Mc == 0; scratch part_ctx (BF, tiles,
+// heads, d, d) and part_z (BF, tiles, H) f32 with tiles = ceil(N / tile),
+// tile the plan's stats tile; out ctx (BF, heads, d, d) and z (BF, H) f32.
 extern "C" int vmt_linear_stats_any(
     const void* x, const void* gamma, const void* w_qkv, const void* ek,
-    const void* ev, void* y, void* kv, void* part_ctx, void* part_z,
-    void* ctx, void* z, int BF, int N, int C, int Mc, int heads, int d,
-    int tile, float inv_hw, void* stream) {
-  if (BF <= 0 || N <= 0 || C <= 0 || Mc < 0 || heads <= 0 || d <= 0 ||
-      d > kMaxStatD || tile <= 0 || (Mc > 0 && (ek == nullptr || ev == nullptr)))
+    const void* ev, void* part_ctx, void* part_z, void* ctx, void* z, int BF,
+    int N, int C, int Mc, int heads, int d, int tile, float inv_hw,
+    void* stream) {
+  LinPlan pl;
+  if (BF <= 0 || C <= 0 || Mc < 0 || !lin_plan(BF, N, C, heads, d, &pl) ||
+      tile != pl.stats_tile || (Mc > 0 && (ek == nullptr || ev == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int H = heads * d;
-  const size_t R = (size_t)BF * N;
-  cudaError_t err = launch_ln(static_cast<const bf16*>(x),
-                              static_cast<const float*>(gamma),
-                              static_cast<bf16*>(y), R, C, st);
-  if (err != cudaSuccess) return (int)err;
-  // k || v = y @ w_qkv[:, H:3H], float32
-  err = launch_gemm(gemm(static_cast<const bf16*>(y), C, 0,
-                         static_cast<const bf16*>(w_qkv) + H, 3 * H, 0, 1, kv,
-                         2 * H, 0, (int)R, 2 * H, C),
-                    1, kStoreF32, st);
+  LinAny p{};
+  p.x = static_cast<const bf16*>(x);
+  p.gamma = static_cast<const float*>(gamma);
+  p.w_qkv = static_cast<const bf16*>(w_qkv);
+  p.part_ctx = static_cast<float*>(part_ctx);
+  p.part_z = static_cast<float*>(part_z);
+  p.N = N; p.C = C; p.heads = heads; p.d = d;
+  p.tile = pl.stats_tile; p.group = pl.stats_group;
+  p.stages = pl.stats_stages;
+  p.inv_hw = inv_hw;
+  cudaError_t err;
+  switch (pl.dp) {
+    case 16: err = lin_stats_launch<16>(p, pl, BF, heads, st); break;
+    case 32: err = lin_stats_launch<32>(p, pl, BF, heads, st); break;
+    case 48: err = lin_stats_launch<48>(p, pl, BF, heads, st); break;
+    default: err = lin_stats_launch<64>(p, pl, BF, heads, st); break;
+  }
   if (err != cudaSuccess) return (int)err;
   const int tiles = (N + tile - 1) / tile;
-  const size_t smem = (size_t)3 * kSubT * d * sizeof(float);
-  linear_any_stats_partial<<<dim3(tiles, heads, BF), kStatThreads, smem, st>>>(
-      static_cast<const float*>(kv), static_cast<float*>(part_ctx),
-      static_cast<float*>(part_z), N, tile, heads, d, inv_hw);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  linear_any_stats_reduce<<<dim3(heads, BF), kStatThreads, 0, st>>>(
+  linear_any_stats_reduce<<<dim3(heads, BF), kLinThreads, 0, st>>>(
       static_cast<const float*>(part_ctx), static_cast<const float*>(part_z),
       static_cast<const bf16*>(ek), static_cast<const bf16*>(ev),
       static_cast<float*>(ctx), static_cast<float*>(z), tiles, Mc, heads, d,
@@ -470,40 +1722,34 @@ extern "C" int vmt_linear_stats_any(
   return (int)cudaGetLastError();
 }
 
-// The linear apply at any shape. x (BF, N, C); w_qkv (C, 3H); w_out (H, C);
-// out_bias (C) f32; ctx (BF, heads, d, d), z (BF, H) f32; scratch y
-// (BF, N, C) bf16, q (BF, N, H) f32, oh (BF, N, H) bf16.
+// The linear apply at any shape (d <= 64). x (BF, N, C); w_qkv (C, 3H);
+// w_out (H, C); out_bias (C) f32; ctx (BF, heads, d, d), z (BF, H) f32;
+// out (BF, N, C). No scratch: q and oh stay on the chip.
 extern "C" int vmt_linear_apply_any(
     const void* x, const void* gamma, const void* w_qkv, const void* w_out,
-    const void* out_bias, const void* ctx, const void* z, void* out, void* y,
-    void* q, void* oh, int BF, int N, int C, int heads, int d, float scale,
-    void* stream) {
-  if (BF <= 0 || N <= 0 || C <= 0 || heads <= 0 || d <= 0)
+    const void* out_bias, const void* ctx, const void* z, void* out, int BF,
+    int N, int C, int heads, int d, float scale, void* stream) {
+  LinPlan pl;
+  if (BF <= 0 || C <= 0 || !lin_plan(BF, N, C, heads, d, &pl))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int H = heads * d;
-  const size_t R = (size_t)BF * N;
-  cudaError_t err = launch_ln(static_cast<const bf16*>(x),
-                              static_cast<const float*>(gamma),
-                              static_cast<bf16*>(y), R, C, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm(gemm(static_cast<const bf16*>(y), C, 0,
-                         static_cast<const bf16*>(w_qkv), 3 * H, 0, 1, q, H, 0,
-                         (int)R, H, C),
-                    1, kStoreF32, st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t blocks = (R + kApplyWarps - 1) / kApplyWarps;
-  linear_any_apply_heads<<<(unsigned)blocks, kApplyWarps * 32,
-                           kApplyWarps * d * sizeof(float), st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(ctx),
-      static_cast<const float*>(z), static_cast<bf16*>(oh), BF, N, heads, d,
-      scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  Gemm g = gemm(static_cast<const bf16*>(oh), H, 0,
-                static_cast<const bf16*>(w_out), C, 0, 1, out, C, 0, (int)R, C,
-                H);
-  g.res = static_cast<const bf16*>(x);
-  g.ldr = C;
-  g.bias = static_cast<const float*>(out_bias);
-  return (int)launch_gemm(g, 1, kResidual, st);
+  LinAny p{};
+  p.x = static_cast<const bf16*>(x);
+  p.gamma = static_cast<const float*>(gamma);
+  p.w_qkv = static_cast<const bf16*>(w_qkv);
+  p.w_out = static_cast<const bf16*>(w_out);
+  p.out_bias = static_cast<const float*>(out_bias);
+  p.ctx = static_cast<const float*>(ctx);
+  p.z = static_cast<const float*>(z);
+  p.out = static_cast<bf16*>(out);
+  p.N = N; p.C = C; p.heads = heads; p.d = d;
+  p.tile = pl.apply_tile; p.span = pl.apply_span; p.group = pl.apply_group;
+  p.stages = pl.apply_stages;
+  p.scale = scale;
+  switch (pl.dp) {
+    case 16: return (int)lin_apply_launch<16>(p, pl, BF, st);
+    case 32: return (int)lin_apply_launch<32>(p, pl, BF, st);
+    case 48: return (int)lin_apply_launch<48>(p, pl, BF, st);
+    default: return (int)lin_apply_launch<64>(p, pl, BF, st);
+  }
 }

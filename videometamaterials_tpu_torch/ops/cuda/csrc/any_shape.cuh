@@ -1,7 +1,7 @@
-// Pieces shared by the any-shape kernels (any_shape.cu: rows 1, 4, 5;
-// any_shape_bwd.cu: rows 2, 3, 6, 7), for sm_90a: a one-warp-a-row
-// LayerNorm and a tensor-core product that takes any M, N, K and any row
-// pitch. Every size is a launch argument. Each translation unit that
+// Pieces shared by the any-shape kernels (any_shape.cu: rows 1, 2, and
+// the shared memory limit and alignment test of rows 4, 5; any_shape_bwd.cu:
+// rows 3, 6, 7, 8), for sm_90a: a one-warp-a-row LayerNorm and a
+// tensor-core product that takes any M, N, K and any row pitch. Every size is a launch argument. Each translation unit that
 // includes this gets its own copy (an anonymous namespace).
 //  - ln_rows_kernel: one warp a row, two-pass, C any.
 //  - any_gemm_kernel: C[z] = A[z] @ B[z % b_mod], one 64 x 64 tile a block

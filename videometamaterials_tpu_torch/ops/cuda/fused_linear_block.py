@@ -37,12 +37,13 @@ Rows 4 and 5 (stats and apply), 6 and 7 (the backward) and 8 (the head
 layout) have two instances each, picked from the shape alone
 (`forward_instance`): the specialised kernels at the flagship's shapes (8
 heads of 32, C in CHANNELS; any N and Mc) and the any-shape kernels
-(csrc/any_shape.cu, csrc/any_shape_bwd.cu: any heads, d up to 64 in the
-stats, the head layout and the backward, C, N and Mc) at every other.
+(csrc/any_shape.cu, csrc/any_shape_bwd.cu: any heads, d up to 64, any
+C, N and Mc; rows 4-5 launch as `any_plan` says) at every other.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import torch
@@ -67,8 +68,22 @@ ROUTE_BYTES = 40 * 2 ** 20
 LAYOUTS = ("merged", "head")
 # the instances of rows 4 and 5 (`forward_instance`)
 SPECIALISED, ANY_SHAPE = "specialised", "any"
-# tokens a block of the any-shape stats pass
-ANY_STATS_TILE = 256
+# the any-shape rows 4-5 (`any_plan`, csrc/any_shape.cu's lin_plan): d up
+# to ANY_MAX_D; K-chunks of ANY_KC; at most ANY_MAX_COLS weight columns a
+# chunk; 64 tokens a stats sub-tile; 3 to 6 ring stages; out-projection
+# columns a warp at most ANY_WARP_COLS
+ANY_MAX_D, ANY_KC, ANY_MAX_COLS, ANY_STAT_M = 64, 32, 256, 64
+ANY_MIN_STAGES, ANY_MAX_STAGES, ANY_WARP_COLS = 3, 6, 64
+# dynamic shared memory: what a block can ask, and what two blocks an SM
+# leave each (the resident modes' limit)
+MAX_SMEM, RES_SMEM = 232448, 115712
+# blocks that keep an H100's 132 SMs busy: one a SM for the stats' head
+# groups, two for the resident apply's span (of at most ANY_SPAN_TILES
+# 64-token tiles); the streamed apply's largest token tile with
+# ANY_APPLY_BLOCKS (each block reads all of W_q and W_out: smaller tiles
+# read them more often)
+ANY_GRID_BLOCKS, ANY_SPAN_BLOCKS, ANY_SPAN_TILES = 132, 264, 4
+ANY_APPLY_BLOCKS = 3 * ANY_GRID_BLOCKS // 4
 
 
 def stats_tile(n: int) -> int:
@@ -87,6 +102,115 @@ def forward_instance(heads: int, dim_head: int, c: int) -> str:
     if heads == HEADS and dim_head * heads == HIDDEN and c in CHANNELS:
         return SPECIALISED
     return ANY_SHAPE
+
+
+@functools.lru_cache(maxsize=256)
+def any_plan(bf: int, n: int, c: int, heads: int, d: int) -> dict:
+    """The launch plan of the any-shape rows 4 and 5 at a shape, the mirror
+    of csrc/any_shape.cu's lin_plan (vmt_linear_any_plan), which
+    chip_smoke.py holds it to. Keys:
+    - dp: d padded to k-steps of 16;
+    - stats_tile (`stats_tile`), stats_group (heads a stats block: one or
+      an even number, at most 128 k and 128 v columns, halved while the
+      grid has fewer than ANY_GRID_BLOCKS blocks), stats_res (1: C <= 128
+      and the weights and two sub-tiles of x rows stay in shared memory
+      beside two blocks an SM), stats_stages (else the ring's stages: as
+      many as fit two blocks an SM where the grid has more blocks than
+      SMs, else one), stats_smem (bytes);
+    - apply_tile (tokens a pass), apply_span (tokens a block), apply_group
+      (heads a q pass), apply_res, apply_stages, apply_smem. The resident
+      apply takes every head in one q pass (at most 64 q columns a warp)
+      and every column in one out-projection block, 64-token passes, up to
+      ANY_SPAN_TILES a block while the grid keeps ANY_SPAN_BLOCKS blocks;
+      the streamed apply takes the largest of 64, 32, 16 tokens whose oh
+      tile of heads x dp columns fits and whose grid has ANY_APPLY_BLOCKS
+      blocks, else the smallest that fits.
+    C streams through both in K-chunks. Raises ValueError where no plan
+    takes the shape (d > ANY_MAX_D)."""
+    if min(bf, n, c, heads, d) <= 0:
+        raise ValueError(f"no any-shape plan for {(bf, n, c, heads, d)}")
+    if d > ANY_MAX_D:
+        raise ValueError(f"the any-shape stats and apply take d up to "
+                         f"{ANY_MAX_D}, got {d}")
+    dp = -(-d // 16) * 16
+    nkc = -(-c // ANY_KC)
+    xchunk = lambda rows: rows * (ANY_KC + 8) * 2        # bytes
+
+    def stage(rows, wp):
+        return xchunk(rows) + ANY_KC * 4 + ANY_KC * wp * 2
+
+    def stages(smem, limit):
+        s = ANY_MIN_STAGES
+        while s < ANY_MAX_STAGES and smem(s + 1) <= limit:
+            s += 1
+        return s
+
+    def stats_smem(group, res, s):
+        half = group * dp
+        wp = 2 * half + 8
+        tail = ANY_STAT_M * wp * 2 + 4 * half * 4 + ANY_STAT_M * 8
+        if res:
+            return (nkc * ANY_KC * (wp * 2 + 4) + 2 * nkc * xchunk(ANY_STAT_M)
+                    + tail)
+        return s * stage(ANY_STAT_M, wp) + tail
+
+    hpk = -(-heads * dp // ANY_KC) * ANY_KC
+
+    def wc_of(tile):
+        """The out-projection's columns a warp."""
+        parts = 8 // (tile // 16)
+        per = -(-c // parts)
+        return min(-(-per // 16) * 16, ANY_MAX_COLS // parts, ANY_WARP_COLS)
+
+    def apply_smem(tile, ga, res, s):
+        parts = 8 // (tile // 16)
+        cb = parts * wc_of(tile)
+        tail = (ga * dp * (dp + 8) * 2 + ga * dp * 4 + tile * 8
+                + tile * (hpk + 8) * 2)
+        if res:
+            return (nkc * ANY_KC * ((ga * dp + 8) * 2 + 4) + hpk * (cb + 8) * 2
+                    + 3 * nkc * xchunk(tile) + tail)
+        return s * stage(tile, max(ga * dp, cb) + 8) + tail
+
+    tile = stats_tile(n)
+    # one head or an even number: a column half of the block holds the k
+    # and v of half the group's heads
+    even = lambda g: g - 1 if g > 1 and g % 2 else g
+    group = even(min(heads, 128 // dp))
+    blocks = lambda g: -(-n // tile) * -(-heads // g) * bf
+    while group > 1 and blocks(group) < ANY_GRID_BLOCKS:
+        group = even(group // 2)
+    res = int(c <= 128 and stats_smem(group, True, 0) <= RES_SMEM)
+    limit = RES_SMEM if blocks(group) > ANY_GRID_BLOCKS else MAX_SMEM
+    s = 0 if res else stages(lambda k: stats_smem(group, False, k), limit)
+    plan = dict(dp=dp, stats_tile=tile, stats_group=group, stats_res=res,
+                stats_stages=s, stats_smem=stats_smem(group, res, s))
+    ga = min(heads, 2 * (64 // dp))
+    if (ga == heads and 2 * wc_of(64) >= c
+            and apply_smem(64, ga, True, 0) <= RES_SMEM):
+        span = ANY_SPAN_TILES
+        while span > 1 and -(-n // (64 * span)) * bf < ANY_SPAN_BLOCKS:
+            span //= 2
+        return dict(plan, apply_tile=64, apply_span=64 * span,
+                    apply_group=ga, apply_res=1, apply_stages=0,
+                    apply_smem=apply_smem(64, ga, True, 0))
+    apply = None
+    for tile in (64, 32, 16):
+        parts = 8 // (tile // 16)
+        ga = min(parts * (128 // dp), ANY_MAX_COLS // dp, heads)
+        if apply_smem(tile, ga, False, ANY_MIN_STAGES) > MAX_SMEM:
+            continue
+        nblocks = -(-n // tile) * bf
+        s = stages(lambda k: apply_smem(tile, ga, False, k),
+                   RES_SMEM if nblocks > ANY_GRID_BLOCKS else MAX_SMEM)
+        apply = dict(apply_tile=tile, apply_span=tile, apply_group=ga,
+                     apply_res=0, apply_stages=s,
+                     apply_smem=apply_smem(tile, ga, False, s))
+        if nblocks >= ANY_APPLY_BLOCKS:
+            break
+    if apply is None:
+        raise ValueError(f"no any-shape apply plan fits {heads} heads of {d}")
+    return dict(plan, **apply)
 
 
 def _instance(x, w_qkv, heads: int) -> str:
@@ -269,17 +393,16 @@ def linear_apply(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
 
 
 def _stats_any(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
-    """Row 4 through the any-shape kernel: LN, k || v in float32, partial
-    sums over ANY_STATS_TILE tokens and the ordered reduce, its scratch
-    allocated here."""
+    """Row 4 through the any-shape kernel (csrc/any_shape.cu): LN, k || v
+    and the tile's ctx and z in one kernel on the tensor cores, partial
+    sums over `any_plan`'s stats tiles, then the ordered reduce; only the
+    partials are scratch, allocated here."""
     hidden, d = _check_common(x, gamma, w_qkv, heads)
-    _build.require(d <= 64, f"the any-shape stats take d up to 64, got {d}")
     b, n, c = x.shape
+    plan = any_plan(b, n, c, heads, d)
     m_c = _check_cond(ek, ev, x, hidden)
-    tiles = -(-n // ANY_STATS_TILE)
+    tiles = -(-n // plan["stats_tile"])
     f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty_like(x)
-    kv = torch.empty((b, n, 2 * hidden), **f32)
     part_ctx = torch.empty((b, tiles, heads, d, d), **f32)
     part_z = torch.empty((b, tiles, hidden), **f32)
     ctx = torch.empty((b, heads, d, d), **f32)
@@ -287,8 +410,8 @@ def _stats_any(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
     lib = _build.load_library()
     p = _build.ptr
     err = lib.vmt_linear_stats_any(
-        p(x), p(gamma), p(w_qkv), p(ek), p(ev), p(y), p(kv), p(part_ctx),
-        p(part_z), p(ctx), p(z), b, n, c, m_c, heads, d, ANY_STATS_TILE,
+        p(x), p(gamma), p(w_qkv), p(ek), p(ev), p(part_ctx), p(part_z),
+        p(ctx), p(z), b, n, c, m_c, heads, d, plan["stats_tile"],
         1.0 / spatial_size, _build.stream_handle(x.device))
     _build.check_launch(lib, err, "linear_stats_any")
     _build.LAUNCH_COUNTS["linear_stats_any"] += 1
@@ -297,11 +420,12 @@ def _stats_any(x, gamma, w_qkv, ek, ev, *, heads: int, spatial_size: int):
 
 def _apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
                scale: float):
-    """Row 5 through the any-shape kernel: LN, q in float32, the per-head
-    softmax and q ctx, the out-projection with out_bias and the residual,
-    its scratch allocated here."""
+    """Row 5 through the any-shape kernel (csrc/any_shape.cu): LN, q, the
+    per-head softmax, q ctx, the out-projection with out_bias and the
+    residual in one kernel on the tensor cores, without scratch."""
     hidden, d = _check_common(x, gamma, w_qkv, heads)
     b, n, c = x.shape
+    any_plan(b, n, c, heads, d)
     req = _build.require
     req(w_out.dtype == torch.bfloat16 and w_out.is_contiguous()
         and tuple(w_out.shape) == (hidden, c),
@@ -316,15 +440,11 @@ def _apply_any(x, gamma, w_qkv, w_out, out_bias, ctx, z, *, heads: int,
     for t in (w_out, out_bias, ctx, z):
         req(t.device == x.device, "all operands on x's device")
     out = torch.empty_like(x)
-    y = torch.empty_like(x)
-    q = torch.empty((b, n, hidden), dtype=torch.float32, device=x.device)
-    oh = torch.empty((b, n, hidden), dtype=x.dtype, device=x.device)
     lib = _build.load_library()
     p = _build.ptr
     err = lib.vmt_linear_apply_any(
         p(x), p(gamma), p(w_qkv), p(w_out), p(out_bias), p(ctx), p(z),
-        p(out), p(y), p(q), p(oh), b, n, c, heads, d, scale,
-        _build.stream_handle(x.device))
+        p(out), b, n, c, heads, d, scale, _build.stream_handle(x.device))
     _build.check_launch(lib, err, "linear_apply_any")
     _build.LAUNCH_COUNTS["linear_apply_any"] += 1
     return out
