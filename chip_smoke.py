@@ -210,20 +210,27 @@ Phases, each printing its wall time as it finishes:
              any-shape rows (launches: the wide chain's) and, on every
              row, launches_widths, launches_heads4x64, launches_tokens96
   14 widths-train  rows 2, 3, 6 and 7 at every shape (the any-shape
-             instances, csrc/any_shape.cu with p and csrc/any_shape_bwd.cu,
-             picked by the same `forward_instance`): (a) first every shape
+             instances, csrc/any_shape.cu with p, csrc/any_shape_bwd.cu and
+             csrc/any_linear_bwd.cu, picked by the same
+             `forward_instance`): (a) first every shape
              a train step of the three configurations of 13 launches the
              any-shape instances at (b)'s batch 2 and (c)'s batch 4
              (`train_path`, level by level), rows 2-3 (with row 1) and
              rows 6-7 on their route (with rows 4-5), then rows 2-3 over
              13 (a)'s grid of F x heads x d x C x T at S = 144, two shapes
              at S = 9191 and 13 (a)'s two tile shapes, rows 6-7 over its heads, C and Mc on both
-             routes and two at N = 9191, and |k| across 60 on both routes;
-             each against its twin (row 2: out bit-equal to row 1's, p
-             summing to one; the cotangents within GRAD_TOL of their max),
-             two launches bit-equal; the new instances against the
-             specialised ones at two flagship shapes; their times at the
-             configurations' largest shapes; (b) one step of each
+             routes, two at N = 9191 and the modes of their launch plan
+             (WTRAIN_PLAN_LINEAR: resident and streamed passes, token
+             tiles of 64, 32, 16 and head groups of 1, 2, 4, pass-1 tiles
+             of 64, 256, 1024, d = 40 padded to 48, ragged N), and |k|
+             across 60 on both routes; each against its twin (row 2: out
+             bit-equal to row 1's, p summing to one; the cotangents within
+             GRAD_TOL of their max), two launches bit-equal, rows 6-7's C
+             launch plan equal to `fused_linear_block.bwd_any_plan`; the
+             new instances against the specialised ones at two flagship
+             shapes; their times at the configurations' largest shapes
+             and, rows 6-7, at the flagship's level 0 beside the
+             specialised instance; (b) one step of each
              configuration at batch 2 on the kernel and saved plans beside
              the recompute and unfused plans (every fused-block gradient
              within GRAD_TOL of the recompute plan's max; the loss and each
@@ -377,7 +384,8 @@ PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
 # apply, whose stats pass it shares with rows 6-7; the contraction of rows
 # 3, 6 and 7; the projections of the any-shape rows 1-3 and 6-8, the
 # fused any-shape rows 4-5, and the attention stages of the any-shape rows
-# 1-3, with row 3's token keys): their ptxas
+# 1-3, with row 3's token keys, and the two token passes of the any-shape
+# rows 6-7): their ptxas
 # resources are printed and their SASS must hold tensor-core instructions
 # (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
@@ -388,7 +396,9 @@ TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "linear_bwd_dx_kernel", "any_gemm_kernel",
                        "temporal_any_attn_kernel",
                        "temporal_any_bwd_attn_kernel",
-                       "temporal_any_bwd_tok_kernel")
+                       "temporal_any_bwd_tok_kernel",
+                       "linear_any_bwd_sums_kernel",
+                       "linear_any_bwd_tok_kernel")
 
 
 def log(msg: str) -> None:
@@ -3771,6 +3781,27 @@ def check_any_plan(bf_, n, c, heads, d, what) -> dict:
     return want
 
 
+def check_bwd_plan(bf_, n, c, heads, d, what) -> dict:
+    """The launch plan of the any-shape rows 6-7 that the library takes
+    (vmt_linear_bwd_any_plan) must be `fused_linear_block.bwd_any_plan`'s."""
+    import ctypes
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    want = lin.bwd_any_plan(bf_, n, c, heads, d)
+    keys = ("dp", "sums_tile", "sums_res", "sums_stages", "sums_smem",
+            "tok_rows", "tok_group", "tok_res", "tok_stages", "tok_smem",
+            "dx_rows", "dx_stages", "dx_smem")
+    got = (ctypes.c_int * len(keys))()
+    err = _build.load_library().vmt_linear_bwd_any_plan(
+        bf_, n, c, heads, d, ctypes.addressof(got))
+    if err or dict(zip(keys, got)) != want:
+        raise AssertionError(f"{what}: the C backward plan {list(got)} "
+                             f"(error {err}) is not the Python plan {want}")
+    return want
+
+
 def any_occupancy(bf_, n, c, heads, d) -> tuple[int, int]:
     """Blocks an SM of the any-shape stats and apply kernels at their plan
     for this shape (vmt_linear_any_occupancy)."""
@@ -4158,6 +4189,16 @@ WTRAIN_PATH_BATCHES = {"wide": (WTRAIN_BATCH,),
                        "tokens96": (WTRAIN_BATCH,)}
 TRAIN_ANY_ROWS = ("temporal_fwd_p_any", "temporal_bwd_any",
                   "linear_bwd_head_any", "linear_bwd_merged_any")
+# rows 6-7's plan modes beyond the grid's, as (BF, N, C, Mc, heads, d):
+# d = 40 (padded to 48) with pass 2 resident and pass 1 streamed in
+# 1024-token tiles, and streamed in 16-token tiles with pass 3; d = 16 in
+# groups of 2 and 4 heads with pass 3 in 64- and 16-token tiles; pass 1 in
+# 256-token tiles; both passes resident at d = 16; N = 9191 and 100 ragged
+# (`test_bwd_any_plan_reaches_every_mode` in
+# tests/test_torch_port_widths_train.py holds what these and the grid reach)
+WTRAIN_PLAN_LINEAR = [(3, 9191, 96, 11, 16, 40), (3, 2304, 256, 11, 16, 16),
+                      (3, 100, 2048, 1, 1, 40), (3, 100, 2048, 0, 1, 16),
+                      (22, 2304, 128, 11, 4, 32), (3, 100, 32, 0, 1, 16)]
 # the any-shape instances a train step launches, by the wrapper that
 # launches them (the shapes recorded: temporal (B, F, S, C, T, heads, d),
 # linear (BF, N, C, Mc, heads, d) and, for rows 6-7, the route)
@@ -4335,8 +4376,8 @@ def wtrain_temporal_check(a, heads, g, what) -> tuple[float, float, float]:
 def wtrain_linear_check(a, heads, g, route, what) -> tuple[float, float]:
     """Row 6 (route 'head') or 7 ('merged')'s any-shape instance on `a`:
     two launches bit-equal, one each, every cotangent within GRAD_TOL of
-    the twin's max. Returns (the max error, its largest share of a
-    cotangent's max)."""
+    the twin's max, the C launch plan the Python plan's. Returns (the max
+    error, its largest share of a cotangent's max)."""
     import torch
 
     from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
@@ -4345,6 +4386,7 @@ def wtrain_linear_check(a, heads, g, route, what) -> tuple[float, float]:
     d = a["w_out"].shape[0] // heads
     if lin.forward_instance(heads, d, c) != lin.ANY_SHAPE:
         raise AssertionError(f"{what}: routed to the specialised instance")
+    check_bwd_plan(bf_, n, c, heads, d, what)
     kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n, route=route)
     args = {k: a[k] for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
                               "ek", "ev")}
@@ -4483,25 +4525,30 @@ def wtrain_kernels(report, root: Path) -> dict:
         f"{worst['temporal_fwd_p_any']:.3e} (tol {BF16_TOL}), row 3 "
         f"{shares['temporal_bwd_any']:.2e} of its max (tol {GRAD_TOL})")
     n_l = 0
-    lgrid = [(hd, c, m, WIDTH_S) for hd, c, m in itertools.product(
+    lgrid = [(22, WIDTH_S, c, m, hd) for hd, c, m in itertools.product(
         WIDTH_HEADS, WIDTH_C, WIDTH_T)]
-    lgrid += [(hd, c, m, 9191) for hd, c, m in WIDTH_RAGGED_LINEAR]
-    for (heads, d), c, m_c, n in lgrid:
-        a = _wtrain_linear_inputs(22, n, c, gen, m_c, heads, d)
+    lgrid += [(22, 9191, c, m, hd) for hd, c, m in WIDTH_RAGGED_LINEAR]
+    lgrid += [(bf_, n, c, m, (heads, d))
+              for bf_, n, c, m, heads, d in WTRAIN_PLAN_LINEAR]
+    for bf_, n, c, m_c, (heads, d) in lgrid:
+        a = _wtrain_linear_inputs(bf_, n, c, gen, m_c, heads, d)
         g = _grad_cotangent(a["x"].shape, gen)
         for route in ("head", "merged"):
             key = f"linear_bwd_{route}_any"
             err, sh = wtrain_linear_check(
                 a, heads, g, route,
-                f"train any {heads}x{d} C={c} Mc={m_c} N={n} ({route})")
+                f"train any BF={bf_} {heads}x{d} C={c} Mc={m_c} N={n} "
+                f"({route})")
             worst[key], shares[key] = max(worst[key], err), max(shares[key],
                                                                 sh)
         n_l += 1
         del a, g
     log(f"  rows 6-7 any-shape: {n_l} shapes on both routes (heads x d in "
         f"{WIDTH_HEADS}, C in {WIDTH_C}, Mc in {WIDTH_T}, N = {WIDTH_S}; "
-        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191): two launches bit-equal, "
-        f"row 6 {shares['linear_bwd_head_any']:.2e}, row 7 "
+        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191; the plan's modes "
+        f"{WTRAIN_PLAN_LINEAR} as (BF, N, C, Mc, heads, d)): two launches "
+        f"bit-equal, the C plan the Python plan's, row 6 "
+        f"{shares['linear_bwd_head_any']:.2e}, row 7 "
         f"{shares['linear_bwd_merged_any']:.2e} of their max (tol "
         f"{GRAD_TOL})")
 
@@ -4630,6 +4677,26 @@ def wtrain_kernels(report, root: Path) -> dict:
                 shape=[bf_, n, c, m_c, heads, d])
         del a, g, args
         torch.cuda.empty_cache()
+    # rows 6-7 any-shape at the flagship's level 0 beside the specialised
+    # instance (the same work)
+    bf_, n, c = TRAIN_LINEAR[0]
+    a = _wtrain_linear_inputs(bf_, n, c, gen, 1, HEADS, 32)
+    g = _grad_cotangent(a["x"].shape, gen)
+    ops = [a[k] for k in ("x", "gamma", "w_qkv", "w_out", "ek", "ev")]
+    args = {k: a[k] for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
+                              "ek", "ev")}
+    route = lin.bwd_route(n)
+    kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n, route=route)
+    any_ms = cuda_ms(lambda: lin._bwd_any(*ops, g, **kw), reps=3, warmup=1)
+    spec_ms = cuda_ms(lambda: lin.linear_block_bwd(**args, g=g, **kw),
+                      reps=3, warmup=1)
+    log(f"  linear_bwd_{route}_any at the flagship's level 0 (BF={bf_} N={n} "
+        f"C={c} Mc=1 8x32): {any_ms:.3f} ms beside the specialised "
+        f"{spec_ms:.3f} ms ({any_ms / spec_ms:.2f}x)")
+    report[f"linear_bwd_{route}_any"].update(flagship_ms=any_ms,
+                                             specialised_ms=spec_ms)
+    del a, g, ops, args
+    torch.cuda.empty_cache()
     return paths
 
 
@@ -4881,9 +4948,9 @@ def phase_widths_train(smi: str, report: dict,
              "fused_temporal_block.py:150"),
             ("temporal_bwd_any", "any_shape_bwd.cu",
              "fused_temporal_block.py:240"),
-            ("linear_bwd_head_any", "any_shape_bwd.cu",
+            ("linear_bwd_head_any", "any_linear_bwd.cu",
              "fused_linear_block.py:414"),
-            ("linear_bwd_merged_any", "any_shape_bwd.cu",
+            ("linear_bwd_merged_any", "any_linear_bwd.cu",
              "fused_linear_block.py:196")):
         report[row].update(source=src + source, replaces=jax_src + replaces)
     t0 = time.perf_counter()

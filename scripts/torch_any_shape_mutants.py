@@ -1,9 +1,10 @@
-"""Mutation check of chip_smoke.py phases 13 (a), 14 (a) and 15 (a): seven
+"""Mutation check of chip_smoke.py phases 13 (a), 14 (a) and 15 (a): eight
 copies of the port under OUT_DIR, each with one deliberate fault in one
 any-shape instance (row 2's p halved, row 3's dbias dropped, row 4's last
 ragged token sub-tile dropped, row 5's padded head columns counted in the
-softmax sum, row 6's S term dropped, row 7's clip dropped, row 8's lo
-part of oh dropped), built side by side; each copy's phase check
+softmax sum, row 6's S term dropped, row 7's clip dropped, rows 6-7's
+padded head columns counted in the query softmax's sum, row 8's lo part
+of oh dropped), built side by side; each copy's phase check
 (`chip_smoke.wlinear_kernels` for rows 4-5, `chip_smoke.whead_kernels`
 for row 8, `chip_smoke.wtrain_kernels` for the rest) must raise. Exits
 non-zero if one does not.
@@ -45,14 +46,19 @@ MUTANTS = {
                             "return in_head ? expf(q - m) : 0.f;",
                             "return expf(q - m);", "wlinear_kernels"),
     # row 6 (per-head, clip 0): the softmax's S term dropped from dk
-    "row6_no_S": (CSRC + "any_shape_bwd.cu",
-                  "dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - S[c]);",
-                  "dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - "
-                  "(clip ? S[c] : 0.f));", "wtrain_kernels"),
+    "row6_no_S": (CSRC + "any_linear_bwd.cu",
+                  "dk[e] = pass ? pval * (o[n][e] - sh[col]) : 0.f;",
+                  "dk[e] = pass ? pval * (o[n][e] - (clip ? sh[col] : 0.f))"
+                  " : 0.f;", "wtrain_kernels"),
     # row 7 (merged, clip 1): dk no longer zero where |k| >= 60
-    "row7_no_clip": (CSRC + "any_shape_bwd.cu",
-                     "const bool dead = clip && fabsf(qr[H + c]) >= kClamp;",
-                     "const bool dead = false;", "wtrain_kernels"),
+    "row7_no_clip": (CSRC + "any_linear_bwd.cu",
+                     "const bool pass = ok && (!clip || fabsf(k) < kClamp);",
+                     "const bool pass = ok;", "wtrain_kernels"),
+    # rows 6-7: a head's padded columns (d = 40 pads to 48) counted in its
+    # query softmax's sum
+    "row67_pad_in_softmax": (CSRC + "any_linear_bwd.cu",
+                             "return in_head ? expf(q - m) : 0.f;",
+                             "return expf(q - m);", "wtrain_kernels"),
     # row 8: oh meets W_out as its bf16 hi part alone
     "row8_no_lo": (CSRC + "any_shape_bwd.cu",
                    "orow[H + h * d + e] = __float2bfloat16(o - hi);",

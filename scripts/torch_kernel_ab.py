@@ -8,9 +8,11 @@ to the temporal forward (table row 1), the emit_p forward (row 2), the
 temporal backward (row 3), the linear stats and apply (rows 4-5), the
 linear backward (rows 6-7) and the head-layout linear forward (row 8), on
 chip_smoke.py's seeded inputs, through the wrappers of the tree given by
---tree; and the any-shape instances of rows 1-5 and 8 at the largest shapes
+--tree; and the any-shape instances of rows 1-8 at the largest shapes
 of the three widths configurations of chip_smoke.py phase 13 (ANY_SHAPES;
-rows 4-5 at wide's C = 1024 and at every heads4x64 level;
+rows 4-5 at wide's C = 1024 and at every heads4x64 level; rows 6-7 at
+heads4x64's levels at the training batch, wide's C = 1024 and the
+flagship's level 0, beside the specialised instance there;
 rows 1-3 also the specialised instance at the flagship's level-0 shape, the
 same work as heads4x64's, and each plain twin). A tree whose
 instance refuses a shape (row 8 off the flagship's shapes before it took
@@ -20,11 +22,14 @@ achieved TFLOP/s and the share of the bound; with --profile also each CUDA
 kernel's device time in one launch of each row at its level-0 shape (row
 6 per-head at (44, 9216, 64), row 7 merged at (44, 2304, 128), row 8 at
 (22, 9216, 64): its stats, merge and apply; rows 4-5 any-shape at
-heads4x64's level 0 and wide's C = 1024) and rows 5 and 8's device
+heads4x64's level 0 and wide's C = 1024; rows 6-7 any-shape at heads4x64's
+levels 0 and 1, wide's C = 1024 and the flagship's level 0) and rows 5
+and 8's device
 time a launch at every path shape. With row 5 it also digests
 row 5's output at every path shape on one input seeded per shape
 (`apply_digests`; row 5 any-shape's at its ANY_SHAPES, keyed
-"any <config>"), and with rows 1-3 their outputs (row 2: out and p; row
+"any <config>"; with row 8 any-shape its outputs there, keyed "head any
+<config>"), and with rows 1-3 their outputs (row 2: out and p; row
 3: every cotangent) at every path shape (`temporal_digests`); --against
 FILE compares them with the last line of an earlier run's --out FILE and
 prints whether each is bit-equal. --outputs FILE keeps row 5
@@ -76,6 +81,34 @@ ANY_SHAPES["linear_stats_any"] = [("wide", (22, 144, 1024, 1, 8, 32))] + [
     (f"heads4x64 L{i}", (22, n, c, 1, 4, 32)) for i, (n, c) in enumerate(
         ((9216, 64), (2304, 128), (576, 256), (144, 512)))]
 ANY_SHAPES["linear_apply_any"] = ANY_SHAPES["linear_stats_any"]
+# rows 6-7 (BF, N, C, Mc, heads, d) at the training batch 4 (44 folded
+# frames), on the route each shape takes (`bwd_route`): row 6 (per-head)
+# at heads4x64's level 0 and, as "flagship", the flagship's level-0 shape
+# (the any-shape instance called directly, beside the specialised one at
+# the same work); row 7 (merged) at heads4x64's levels 1-3 and wide's
+# C = 1024
+ANY_SHAPES["linear_bwd_head_any"] = [
+    ("heads4x64 L0", (44, 9216, 64, 1, 4, 32)),
+    ("flagship", (44, 9216, 64, 1, 8, 32))]
+ANY_SHAPES["linear_bwd_merged_any"] = [
+    (f"heads4x64 L{i}", (44, n, c, 1, 4, 32)) for i, (n, c) in enumerate(
+        ((2304, 128), (576, 256), (144, 512)), 1)] + [
+    ("wide", (44, 144, 1024, 1, 8, 32))]
+LINEAR_BWD_ANY = ("linear_bwd_head_any", "linear_bwd_merged_any")
+
+
+def _bwd_any_inputs(cs, name, shape, gen):
+    """Rows 6-7 any-shape's operands at shape (chip_smoke.py phase 14's),
+    its cotangent and keywords on the row's route."""
+    import torch
+
+    bf_, n, c, m_c, heads, d = shape
+    a = cs._wtrain_linear_inputs(bf_, n, c, gen, m_c, heads, d)
+    g = torch.randn(a["x"].shape, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    route = "head" if name == "linear_bwd_head_any" else "merged"
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n, route=route)
+    return a, g, kw
 
 
 def _chip_smoke():
@@ -114,7 +147,8 @@ def main(argv=None) -> int:
                     "all): temporal_fwd, temporal_fwd_p, temporal_bwd, "
                     "linear_stats, linear_apply, linear_bwd, linear_head, "
                     "temporal_fwd_any, temporal_fwd_p_any, temporal_bwd_any, "
-                    "linear_head_any, linear_stats_any, linear_apply_any")
+                    "linear_head_any, linear_stats_any, linear_apply_any, "
+                    "linear_bwd_head_any, linear_bwd_merged_any")
     args = ap.parse_args(argv)
 
     import torch
@@ -235,6 +269,18 @@ def main(argv=None) -> int:
                 out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
             any_out[config] = out.cpu()
             del a, out
+    if "linear_head_any" in want:
+        # row 8 any-shape (its token sums shared with the old rows 6-7) on
+        # one input seeded per shape
+        for config, (bf_, n, c, m_c, heads, d) in ANY_SHAPES[
+                "linear_head_any"]:
+            a = cs.head_inputs(bf_, n, c, torch.Generator(
+                device="cuda").manual_seed(5), m_c=m_c, heads=heads, d=d)
+            out = lin.linear_block_head(**a, heads=heads, scale=d ** -0.5,
+                                        spatial_size=n)
+            digests[f"head any {config}"] = hashlib.sha256(
+                out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            del a, out
     bits = None
     if args.outputs and any_out:
         path = Path(args.outputs)
@@ -295,6 +341,16 @@ def main(argv=None) -> int:
                 plain = lambda: lin.linear_block_head_plain(**a, **kw)
                 cost = cs.head_cost(bf_, n, c, m_c, heads=heads, d=d)
                 spec = None
+            elif name in LINEAR_BWD_ANY:
+                bf_, n, c, m_c, heads, d = shape
+                a, g, kw = _bwd_any_inputs(cs, name, shape, gen)
+                ops = [a[k] for k in ("x", "gamma", "w_qkv", "w_out", "ek",
+                                      "ev")]
+                run = lambda: lin._bwd_any(*ops, g, **kw)
+                plain = lambda: lin.linear_block_bwd_plain(**a, g=g, **kw)
+                cost = cs.linear_bwd_cost(bf_, n, c, m_c, heads=heads, d=d)
+                spec = ((lambda: lin.linear_block_bwd(**a, g=g, **kw))
+                        if config == "flagship" else None)
             else:
                 b, f, s, c, t_tok, heads, d = shape
                 a = cs.temporal_inputs(b, s, c, t_tok, gen, f, heads, d)
@@ -339,7 +395,7 @@ def main(argv=None) -> int:
             e = timed(name, shape, run, cost, reps=20 if fast else 3,
                       warmup=3 if fast else 1)
             e["config"] = config
-            if spec is not None and config == "heads4x64":
+            if spec is not None and config in ("heads4x64", "flagship"):
                 e["specialised_ms"] = cs.cuda_ms(spec, reps=3, warmup=1)
             e["plain_ms"] = cs.cuda_ms(plain, reps=1, warmup=1)
             del a
@@ -413,7 +469,11 @@ def main(argv=None) -> int:
                              ("linear_stats_any", "heads4x64 L0"),
                              ("linear_stats_any", "wide"),
                              ("linear_apply_any", "heads4x64 L0"),
-                             ("linear_apply_any", "wide")):
+                             ("linear_apply_any", "wide"),
+                             ("linear_bwd_head_any", "heads4x64 L0"),
+                             ("linear_bwd_head_any", "flagship"),
+                             ("linear_bwd_merged_any", "heads4x64 L1"),
+                             ("linear_bwd_merged_any", "wide")):
             if name not in want:
                 continue
             shape = dict(ANY_SHAPES[name])[config]
@@ -435,6 +495,11 @@ def main(argv=None) -> int:
                                    d=d)
                 run = lambda: lin.linear_block_head(
                     **a, heads=heads, scale=d ** -0.5, spatial_size=n)
+            elif name in LINEAR_BWD_ANY:
+                a, g, kw = _bwd_any_inputs(cs, name, shape, gen)
+                ops = [a[k] for k in ("x", "gamma", "w_qkv", "w_out", "ek",
+                                      "ev")]
+                run = lambda: lin._bwd_any(*ops, g, **kw)
             else:
                 b, f, s, c, t_tok, heads, d = shape
                 a = cs.temporal_inputs(b, s, c, t_tok, gen, f, heads, d)
@@ -492,7 +557,7 @@ def main(argv=None) -> int:
                  for k, v in digests.items()}
         t_equal = {k: then.get("temporal_digests", {}).get(k) == v
                    for k, v in t_digests.items()}
-        print(f"row 5 (linear_apply) outputs bit-equal to {then['tree']}'s "
+        print(f"rows 5 and 8 any outputs bit-equal to {then['tree']}'s "
               f"at {sum(equal.values())} of {len(equal)} path shapes: "
               + ", ".join(f"{k} {v}" for k, v in equal.items()), flush=True)
         print(f"rows 1-3 outputs bit-equal to {then['tree']}'s at "

@@ -403,6 +403,56 @@ def test_linear_bwd_kernel_matches_its_rounding_model(cuda, route, n_cond):
     assert bits[True] <= MODEL_BITS, bits
 
 
+# the any-shape instance (csrc/any_linear_bwd.cu) at its widths, C = 40
+# (no multiple of 64), 33 frames of 1100 tokens: the plan's 1024-token
+# pass-1 tiles (a running max over 16 sub-tiles, two tiles merged), and
+# 4 x 40 pads each head to 48 columns
+ANY_MODEL_SHAPES = [(4, 64), (16, 32), (4, 40)]
+
+
+@pytest.mark.parametrize("route", ["head", "merged"])
+@pytest.mark.parametrize("heads,d", ANY_MODEL_SHAPES)
+def test_linear_bwd_any_shape_matches_its_rounding_model(cuda, heads, d,
+                                                         route):
+    """Rows 6-7's any-shape instance against the plain version rounding
+    where it rounds (kernel_rounding_bwd at its plan's tile), 6 cond
+    tokens: each f32 cotangent within MODEL_TOL of its max and nearer it
+    than the version without the roundings (shares printed); dx in at
+    most MODEL_BITS of its elements different."""
+    from test_torch_port_linear_bwd_rounding import kernel_rounding_bwd
+
+    b, n, c, m_c = 33, 1100, 40, 6
+    plan = lin.bwd_any_plan(b, n, c, heads, d)
+    assert lin.forward_instance(heads, d, c) == lin.ANY_SHAPE
+    a = _linear_bwd_args(cuda, b, n, c, m_c, heads, d)
+    g = _rnd(cuda, b, n, c).to(torch.bfloat16)
+    got = lin.linear_block_bwd(**a, g=g, heads=heads, scale=d ** -0.5,
+                               spatial_size=n, route=route)
+    names = ("dx", "dgamma", "dw_qkv", "dw_out", "dout_bias", "dek", "dev")
+    args = [_cpu(a[k]) for k in ("x", "gamma", "w_qkv", "w_out", "ek", "ev")]
+    shares, bits = {}, {}
+    for rounded in (True, False):
+        want = kernel_rounding_bwd(*args, _cpu(g), heads=heads,
+                                   scale=d ** -0.5, spatial_size=n,
+                                   clip=route == "merged", rounded=rounded,
+                                   chunk=plan["sums_tile"])
+        shares[rounded] = {
+            name: ((u.float().cpu() - w).abs().max() / w.abs().max()).item()
+            for name, u, w in zip(names, got, want) if w is not None}
+        bits[rounded] = (got[0].float().cpu() != want[0]).float().mean().item()
+    print(f"\n{heads}x{d} {route} route, tiles of {plan['sums_tile']}: "
+          "share of the model's max, rounded / unrounded: " + ", ".join(
+              f"{k} {v:.2e} / {shares[False][k]:.2e}"
+              for k, v in shares[True].items())
+          + f"; dx elements different {bits[True]:.2e} / {bits[False]:.2e}")
+    f32 = [name for name in shares[True] if name != "dx"]
+    for name in f32:
+        assert shares[True][name] <= MODEL_TOL, (name, shares[True][name])
+    assert (max(shares[True][k] for k in f32)
+            <= MODEL_NEAR * max(shares[False][k] for k in f32)), shares
+    assert bits[True] <= MODEL_BITS, bits
+
+
 # the head layout's plain versions (name, stats rounded, parts, Q ctxn in
 # float32) per instance: the first rounds where the instance rounds. The
 # specialised instance (8 heads of 32) rounds its stats' operands and takes

@@ -110,10 +110,12 @@ def _jax_cotangents(a, route):
     return out
 
 
-def kernel_rounding_stats(kk, vs, kkc, evc, *, heads, inv_hw, rounded=True):
+def kernel_rounding_stats(kk, vs, kkc, evc, *, heads, inv_hw, rounded=True,
+                          chunk=CHUNK):
     """The stats pass (shared by the backward and the head-layout forward):
-    per 1024-token chunk the running max of its 64-token sub-tiles' column
-    maxima, sum exp(kk - m) in f32 and sum bf16(exp(kk - m)) bf16(v / HW)
+    per `chunk`-token chunk (the specialised kernels' 1024; the any-shape
+    backward's plan tile, `bwd_any_plan`'s sums_tile) the running max of its
+    64-token sub-tiles' column maxima, sum exp(kk - m) in f32 and sum bf16(exp(kk - m)) bf16(v / HW)
     (no bf16 with rounded=False), then per frame the chunks merged by max
     with the cond tokens (f32) folded in once. kk: the keys as the route
     takes them (clamped or not), vs = v / HW, kkc / evc the cond tokens'
@@ -128,11 +130,11 @@ def kernel_rounding_stats(kk, vs, kkc, evc, *, heads, inv_hw, rounded=True):
         return t.reshape(*t.shape[:-1], heads, d)
 
     ms, zs, cs = [], [], []
-    for c0 in range(0, n, CHUNK):
+    for c0 in range(0, n, chunk):
         m = torch.full((b, hd), -torch.inf)
         z = torch.zeros(b, hd)
         ctx = torch.zeros(b, heads, d, d)
-        for s0 in range(c0, min(n, c0 + CHUNK), SUB_TILE):
+        for s0 in range(c0, min(n, c0 + chunk), SUB_TILE):
             sl = slice(s0, min(n, s0 + SUB_TILE))
             m_new = torch.maximum(m, kk[:, sl].amax(dim=1))
             sc = torch.exp(m - m_new)
@@ -161,10 +163,13 @@ def kernel_rounding_stats(kk, vs, kkc, evc, *, heads, inv_hw, rounded=True):
 
 
 def kernel_rounding_bwd(x, gamma, w_qkv, w_out, ek, ev, g, *, heads, scale,
-                        spatial_size, clip, rounded=True):
-    """The CUDA backward's arithmetic, written out in float32 with a bf16
-    rounding (nearest even) wherever the kernel rounds; rounded=False
-    leaves every one of them out (y and dx stay rounded: they are bf16 in
+                        spatial_size, clip, rounded=True, chunk=CHUNK):
+    """The CUDA backward's arithmetic, both instances' (the specialised
+    csrc/fused_linear_block_bwd.cu, the any-shape csrc/any_linear_bwd.cu:
+    heads padded to 16 columns, which rounds nothing more), written out in
+    float32 with a bf16 rounding (nearest even) wherever the kernels
+    round, the stats pass in `chunk`-token chunks (kernel_rounding_stats);
+    rounded=False leaves every one of them out (y and dx stay rounded: they are bf16 in
     both frameworks). S = sum_e dctx ctx takes the dctx that dP = v dctx^T
     takes, bf16 with the roundings: where one token holds a feature's
     softmax, dk = P (dP - S) cancels, and a dctx rounded in dP but not in S
@@ -192,7 +197,8 @@ def kernel_rounding_bwd(x, gamma, w_qkv, w_out, ek, ev, g, *, heads, scale,
     if ek is not None:
         kkc = ek.clamp(-K_CLAMP, K_CLAMP) if clip else ek
     M, zinv, ctxn = kernel_rounding_stats(kk, vs, kkc, ev, heads=heads,
-                                          inv_hw=inv_hw, rounded=rounded)
+                                          inv_hw=inv_hw, rounded=rounded,
+                                          chunk=chunk)
 
     e = torch.exp(per_head(q) - per_head(q).amax(dim=-1, keepdim=True))
     Q = (e * (scale / e.sum(dim=-1, keepdim=True))).reshape(b, n, hd)
@@ -466,3 +472,98 @@ def test_head_apply_split_resolves_float32(k_scale):
           f"{bits[2]:.2e} (hi + lo), {bits[1]:.2e} (bf16 alone)")
     assert bits[2] <= MODEL_BITS, bits
     assert bits[1] > MODEL_BITS, bits
+
+
+# ------------------------------------------------- the any-shape instance
+# (csrc/any_linear_bwd.cu): its widths (tests/test_torch_port_widths_train.py
+# HEAD_SHAPES; 4 x 64 and 16 x 32 pad nothing, 4 x 40 pads each head to
+# 48 columns) at a C that is no multiple of 64, 6 cond tokens (and none at
+# 4 x 64), N = 16 with the plan's tile, and one frame of 300 tokens in
+# tiles of 256 (the running max over four sub-tiles, two tiles merged)
+ANY_WIDTHS = [(4, 64), (16, 32), (4, 40)]
+ANY_C, ANY_B, ANY_N, ANY_LONG = 40, 2, 16, (2, 300, 256)
+
+
+def _any_inputs(heads, d, n_cond, b, n):
+    """_inputs at heads x d and C = ANY_C."""
+    hd = heads * d
+    return dict(
+        x=_bf16(_rand((b, n, ANY_C), 10)),
+        gamma=_rand((ANY_C,), 11, 0.2) + 1.0,
+        w_qkv=_bf16(_rand((ANY_C, 3 * hd), 12, 0.1)),
+        w_out=_bf16(_rand((hd, ANY_C), 13, 0.1)),
+        out_bias=_rand((ANY_C,), 14, 0.1),
+        ek=_bf16(_rand((b, n_cond, hd), 15, 0.5)) if n_cond else None,
+        ev=_bf16(_rand((b, n_cond, hd), 16, 0.5)) if n_cond else None,
+        g=_bf16(_rand((b, n, ANY_C), 18)))
+
+
+@pytest.fixture(scope="module")
+def any_jax():
+    """The JAX backward kernels' cotangents, once per (heads, d, route,
+    n_cond, b, n)."""
+    cache = {}
+
+    def get(heads, d, route, n_cond, b, n):
+        key = (heads, d, route, n_cond, b, n)
+        if key not in cache:
+            import jax
+            import jax.numpy as jnp
+
+            from videometamaterials_tpu.ops.pallas.fused_linear_block import (
+                fused_linear_block as j_fused_linear,
+            )
+
+            a = _any_inputs(heads, d, n_cond, b, n)
+            args = _jax_args(a)
+            present = [i for i, v in enumerate(args) if v is not None]
+
+            def f(*xs):
+                full = list(args)
+                for i, v in zip(present, xs):
+                    full[i] = v
+                return j_fused_linear(*full, heads=heads, scale=d ** -0.5,
+                                      spatial_size=n, interpret=True,
+                                      bwd_kernel=True, layout=route)
+
+            _, vjp = jax.vjp(f, *[args[i] for i in present])
+            out = [None] * len(args)
+            for i, v in zip(present,
+                            vjp(jnp.asarray(a["g"], jnp.bfloat16))):
+                out[i] = np.asarray(v, np.float32)
+            cache[key] = (a, out)
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("route", ["head", "merged"])
+@pytest.mark.parametrize("heads,d,n_cond,shape", [
+    (4, 64, 0, (ANY_B, ANY_N, None)),
+    *[(h, d, 6, (ANY_B, ANY_N, None)) for h, d in ANY_WIDTHS],
+    (4, 64, 6, ANY_LONG)])
+def test_any_shape_rounding_points_match_the_jax_backward_kernels(
+        any_jax, heads, d, n_cond, shape, route):
+    """The rounding model at the any-shape instance's widths and stats tile
+    (the plan's, or 256 tokens over 300) against the JAX backward kernel of
+    its route in interpret mode, bf16 inputs: every cotangent within 5e-2
+    of the JAX one's max; the shares, rounded and unrounded, printed."""
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    b, n, chunk = shape
+    if chunk is None:
+        chunk = lin.bwd_any_plan(b, n, ANY_C, heads, d)["sums_tile"]
+    a, want = any_jax(heads, d, route, n_cond, b, n)
+    t = {k: None if v is None else torch.tensor(v) for k, v in a.items()}
+    kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n,
+              clip=route == "merged", chunk=chunk)
+    args = (t["x"], t["gamma"], t["w_qkv"], t["w_out"], t["ek"], t["ev"],
+            t["g"])
+    rounded = _shares(kernel_rounding_bwd(*args, **kw), want)
+    exact = _shares(kernel_rounding_bwd(*args, **kw, rounded=False), want)
+    print(f"\nany shape {heads}x{d}, N = {n} in tiles of {chunk}, {route} "
+          f"route, {n_cond} cond tokens: share of the JAX cotangent's max, "
+          "rounded / unrounded: " + ", ".join(
+              f"{k} {rounded[k]:.2e} / {exact[k]:.2e}" for k in rounded))
+    for name, share in rounded.items():
+        assert share <= GRAD_TOL, (name, share)

@@ -223,6 +223,124 @@ def test_linear_bwd_twin_matches_the_jax_kernel(heads, d, route):
     _assert_cotangents(L_NAMES, got, want)
 
 
+# ------------------------------------------------------ rows 6-7's plan
+# `fused_linear_block.bwd_any_plan`, the mirror of csrc/any_linear_bwd.cu's
+# bwd_plan (chip_smoke.py holds the two equal on the card at every launch)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_plan", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _phase14_linear_shapes(tmp_path):
+    """(BF, N, C, heads, d) of every rows 6-7 any-shape launch of
+    chip_smoke.py phase 14 (a): the heads4x64 and wide train paths, the
+    grid, the ragged shapes and WTRAIN_PLAN_LINEAR."""
+    import itertools
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+
+    cs = _chip_smoke()
+    shapes = {(22, cs.WIDTH_S, c, h, d) for (h, d), c in itertools.product(
+        cs.WIDTH_HEADS, cs.WIDTH_C)}
+    shapes |= {(22, 9191, c, h, d) for (h, d), c, _ in cs.WIDTH_RAGGED_LINEAR}
+    shapes |= {(bf, n, c, h, d) for bf, n, c, _, h, d in cs.WTRAIN_PLAN_LINEAR}
+    paths = set()
+    for name in ("heads4x64", "wide"):
+        cfg = load_model_yaml(cs.width_yaml(tmp_path, name))
+        for batch in cs.WTRAIN_PATH_BATCHES[name]:
+            path = cs.train_path(cfg, batch)
+            for plan in cs.WTRAIN_PLANS:
+                for key in ("linear_bwd_head_any", "linear_bwd_merged_any"):
+                    paths |= {(bf, n, c, h, d) for bf, n, c, _, h, d, _ in
+                              path[plan][1].get(key, ())}
+    assert paths, "the train paths launch rows 6-7 any-shape"
+    return shapes | paths
+
+
+def test_bwd_any_plan_fits_every_phase14_shape(tmp_path):
+    """Every rows 6-7 launch of phase 14 (a) is planned within 227 KB of
+    shared memory a block; d pads to 16 ceil(d / 16) (d = 40 to 48); the
+    passes are resident at C <= 64 (pass 2 to C = 128 where its two
+    groups' weights fit) and streamed above C = 128, with 3 to 6 stages;
+    a pass-2 group is at most 64 / rows heads and 128 padded columns; a
+    streamed pass 2 and only it is followed by pass 3."""
+    for bf, n, c, heads, d in sorted(_phase14_linear_shapes(tmp_path)):
+        plan = lin.bwd_any_plan(bf, n, c, heads, d)
+        assert plan["dp"] == -(-d // 16) * 16, plan
+        for stage in ("sums", "tok"):
+            assert 0 < plan[f"{stage}_smem"] <= lin.MAX_SMEM
+            if plan[f"{stage}_res"]:
+                assert c <= 128 and plan[f"{stage}_stages"] == 0, plan
+            else:
+                assert (lin.ANY_MIN_STAGES <= plan[f"{stage}_stages"]
+                        <= lin.ANY_MAX_STAGES), plan
+        if c <= 64:
+            assert plan["sums_res"] and plan["tok_res"], (c, plan)
+        if c <= 128 and plan["dp"] <= 48:
+            assert plan["tok_res"], (c, plan)
+        assert plan["sums_tile"] in (64, 256, 1024)
+        assert plan["tok_rows"] in (16, 32, 64)
+        group = plan["tok_group"]
+        assert 1 <= group <= 64 // plan["tok_rows"]
+        assert group * plan["dp"] <= 128
+        if plan["tok_res"]:
+            assert plan["dx_rows"] == plan["dx_stages"] == plan["dx_smem"] == 0
+        else:
+            assert plan["dx_rows"] in (16, 32, 64)
+            assert 0 < plan["dx_smem"] <= lin.MAX_SMEM
+            assert (lin.ANY_MIN_STAGES <= plan["dx_stages"]
+                    <= lin.ANY_MAX_STAGES)
+    assert lin.bwd_any_plan(22, 144, 96, 4, 40)["dp"] == 48
+
+
+def test_bwd_any_plan_reaches_every_mode(tmp_path):
+    """Phase 14 (a)'s shapes take every mode of the plan: pass-1 tiles of
+    64, 256 and 1024 tokens, resident and streamed passes, pass-2 tiles of
+    64, 32 and 16 tokens, head groups of 1, 2 and 4, pass-3 tiles of 64,
+    32 and 16 tokens, d padded to 16, 32, 48 and 64, ragged N (a last tile
+    of other rows)."""
+    shapes = sorted(_phase14_linear_shapes(tmp_path))
+    plans = [lin.bwd_any_plan(*shape) for shape in shapes]
+    want = dict(sums_tile={64, 256, 1024}, sums_res={0, 1},
+                tok_rows={16, 32, 64}, tok_group={1, 2, 4}, tok_res={0, 1},
+                dx_rows={16, 32, 64}, dp={16, 32, 48, 64})
+    for key, values in want.items():
+        assert {p[key] for p in plans} >= values, key
+    assert any(n % p["tok_rows"] for (_, n, _, _, _), p in zip(shapes, plans))
+
+
+@pytest.mark.parametrize("heads", [1, 3, 4, 16, 64])
+def test_bwd_any_plan_fits_every_d(heads):
+    """Over d up to 64, C from 8 to 4096 and N from 1 to 9216 the plan
+    fits 227 KB a block, or refuses with ValueError: d > 64, or a streamed
+    pass 2 (always above C = 128, never at C <= 64) whose 3 x heads x d
+    dqkv columns (padded to 64) pass BWD_MAX_DQKV, what pass 3's rows of
+    16 tokens leave room for."""
+    for d in range(1, lin.ANY_MAX_D + 1, 3):
+        for c in (8, 40, 128, 1024, 4096):
+            for n in (1, 144, 9216):
+                kp = -(-3 * heads * d // lin.BWD_DX_K) * lin.BWD_DX_K
+                try:
+                    plan = lin.bwd_any_plan(22, n, c, heads, d)
+                except ValueError:
+                    assert c > 64 and kp > lin.BWD_MAX_DQKV, (c, heads, d)
+                    continue
+                if c > 128:
+                    assert kp <= lin.BWD_MAX_DQKV and not plan["tok_res"]
+                assert max(plan["sums_smem"], plan["tok_smem"],
+                           plan["dx_smem"]) <= lin.MAX_SMEM
+    with pytest.raises(ValueError):
+        lin.bwd_any_plan(22, 144, 64, heads, 65)
+
+
 # ------------------------------------------------------ one train step
 
 IMG, T_STEPS, CURVE = 8, 16, 50

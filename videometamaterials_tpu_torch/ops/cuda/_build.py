@@ -49,7 +49,7 @@ LAUNCH_COUNTS: dict[str, int] = {
     "linear_stats_any": 0,
     "linear_apply_any": 0,
     # the any-shape instances of rows 2, 3, 6 and 7 (row 2: csrc/any_shape.cu
-    # with p; the rest csrc/any_shape_bwd.cu)
+    # with p; row 3 csrc/any_shape_bwd.cu; rows 6-7 csrc/any_linear_bwd.cu)
     "temporal_fwd_p_any": 0,
     "temporal_bwd_any": 0,
     "linear_bwd_head_any": 0,
@@ -87,10 +87,12 @@ _SIGNATURES = {
     # x, gamma, w_all, w_allT, w_outT, bias, ek, ev, g, dx, dgamma, dw_all,
     # dw_out, dbias, dekv, workspace, B, F, S, C, T, heads, d, stream
     "vmt_temporal_block_bwd_any": [_P] * 16 + [_I] * 7 + [_P],
-    # x, gamma, w_qkv, w_qkvT, w_outT, ek, ev, g, dx, dgamma, dw_qkv, dw_out,
+    # x, gamma, w_qkv, w_outT, ek, ev, g, dx, dgamma, dw_qkv, dw_out,
     # dout_bias, dek, dev, workspace, BF, N, C, Mc, heads, d, scale, inv_hw,
     # clip, stream
-    "vmt_linear_block_bwd_any": [_P] * 16 + [_I] * 6 + [_F, _F, _I, _P],
+    "vmt_linear_block_bwd_any": [_P] * 15 + [_I] * 6 + [_F, _F, _I, _P],
+    # BF, N, C, heads, d, int[13] out: the any-shape rows 6-7's launch plan
+    "vmt_linear_bwd_any_plan": [_I] * 5 + [_P],
     # x, gamma, w_qkv, ek, ev, scratch part_ctx, part_z, ctx, z,
     # BF, N, C, Mc, heads, d, stats tile (the plan's), inv_hw, stream
     "vmt_linear_stats_any": [_P] * 9 + [_I] * 7 + [_F, _P],

@@ -1,4 +1,4 @@
-// Any-shape instances of the training path's backward kernels and of the
+// Any-shape instances of the temporal block's backward and of the
 // head-layout linear forward, for sm_90a.
 //
 // Replaces, at every shape the TPU kernels take outside the specialised
@@ -6,35 +6,26 @@
 // at most 69 conditioning tokens):
 //   videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_bwd_kernel
 //     (pallas_call in _run_bwd_kernel)                 -> vmt_temporal_block_bwd_any
-//   videometamaterials_tpu/ops/pallas/fused_linear_block.py:
-//     _bwd_kernel        (per-head, pallas_call in _run_bwd_kernel)  clip = 0
-//     _bwd_kernel_merged (pallas_call in _run_bwd_kernel_merged)     clip = 1
-//                                                      -> vmt_linear_block_bwd_any
-//     _kernel, layout "head" (pallas_call in _run_kernel) -> vmt_linear_head_any
-//       (row 8's forward from the backward's token sums, at the end)
-// (row 2, the emit_p forward, is any_shape.cu's forward with p set). The
-// specialised instances (fused_temporal_block_bwd.cu, fused_linear_block_bwd.cu
-// with reduce.cu's contraction) keep their shapes; the wrappers pick an
-// instance from the shape alone.
+//   videometamaterials_tpu/ops/pallas/fused_linear_block.py:_kernel, layout
+//     "head" (pallas_call in _run_kernel)              -> vmt_linear_head_any
+// (row 2, the emit_p forward, is any_shape.cu's forward with p set; rows 6
+// and 7, the linear backward, are any_linear_bwd.cu). The specialised
+// instances (fused_temporal_block_bwd.cu with reduce.cu's contraction,
+// fused_linear_block.cu) keep their shapes; the wrappers pick an instance
+// from the shape alone.
 //
 // Every size is a launch argument: frames F, positions S (tokens N),
 // channels C, heads and head width d (hidden H = heads * d; the linear
-// block takes d <= 64), conditioning tokens T (Mc). The cotangents and
-// their layouts are the specialised kernels' (see their notes):
-//   temporal: dx bf16, dgamma, dw_all (F, C, 3H), dw_out (H, C), dbias
-//             (F, F+T, heads), dek/dev (B, 2, T, H), all f32;
-//   linear:   dx bf16, dgamma, dw_qkv (C, 3H), dw_out (H, C), dout_bias,
-//             dek, dev (BF, Mc, H), all f32.
-// Roundings. Temporal, where fused_temporal_block_bwd.cu rounds: y, q, k,
-// v and the value weights p in bf16 (as the forward), g_acc = g W_out^T in
-// bf16, dqkv in bf16 for the weight sums and dy, the softmax and every sum
-// in f32 (ds enters its tensor-core products as bf16 hi + lo, about 16
+// block takes d <= 64), conditioning tokens T (Mc). The temporal
+// cotangents and their layouts are the specialised kernel's (see its
+// note): dx bf16, dgamma, dw_all (F, C, 3H), dw_out (H, C), dbias
+// (F, F+T, heads), dek/dev (B, 2, T, H), all f32.
+// Roundings, where fused_temporal_block_bwd.cu rounds: y, q, k, v and the
+// value weights p in bf16 (as the forward), g_acc = g W_out^T in bf16,
+// dqkv in bf16 for the weight sums and dy, the softmax and every sum in
+// f32 (ds enters its tensor-core products as bf16 hi + lo, about 16
 // significant bits, as in the specialised backward); dp = g_acc . v is
-// rounded to bf16 as the plain twin's autograd rounds it. Linear: y in bf16, then f32 (as the plain twins, which
-// differentiate float32 forwards after y): q, k, v and g_oh = g W_out^T
-// from the tensor cores in f32, the softmaxes and the per-head products on
-// the CUDA cores in f32; dqkv and oh go to bf16 only as operands of the
-// tensor-core products (dy, dW_qkv, dW_out).
+// rounded to bf16 as the plain twin's autograd rounds it.
 //
 // What bounds them on an H100: the same work as the specialised instances
 // (chip_smoke.py prints each launch's bound): the projections, dy and the
@@ -66,186 +57,39 @@
 //    and ds from each query row's m, l, D (saved by the attention
 //    backward) and sums dek = ds^T q, dev = bf16(p)^T g_acc over its
 //    positions in registers on the tensor cores; the same partials.
-//  - the linear backward's token sums (ctx, its normaliser, dctx) as
-//    partials over 256-token tiles, one block a (tile, head, frame): the
-//    tile's column max of the (clamped) keys, exp(k - max), its sums with
-//    v and the query softmax's sums with g_oh; a merge a (head, frame),
-//    the conditioning tokens first, then the tiles in order, which also
-//    gives the conditioning tokens' dek / dev; then one warp a token for
-//    dq, dk, dv and oh, a head at a time from the head's ctx / dctx in
-//    shared memory.
 //  - ln_bwd_kernel: dx = g + the LN backward of dy, and per-block partials
-//    of dgamma (and of sum g, the linear block's dout_bias), summed in
-//    order by reduce.cu's column sums.
-//  - the weight gradients dW = A^T B over the rows by
-//    any_contract_partial: a 64 x 64 output tile and a chunk of rows a
-//    block on the tensor cores, any M and N (zero-filled staging, masked
-//    stores), then reduce.cu's ordered column sum over the chunks.
+//    of dgamma, summed in order by reduce.cu's column sums.
+//  - the weight gradients dW = A^T B over the rows (any_contract.cuh).
+//  - row 8: the token sums (ctx and its normaliser) as partials over
+//    256-token tiles, one block a (tile, head, frame), a merge a (head,
+//    frame), the conditioning tokens first, then the tiles in order; the
+//    apply a head at a time on the CUDA cores; the out-projection by
+//    any_gemm_kernel.
 #include <math_constants.h>
 
 #include <algorithm>
 
 #include "any_attn.cuh"
-#include "reduce.cuh"
+#include "any_contract.cuh"
 
 namespace {
 
-constexpr float kClamp = 60.f;
-
-// ---- weight gradients: out[g] = sum_rows A[g]^T B[g], any M and N
-
-// row r of group g at p + g group + (r / seg) seg_stride + (r % seg) ld
-struct Rows {
-  const bf16* p;
-  size_t group, seg_stride, ld;
-  int seg;
-};
-
-__device__ __forceinline__ const bf16* row_ptr(const Rows& a, int g, int r) {
-  return a.p + (size_t)g * a.group + (size_t)(r / a.seg) * a.seg_stride +
-         (size_t)(r % a.seg) * a.ld;
-}
-
-constexpr int kCT = 64, kCSlab = 32, kCP = kCT + 8;
-constexpr int kMaxChunks = 128;
-
-// eight columns c.. of one row into shared memory, zeros past the row's
-// end or past r_end
-__device__ __forceinline__ void stage8(bf16* dst, const Rows& a, int g,
-                                       int row, int r_end, int c, int cols) {
-  const bf16 zero = __float2bfloat16(0.f);
-  if (row >= r_end) {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst[e] = zero;
-    return;
-  }
-  const bf16* src = row_ptr(a, g, row) + c;
-  if (c + 8 <= cols && aligned16(src)) {
-    *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-    return;
-  }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) dst[e] = c + e < cols ? src[e] : zero;
-}
-
-__global__ void __launch_bounds__(128) any_contract_partial(
-    const Rows A, const Rows B, float* __restrict__ part, int rows, int M,
-    int N, int per, int chunks) {
-  __shared__ __align__(16) bf16 as[kCSlab * kCP];
-  __shared__ __align__(16) bf16 bs[kCSlab * kCP];
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int n0 = blockIdx.x * kCT, m0 = blockIdx.y * kCT;
-  const int g = blockIdx.z / chunks, chunk = blockIdx.z % chunks;
-  const int r_begin = chunk * per, r_end = min(rows, r_begin + per);
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
-  float acc[2][4][4] = {};
-  for (int r0 = r_begin; r0 < r_end; r0 += kCSlab) {
-    for (int i = t; i < kCSlab * kCT / 8; i += 128) {
-      const int r = i / (kCT / 8), o = (i % (kCT / 8)) * 8;
-      stage8(as + r * kCP + o, A, g, r0 + r, r_end, m0 + o, M);
-      stage8(bs + r * kCP + o, B, g, r0 + r, r_end, n0 + o, N);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kCSlab; ks += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        vmt::ldsm_x4_t(af[mt], as + (ks + vmt::at_row_off(lane)) * kCP + wm +
-                                   mt * 16 + vmt::at_col_off(lane));
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t bb[4];
-        vmt::ldsm_x4_t(bb, bs + (ks + vmt::bk_row_off(lane)) * kCP + wn +
-                               np * 16 + vmt::bk_col_off(lane));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          vmt::mma_bf16(acc[mt][2 * np], af[mt], bb[0], bb[1]);
-          vmt::mma_bf16(acc[mt][2 * np + 1], af[mt], bb[2], bb[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  float* out = part + ((size_t)g * chunks + chunk) * M * N;
-  const int gq = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + wm + mt * 16 + gq + 8 * half;
-      if (m >= M) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = n0 + wn + nt * 8 + 2 * tq + e;
-          if (n < N) out[(size_t)m * N + n] = acc[mt][nt][2 * half + e];
-        }
-    }
-}
-
-int contract_chunks(int groups, int rows, int M, int N) {
-  const int tiles = groups * ((M + kCT - 1) / kCT) * ((N + kCT - 1) / kCT);
-  int chunks = (4 * 132 + tiles - 1) / tiles;
-  chunks = std::min(chunks, (rows + 255) / 256);
-  chunks = std::min(chunks, kMaxChunks);
-  return std::max(chunks, 1);
-}
-
-size_t contract_ws(int groups, int rows, int M, int N) {
-  return (size_t)groups * contract_chunks(groups, rows, M, N) * M * N *
-         sizeof(float);
-}
-
-// out (groups, M, N) f32; ws: contract_ws() bytes
-cudaError_t launch_contract(const Rows& A, const Rows& B, float* out,
-                            int groups, int rows, int M, int N, float* ws,
-                            cudaStream_t st) {
-  const int chunks = contract_chunks(groups, rows, M, N);
-  int per = (rows + chunks - 1) / chunks;
-  per = (per + kCSlab - 1) / kCSlab * kCSlab;
-  const dim3 grid((N + kCT - 1) / kCT, (M + kCT - 1) / kCT, groups * chunks);
-  any_contract_partial<<<grid, 128, 0, st>>>(A, B, ws, rows, M, N, per,
-                                             chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  // chunks <= 128 rows: one ordered pass, no workspace
-  return vmt::launch_colsum(ws, out, groups, chunks, M * N, nullptr, st);
-}
-
-Rows rows_of(const void* p, size_t ld, size_t group = 0, int seg = 1 << 30,
-             size_t seg_stride = 0) {
-  Rows r;
-  r.p = static_cast<const bf16*>(p);
-  r.group = group;
-  r.seg_stride = seg_stride;
-  r.ld = ld;
-  r.seg = seg;
-  return r;
-}
-
-// ---- LayerNorm backward: dx = g + LN'(dy), partials of dgamma and sum g
+// ---- LayerNorm backward: dx = g + LN'(dy), partials of dgamma
 
 constexpr int kLnbWarps = 8;
 constexpr int kLnbRows = 64;  // rows a block, 8 a warp
 
-// x, g, dx (rows, C) bf16; dy (rows, C) f32; part_dgamma (blocks, C) and,
-// if part_g is set, part_g (blocks, C): each block's sums over its rows,
-// its warps added in order
+// x, g, dx (rows, C) bf16; dy (rows, C) f32; part_dgamma (blocks, C):
+// each block's sums over its rows, its warps added in order
 __global__ void __launch_bounds__(kLnbWarps * 32) ln_bwd_kernel(
     const bf16* __restrict__ x, const float* __restrict__ gamma,
     const float* __restrict__ dy, const bf16* __restrict__ g,
-    bf16* __restrict__ dx, float* __restrict__ part_dgamma,
-    float* __restrict__ part_g, size_t rows, int C) {
+    bf16* __restrict__ dx, float* __restrict__ part_dgamma, size_t rows,
+    int C) {
   extern __shared__ float smem_f[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* dgw = smem_f + (size_t)warp * C;                  // [warp][C]
-  float* gw = smem_f + (size_t)(kLnbWarps + warp) * C;     // [warp][C]
-  for (int c = lane; c < C; c += 32) {
-    dgw[c] = 0.f;
-    if (part_g != nullptr) gw[c] = 0.f;
-  }
+  for (int c = lane; c < C; c += 32) dgw[c] = 0.f;
   const size_t r0 = (size_t)blockIdx.x * kLnbRows;
   for (int k = warp; k < kLnbRows; k += kLnbWarps) {
     const size_t row = r0 + k;
@@ -269,7 +113,6 @@ __global__ void __launch_bounds__(kLnbWarps * 32) ln_bwd_kernel(
       s1 += gd;
       s2 += gd * xh;
       dgw[c] += xh * dyr[c];
-      if (part_g != nullptr) gw[c] += bf2f(gr[c]);
     }
     const float m1 = vmt::warp_sum(s1) / C, m2 = vmt::warp_sum(s2) / C;
     for (int c = lane; c < C; c += 32) {
@@ -281,30 +124,26 @@ __global__ void __launch_bounds__(kLnbWarps * 32) ln_bwd_kernel(
   }
   __syncthreads();
   for (int c = threadIdx.x; c < C; c += kLnbWarps * 32) {
-    float a = 0.f, b = 0.f;
-    for (int w = 0; w < kLnbWarps; ++w) {
-      a += smem_f[(size_t)w * C + c];
-      if (part_g != nullptr) b += smem_f[(size_t)(kLnbWarps + w) * C + c];
-    }
+    float a = 0.f;
+    for (int w = 0; w < kLnbWarps; ++w) a += smem_f[(size_t)w * C + c];
     part_dgamma[(size_t)blockIdx.x * C + c] = a;
-    if (part_g != nullptr) part_g[(size_t)blockIdx.x * C + c] = b;
   }
 }
 
 size_t ln_bwd_blocks(size_t rows) { return (rows + kLnbRows - 1) / kLnbRows; }
 
-size_t ln_bwd_smem(int C) { return (size_t)2 * kLnbWarps * C * sizeof(float); }
+size_t ln_bwd_smem(int C) { return (size_t)kLnbWarps * C * sizeof(float); }
 
 cudaError_t launch_ln_bwd(const bf16* x, const float* gamma, const float* dy,
                           const bf16* g, bf16* dx, float* part_dgamma,
-                          float* part_g, size_t rows, int C, cudaStream_t st) {
+                          size_t rows, int C, cudaStream_t st) {
   const size_t smem = ln_bwd_smem(C);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       ln_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   ln_bwd_kernel<<<(unsigned)ln_bwd_blocks(rows), kLnbWarps * 32, smem, st>>>(
-      x, gamma, dy, g, dx, part_dgamma, part_g, rows, C);
+      x, gamma, dy, g, dx, part_dgamma, rows, C);
   return cudaGetLastError();
 }
 
@@ -892,7 +731,7 @@ __global__ void temporal_any_tok_reduce(const float* __restrict__ part,
   dekv[o] = v;
 }
 
-// ---- linear backward: token sums, merge, token gradients
+// ---- the head layout's forward (row 8 at any shape): token sums
 
 constexpr int kLStatThreads = 256;
 constexpr int kLTile = 256;  // tokens a partial block
@@ -900,31 +739,20 @@ constexpr int kLSub = 32;    // tokens staged at a time
 constexpr int kMaxD = 64;
 constexpr int kLOut = kMaxD * kMaxD / kLStatThreads;  // outputs a thread
 
-__device__ __forceinline__ float clip_k(float k, int clip) {
-  return clip ? fminf(fmaxf(k, -kClamp), kClamp) : k;
-}
-
-// qkv (BF, N, 3H) f32, goh (BF, N, H) f32; per (tile, head, frame): the
-// column max m of the (clamped) keys over the tile, z = sum exp(k - m),
-// ctx = sum exp(k - m)^T v, dctx = sum Q^T g_oh with Q = scale
-// softmax_head(q). goh null (the head layout's forward): no dctx, and
-// part_dctx is not written
-__global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
-    const float* __restrict__ qkv, const float* __restrict__ goh,
-    float* __restrict__ part_m, float* __restrict__ part_z,
-    float* __restrict__ part_ctx, float* __restrict__ part_dctx, int N,
-    int heads, int d, float scale, int clip) {
+// qkv (BF, N, 3H) f32; per (tile, head, frame): the column max m of the
+// keys over the tile, z = sum exp(k - m), ctx = sum exp(k - m)^T v
+__global__ void __launch_bounds__(kLStatThreads) linear_any_head_sums(
+    const float* __restrict__ qkv, float* __restrict__ part_m,
+    float* __restrict__ part_z, float* __restrict__ part_ctx, int N,
+    int heads, int d) {
   extern __shared__ float smem_f[];
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int t = threadIdx.x;
   const int tt = blockIdx.x, h = blockIdx.y, bf = blockIdx.z;
   const int tiles = gridDim.x, H = heads * d, dd = d * d;
   float* mx = smem_f;                 // [d]
   float* red = mx + kMaxD;            // [256]
   float* P = red + kLStatThreads;     // [kLSub][d]
   float* V = P + kLSub * d;           // [kLSub][d]
-  float* Q = V + kLSub * d;           // [kLSub][d]
-  float* Gs = Q + kLSub * d;          // [kLSub][d]
-  const bool cot = goh != nullptr;
   const int n0 = tt * kLTile, n1 = min(N, n0 + kLTile);
   const float* base = qkv + (size_t)bf * N * 3 * H;
   // the column max: thread t takes feature t % d of every (256 / d)-th token
@@ -933,7 +761,7 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
     float m = -CUDART_INF_F;
     if (grp < ngrp)
       for (int n = n0 + grp; n < n1; n += ngrp)
-        m = fmaxf(m, clip_k(base[(size_t)n * 3 * H + H + h * d + a], clip));
+        m = fmaxf(m, base[(size_t)n * 3 * H + H + h * d + a]);
     red[t] = m;
     __syncthreads();
     if (t < d) {
@@ -943,9 +771,9 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
     }
     __syncthreads();
   }
-  float cacc[kLOut], dacc[kLOut];
+  float cacc[kLOut];
 #pragma unroll
-  for (int u = 0; u < kLOut; ++u) cacc[u] = dacc[u] = 0.f;
+  for (int u = 0; u < kLOut; ++u) cacc[u] = 0.f;
   float zacc = 0.f;
   for (int sub = n0; sub < n1; sub += kLSub) {
     const int cnt = min(kLSub, n1 - sub);
@@ -953,20 +781,8 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
     for (int i = t; i < cnt * d; i += kLStatThreads) {
       const int r = i / d, c = i % d;
       const float* row = base + (size_t)(sub + r) * 3 * H + h * d;
-      P[i] = expf(clip_k(row[H + c], clip) - mx[c]);
+      P[i] = expf(row[H + c] - mx[c]);
       V[i] = row[2 * H + c];
-      if (cot) Gs[i] = goh[((size_t)bf * N + sub + r) * H + h * d + c];
-    }
-    // the query softmax over the head's features, one warp a token
-    for (int r = warp; cot && r < cnt; r += kLStatThreads / 32) {
-      const float* qr = base + (size_t)(sub + r) * 3 * H + h * d;
-      float m = -CUDART_INF_F;
-      for (int c = lane; c < d; c += 32) m = fmaxf(m, qr[c]);
-      m = vmt::warp_max(m);
-      float sm = 0.f;
-      for (int c = lane; c < d; c += 32) sm += expf(qr[c] - m);
-      const float sc = scale / vmt::warp_sum(sm);
-      for (int c = lane; c < d; c += 32) Q[r * d + c] = expf(qr[c] - m) * sc;
     }
     __syncthreads();
 #pragma unroll
@@ -974,17 +790,9 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
       const int o = t + u * kLStatThreads;
       if (o < dd) {
         const int ai = o / d, e = o % d;
-        float c = cacc[u], dc = dacc[u];
-        if (cot) {
-          for (int r = 0; r < cnt; ++r) {
-            c = fmaf(P[r * d + ai], V[r * d + e], c);
-            dc = fmaf(Q[r * d + ai], Gs[r * d + e], dc);
-          }
-        } else {
-          for (int r = 0; r < cnt; ++r) c = fmaf(P[r * d + ai], V[r * d + e], c);
-        }
+        float c = cacc[u];
+        for (int r = 0; r < cnt; ++r) c = fmaf(P[r * d + ai], V[r * d + e], c);
         cacc[u] = c;
-        dacc[u] = dc;
       }
     }
     if (t < d)
@@ -994,10 +802,7 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
 #pragma unroll
   for (int u = 0; u < kLOut; ++u) {
     const int o = t + u * kLStatThreads;
-    if (o < dd) {
-      part_ctx[pi * dd + o] = cacc[u];
-      if (cot) part_dctx[pi * dd + o] = dacc[u];
-    }
+    if (o < dd) part_ctx[pi * dd + o] = cacc[u];
   }
   if (t < d) {
     part_m[pi * d + t] = mx[t];
@@ -1005,38 +810,29 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_partial(
   }
 }
 
-// one block a (head, frame): the maximum M, zinv, ctx (with 1 / HW) and
-// dctx from the conditioning tokens first, then the tiles in order; S =
-// sum_e dctx ctx; the conditioning tokens' dek and dev. part_dctx null
-// (the head layout's forward): the normalised ctx alone
-__global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_merge(
+// one block a (head, frame): the maximum M and 1 / z, and ctx normalised
+// (with 1 / HW), from the conditioning tokens first, then the tiles in
+// order
+__global__ void __launch_bounds__(kLStatThreads) linear_any_head_merge(
     const float* __restrict__ part_m, const float* __restrict__ part_z,
-    const float* __restrict__ part_ctx, const float* __restrict__ part_dctx,
-    const bf16* __restrict__ ek, const bf16* __restrict__ ev,
-    float* __restrict__ ctx, float* __restrict__ dctx, float* __restrict__ mz,
-    float* __restrict__ dek, float* __restrict__ dev, int tiles, int Mc,
-    int heads, int d, float inv_hw, int clip) {
+    const float* __restrict__ part_ctx, const bf16* __restrict__ ek,
+    const bf16* __restrict__ ev, float* __restrict__ ctx, int tiles, int Mc,
+    int heads, int d, float inv_hw) {
   extern __shared__ float smem_f[];
   const int t = threadIdx.x, h = blockIdx.x, bf = blockIdx.y;
   const int H = heads * d, dd = d * d;
-  float* cs = smem_f;        // [d][d] ctx
-  float* ds = cs + dd;       // [d][d] dctx
-  float* M = ds + dd;        // [d]
+  float* M = smem_f;         // [d]
   float* zi = M + d;         // [d]
-  float* S = zi + d;         // [d]
   const size_t pb = (size_t)bf * tiles * heads + h;  // tile k: pb + k heads
   const bf16* ekb = ek + (size_t)bf * Mc * H + h * d;
   const bf16* evb = ev + (size_t)bf * Mc * H + h * d;
-  const bool cot = part_dctx != nullptr;
   if (t < d) {
     float m = -CUDART_INF_F;
-    for (int mc = 0; mc < Mc; ++mc)
-      m = fmaxf(m, clip_k(bf2f(ekb[(size_t)mc * H + t]), clip));
+    for (int mc = 0; mc < Mc; ++mc) m = fmaxf(m, bf2f(ekb[(size_t)mc * H + t]));
     for (int k = 0; k < tiles; ++k)
       m = fmaxf(m, part_m[(pb + (size_t)k * heads) * d + t]);
     float z = 0.f;
-    for (int mc = 0; mc < Mc; ++mc)
-      z += expf(clip_k(bf2f(ekb[(size_t)mc * H + t]), clip) - m);
+    for (int mc = 0; mc < Mc; ++mc) z += expf(bf2f(ekb[(size_t)mc * H + t]) - m);
     for (int k = 0; k < tiles; ++k) {
       const size_t pi = (pb + (size_t)k * heads) * d + t;
       z += part_z[pi] * expf(part_m[pi] - m);
@@ -1047,154 +843,26 @@ __global__ void __launch_bounds__(kLStatThreads) linear_any_bwd_merge(
   __syncthreads();
   for (int o = t; o < dd; o += kLStatThreads) {
     const int ai = o / d, e = o % d;
-    float c = 0.f, dc = 0.f;
+    float c = 0.f;
     for (int mc = 0; mc < Mc; ++mc)
-      c = fmaf(expf(clip_k(bf2f(ekb[(size_t)mc * H + ai]), clip) - M[ai]),
+      c = fmaf(expf(bf2f(ekb[(size_t)mc * H + ai]) - M[ai]),
                bf2f(evb[(size_t)mc * H + e]), c);
     for (int k = 0; k < tiles; ++k) {
       const size_t pi = pb + (size_t)k * heads;
       c = fmaf(part_ctx[pi * dd + o], expf(part_m[pi * d + ai] - M[ai]), c);
-      if (cot) dc += part_dctx[pi * dd + o];
     }
     c *= inv_hw * zi[ai];
-    const size_t out = ((size_t)bf * heads + h) * dd + o;
-    ctx[out] = c;
-    if (!cot) continue;
-    cs[o] = c;
-    ds[o] = dc;
-    dctx[out] = dc;
-  }
-  if (!cot) return;
-  __syncthreads();
-  if (t < d) {
-    float sv = 0.f;
-    for (int e = 0; e < d; ++e) sv = fmaf(ds[t * d + e], cs[t * d + e], sv);
-    S[t] = sv;
-    const size_t o = (size_t)bf * 3 * H + h * d + t;  // mz: (BF, 3, H)
-    mz[o] = M[t];
-    mz[o + H] = zi[t];
-    mz[o + 2 * H] = sv;
-  }
-  __syncthreads();
-  // the conditioning tokens: dek = P (dP - S) (zero where |k| >= 60 under
-  // clip), dev = P^T dctx / HW
-  for (int i = t; i < Mc * d; i += kLStatThreads) {
-    const int mc = i / d, c = i % d;
-    const float k = bf2f(ekb[(size_t)mc * H + c]);
-    const float p = expf(clip_k(k, clip) - M[c]) * zi[c];
-    float dp = 0.f, dv = 0.f;
-    for (int e = 0; e < d; ++e) {
-      dp = fmaf(ds[c * d + e], bf2f(evb[(size_t)mc * H + e]), dp);
-      const float pe =
-          expf(clip_k(bf2f(ekb[(size_t)mc * H + e]), clip) - M[e]) * zi[e];
-      dv = fmaf(pe, ds[e * d + c], dv);
-    }
-    const bool dead = clip && fabsf(k) >= kClamp;
-    const size_t o = ((size_t)bf * Mc + mc) * H + h * d + c;
-    dek[o] = dead ? 0.f : p * (dp * inv_hw - S[c]);
-    dev[o] = dv * inv_hw;
+    ctx[((size_t)bf * heads + h) * dd + o] = c;
   }
 }
 
 constexpr int kLTokWarps = 8;
 constexpr int kLTokRows = 64;  // tokens a block, 8 a warp
 
-// one block a (64 tokens, frame), 8 warps of 8 tokens, a head at a time:
-// dq = Q (dQ - sum Q dQ / scale), dQ = g_oh ctx^T; dk = P (dP - S) with
-// P = exp(k - M) zinv, dP = dctx v / HW (zero where |k| >= 60 under
-// clip); dv = P dctx / HW; oh = Q ctx. dqkv (BF, N, 3H) and oh (BF, N, H)
-// in bf16
-__global__ void __launch_bounds__(kLTokWarps * 32) linear_any_bwd_tokens(
-    const float* __restrict__ qkv, const float* __restrict__ goh,
-    const float* __restrict__ ctx, const float* __restrict__ dctx,
-    const float* __restrict__ mz, bf16* __restrict__ dqkv,
-    bf16* __restrict__ oh, int N, int heads, int d, float scale,
-    float inv_hw, int clip) {
-  extern __shared__ float smem_f[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bf = blockIdx.y, n0 = blockIdx.x * kLTokRows;
-  const int H = heads * d, dp1 = d + 1;
-  float* cs = smem_f;                    // [d][d + 1] ctx
-  float* ds = cs + d * dp1;              // [d][d + 1] dctx
-  float* vec = ds + d * dp1 + warp * 4 * kMaxD;  // the warp's Q, g_oh, P, v
-  float* Qv = vec;
-  float* Gv = vec + kMaxD;
-  float* Pv = vec + 2 * kMaxD;
-  float* Vv = vec + 3 * kMaxD;
-  for (int h = 0; h < heads; ++h) {
-    __syncthreads();
-    const float* cb = ctx + ((size_t)bf * heads + h) * d * d;
-    const float* db = dctx + ((size_t)bf * heads + h) * d * d;
-    for (int o = threadIdx.x; o < d * d; o += kLTokWarps * 32) {
-      cs[(o / d) * dp1 + o % d] = cb[o];
-      ds[(o / d) * dp1 + o % d] = db[o];
-    }
-    __syncthreads();
-    const float* M = mz + (size_t)bf * 3 * H + h * d;
-    const float* zi = M + H;
-    const float* S = M + 2 * H;
-    for (int r = warp; r < kLTokRows; r += kLTokWarps) {
-      const int n = n0 + r;
-      if (n >= N) break;
-      const size_t row = (size_t)bf * N + n;
-      const float* qr = qkv + row * 3 * H + h * d;
-      const float* gr = goh + row * H + h * d;
-      float m = -CUDART_INF_F;
-      for (int c = lane; c < d; c += 32) m = fmaxf(m, qr[c]);
-      m = vmt::warp_max(m);
-      float sm = 0.f;
-      for (int c = lane; c < d; c += 32) sm += expf(qr[c] - m);
-      const float sc = scale / vmt::warp_sum(sm);
-      for (int c = lane; c < d; c += 32) {
-        Qv[c] = expf(qr[c] - m) * sc;
-        Gv[c] = gr[c];
-        Pv[c] = expf(clip_k(qr[H + c], clip) - M[c]) * zi[c];
-        Vv[c] = qr[2 * H + c];
-      }
-      __syncwarp();
-      // lanes over a: dQ[a], dP[a]; lanes over e: dv[e], oh[e]
-      float qdq = 0.f;
-      float dqa[2], dka[2];
-      for (int u = 0; u < 2; ++u) {
-        const int c = lane + 32 * u;
-        dqa[u] = dka[u] = 0.f;
-        if (c >= d) continue;
-        float dQ = 0.f, dP = 0.f;
-        for (int e = 0; e < d; ++e) {
-          dQ = fmaf(Gv[e], cs[c * dp1 + e], dQ);
-          dP = fmaf(ds[c * dp1 + e], Vv[e], dP);
-        }
-        qdq = fmaf(Qv[c] / scale, dQ, qdq);
-        dqa[u] = dQ;
-        const bool dead = clip && fabsf(qr[H + c]) >= kClamp;
-        dka[u] = dead ? 0.f : Pv[c] * (dP * inv_hw - S[c]);
-      }
-      qdq = vmt::warp_sum(qdq);
-      bf16* drow = dqkv + row * 3 * H + h * d;
-      for (int u = 0; u < 2; ++u) {
-        const int c = lane + 32 * u;
-        if (c >= d) continue;
-        drow[c] = __float2bfloat16(Qv[c] * (dqa[u] - qdq));
-        drow[H + c] = __float2bfloat16(dka[u]);
-        float dv = 0.f, o = 0.f;
-        for (int ai = 0; ai < d; ++ai) {
-          dv = fmaf(Pv[ai], ds[ai * dp1 + c], dv);
-          o = fmaf(Qv[ai], cs[ai * dp1 + c], o);
-        }
-        drow[2 * H + c] = __float2bfloat16(dv * inv_hw);
-        oh[row * H + h * d + c] = __float2bfloat16(o);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-// ---- the head layout's forward (row 8 at any shape): the apply
-
-// one block a (`rows` tokens, frame: 64, or 8 where that leaves fewer
-// than two blocks an SM), 8 warps, a head at a time (the head's ctxn
-// staged in shared memory, as linear_any_bwd_tokens does): Q = scale softmax_head(q) and oh = Q ctxn in f32 (ctxn: the
-// merge's normalised ctx), oh leaving as its bf16 hi and lo parts in ohs
+// the apply: one block a (`rows` tokens, frame: 64, or 8 where that leaves
+// fewer than two blocks an SM), 8 warps, a head at a time (the head's
+// ctxn staged in shared memory): Q = scale softmax_head(q) and oh = Q
+// ctxn in f32 (ctxn: the merge's normalised ctx), oh leaving as its bf16 hi and lo parts in ohs
 // (BF N, 2H) = [oh_hi | oh_lo], the A operand of the out-projection
 // against [W_out; W_out]
 __global__ void __launch_bounds__(kLTokWarps * 32) linear_any_head_apply(
@@ -1398,7 +1066,7 @@ extern "C" int vmt_temporal_block_bwd_any(
   if (err != cudaSuccess) return (int)err;
   const size_t lnb = ln_bwd_blocks(R);
   err = launch_ln_bwd(xb, static_cast<const float*>(gamma), w.dy, gb,
-                      static_cast<bf16*>(dx), w.ln_part, nullptr, R, C, st);
+                      static_cast<bf16*>(dx), w.ln_part, R, C, st);
   if (err != cudaSuccess) return (int)err;
   err = vmt::launch_colsum(w.ln_part, static_cast<float*>(dgamma), 1,
                            (int)lnb, C, w.ln_ws, st);
@@ -1410,130 +1078,6 @@ extern "C" int vmt_temporal_block_bwd_any(
       static_cast<float*>(dw_all), F, B * S, C, 3 * H, w.contract, st);
   if (err != cudaSuccess) return (int)err;
   return (int)launch_contract(rows_of(w.acc, H), rows_of(g, C),
-                              static_cast<float*>(dw_out), 1, (int)R, H, C,
-                              w.contract, st);
-}
-
-namespace {
-
-struct LinearWs {
-  bf16 *y, *dqkv, *oh;
-  float *qkv, *goh, *part_m, *part_z, *part_ctx, *part_dctx, *ctx, *dctx, *mz,
-      *dy, *ln_dg, *ln_g, *ln_ws, *contract;
-  size_t bytes;
-};
-
-LinearWs linear_ws(void* p, int BF, int N, int C, int heads, int d) {
-  Carve c{static_cast<char*>(p)};
-  const size_t R = (size_t)BF * N, H = (size_t)heads * d;
-  const int tiles = (N + kLTile - 1) / kLTile;
-  const size_t lnb = ln_bwd_blocks(R);
-  const size_t parts = (size_t)BF * tiles * heads;
-  LinearWs w;
-  w.y = c.take<bf16>(R * C);
-  w.qkv = c.take<float>(R * 3 * H);
-  w.goh = c.take<float>(R * H);
-  w.part_m = c.take<float>(parts * d);
-  w.part_z = c.take<float>(parts * d);
-  w.part_ctx = c.take<float>(parts * d * d);
-  w.part_dctx = c.take<float>(parts * d * d);
-  w.ctx = c.take<float>((size_t)BF * heads * d * d);
-  w.dctx = c.take<float>((size_t)BF * heads * d * d);
-  w.mz = c.take<float>((size_t)BF * 3 * H);
-  w.dqkv = c.take<bf16>(R * 3 * H);
-  w.oh = c.take<bf16>(R * H);
-  w.dy = c.take<float>(R * C);
-  w.ln_dg = c.take<float>(lnb * C);
-  w.ln_g = c.take<float>(lnb * C);
-  w.ln_ws = c.take<float>(vmt::colsum_workspace(1, (int)lnb, C) / sizeof(float));
-  const size_t c1 = contract_ws(1, (int)R, C, 3 * (int)H);
-  const size_t c2 = contract_ws(1, (int)R, (int)H, C);
-  w.contract = c.take<float>((c1 > c2 ? c1 : c2) / sizeof(float));
-  w.bytes = c.used;
-  return w;
-}
-
-}  // namespace
-
-extern "C" size_t vmt_linear_block_bwd_any_workspace(int BF, int N, int C,
-                                                     int heads, int d) {
-  return linear_ws(nullptr, BF, N, C, heads, d).bytes;
-}
-
-// The linear block's backward at any shape (d <= 64). x, g (BF, N, C)
-// bf16; gamma (C); w_qkv (C, 3H), w_qkvT (3H, C), w_outT (C, H) bf16;
-// ek/ev (BF, Mc, H) bf16 or null when Mc == 0. Out: dx (BF, N, C) bf16;
-// dgamma (C), dw_qkv (C, 3H), dw_out (H, C), dout_bias (C), dek/dev
-// (BF, Mc, H), all f32. clip = 1: the merged row (clamped k; dk and dek
-// zero where |k| >= 60); 0: the per-head row. workspace:
-// vmt_linear_block_bwd_any_workspace() bytes.
-extern "C" int vmt_linear_block_bwd_any(
-    const void* x, const void* gamma, const void* w_qkv, const void* w_qkvT,
-    const void* w_outT, const void* ek, const void* ev, const void* g,
-    void* dx, void* dgamma, void* dw_qkv, void* dw_out, void* dout_bias,
-    void* dek, void* dev, void* workspace, int BF, int N, int C, int Mc,
-    int heads, int d, float scale, float inv_hw, int clip, void* stream) {
-  if (BF <= 0 || N <= 0 || C <= 0 || Mc < 0 || heads <= 0 || d <= 0 ||
-      d > kMaxD || (Mc > 0 && (ek == nullptr || ev == nullptr ||
-                               dek == nullptr || dev == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int H = heads * d;
-  const size_t R = (size_t)BF * N;
-  const LinearWs w = linear_ws(workspace, BF, N, C, heads, d);
-  const bf16* xb = static_cast<const bf16*>(x);
-  const bf16* gb = static_cast<const bf16*>(g);
-  cudaError_t err =
-      launch_ln(xb, static_cast<const float*>(gamma), w.y, R, C, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm(gemm(w.y, C, 0, static_cast<const bf16*>(w_qkv), 3 * H, 0,
-                         1, w.qkv, 3 * H, 0, (int)R, 3 * H, C),
-                    1, kStoreF32, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm(gemm(gb, C, 0, static_cast<const bf16*>(w_outT), H, 0, 1,
-                         w.goh, H, 0, (int)R, H, C),
-                    1, kStoreF32, st);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (N + kLTile - 1) / kLTile;
-  const size_t psmem = ((size_t)kMaxD + kLStatThreads + 4 * kLSub * d) *
-                       sizeof(float);
-  linear_any_bwd_partial<<<dim3(tiles, heads, BF), kLStatThreads, psmem, st>>>(
-      w.qkv, w.goh, w.part_m, w.part_z, w.part_ctx, w.part_dctx, N, heads, d,
-      scale, clip);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t msmem = ((size_t)2 * d * d + 3 * d) * sizeof(float);
-  linear_any_bwd_merge<<<dim3(heads, BF), kLStatThreads, msmem, st>>>(
-      w.part_m, w.part_z, w.part_ctx, w.part_dctx,
-      static_cast<const bf16*>(ek), static_cast<const bf16*>(ev), w.ctx,
-      w.dctx, w.mz, static_cast<float*>(dek), static_cast<float*>(dev), tiles,
-      Mc, heads, d, inv_hw, clip);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t tsmem =
-      ((size_t)2 * d * (d + 1) + (size_t)kLTokWarps * 4 * kMaxD) * sizeof(float);
-  linear_any_bwd_tokens<<<dim3((N + kLTokRows - 1) / kLTokRows, BF),
-                          kLTokWarps * 32, tsmem, st>>>(
-      w.qkv, w.goh, w.ctx, w.dctx, w.mz, w.dqkv, w.oh, N, heads, d, scale,
-      inv_hw, clip);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  err = launch_gemm(gemm(w.dqkv, 3 * H, 0, static_cast<const bf16*>(w_qkvT),
-                         C, 0, 1, w.dy, C, 0, (int)R, C, 3 * H),
-                    1, kStoreF32, st);
-  if (err != cudaSuccess) return (int)err;
-  const size_t lnb = ln_bwd_blocks(R);
-  err = launch_ln_bwd(xb, static_cast<const float*>(gamma), w.dy, gb,
-                      static_cast<bf16*>(dx), w.ln_dg, w.ln_g, R, C, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vmt::launch_colsum(w.ln_dg, static_cast<float*>(dgamma), 1, (int)lnb,
-                           C, w.ln_ws, st);
-  if (err != cudaSuccess) return (int)err;
-  err = vmt::launch_colsum(w.ln_g, static_cast<float*>(dout_bias), 1,
-                           (int)lnb, C, w.ln_ws, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_contract(rows_of(w.y, C), rows_of(w.dqkv, 3 * H),
-                        static_cast<float*>(dw_qkv), 1, (int)R, C, 3 * H,
-                        w.contract, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_contract(rows_of(w.oh, H), rows_of(g, C),
                               static_cast<float*>(dw_out), 1, (int)R, H, C,
                               w.contract, st);
 }
@@ -1579,10 +1123,9 @@ extern "C" size_t vmt_linear_head_any_workspace(int BF, int N, int C,
 // vmt_linear_head_any_workspace() bytes. The arithmetic of the JAX head
 // kernel and of the specialised instance, from the pieces above:
 //   y = bf16(LN(x) gamma); q, k, v = y @ w_qkv in f32 (any_gemm_kernel);
-//   the token sums of the backward (linear_any_bwd_partial / _merge, clip
-//   0, no cotangent): the column max of the unclamped keys, exp(k - m)^T v
-//   over 256-token tiles, merged with the conditioning tokens first, ctx
-//   normalised by z, all f32;
+//   the token sums (linear_any_head_sums / _merge): the column max of the
+//   unclamped keys, exp(k - m)^T v over 256-token tiles, merged with the
+//   conditioning tokens first, ctx normalised by z, all f32;
 //   Q = scale softmax_head(q), oh = Q ctxn in f32 (linear_any_head_apply);
 //   out = bf16(x + out_bias + oh @ W_out), oh meeting the bf16 W_out as
 //   its bf16 hi + lo parts: one product [oh_hi | oh_lo] @ [W_out; W_out]
@@ -1612,17 +1155,15 @@ extern "C" int vmt_linear_head_any(
                     1, kStoreF32, st);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (N + kLTile - 1) / kLTile;
-  const size_t psmem = ((size_t)kMaxD + kLStatThreads + 4 * kLSub * d) *
+  const size_t psmem = ((size_t)kMaxD + kLStatThreads + 2 * kLSub * d) *
                        sizeof(float);
-  linear_any_bwd_partial<<<dim3(tiles, heads, BF), kLStatThreads, psmem, st>>>(
-      w.qkv, nullptr, w.part_m, w.part_z, w.part_ctx, nullptr, N, heads, d,
-      1.f, 0);
+  linear_any_head_sums<<<dim3(tiles, heads, BF), kLStatThreads, psmem, st>>>(
+      w.qkv, w.part_m, w.part_z, w.part_ctx, N, heads, d);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t msmem = ((size_t)2 * d * d + 3 * d) * sizeof(float);
-  linear_any_bwd_merge<<<dim3(heads, BF), kLStatThreads, msmem, st>>>(
-      w.part_m, w.part_z, w.part_ctx, nullptr, static_cast<const bf16*>(ek),
-      static_cast<const bf16*>(ev), w.ctxn, nullptr, nullptr, nullptr,
-      nullptr, tiles, Mc, heads, d, inv_hw, 0);
+  linear_any_head_merge<<<dim3(heads, BF), kLStatThreads,
+                          (size_t)2 * d * sizeof(float), st>>>(
+      w.part_m, w.part_z, w.part_ctx, static_cast<const bf16*>(ek),
+      static_cast<const bf16*>(ev), w.ctxn, tiles, Mc, heads, d, inv_hw);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const size_t asmem =
       ((size_t)d * (d + 1) + (size_t)kLTokWarps * kMaxD) * sizeof(float);

@@ -65,6 +65,15 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "r"(smem_u32(p)));
 }
 
+// two 8 x 8 matrices (lanes 0-15 give the row addresses): the B fragment
+// of one n8 tile stored [n][k]
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
 // two 8 x 8 matrices transposed (lanes 0-15 give the row addresses): the B
 // fragment of one n8 tile stored [k][n]
 __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {

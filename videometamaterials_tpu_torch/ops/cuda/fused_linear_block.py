@@ -8,7 +8,7 @@ layout (csrc/fused_linear_block.cu, the apply's head mode after the
 backward's stats pass; csrc/any_shape_bwd.cu off the flagship's shapes),
 and both
 backward kernels, _bwd_kernel (per-head) and _bwd_kernel_merged
-(csrc/fused_linear_block_bwd.cu and csrc/any_shape_bwd.cu, each one source
+(csrc/fused_linear_block_bwd.cu and csrc/any_linear_bwd.cu, each one source
 with a clip flag); each source note gives the bounds and the design.
 `fused_linear_block` is the JAX package's custom VJP as a
 torch.autograd.Function: the forward of the
@@ -37,8 +37,9 @@ Rows 4 and 5 (stats and apply), 6 and 7 (the backward) and 8 (the head
 layout) have two instances each, picked from the shape alone
 (`forward_instance`): the specialised kernels at the flagship's shapes (8
 heads of 32, C in CHANNELS; any N and Mc) and the any-shape kernels
-(csrc/any_shape.cu, csrc/any_shape_bwd.cu: any heads, d up to 64, any
-C, N and Mc; rows 4-5 launch as `any_plan` says) at every other.
+(csrc/any_shape.cu, csrc/any_shape_bwd.cu, csrc/any_linear_bwd.cu: any
+heads, d up to 64, any N and Mc, C as far as the plans fit; rows 4-5
+launch as `any_plan` says, rows 6-7 as `bwd_any_plan`) at every other.
 """
 
 from __future__ import annotations
@@ -211,6 +212,144 @@ def any_plan(bf: int, n: int, c: int, heads: int, d: int) -> dict:
     if apply is None:
         raise ValueError(f"no any-shape apply plan fits {heads} heads of {d}")
     return dict(plan, **apply)
+
+
+# the any-shape rows 6-7 (`bwd_any_plan`, csrc/any_linear_bwd.cu's
+# bwd_plan): two warps a head and row group; pass 1 in 64-token sub-tiles
+# of a tile of BWD_SUM_TILES tokens, a head a block; pass 2 in tiles of 64,
+# 32 or 16 tokens and head groups of at most BWD_GROUP_COLS padded columns;
+# after a streamed pass 2, pass 3 (dy and the LN backward)
+BWD_SUM_TILES, BWD_GROUP_COLS = (1024, 256), 128
+# pass 3 (after a streamed pass 2): 256-channel tiles, 64 dqkv columns a
+# ring stage
+BWD_DX_N, BWD_DX_K = 256, 64
+# the dqkv columns (3 heads d, padded to BWD_DX_K) pass 3 takes: its rows
+# of 16 tokens and the ring beside them within MAX_SMEM
+BWD_MAX_DQKV = 3456
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_any_plan(bf: int, n: int, c: int, heads: int, d: int) -> dict:
+    """The launch plan of the any-shape rows 6 and 7 at a shape, the mirror
+    of csrc/any_linear_bwd.cu's bwd_plan (vmt_linear_bwd_any_plan), which
+    chip_smoke.py holds it to. Keys:
+    - dp: d padded to k-steps of 16;
+    - sums_tile (tokens a pass-1 block, in 64-token sub-tiles; resident:
+      the largest of BWD_SUM_TILES whose grid of tiles x heads x BF has
+      two blocks an SM, else 64; streamed: the smallest of 64 and
+      BWD_SUM_TILES that takes a frame in at most 9 tiles), sums_res (1:
+      C <= 128 and the weights and two sub-tiles of x and g stay in shared
+      memory beside two blocks an SM), sums_stages (else the ring's
+      stages: as many as fit two blocks an SM where the grid has more
+      blocks than SMs, else one), sums_smem (bytes);
+    - tok_rows (tokens a pass-2 block), tok_group (heads a group: two
+      warps a head), tok_res, tok_stages, tok_smem: resident (64 rows, a
+      head a group; two groups' weights and context blocks, the next
+      group's arriving during this one's work) where C <= 128 and it fits;
+      else streamed at the rows of 64, 32, 16, with the full group
+      (min(64 // rows, BWD_GROUP_COLS // dp) heads), that fits with the
+      least ceil(blocks / (SMs x blocks an SM)) x (rows + 8), the first on
+      ties, dy left to pass 3;
+    - dx_rows, dx_stages, dx_smem: pass 3 after a streamed pass 2 (the
+      tile's dqkv rows resident, W_qkv in BWD_DX_N x BWD_DX_K stages; its
+      token tile by the same rule), else 0.
+    Raises ValueError where no plan takes the shape (d > ANY_MAX_D, or a
+    3 x heads x d whose dqkv rows of 16 tokens leave pass 3 no room)."""
+    if min(bf, n, c, heads, d) <= 0:
+        raise ValueError(f"no any-shape backward plan for "
+                         f"{(bf, n, c, heads, d)}")
+    if d > ANY_MAX_D:
+        raise ValueError(f"the any-shape backward takes d up to "
+                         f"{ANY_MAX_D}, got {d}")
+    dp = -(-d // 16) * 16
+    nkc = -(-c // ANY_KC)
+    xchunk = ANY_KC + 8                                  # bf16 a row
+
+    def stage(rows, wp):
+        return 2 * rows * xchunk * 2 + ANY_KC * 4 + ANY_KC * wp * 2
+
+    def stages(smem, limit):
+        s = ANY_MIN_STAGES
+        while s < ANY_MAX_STAGES and smem(s + 1) <= limit:
+            s += 1
+        return s
+
+    def sums_smem(res, s):
+        wp = 4 * dp + 8
+        tail = ANY_STAT_M * wp * 2 + 11 * dp * 4 + 2 * ANY_STAT_M * 4
+        if res:
+            return (nkc * ANY_KC * (wp * 2 + 4)
+                    + 4 * nkc * ANY_STAT_M * xchunk * 2 + tail)
+        return s * stage(ANY_STAT_M, wp) + tail
+
+    def tok_smem(rows, g, res, s):
+        wp = 4 * g * dp + 8
+        nbuf = 2 if res else 1
+        tail = ((rows * (nkc * ANY_KC + 4) * 4 if res else 0)
+                + rows * (3 * g * dp + 8) * 2
+                + rows * (g * dp + 8) * 2
+                + nbuf * (g * 2 * dp * (dp + 8) * 2 + 3 * g * dp * 4)
+                + 2 * rows * 4)
+        if res:
+            return (nbuf * nkc * ANY_KC * wp * 2 + nkc * ANY_KC * 4
+                    + 2 * nkc * rows * xchunk * 2 + tail)
+        return s * stage(rows, wp) + tail
+
+    sblocks = lambda t: -(-n // t) * heads * bf
+    res = int(c <= 128 and sums_smem(True, 0) <= RES_SMEM)
+    if res:
+        tile = next((t for t in BWD_SUM_TILES
+                     if sblocks(t) >= 2 * ANY_GRID_BLOCKS), ANY_STAT_M)
+    else:
+        tile = next((t for t in (ANY_STAT_M, *BWD_SUM_TILES[::-1])
+                     if -(-n // t) <= 9), BWD_SUM_TILES[0])
+    limit = RES_SMEM if sblocks(tile) > ANY_GRID_BLOCKS else MAX_SMEM
+    s = 0 if res else stages(lambda k: sums_smem(False, k), limit)
+    plan = dict(dp=dp, sums_tile=tile, sums_res=res, sums_stages=s,
+                sums_smem=sums_smem(res, s))
+    if plan["sums_smem"] > MAX_SMEM:
+        raise ValueError(f"no any-shape backward plan fits C = {c}")
+    gmax = lambda m: min(64 // m, BWD_GROUP_COLS // dp)
+
+    def pick(smem):
+        """The token tile (64, 32, 16) of the least waves x (rows + 8) whose
+        smem(rows) at ANY_MIN_STAGES stages fits (ties: the first), and its
+        stages' limit."""
+        best = None
+        for m in (64, 32, 16):
+            sm = smem(m)
+            if sm > MAX_SMEM:
+                continue
+            bps = 2 if sm <= RES_SMEM else 1
+            cost = -(-(-(-n // m) * bf) // (ANY_GRID_BLOCKS * bps)) * (m + 8)
+            if best is None or cost < best[0]:
+                best = (cost, m, RES_SMEM if bps == 2 else MAX_SMEM)
+        return best[1:] if best else (0, MAX_SMEM)
+
+    if c <= 128 and tok_smem(64, 1, True, 0) <= MAX_SMEM:
+        r, m, g, s = 1, 64, 1, 0
+    else:
+        m, lim = pick(lambda k: tok_smem(k, gmax(k), False, ANY_MIN_STAGES))
+        r, g = 0, gmax(m)
+        s = stages(lambda k: tok_smem(m, g, False, k), lim)
+    plan = dict(plan, tok_rows=m, tok_group=g, tok_res=r, tok_stages=s,
+                tok_smem=tok_smem(m, g, r, s), dx_rows=0, dx_stages=0,
+                dx_smem=0)
+    if r:
+        return plan
+    kp = -(-3 * heads * d // BWD_DX_K) * BWD_DX_K
+
+    def dx_smem(rows, s):
+        return (rows * (kp + 8) * 2 + s * BWD_DX_N * (BWD_DX_K + 8) * 2
+                + (4 * rows + 8 * rows * 2 + 4 * 2 * BWD_DX_N) * 4)
+
+    m3, lim3 = pick(lambda k: dx_smem(k, ANY_MIN_STAGES))
+    if not m3:
+        raise ValueError(f"the any-shape backward's pass 3 takes 3 x heads "
+                         f"x d up to {BWD_MAX_DQKV} dqkv columns (padded to "
+                         f"{BWD_DX_K}), got {3 * heads * d}")
+    s3 = stages(lambda k: dx_smem(m3, k), lim3)
+    return dict(plan, dx_rows=m3, dx_stages=s3, dx_smem=dx_smem(m3, s3))
 
 
 def _instance(x, w_qkv, heads: int) -> str:
@@ -717,14 +856,14 @@ def _check_bwd_operands(x, w_out, g, hidden: int) -> None:
 def _bwd_any(x, gamma, w_qkv, w_out, ek, ev, g, *, heads: int, scale: float,
              spatial_size: int, route: str):
     """Rows 6 (route 'head', clip 0) and 7 ('merged', clip 1) through the
-    any-shape kernels (csrc/any_shape_bwd.cu): the recomputed LN and
-    projections, the token sums as ordered partials, the per-token
-    cotangents, dy and the LN backward, the weight sums; one workspace
-    allocated here, the weights handed transposed for dy and g_oh."""
+    any-shape kernels (csrc/any_linear_bwd.cu): two token passes that
+    recompute the projections from x and g on the tensor cores (the token
+    sums, then the per-token cotangents, dy and the LN backward), launched
+    as `bwd_any_plan` says, then the weight sums; one workspace allocated
+    here, W_out handed transposed for g_oh."""
     hidden, d = _check_common(x, gamma, w_qkv, heads)
-    _build.require(d <= 64,
-                   f"the any-shape backward takes d up to 64, got {d}")
     b, n, c = x.shape
+    bwd_any_plan(b, n, c, heads, d)
     _check_bwd_operands(x, w_out, g, hidden)
     m_c = _check_cond(ek, ev, x, hidden)
     lib = _build.load_library()
@@ -738,13 +877,12 @@ def _bwd_any(x, gamma, w_qkv, w_out, ek, ev, g, *, heads: int, scale: float,
     dev = torch.empty((b, m_c, hidden), **f32) if m_c else None
     ws = _build.workspace(lib.vmt_linear_block_bwd_any_workspace(
         b, n, c, heads, d), x.device)
-    w_qkv_t = w_qkv.t().contiguous()
     w_out_t = w_out.t().contiguous()
     p = _build.ptr
     err = lib.vmt_linear_block_bwd_any(
-        p(x), p(gamma), p(w_qkv), p(w_qkv_t), p(w_out_t), p(ek), p(ev), p(g),
-        p(dx), p(dgamma), p(dw_qkv), p(dw_out), p(dout_bias), p(dek), p(dev),
-        p(ws), b, n, c, m_c, heads, d, scale, 1.0 / spatial_size,
+        p(x), p(gamma), p(w_qkv), p(w_out_t), p(ek), p(ev), p(g), p(dx),
+        p(dgamma), p(dw_qkv), p(dw_out), p(dout_bias), p(dek), p(dev), p(ws),
+        b, n, c, m_c, heads, d, scale, 1.0 / spatial_size,
         int(route == "merged"), _build.stream_handle(x.device))
     name = f"linear_bwd_{route}_any"
     _build.check_launch(lib, err, name)
