@@ -243,19 +243,23 @@ Phases, each printing its wall time as it finishes:
              (launches: (b) and (c)'s) and launches_widths_train on every
              row
   15 widths-head  row 8, the head-layout linear forward, at every shape
-             (its any-shape instance, csrc/any_shape_bwd.cu, picked by
+             (its any-shape instance, csrc/any_linear_head*.cu, picked by
              `forward_instance`; the flagship's shapes keep the specialised
              vmt_linear_head): (a) against its twin at every shape the wide
              and heads4x64 configurations give it in a guided step and in a
              train step at batch 2 (`head_path`), then over 13 (a)'s heads
-             x d x C x Mc in {0, 11, 96, 150} at N = 144 and the two ragged
-             shapes at N = 9191, with |k| across 60 (it must follow its
+             x d x C x Mc in {0, 11, 96, 150} at N = 144, the two ragged
+             shapes at N = 9191 and WHEAD_MODES (d = 40 and 16, 32 heads of
+             64 whose apply holds oh a head group at a time), every
+             launch's C plan equal to `fused_linear_block.head_any_plan`
+             and every mode of that plan taken, with |k| across 60 (it must follow its
              unclamped twin and miss the clamped merged one), at phase 2's
              head tolerance with two launches bit-equal, at x times 0.01
              at most HEAD_BITS of the outputs bit-different from the twin
              (what a dropped lo part of oh would show), against the
              specialised instance at two flagship shapes, and its time at
-             heads4x64 level 0; (b) VMT_LINEAR_LAYOUT=head on each edit of
+             heads4x64 level 0 and at the flagship's level 0 beside the
+             specialised instance; (b) VMT_LINEAR_LAYOUT=head on each edit of
              13 (b): one guided eps within MODEL_TOL of the unfused plans
              and one kernel-plan train step at batch 2 with every
              fused-block gradient within GRAD_TOL of the recompute plan's
@@ -382,10 +386,10 @@ PORTED_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
 # the device functions of the tensor-core kernels (rows 1-8 of PERF.md's
 # kernel table: linear_apply_kernel<C, false> row 5, <C, true> row 8's
 # apply, whose stats pass it shares with rows 6-7; the contraction of rows
-# 3, 6 and 7; the projections of the any-shape rows 1-3 and 6-8, the
-# fused any-shape rows 4-5, and the attention stages of the any-shape rows
-# 1-3, with row 3's token keys, and the two token passes of the any-shape
-# rows 6-7): their ptxas
+# 3, 6 and 7; the projections of the any-shape rows 1-3, the fused
+# any-shape rows 4-5 and 8 (stats and apply), and the attention stages of
+# the any-shape rows 1-3, with row 3's token keys, and the two token passes
+# of the any-shape rows 6-7): their ptxas
 # resources are printed and their SASS must hold tensor-core instructions
 # (HMMA) and no atomics
 TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
@@ -398,7 +402,9 @@ TENSOR_CORE_KERNELS = ("temporal_attn_kernel", "temporal_outproj_kernel",
                        "temporal_any_bwd_attn_kernel",
                        "temporal_any_bwd_tok_kernel",
                        "linear_any_bwd_sums_kernel",
-                       "linear_any_bwd_tok_kernel")
+                       "linear_any_bwd_tok_kernel",
+                       "linear_head_any_stats_kernel",
+                       "linear_head_any_apply_kernel")
 
 
 def log(msg: str) -> None:
@@ -664,18 +670,20 @@ def temporal_p_cost(b, s, c, t_tok, f=FRAMES, heads=HEADS, hidden=HIDDEN):
     return nbytes + b * f * s * (f + t_tok) * heads * 2, flops
 
 
-def head_cost(bf_, n, c, m_c=1, heads=HEADS, d=32):
+def head_cost(bf_, n, c, m_c=1, heads=HEADS, d=32, ctx_parts=1):
     """(bytes, flops): x read and out written once, the weights and cond
     tokens read once; on the tensor cores, in bf16 products: the QKV
-    projection and ctx = P^T v (2 H d a token; the stats pass shared with
-    the linear backward), and the apply's float32 products, each operand
+    projection and ctx = P^T v (2 H d a token; ctx_parts products: the
+    specialised instance's one, with bf16 operands, shared with the linear
+    backward; the any-shape instance's three, its float32 operands split
+    into bf16 hi + lo), and the apply's float32 products, each operand
     split into bf16 hi + lo: Q ctx as three products (3 x 2 H d a token)
     and the out-projection as two (2 x 2 H C)."""
     rows = bf_ * n
     hidden = heads * d
     nbytes = (2 * rows * c * 2 + (c * 3 * hidden + hidden * c) * 2
               + 2 * bf_ * m_c * hidden * 2 + c * 8)
-    return nbytes, rows * (2 * c * 3 * hidden + 2 * hidden * d
+    return nbytes, rows * (2 * c * 3 * hidden + ctx_parts * 2 * hidden * d
                            + 3 * 2 * hidden * d + 2 * 2 * hidden * c)
 
 
@@ -3781,6 +3789,32 @@ def check_any_plan(bf_, n, c, heads, d, what) -> dict:
     return want
 
 
+def check_head_plan(bf_, n, c, heads, d, what) -> dict:
+    """The launch plan of the any-shape row 8 that the library takes
+    (vmt_linear_head_any_plan) and its workspace must be
+    `fused_linear_block.head_any_plan`'s."""
+    import ctypes
+
+    from videometamaterials_tpu_torch.ops.cuda import _build
+    from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
+
+    want = lin.head_any_plan(bf_, n, c, heads, d)
+    keys = ("dp", "stats_tile", "stats_group", "stats_res", "stats_stages",
+            "stats_smem", "apply_tile", "apply_span", "apply_group",
+            "apply_res", "apply_stages", "apply_smem", "apply_ohg")
+    got = (ctypes.c_int * len(keys))()
+    lib = _build.load_library()
+    err = lib.vmt_linear_head_any_plan(bf_, n, c, heads, d,
+                                       ctypes.addressof(got))
+    plan = dict(zip(keys, got),
+                workspace=lib.vmt_linear_head_any_workspace(bf_, n, c, heads,
+                                                            d))
+    if err or plan != want:
+        raise AssertionError(f"{what}: the C head plan {plan} (error {err}) "
+                             f"is not the Python plan {want}")
+    return want
+
+
 def check_bwd_plan(bf_, n, c, heads, d, what) -> dict:
     """The launch plan of the any-shape rows 6-7 that the library takes
     (vmt_linear_bwd_any_plan) must be `fused_linear_block.bwd_any_plan`'s."""
@@ -4990,16 +5024,31 @@ def phase_widths_train(smi: str, report: dict,
 
 # ----------------------------------------------------------------- phase 15
 
-# (a) row 8's any-shape instance (the head layout, csrc/any_shape_bwd.cu)
+# (a) row 8's any-shape instance (the head layout, csrc/any_linear_head*.cu)
 # at every shape the wide and heads4x64 configurations give it in a guided
 # step and in a WTRAIN_BATCH train step, then over 13 (a)'s heads x d x C
-# and WHEAD_MC at N = WIDTH_S (22 folded frames) and at the two
-# WIDTH_RAGGED_LINEAR shapes at N = 9191, |k| across 60, and against the
-# specialised instance at WHEAD_FLAGSHIP; (b) each WIDTH_CONFIGS edit under
-# VMT_LINEAR_LAYOUT=head: one guided eps and one kernel-plan train step at
-# WTRAIN_BATCH; (c) heads4x64's chain on the head layout
+# and WHEAD_MC at N = WIDTH_S (22 folded frames), at the two
+# WIDTH_RAGGED_LINEAR shapes at N = 9191 and at WHEAD_MODES, |k| across
+# 60, and against the specialised instance at WHEAD_FLAGSHIP; (b) each
+# WIDTH_CONFIGS edit under VMT_LINEAR_LAYOUT=head: one guided eps and one
+# kernel-plan train step at WTRAIN_BATCH; (c) heads4x64's chain on the
+# head layout
 WHEAD_MC = (0, 11, 96, 150)
 WHEAD_FLAGSHIP = [(22, 9216, 64), (22, 144, 512)]
+# (BF, N, C, Mc, heads, d) beside the grid, so that (a) takes every mode of
+# `head_any_plan` (tests/test_torch_port_widths_head.py
+# test_head_any_plan_reaches_every_mode): d = 40 (padded to 48, the padded
+# columns masked in the q softmax) and d = 16, and 32 heads of 64 at
+# C = 1024, whose oh tiles of every head fit no block (the apply takes
+# them a head group at a time, over four column blocks)
+WHEAD_MODES = [(22, 144, 96, 11, 4, 40), (22, 144, 32, 0, 8, 16),
+               (2, 100, 1024, 3, 32, 64)]
+# the modes of `head_any_plan` that (a)'s launches must take, each value at
+# least once
+HEAD_PLAN_MODES = dict(dp=(16, 32, 48, 64), stats_tile=(64, 256),
+                       stats_group=(1, 2, 4), stats_res=(0, 1),
+                       apply_tile=(16, 32, 64), apply_res=(0, 1),
+                       apply_ohg=(0, 1))
 WHEAD_CHAIN_STEPS = 16
 # the share of outputs bit-different from the twin where x is times 0.01
 # (the bf16 output then resolves the update): oh meets W_out as bf16 hi +
@@ -5037,10 +5086,11 @@ def head_path(cfg, batch: int, train: bool) -> tuple[dict, set]:
     return counts, shapes
 
 
-def whead_check(a, heads, what) -> float:
-    """Row 8's any-shape instance on `a`: two launches bit-equal, one each,
-    the update within APPLY_TOL of the twin's (check_update); returns the
-    max error."""
+def whead_check(a, heads, what, plans=None) -> float:
+    """Row 8's any-shape instance on `a`: its C launch plan the Python
+    plan (appended to `plans`), two launches bit-equal, one each, the
+    update within APPLY_TOL of the twin's (check_update); returns the max
+    error."""
     import torch
 
     from videometamaterials_tpu_torch.ops.cuda import fused_linear_block as lin
@@ -5049,6 +5099,9 @@ def whead_check(a, heads, what) -> float:
     d = a["w_out"].shape[0] // heads
     if lin.forward_instance(heads, d, c) != lin.ANY_SHAPE:
         raise AssertionError(f"{what}: routed to the specialised instance")
+    plan = check_head_plan(bf_, n, c, heads, d, what)
+    if plans is not None:
+        plans.append(plan)
     kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
     out, n1 = _launched("linear_head_any",
                         lambda: lin.linear_block_head(**a, **kw))
@@ -5064,9 +5117,11 @@ def whead_check(a, heads, what) -> float:
 def whead_kernels(report, root: Path) -> dict:
     """15 (a): row 8's any-shape instance against its twin at the wide and
     heads4x64 path shapes (`head_path`, guided step and train step), over
-    the grid, with |k| across 60, against the specialised instance at two
-    flagship shapes, and its time at heads4x64 level 0. Returns {name: the
-    path shapes}."""
+    the grid and WHEAD_MODES (every launch's C plan the Python plan, every
+    mode of the plan taken), with |k| across 60, against the specialised
+    instance at two flagship shapes, and its time at heads4x64 level 0 and
+    at the flagship's level 0 beside the specialised instance. Returns
+    {name: the path shapes}."""
     import itertools
 
     import torch
@@ -5076,7 +5131,7 @@ def whead_kernels(report, root: Path) -> dict:
     from videometamaterials_tpu_torch.ops.norms import channel_layer_norm
 
     gen = torch.Generator(device="cuda").manual_seed(150)
-    paths, worst = {}, 0.0
+    paths, worst, plans = {}, 0.0, []
     for name in ("wide", "heads4x64"):
         cfg = load_model_yaml(width_yaml(root, name))
         shapes = paths[name] = (head_path(cfg, 1, False)[1]
@@ -5085,7 +5140,7 @@ def whead_kernels(report, root: Path) -> dict:
             a = head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads, d=d)
             worst = max(worst, whead_check(
                 a, heads, f"{name} path: head any BF={bf_} N={n} C={c} "
-                f"Mc={m_c} {heads}x{d}"))
+                f"Mc={m_c} {heads}x{d}", plans))
             del a
         log(f"  {name} head-layout path (guided eps and a train step at "
             f"batch {WTRAIN_BATCH}): row 8 any-shape at {len(shapes)} "
@@ -5093,16 +5148,24 @@ def whead_kernels(report, root: Path) -> dict:
     grid = [(hd, c, m, WIDTH_S) for hd, c, m in itertools.product(
         WIDTH_HEADS, WIDTH_C, WHEAD_MC)]
     grid += [(hd, c, m, 9191) for hd, c, m in WIDTH_RAGGED_LINEAR]
-    for (heads, d), c, m_c, n in grid:
-        a = head_inputs(22, n, c, gen, m_c=m_c, heads=heads, d=d)
+    grid = [(22, n, c, m_c, heads, d) for (heads, d), c, m_c, n in grid]
+    for bf_, n, c, m_c, heads, d in grid + WHEAD_MODES:
+        a = head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads, d=d)
         worst = max(worst, whead_check(
-            a, heads, f"head any {heads}x{d} C={c} Mc={m_c} N={n}"))
+            a, heads, f"head any BF={bf_} {heads}x{d} C={c} Mc={m_c} N={n}",
+            plans))
         del a
+    modes = {k: sorted({pl[k] for pl in plans}) for k in HEAD_PLAN_MODES}
+    missed = {k: sorted(set(v) - set(modes[k]))
+              for k, v in HEAD_PLAN_MODES.items() if set(v) - set(modes[k])}
+    if missed:
+        raise AssertionError(f"15a: no launch took the head plan's {missed}")
     log(f"  row 8 any-shape: {len(grid)} grid shapes (heads x d in "
         f"{WIDTH_HEADS}, C in {WIDTH_C}, Mc in {WHEAD_MC}, N = {WIDTH_S}; "
-        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191) and the path shapes: two "
-        f"launches bit-equal, update err {worst:.3e} (tol {APPLY_TOL} of "
-        "its max)")
+        f"{len(WIDTH_RAGGED_LINEAR)} at N = 9191), {len(WHEAD_MODES)} mode "
+        f"shapes and the path shapes: C plan = Python plan, two launches "
+        f"bit-equal, update err {worst:.3e} (tol {APPLY_TOL} of its max); "
+        f"plan modes taken {modes}")
 
     # |k| across 60: the unclamped twin, and the clamped merged twin misses
     n, heads, d, c = 9216, 4, 32, 64
@@ -5113,7 +5176,7 @@ def whead_kernels(report, root: Path) -> dict:
     if not ((keys.abs() > 60).any() and (keys.abs() < 60).any()):
         raise AssertionError("the clamp case has no |k| on both sides of 60")
     del keys
-    err = whead_check(a, heads, "head any, |k| across 60")
+    err = whead_check(a, heads, "head any, |k| across 60", plans)
     kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
     base = a["x"].float() + a["out_bias"]
     got = lin.linear_block_head(**a, **kw).float() - base
@@ -5166,14 +5229,29 @@ def whead_kernels(report, root: Path) -> dict:
     ms = cuda_ms(lambda: lin.linear_block_head(**a, **kw))
     plain_ms = cuda_ms(lambda: lin.linear_block_head_plain(**a, **kw),
                        reps=2, warmup=1)
-    cost = head_cost(bf_, n, c, m_c, heads=heads, d=d)
+    cost = head_cost(bf_, n, c, m_c, heads=heads, d=d, ctx_parts=3)
     bound_ms, by = bound(*cost)
     log(f"  linear_head_any (heads4x64: BF={bf_} N={n} C={c} Mc={m_c} "
         f"{heads}x{d}): {ms:.3f} ms ({rate(ms, cost[1], bound_ms)}), twin "
         f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+    del a
+    shape = [bf_, n, c, m_c, heads, d]
+    # at the flagship's level 0, beside the specialised instance
+    bf_, n, c = WHEAD_FLAGSHIP[0]
+    a = head_inputs(bf_, n, c, gen)
+    kw = dict(heads=HEADS, scale=32 ** -0.5, spatial_size=n)
+    check_head_plan(bf_, n, c, HEADS, 32, "head any timed (flagship)")
+    f_ms = cuda_ms(lambda: lin._head_any(**a, **kw))
+    spec_ms = cuda_ms(lambda: lin.linear_block_head(**a, **kw))
+    f_bound, _ = bound(*head_cost(bf_, n, c, ctx_parts=3))
+    log(f"  linear_head_any at the flagship's level 0 (BF={bf_} N={n} C={c} "
+        f"{HEADS}x32): {f_ms:.3f} ms (bound {f_bound:.4f} ms), the "
+        f"specialised linear_head {spec_ms:.3f} ms: {f_ms / spec_ms:.2f}x")
+    del a
     report["linear_head_any"].update(
         max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by=by, shape=[bf_, n, c, m_c, heads, d])
+        bound_by=by, shape=shape, flagship_ms=f_ms,
+        flagship_specialised_ms=spec_ms)
     return paths
 
 
@@ -5274,7 +5352,7 @@ def phase_widths_head(smi: str, report: dict,
     from videometamaterials_tpu_torch.config import load_model_yaml
 
     report["linear_head_any"].update(
-        source="videometamaterials_tpu_torch/ops/cuda/csrc/any_shape_bwd.cu",
+        source="videometamaterials_tpu_torch/ops/cuda/csrc/any_linear_head.cu",
         replaces="videometamaterials_tpu/ops/pallas/fused_linear_block.py:336")
     (ROOT / "build").mkdir(exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="smoke_whead_", dir=ROOT / "build"))

@@ -1,10 +1,11 @@
-"""Mutation check of chip_smoke.py phases 13 (a), 14 (a) and 15 (a): eight
+"""Mutation check of chip_smoke.py phases 13 (a), 14 (a) and 15 (a): ten
 copies of the port under OUT_DIR, each with one deliberate fault in one
 any-shape instance (row 2's p halved, row 3's dbias dropped, row 4's last
 ragged token sub-tile dropped, row 5's padded head columns counted in the
 softmax sum, row 6's S term dropped, row 7's clip dropped, rows 6-7's
 padded head columns counted in the query softmax's sum, row 8's lo part
-of oh dropped), built side by side; each copy's phase check
+of oh dropped, its running max not rescaled, its padded head columns
+counted in the q softmax), built side by side; each copy's phase check
 (`chip_smoke.wlinear_kernels` for rows 4-5, `chip_smoke.whead_kernels`
 for row 8, `chip_smoke.wtrain_kernels` for the rest) must raise. Exits
 non-zero if one does not.
@@ -59,11 +60,21 @@ MUTANTS = {
     "row67_pad_in_softmax": (CSRC + "any_linear_bwd.cu",
                              "return in_head ? expf(q - m) : 0.f;",
                              "return expf(q - m);", "wtrain_kernels"),
-    # row 8: oh meets W_out as its bf16 hi part alone
-    "row8_no_lo": (CSRC + "any_shape_bwd.cu",
-                   "orow[H + h * d + e] = __float2bfloat16(o - hi);",
-                   "orow[H + h * d + e] = __float2bfloat16(0.f);",
-                   "whead_kernels"),
+    # row 8: oh meets W_out as its bf16 hi part alone (seen at x times
+    # 0.01, HEAD_BITS)
+    "row8_no_lo": (CSRC + "any_linear_head_apply.cu",
+                   "(lrow + 8 * h8 * ohp + n * 8) = lo_bf16x2(a, b);",
+                   "(lrow + 8 * h8 * ohp + n * 8) = 0u;", "whead_kernels"),
+    # row 8: ctx and z not rescaled where the running max rises (seen at
+    # N = 9216, tiles of four sub-tiles, |k| across 60)
+    "row8_no_rescale": (CSRC + "any_linear_head.cu",
+                        "return expf(mold[col] - m_new(col));",
+                        "return 1.f;", "whead_kernels"),
+    # row 8: a head's padded columns (d = 40 pads to 48) counted in its q
+    # softmax's sum
+    "row8_pad_in_softmax": (CSRC + "any_linear_head_apply.cu",
+                            "return pad ? 0.f : expf(q - m);",
+                            "return expf(q - m);", "whead_kernels"),
 }
 # run inside a copy: the mutant's phase check must raise AssertionError
 CHECK = """import sys, tempfile

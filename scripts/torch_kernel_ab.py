@@ -10,8 +10,9 @@ linear backward (rows 6-7) and the head-layout linear forward (row 8), on
 chip_smoke.py's seeded inputs, through the wrappers of the tree given by
 --tree; and the any-shape instances of rows 1-8 at the largest shapes
 of the three widths configurations of chip_smoke.py phase 13 (ANY_SHAPES;
-rows 4-5 at wide's C = 1024 and at every heads4x64 level; rows 6-7 at
-heads4x64's levels at the training batch, wide's C = 1024 and the
+rows 4-5 and 8 at wide's C = 1024 and at every heads4x64 level, row 8
+also at the flagship's level 0 beside the specialised instance; rows 6-7
+at heads4x64's levels at the training batch, wide's C = 1024 and the
 flagship's level 0, beside the specialised instance there;
 rows 1-3 also the specialised instance at the flagship's level-0 shape, the
 same work as heads4x64's, and each plain twin). A tree whose
@@ -22,7 +23,8 @@ achieved TFLOP/s and the share of the bound; with --profile also each CUDA
 kernel's device time in one launch of each row at its level-0 shape (row
 6 per-head at (44, 9216, 64), row 7 merged at (44, 2304, 128), row 8 at
 (22, 9216, 64): its stats, merge and apply; rows 4-5 any-shape at
-heads4x64's level 0 and wide's C = 1024; rows 6-7 any-shape at heads4x64's
+heads4x64's level 0 and wide's C = 1024; row 8 any-shape at heads4x64's
+level 0, wide's C = 1024 and the flagship's level 0; rows 6-7 any-shape at heads4x64's
 levels 0 and 1, wide's C = 1024 and the flagship's level 0) and rows 5
 and 8's device
 time a launch at every path shape. With row 5 it also digests
@@ -62,8 +64,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 # the any-shape rows at the largest shapes of the widths configurations:
 # rows 1-3 (B, F, S, C, T, heads, d), rows 2-3 at the training batch 4,
-# row 8 (BF, N, C, Mc, heads, d); tokens96's linear blocks take the
-# specialised instance
+# row 8 (BF, N, C, Mc, heads, d) at heads4x64's four levels, and as
+# "flagship" the flagship's level-0 shape (the any-shape instance called
+# directly, beside the specialised one at the same work); tokens96's
+# linear blocks take the specialised instance
 ANY_SHAPES = {
     "temporal_fwd_any": [("wide", (2, 11, 144, 1024, 11, 8, 32)),
                          ("heads4x64", (2, 11, 9216, 64, 11, 4, 64)),
@@ -72,7 +76,10 @@ ANY_SHAPES = {
                            ("heads4x64", (4, 11, 9216, 64, 11, 4, 64)),
                            ("tokens96", (4, 11, 9216, 64, 96, 8, 32))],
     "linear_head_any": [("wide", (22, 144, 1024, 1, 8, 32)),
-                        ("heads4x64", (22, 9216, 64, 1, 4, 32))],
+                        ("heads4x64", (22, 9216, 64, 1, 4, 32))] + [
+        (f"heads4x64 L{i}", (22, n, c, 1, 4, 32)) for i, (n, c) in enumerate(
+            ((2304, 128), (576, 256), (144, 512)), 1)] + [
+        ("flagship", (22, 9216, 64, 1, 8, 32))],
 }
 ANY_SHAPES["temporal_bwd_any"] = ANY_SHAPES["temporal_fwd_p_any"]
 # rows 4-5 (BF, N, C, Mc, heads, d): wide's C = 1024 and heads4x64's four
@@ -276,8 +283,8 @@ def main(argv=None) -> int:
                 "linear_head_any"]:
             a = cs.head_inputs(bf_, n, c, torch.Generator(
                 device="cuda").manual_seed(5), m_c=m_c, heads=heads, d=d)
-            out = lin.linear_block_head(**a, heads=heads, scale=d ** -0.5,
-                                        spatial_size=n)
+            out = lin._head_any(**a, heads=heads, scale=d ** -0.5,
+                                spatial_size=n)
             digests[f"head any {config}"] = hashlib.sha256(
                 out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
             del a, out
@@ -337,10 +344,12 @@ def main(argv=None) -> int:
                 a = cs.head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
                                    d=d)
                 kw = dict(heads=heads, scale=d ** -0.5, spatial_size=n)
-                run = lambda: lin.linear_block_head(**a, **kw)
+                run = lambda: lin._head_any(**a, **kw)
                 plain = lambda: lin.linear_block_head_plain(**a, **kw)
-                cost = cs.head_cost(bf_, n, c, m_c, heads=heads, d=d)
-                spec = None
+                cost = cs.head_cost(bf_, n, c, m_c, heads=heads, d=d,
+                                    ctx_parts=3)
+                spec = ((lambda: lin.linear_block_head(**a, **kw))
+                        if config == "flagship" else None)
             elif name in LINEAR_BWD_ANY:
                 bf_, n, c, m_c, heads, d = shape
                 a, g, kw = _bwd_any_inputs(cs, name, shape, gen)
@@ -466,6 +475,8 @@ def main(argv=None) -> int:
                              ("temporal_bwd_any", "heads4x64"),
                              ("temporal_bwd_any", "tokens96"),
                              ("linear_head_any", "heads4x64"),
+                             ("linear_head_any", "wide"),
+                             ("linear_head_any", "flagship"),
                              ("linear_stats_any", "heads4x64 L0"),
                              ("linear_stats_any", "wide"),
                              ("linear_apply_any", "heads4x64 L0"),
@@ -493,7 +504,7 @@ def main(argv=None) -> int:
                 bf_, n, c, m_c, heads, d = shape
                 a = cs.head_inputs(bf_, n, c, gen, m_c=m_c, heads=heads,
                                    d=d)
-                run = lambda: lin.linear_block_head(
+                run = lambda: lin._head_any(
                     **a, heads=heads, scale=d ** -0.5, spatial_size=n)
             elif name in LINEAR_BWD_ANY:
                 a, g, kw = _bwd_any_inputs(cs, name, shape, gen)

@@ -453,18 +453,20 @@ def test_linear_bwd_any_shape_matches_its_rounding_model(cuda, heads, d,
     assert bits[True] <= MODEL_BITS, bits
 
 
-# the head layout's plain versions (name, stats rounded, parts, Q ctxn in
-# float32) per instance: the first rounds where the instance rounds. The
-# specialised instance (8 heads of 32) rounds its stats' operands and takes
-# Q, ctxn and oh as bf16 hi + lo on the tensor cores; the any-shape
-# instance keeps its stats and Q ctxn in float32 and takes oh as hi + lo in
-# its out-projection ("hi only": the same without the lo part)
+# the head layout's plain versions per instance (name: the keywords of
+# kernel_rounding_head_fwd): the first rounds where the instance rounds.
+# The specialised instance (8 heads of 32) rounds its stats' operands and
+# takes Q, ctxn and oh as bf16 hi + lo on the tensor cores; the any-shape
+# instance (csrc/any_linear_head.cu) keeps its stats in float32, as bf16
+# hi + lo products too ("hi only": the same without oh's lo part)
 HEAD_MODELS = {
-    "specialised": (8, 64, (("split", True, 2, False),
-                            ("f32", True, None, False),
-                            ("unrounded", False, None, False))),
-    "any": (4, 96, (("split", False, 2, True), ("hi only", False, 1, True),
-                    ("f32", False, None, False))),
+    "specialised": (8, 64, {"split": dict(rounded=True, parts=2),
+                            "f32": dict(rounded=True, parts=None),
+                            "unrounded": dict(rounded=False, parts=None)}),
+    "any": (4, 96, {"split": dict(rounded=False, stats_parts=2, parts=2),
+                    "hi only": dict(rounded=False, stats_parts=2, parts=2,
+                                    oh_parts=1),
+                    "f32": dict(rounded=False, parts=None)}),
 }
 
 
@@ -502,11 +504,15 @@ def test_linear_head_kernel_matches_its_rounding_model(cuda, k_scale,
     x = _cpu(a["x"])
     args = [_cpu(a[k]) for k in ("x", "gamma", "w_qkv", "w_out", "out_bias",
                                  "ek", "ev")]
+    # the stats tiles: the specialised instance's 1024-token chunks, the
+    # any-shape instance's plan tile
+    chunk = ({} if instance == "specialised" else
+             dict(chunk=lin.head_any_plan(b, n, c, heads, 32)["stats_tile"]))
     shares, bits, wants = {}, {}, {}
-    for model, rounded, parts, qc_f32 in models:
+    for model, kw in models.items():
         want = wants[model] = kernel_rounding_head_fwd(
-            *args, heads=heads, scale=32 ** -0.5, spatial_size=n,
-            rounded=rounded, parts=parts, qc_f32=qc_f32)
+            *args, heads=heads, scale=32 ** -0.5, spatial_size=n, **kw,
+            **chunk)
         shares[model] = ((got - want).abs().max()
                          / (want - x).abs().max()).item()
         bits[model] = (got != want).float().mean().item()

@@ -80,7 +80,7 @@ def test_head_twin_matches_the_jax_head_kernel_at_other_widths(heads, c,
 
 # (heads, d, C): the flagship's shapes take the specialised instance
 # (csrc/fused_linear_block.cu, vmt_linear_head), every other the any-shape
-# one (csrc/any_shape_bwd.cu, vmt_linear_head_any)
+# one (csrc/any_linear_head.cu, vmt_linear_head_any)
 ROUTES = [((8, 32, 64), lin.SPECIALISED), ((8, 32, 512), lin.SPECIALISED),
           ((8, 32, 1024), lin.ANY_SHAPE), ((4, 32, 64), lin.ANY_SHAPE),
           ((12, 32, 96), lin.ANY_SHAPE), ((8, 32, 40), lin.ANY_SHAPE),
@@ -114,6 +114,128 @@ def test_head_layout_route_is_a_function_of_the_shape(shape, want,
         with pytest.raises(ValueError, match="CUDA"):
             lin.linear_block_head(*args, **kw)
         assert not calls
+
+
+# ------------------------------------------------------- row 8's plan
+# `fused_linear_block.head_any_plan`, the mirror of
+# csrc/any_linear_head.cu's head_plan (chip_smoke.py phase 15 (a) holds the
+# two equal on the card at every launch)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_head", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _phase15_head_shapes(cs, tmp_path):
+    """(BF, N, C, heads, d) of every row 8 any-shape launch of
+    chip_smoke.py phase 15 (a): the wide and heads4x64 paths (a guided
+    step and a train step), the grid, the ragged shapes, WHEAD_MODES, the
+    |k| case and the flagship's level 0."""
+    import itertools
+
+    from videometamaterials_tpu_torch.config import load_model_yaml
+
+    shapes = {(22, cs.WIDTH_S, c, h, d) for (h, d), c in itertools.product(
+        cs.WIDTH_HEADS, cs.WIDTH_C)}
+    shapes |= {(22, 9191, c, h, d) for (h, d), c, _ in cs.WIDTH_RAGGED_LINEAR}
+    shapes |= {(bf, n, c, h, d) for bf, n, c, _, h, d in cs.WHEAD_MODES}
+    shapes |= {(22, 9216, 64, 4, 32), (*cs.WHEAD_FLAGSHIP[0], cs.HEADS, 32)}
+    paths = set()
+    for name in ("wide", "heads4x64"):
+        cfg = load_model_yaml(cs.width_yaml(tmp_path, name))
+        for batch, train in ((1, False), (cs.WTRAIN_BATCH, True)):
+            paths |= {(bf, n, c, h, d) for bf, n, c, _, h, d in
+                      cs.head_path(cfg, batch, train)[1]}
+    assert paths, "the paths launch row 8 any-shape"
+    return sorted(shapes | paths)
+
+
+def _covers_every_head_once(heads, group):
+    got = [h for g0 in range(0, heads, group)
+           for h in range(g0, min(heads, g0 + group))]
+    return got == list(range(heads))
+
+
+def test_head_any_plan_fits_every_phase15_shape(tmp_path):
+    """Every row 8 launch of phase 15 (a) is planned within 227 KB of
+    shared memory a block (kernel by kernel), its stats and apply head
+    groups cover every head once (a stats group of one head or an even
+    number, a resident apply's group every head), each kernel names its
+    mode (resident with no ring stages, or streamed with 3 to 6) and the
+    apply whether its oh tiles hold one head group; d pads to
+    16 ceil(d / 16); the workspace is the stats' partials and ctxn's hi
+    and lo blocks, with no float32 q, k, v, y or oh: at heads4x64's level
+    0 about 14 MB."""
+    cs = _chip_smoke()
+    for bf, n, c, heads, d in _phase15_head_shapes(cs, tmp_path):
+        plan = lin.head_any_plan(bf, n, c, heads, d)
+        assert plan["dp"] == -(-d // 16) * 16, plan
+        for kernel in ("stats", "apply"):
+            assert 0 < plan[f"{kernel}_smem"] <= lin.MAX_SMEM, plan
+            assert plan[f"{kernel}_res"] in (0, 1), plan
+            if plan[f"{kernel}_res"]:
+                assert c <= 128 and plan[f"{kernel}_stages"] == 0, plan
+            else:
+                assert (lin.ANY_MIN_STAGES <= plan[f"{kernel}_stages"]
+                        <= lin.ANY_MAX_STAGES), plan
+            assert _covers_every_head_once(heads, plan[f"{kernel}_group"])
+        group = plan["stats_group"]
+        assert group == 1 or group % 2 == 0, plan
+        assert group * plan["dp"] <= 128, plan
+        assert plan["stats_tile"] == lin.stats_tile(n)
+        assert plan["apply_ohg"] in (0, 1), plan
+        if plan["apply_res"]:
+            assert plan["apply_group"] == heads and not plan["apply_ohg"]
+        assert plan["apply_tile"] in (16, 32, 64)
+        tiles = -(-n // plan["stats_tile"])
+        r = lambda v: -(-v // 256) * 256
+        dp = plan["dp"]
+        assert plan["workspace"] == (
+            2 * r(bf * tiles * heads * d * 4)
+            + r(bf * tiles * heads * d * d * 4)
+            + r(bf * heads * 2 * dp * (dp + 8) * 2)), plan
+    ws = lin.head_any_plan(22, 9216, 64, 4, 32)["workspace"]
+    assert 13e6 < ws < 15e6, ws
+
+
+def test_head_any_plan_reaches_every_mode(tmp_path):
+    """Phase 15 (a)'s shapes take every mode of the plan
+    (chip_smoke.HEAD_PLAN_MODES, which phase 15 (a) checks on the card):
+    resident and streamed stats and apply, stats tiles of 64 and 256
+    tokens, stats groups of 1, 2 and 4 heads, apply tiles of 64, 32 and 16
+    tokens, oh tiles of every head and of one group, d padded to 16, 32,
+    48 and 64."""
+    cs = _chip_smoke()
+    plans = [lin.head_any_plan(*shape)
+             for shape in _phase15_head_shapes(cs, tmp_path)]
+    for key, values in cs.HEAD_PLAN_MODES.items():
+        assert {p[key] for p in plans} >= set(values), key
+
+
+@pytest.mark.parametrize("heads", [1, 3, 4, 16, 64])
+def test_head_any_plan_refuses_only_d_above_64(heads):
+    """Over d up to 70, C from 8 to 4096 and N from 1 to 9216 the plan
+    fits 227 KB a block and covers every head once, or refuses with
+    ValueError: at d > 64, and at no other shape (the parent instance
+    took every d <= 64)."""
+    for d in (*range(1, lin.ANY_MAX_D + 1, 7), 64, 65, 70):
+        for c in (8, 40, 128, 1024, 4096):
+            for n in (1, 144, 9216):
+                if d > lin.ANY_MAX_D:
+                    with pytest.raises(ValueError):
+                        lin.head_any_plan(22, n, c, heads, d)
+                    continue
+                plan = lin.head_any_plan(22, n, c, heads, d)
+                assert max(plan["stats_smem"],
+                           plan["apply_smem"]) <= lin.MAX_SMEM
+                assert _covers_every_head_once(heads, plan["apply_group"])
 
 
 def _random_params(model, args, seed):

@@ -54,7 +54,8 @@ LAUNCH_COUNTS: dict[str, int] = {
     "temporal_bwd_any": 0,
     "linear_bwd_head_any": 0,
     "linear_bwd_merged_any": 0,
-    # the any-shape instance of row 8, the head layout (csrc/any_shape_bwd.cu)
+    # the any-shape instance of row 8, the head layout
+    # (csrc/any_linear_head.cu, csrc/any_linear_head_apply.cu)
     "linear_head_any": 0,
 }
 
@@ -103,9 +104,12 @@ _SIGNATURES = {
     "vmt_linear_any_plan": [_I] * 5 + [_P],
     # BF, N, C, heads, d, int[2] out: blocks an SM of their two kernels
     "vmt_linear_any_occupancy": [_I] * 5 + [_P],
-    # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace, BF, N, C, Mc,
-    # heads, d, scale, inv_hw, stream
+    # x, gamma, w_qkv, w_out, out_bias, ek, ev, out, workspace (the stats'
+    # partials and ctxn's hi and lo blocks), BF, N, C, Mc, heads, d, scale,
+    # inv_hw, stream
     "vmt_linear_head_any": [_P] * 9 + [_I] * 6 + [_F, _F, _P],
+    # BF, N, C, heads, d, int[13] out: the any-shape row 8's launch plan
+    "vmt_linear_head_any_plan": [_I] * 5 + [_P],
 }
 # sizes in bytes: the workspaces of the entry points that take one, and
 # the dynamic shared memory of the temporal and linear kernels' stages
@@ -122,6 +126,7 @@ _SIZE_SIGNATURES = {
     "vmt_temporal_block_bwd_any_workspace": [_I] * 7,  # B, F, S, C, T, heads, d
     "vmt_linear_block_bwd_any_workspace": [_I] * 5,  # BF, N, C, heads, d
     "vmt_linear_head_any_workspace": [_I] * 5,       # BF, N, C, heads, d
+                                                     # (0: no plan)
 }
 
 

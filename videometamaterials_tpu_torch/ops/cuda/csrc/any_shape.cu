@@ -291,10 +291,6 @@ struct LinPlan {
   int apply_smem;    // bytes
 };
 
-__host__ __device__ inline int lin_stage_bytes(int rows, int wp) {
-  return rows * kLinXP * 2 + kLinKC * 4 + kLinKC * wp * 2;
-}
-
 // stats: resident: the W chunks, gamma, two sub-tiles of x chunks;
 // streamed: the ring; then pkv [64][wp] bf16, zs [4][half] f32, mu, rstd
 __host__ __device__ inline int lin_stats_smem(int group, int dp, int C,
@@ -306,22 +302,6 @@ __host__ __device__ inline int lin_stats_smem(int group, int dp, int C,
                     2 * nkc * kLinStatM * kLinXP * 2
               : stages * lin_stage_bytes(kLinStatM, wp)) +
          tail;
-}
-
-// apply: columns a warp takes in the out-projection (parts warps across a
-// block of W_out columns): at most 64, and at most 256 a block
-constexpr int kLinWC = 64;
-__host__ __device__ inline int lin_apply_wc(int tile, int C) {
-  const int parts = 8 / (tile / 16), per = (C + parts - 1) / parts;
-  const int wc = (per + 15) / 16 * 16, cap = 256 / parts < kLinWC ? 256 / parts : kLinWC;
-  return wc < cap ? wc : cap;
-}
-
-// apply, streamed: the pitch of a ring stage's weight rows
-__host__ __device__ inline int lin_apply_wp(int tile, int group, int dp,
-                                            int C) {
-  const int cb = (8 / (tile / 16)) * lin_apply_wc(tile, C);
-  return (group * dp > cb ? group * dp : cb) + 8;
 }
 
 // apply: resident: W_q's chunks, gamma, W_out's chunks, two tiles of x
@@ -435,155 +415,6 @@ struct LinAny {
 
 __device__ __forceinline__ float clamp_k(float k) {
   return fminf(fmaxf(k, -kClamp), kClamp);
-}
-
-// x[r][c] of a tile staged as K-chunk slots of [rows][kLinXP], slot_elems
-// apart
-__device__ __forceinline__ float lin_x_at(const bf16* xs, int slot_elems,
-                                          int r, int c) {
-  return bf2f(xs[(c / kLinKC) * slot_elems + r * kLinXP + c % kLinKC]);
-}
-
-// a chunk of weights: rows k0..k0+kLinKC-1 (zeros from C on) of w (row
-// pitch ldw), column blocks of `group` heads of dp columns; head hl of
-// block p is w's columns off[p] + (h0 + hl) d .. + d - 1 (zeros past d and
-// past the last head). vw: every head's columns 16-byte aligned
-template <int dp>
-__device__ __forceinline__ void lin_load_w(bf16* dst, int wp, const bf16* w,
-                                           int ldw, int k0, int C, int off0,
-                                           int off1, int group, int h0,
-                                           int heads, int d, bool vw,
-                                           LinUnit un) {
-  const bf16 zero = __float2bfloat16(0.f);
-  const int width = group * dp, u = un.u;
-  const int p = u / width, hl = (u % width) / dp, a = u % dp, h = h0 + hl;
-  const bool col_ok = h < heads;
-  const int col = (p ? off1 : off0) + h * d + a;
-  for (int r = un.r0; r < kLinKC; r += un.rstep) {
-    const int k = k0 + r;
-    const bool row_ok = k < C && col_ok;
-    bf16* dd = dst + r * wp + u;
-    const bf16* s = w + (size_t)k * ldw + col;
-    if (vw) {
-      const bool ok = row_ok && a < d;
-      vmt::cp_async16(dd, ok ? s : w, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dd[e] = (row_ok && a + e < d) ? s[e] : zero;
-    }
-  }
-}
-
-// the stats' layout of a group's columns: two parts, one a column half of
-// the block (`half` columns each). A group of one head: part 0 its k, part
-// 1 its v. An even group: part p the k and then the v of heads p G / 2 ..,
-// so both halves' warps exponentiate. Of a part's column `col` (< half):
-// whether it is a v column, its head within the group, its feature
-struct KvCol {
-  bool v;
-  int hl, a;
-};
-template <int dp>
-__device__ __forceinline__ KvCol stats_col(int part, int col, int G) {
-  if (G == 1) return {part == 1, 0, col};
-  const int kw = (G / 2) * dp;   // k columns of a part
-  const bool v = col >= kw;
-  const int c = v ? col - kw : col;
-  return {v, part * (G / 2) + c / dp, c % dp};
-}
-
-// a chunk of W_k || W_v in the stats' layout (stats_col): rows
-// k0..k0+kLinKC-1 (zeros from C on) of w_qkv (C, 3H); zeros past d and
-// past the last head. vw: every head's columns 16-byte aligned
-template <int dp>
-__device__ __forceinline__ void lin_load_wkv(bf16* dst, int wp,
-                                             const bf16* w_qkv, int k0, int C,
-                                             int G, int h0, int heads, int d,
-                                             bool vw, LinUnit un) {
-  const bf16 zero = __float2bfloat16(0.f);
-  const int H = heads * d, half = G * dp, u = un.u;
-  const KvCol kc = stats_col<dp>(u / half, u % half, G);
-  const int h = h0 + kc.hl;
-  const bool col_ok = h < heads;
-  const int col = (kc.v ? 2 * H : H) + h * d + kc.a;
-  for (int r = un.r0; r < kLinKC; r += un.rstep) {
-    const int k = k0 + r;
-    const bool row_ok = k < C && col_ok;
-    bf16* dd = dst + r * wp + u;
-    const bf16* s = w_qkv + (size_t)k * 3 * H + col;
-    if (vw) {
-      const bool ok = row_ok && kc.a < d;
-      vmt::cp_async16(dd, ok ? s : w_qkv, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dd[e] = (row_ok && kc.a + e < d) ? s[e] : zero;
-    }
-  }
-}
-
-// a chunk of W_out: rows kp0..kp0+kLinKC-1 of the head-padded hidden axis
-// (row h dp + a is W_out's row h d + a, zeros for a >= d), columns c0..
-// (zeros from C on). vw: C % 8 == 0 and W_out aligned
-template <int dp>
-__device__ __forceinline__ void lin_load_wout(bf16* dst, int wp,
-                                              const bf16* w_out, int kp0,
-                                              int c0, int C, int heads, int d,
-                                              bool vw, LinUnit un) {
-  const bf16 zero = __float2bfloat16(0.f);
-  const int o = un.u, c = c0 + o;
-  for (int r = un.r0; r < kLinKC; r += un.rstep) {
-    const int kp = kp0 + r, h = kp / dp, a = kp % dp;
-    const bool row_ok = h < heads && a < d;
-    bf16* dd = dst + r * wp + o;
-    const bf16* s = w_out + (size_t)(h * d + a) * C + c;
-    if (vw) {
-      const bool ok = row_ok && c < C;
-      vmt::cp_async16(dd, ok ? s : w_out, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) dd[e] = (row_ok && c + e < C) ? s[e] : zero;
-    }
-  }
-}
-
-// acc[0..nt) += y[m0..m0+15][chunk] @ W[chunk][col0 + 8 n ..]: with kNorm
-// the chunk holds raw x, whose fragments are normalised to y as they are
-// read; else it holds y
-template <int kNT, bool kNorm = true>
-__device__ __forceinline__ void lin_project(float (&acc)[kNT][4],
-                                            const bf16* xs, const float* gs,
-                                            const bf16* ws, int wp, int m0,
-                                            int col0, int nt,
-                                            const float (&mu)[2],
-                                            const float (&rs)[2], int lane) {
-  const int tq = lane & 3;
-#pragma unroll
-  for (int ks = 0; ks < kLinKC / 16; ++ks) {
-    uint32_t a[4];
-    vmt::ldsm_x4(a, xs + (m0 + vmt::a_row_off(lane)) * kLinXP + ks * 16 +
-                        vmt::a_col_off(lane));
-    if (kNorm) {
-      const float2 g0 = *reinterpret_cast<const float2*>(gs + ks * 16 + 2 * tq);
-      const float2 g1 =
-          *reinterpret_cast<const float2*>(gs + ks * 16 + 2 * tq + 8);
-      a[0] = lin_norm2(a[0], mu[0], rs[0], g0);
-      a[1] = lin_norm2(a[1], mu[1], rs[1], g0);
-      a[2] = lin_norm2(a[2], mu[0], rs[0], g1);
-      a[3] = lin_norm2(a[3], mu[1], rs[1], g1);
-    }
-    const bf16* wrow = ws + (ks * 16 + vmt::bk_row_off(lane)) * wp + col0 +
-                       vmt::bk_col_off(lane);
-#pragma unroll
-    for (int np = 0; np < kNT / 2; ++np) {
-      if (2 * np < nt) {
-        uint32_t bb[4];
-        vmt::ldsm_x4_t(bb, wrow + np * 16);
-        vmt::mma_bf16(acc[2 * np], a, bb[0], bb[1]);
-        vmt::mma_bf16(acc[2 * np + 1], a, bb[2], bb[3]);
-      }
-    }
-  }
 }
 
 // Row 4. One block a (token tile, head group, frame); warp (rg, ch): token

@@ -1,15 +1,16 @@
-// Pieces shared by the any-shape kernels (any_shape.cu: rows 1, 2, and
-// the shared memory limit and alignment test of rows 4, 5; any_shape_bwd.cu:
-// rows 3, 6, 7, 8), for sm_90a: a one-warp-a-row LayerNorm and a
-// tensor-core product that takes any M, N, K and any row pitch. Every size is a launch argument. Each translation unit that
-// includes this gets its own copy (an anonymous namespace).
+// Pieces shared by the any-shape kernels (any_shape.cu: rows 1, 2;
+// any_shape_bwd.cu: row 3; the shared memory limit and alignment test of
+// rows 4-8), for sm_90a: a one-warp-a-row LayerNorm and a tensor-core
+// product that takes any M, N, K and any row pitch (rows 1-3). Every size
+// is a launch argument. Each translation unit that includes this gets its
+// own copy (an anonymous namespace).
 //  - ln_rows_kernel: one warp a row, two-pass, C any.
 //  - any_gemm_kernel: C[z] = A[z] @ B[z % b_mod], one 64 x 64 tile a block
 //    of 128 threads, K in steps of 32, mma.sync m16n8k16 (bf16 operands,
 //    f32 sums) from padded shared tiles. Operands are staged 16 bytes a
 //    thread where rows are 16-byte aligned and whole, else one element a
 //    thread with zeros past the edges. The epilogue stores bf16 or f32, or
-//    bf16(res + bias + A B).
+//    bf16(res + A B).
 #pragma once
 
 #include "mma.cuh"
@@ -71,9 +72,8 @@ struct Gemm {
   int b_mod;
   void* c;                       // C[z][m][n], bf16 or f32
   size_t ldc, c_batch;
-  const bf16* res;               // kResidual: bf16(res + bias + A B)
+  const bf16* res;               // kResidual: bf16(res + A B)
   size_t ldr;
-  const float* bias;             // kResidual: (N) or null
   int M, N, K;
 };
 
@@ -168,8 +168,7 @@ __global__ void __launch_bounds__(kGThreads) any_gemm_kernel(const Gemm g) {
           } else if (kEpi == kStoreBf16) {
             static_cast<bf16*>(g.c)[idx] = __float2bfloat16(v);
           } else {
-            float r = bf2f(g.res[(size_t)m * g.ldr + n]);
-            if (g.bias != nullptr) r += g.bias[n];
+            const float r = bf2f(g.res[(size_t)m * g.ldr + n]);
             static_cast<bf16*>(g.c)[idx] = __float2bfloat16(r + v);
           }
         }
@@ -194,7 +193,7 @@ Gemm gemm(const bf16* a, size_t lda, size_t a_batch, const bf16* b, size_t ldb,
   g.a = a; g.lda = lda; g.a_batch = a_batch;
   g.b = b; g.ldb = ldb; g.b_batch = b_batch; g.b_mod = b_mod;
   g.c = c; g.ldc = ldc; g.c_batch = c_batch;
-  g.res = nullptr; g.ldr = 0; g.bias = nullptr;
+  g.res = nullptr; g.ldr = 0;
   g.M = M; g.N = N; g.K = K;
   return g;
 }

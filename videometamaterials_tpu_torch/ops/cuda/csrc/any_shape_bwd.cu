@@ -1,24 +1,21 @@
-// Any-shape instances of the temporal block's backward and of the
-// head-layout linear forward, for sm_90a.
+// The any-shape instance of the temporal block's backward (row 3), for
+// sm_90a.
 //
 // Replaces, at every shape the TPU kernels take outside the specialised
 // instances' set (F = 11 frames, 8 heads of 32, C in {64, 128, 256, 512},
 // at most 69 conditioning tokens):
 //   videometamaterials_tpu/ops/pallas/fused_temporal_block.py:_bwd_kernel
 //     (pallas_call in _run_bwd_kernel)                 -> vmt_temporal_block_bwd_any
-//   videometamaterials_tpu/ops/pallas/fused_linear_block.py:_kernel, layout
-//     "head" (pallas_call in _run_kernel)              -> vmt_linear_head_any
 // (row 2, the emit_p forward, is any_shape.cu's forward with p set; rows 6
-// and 7, the linear backward, are any_linear_bwd.cu). The specialised
-// instances (fused_temporal_block_bwd.cu with reduce.cu's contraction,
-// fused_linear_block.cu) keep their shapes; the wrappers pick an instance
-// from the shape alone.
+// and 7, the linear backward, are any_linear_bwd.cu; row 8, the
+// head-layout linear forward, is any_linear_head.cu). The specialised
+// instance (fused_temporal_block_bwd.cu with reduce.cu's contraction)
+// keeps its shapes; the wrapper picks an instance from the shape alone.
 //
 // Every size is a launch argument: frames F, positions S (tokens N),
-// channels C, heads and head width d (hidden H = heads * d; the linear
-// block takes d <= 64), conditioning tokens T (Mc). The temporal
-// cotangents and their layouts are the specialised kernel's (see its
-// note): dx bf16, dgamma, dw_all (F, C, 3H), dw_out (H, C), dbias
+// channels C, heads and head width d (hidden H = heads * d), conditioning
+// tokens T. The cotangents and their layouts are the specialised kernel's
+// (see its note): dx bf16, dgamma, dw_all (F, C, 3H), dw_out (H, C), dbias
 // (F, F+T, heads), dek/dev (B, 2, T, H), all f32.
 // Roundings, where fused_temporal_block_bwd.cu rounds: y, q, k, v and the
 // value weights p in bf16 (as the forward), g_acc = g W_out^T in bf16,
@@ -27,7 +24,7 @@
 // significant bits, as in the specialised backward); dp = g_acc . v is
 // rounded to bf16 as the plain twin's autograd rounds it.
 //
-// What bounds them on an H100: the same work as the specialised instances
+// What bounds it on an H100: the same work as the specialised instance
 // (chip_smoke.py prints each launch's bound): the projections, dy and the
 // weight sums, operations at 989 TFLOP/s bf16 at the training shapes.
 //
@@ -60,11 +57,6 @@
 //  - ln_bwd_kernel: dx = g + the LN backward of dy, and per-block partials
 //    of dgamma, summed in order by reduce.cu's column sums.
 //  - the weight gradients dW = A^T B over the rows (any_contract.cuh).
-//  - row 8: the token sums (ctx and its normaliser) as partials over
-//    256-token tiles, one block a (tile, head, frame), a merge a (head,
-//    frame), the conditioning tokens first, then the tiles in order; the
-//    apply a head at a time on the CUDA cores; the out-projection by
-//    any_gemm_kernel.
 #include <math_constants.h>
 
 #include <algorithm>
@@ -731,181 +723,6 @@ __global__ void temporal_any_tok_reduce(const float* __restrict__ part,
   dekv[o] = v;
 }
 
-// ---- the head layout's forward (row 8 at any shape): token sums
-
-constexpr int kLStatThreads = 256;
-constexpr int kLTile = 256;  // tokens a partial block
-constexpr int kLSub = 32;    // tokens staged at a time
-constexpr int kMaxD = 64;
-constexpr int kLOut = kMaxD * kMaxD / kLStatThreads;  // outputs a thread
-
-// qkv (BF, N, 3H) f32; per (tile, head, frame): the column max m of the
-// keys over the tile, z = sum exp(k - m), ctx = sum exp(k - m)^T v
-__global__ void __launch_bounds__(kLStatThreads) linear_any_head_sums(
-    const float* __restrict__ qkv, float* __restrict__ part_m,
-    float* __restrict__ part_z, float* __restrict__ part_ctx, int N,
-    int heads, int d) {
-  extern __shared__ float smem_f[];
-  const int t = threadIdx.x;
-  const int tt = blockIdx.x, h = blockIdx.y, bf = blockIdx.z;
-  const int tiles = gridDim.x, H = heads * d, dd = d * d;
-  float* mx = smem_f;                 // [d]
-  float* red = mx + kMaxD;            // [256]
-  float* P = red + kLStatThreads;     // [kLSub][d]
-  float* V = P + kLSub * d;           // [kLSub][d]
-  const int n0 = tt * kLTile, n1 = min(N, n0 + kLTile);
-  const float* base = qkv + (size_t)bf * N * 3 * H;
-  // the column max: thread t takes feature t % d of every (256 / d)-th token
-  {
-    const int a = t % d, grp = t / d, ngrp = kLStatThreads / d;
-    float m = -CUDART_INF_F;
-    if (grp < ngrp)
-      for (int n = n0 + grp; n < n1; n += ngrp)
-        m = fmaxf(m, base[(size_t)n * 3 * H + H + h * d + a]);
-    red[t] = m;
-    __syncthreads();
-    if (t < d) {
-      float v = -CUDART_INF_F;
-      for (int k = 0; k < ngrp; ++k) v = fmaxf(v, red[k * d + t]);
-      mx[t] = v;
-    }
-    __syncthreads();
-  }
-  float cacc[kLOut];
-#pragma unroll
-  for (int u = 0; u < kLOut; ++u) cacc[u] = 0.f;
-  float zacc = 0.f;
-  for (int sub = n0; sub < n1; sub += kLSub) {
-    const int cnt = min(kLSub, n1 - sub);
-    __syncthreads();
-    for (int i = t; i < cnt * d; i += kLStatThreads) {
-      const int r = i / d, c = i % d;
-      const float* row = base + (size_t)(sub + r) * 3 * H + h * d;
-      P[i] = expf(row[H + c] - mx[c]);
-      V[i] = row[2 * H + c];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kLOut; ++u) {
-      const int o = t + u * kLStatThreads;
-      if (o < dd) {
-        const int ai = o / d, e = o % d;
-        float c = cacc[u];
-        for (int r = 0; r < cnt; ++r) c = fmaf(P[r * d + ai], V[r * d + e], c);
-        cacc[u] = c;
-      }
-    }
-    if (t < d)
-      for (int r = 0; r < cnt; ++r) zacc += P[r * d + t];
-  }
-  const size_t pi = ((size_t)bf * tiles + tt) * heads + h;
-#pragma unroll
-  for (int u = 0; u < kLOut; ++u) {
-    const int o = t + u * kLStatThreads;
-    if (o < dd) part_ctx[pi * dd + o] = cacc[u];
-  }
-  if (t < d) {
-    part_m[pi * d + t] = mx[t];
-    part_z[pi * d + t] = zacc;
-  }
-}
-
-// one block a (head, frame): the maximum M and 1 / z, and ctx normalised
-// (with 1 / HW), from the conditioning tokens first, then the tiles in
-// order
-__global__ void __launch_bounds__(kLStatThreads) linear_any_head_merge(
-    const float* __restrict__ part_m, const float* __restrict__ part_z,
-    const float* __restrict__ part_ctx, const bf16* __restrict__ ek,
-    const bf16* __restrict__ ev, float* __restrict__ ctx, int tiles, int Mc,
-    int heads, int d, float inv_hw) {
-  extern __shared__ float smem_f[];
-  const int t = threadIdx.x, h = blockIdx.x, bf = blockIdx.y;
-  const int H = heads * d, dd = d * d;
-  float* M = smem_f;         // [d]
-  float* zi = M + d;         // [d]
-  const size_t pb = (size_t)bf * tiles * heads + h;  // tile k: pb + k heads
-  const bf16* ekb = ek + (size_t)bf * Mc * H + h * d;
-  const bf16* evb = ev + (size_t)bf * Mc * H + h * d;
-  if (t < d) {
-    float m = -CUDART_INF_F;
-    for (int mc = 0; mc < Mc; ++mc) m = fmaxf(m, bf2f(ekb[(size_t)mc * H + t]));
-    for (int k = 0; k < tiles; ++k)
-      m = fmaxf(m, part_m[(pb + (size_t)k * heads) * d + t]);
-    float z = 0.f;
-    for (int mc = 0; mc < Mc; ++mc) z += expf(bf2f(ekb[(size_t)mc * H + t]) - m);
-    for (int k = 0; k < tiles; ++k) {
-      const size_t pi = (pb + (size_t)k * heads) * d + t;
-      z += part_z[pi] * expf(part_m[pi] - m);
-    }
-    M[t] = m;
-    zi[t] = 1.f / z;
-  }
-  __syncthreads();
-  for (int o = t; o < dd; o += kLStatThreads) {
-    const int ai = o / d, e = o % d;
-    float c = 0.f;
-    for (int mc = 0; mc < Mc; ++mc)
-      c = fmaf(expf(bf2f(ekb[(size_t)mc * H + ai]) - M[ai]),
-               bf2f(evb[(size_t)mc * H + e]), c);
-    for (int k = 0; k < tiles; ++k) {
-      const size_t pi = pb + (size_t)k * heads;
-      c = fmaf(part_ctx[pi * dd + o], expf(part_m[pi * d + ai] - M[ai]), c);
-    }
-    c *= inv_hw * zi[ai];
-    ctx[((size_t)bf * heads + h) * dd + o] = c;
-  }
-}
-
-constexpr int kLTokWarps = 8;
-constexpr int kLTokRows = 64;  // tokens a block, 8 a warp
-
-// the apply: one block a (`rows` tokens, frame: 64, or 8 where that leaves
-// fewer than two blocks an SM), 8 warps, a head at a time (the head's
-// ctxn staged in shared memory): Q = scale softmax_head(q) and oh = Q
-// ctxn in f32 (ctxn: the merge's normalised ctx), oh leaving as its bf16 hi and lo parts in ohs
-// (BF N, 2H) = [oh_hi | oh_lo], the A operand of the out-projection
-// against [W_out; W_out]
-__global__ void __launch_bounds__(kLTokWarps * 32) linear_any_head_apply(
-    const float* __restrict__ qkv, const float* __restrict__ ctxn,
-    bf16* __restrict__ ohs, int N, int rows, int heads, int d, float scale) {
-  extern __shared__ float smem_f[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int bf = blockIdx.y, n0 = blockIdx.x * rows;
-  const int H = heads * d, dp1 = d + 1;
-  float* cs = smem_f;                           // [d][d + 1] ctxn
-  float* Qv = cs + d * dp1 + warp * kMaxD;      // the warp's Q
-  for (int h = 0; h < heads; ++h) {
-    __syncthreads();
-    const float* cb = ctxn + ((size_t)bf * heads + h) * d * d;
-    for (int o = threadIdx.x; o < d * d; o += kLTokWarps * 32)
-      cs[(o / d) * dp1 + o % d] = cb[o];
-    __syncthreads();
-    for (int r = warp; r < rows; r += kLTokWarps) {
-      const int n = n0 + r;
-      if (n >= N) break;
-      const size_t row = (size_t)bf * N + n;
-      const float* qh = qkv + row * 3 * H + h * d;
-      float m = -CUDART_INF_F;
-      for (int c = lane; c < d; c += 32) m = fmaxf(m, qh[c]);
-      m = vmt::warp_max(m);
-      float sm = 0.f;
-      for (int c = lane; c < d; c += 32) sm += expf(qh[c] - m);
-      const float sc = scale / vmt::warp_sum(sm);
-      for (int c = lane; c < d; c += 32) Qv[c] = expf(qh[c] - m) * sc;
-      __syncwarp();
-      bf16* orow = ohs + row * 2 * H;
-      for (int e = lane; e < d; e += 32) {
-        float o = 0.f;
-        for (int a = 0; a < d; ++a) o = fmaf(Qv[a], cs[a * dp1 + e], o);
-        const float hi = round_bf16(o);
-        orow[h * d + e] = __float2bfloat16(hi);
-        orow[H + h * d + e] = __float2bfloat16(o - hi);
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // ---- workspace carving
 
 struct Carve {
@@ -1080,110 +897,4 @@ extern "C" int vmt_temporal_block_bwd_any(
   return (int)launch_contract(rows_of(w.acc, H), rows_of(g, C),
                               static_cast<float*>(dw_out), 1, (int)R, H, C,
                               w.contract, st);
-}
-
-namespace {
-
-struct HeadWs {
-  bf16 *y, *ohs, *w2;
-  float *qkv, *part_m, *part_z, *part_ctx, *ctxn;
-  size_t bytes;
-};
-
-HeadWs head_ws(void* p, int BF, int N, int C, int heads, int d) {
-  Carve c{static_cast<char*>(p)};
-  const size_t R = (size_t)BF * N, H = (size_t)heads * d;
-  const size_t parts = (size_t)BF * ((N + kLTile - 1) / kLTile) * heads;
-  HeadWs w;
-  w.y = c.take<bf16>(R * C);
-  w.qkv = c.take<float>(R * 3 * H);
-  w.part_m = c.take<float>(parts * d);
-  w.part_z = c.take<float>(parts * d);
-  w.part_ctx = c.take<float>(parts * d * d);
-  w.ctxn = c.take<float>((size_t)BF * heads * d * d);
-  w.ohs = c.take<bf16>(R * 2 * H);
-  w.w2 = c.take<bf16>(2 * H * C);
-  w.bytes = c.used;
-  return w;
-}
-
-}  // namespace
-
-extern "C" size_t vmt_linear_head_any_workspace(int BF, int N, int C,
-                                                int heads, int d) {
-  return head_ws(nullptr, BF, N, C, heads, d).bytes;
-}
-
-// The head layout's forward at any shape (d <= 64), row 8's any-shape
-// instance: replaces videometamaterials_tpu/ops/pallas/fused_linear_block.py
-// :_kernel (pallas_call in _run_kernel) outside the specialised set of
-// vmt_linear_head. x (BF, N, C) bf16; gamma (C) f32; w_qkv (C, 3H), w_out
-// (H, C) bf16; out_bias (C) f32; ek/ev (BF, Mc, H) bf16 or null when
-// Mc == 0. Out: out (BF, N, C) bf16. workspace:
-// vmt_linear_head_any_workspace() bytes. The arithmetic of the JAX head
-// kernel and of the specialised instance, from the pieces above:
-//   y = bf16(LN(x) gamma); q, k, v = y @ w_qkv in f32 (any_gemm_kernel);
-//   the token sums (linear_any_head_sums / _merge): the column max of the
-//   unclamped keys, exp(k - m)^T v over 256-token tiles, merged with the
-//   conditioning tokens first, ctx normalised by z, all f32;
-//   Q = scale softmax_head(q), oh = Q ctxn in f32 (linear_any_head_apply);
-//   out = bf16(x + out_bias + oh @ W_out), oh meeting the bf16 W_out as
-//   its bf16 hi + lo parts: one product [oh_hi | oh_lo] @ [W_out; W_out]
-//   with K = 2H on the tensor cores (any_gemm_kernel, residual epilogue).
-// What bounds it on an H100: the specialised instance's work (the QKV
-// projection, two per-head d x d products a token, the out-projection
-// twice over): operations at the bf16 tensor-core rate at the path shapes;
-// it is simple first (the per-head products on the CUDA cores, the f32
-// q, k, v through device memory), not fast.
-extern "C" int vmt_linear_head_any(
-    const void* x, const void* gamma, const void* w_qkv, const void* w_out,
-    const void* out_bias, const void* ek, const void* ev, void* out,
-    void* workspace, int BF, int N, int C, int Mc, int heads, int d,
-    float scale, float inv_hw, void* stream) {
-  if (BF <= 0 || N <= 0 || C <= 0 || Mc < 0 || heads <= 0 || d <= 0 ||
-      d > kMaxD || (Mc > 0 && (ek == nullptr || ev == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int H = heads * d;
-  const size_t R = (size_t)BF * N;
-  const HeadWs w = head_ws(workspace, BF, N, C, heads, d);
-  cudaError_t err = launch_ln(static_cast<const bf16*>(x),
-                              static_cast<const float*>(gamma), w.y, R, C, st);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_gemm(gemm(w.y, C, 0, static_cast<const bf16*>(w_qkv), 3 * H, 0,
-                         1, w.qkv, 3 * H, 0, (int)R, 3 * H, C),
-                    1, kStoreF32, st);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (N + kLTile - 1) / kLTile;
-  const size_t psmem = ((size_t)kMaxD + kLStatThreads + 2 * kLSub * d) *
-                       sizeof(float);
-  linear_any_head_sums<<<dim3(tiles, heads, BF), kLStatThreads, psmem, st>>>(
-      w.qkv, w.part_m, w.part_z, w.part_ctx, N, heads, d);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  linear_any_head_merge<<<dim3(heads, BF), kLStatThreads,
-                          (size_t)2 * d * sizeof(float), st>>>(
-      w.part_m, w.part_z, w.part_ctx, static_cast<const bf16*>(ek),
-      static_cast<const bf16*>(ev), w.ctxn, tiles, Mc, heads, d, inv_hw);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t asmem =
-      ((size_t)d * (d + 1) + (size_t)kLTokWarps * kMaxD) * sizeof(float);
-  const int arows =
-      (size_t)BF * ((N + kLTokRows - 1) / kLTokRows) >= 2 * 132 ? kLTokRows
-                                                                 : kLTokWarps;
-  linear_any_head_apply<<<dim3((N + arows - 1) / arows, BF), kLTokWarps * 32,
-                          asmem, st>>>(w.qkv, w.ctxn, w.ohs, N, arows, heads,
-                                       d, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  // [W_out; W_out]: the K = 2H operand of the split out-projection
-  const size_t wbytes = (size_t)H * C * sizeof(bf16);
-  err = cudaMemcpyAsync(w.w2, w_out, wbytes, cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemcpyAsync(w.w2 + (size_t)H * C, w_out, wbytes,
-                        cudaMemcpyDeviceToDevice, st);
-  if (err != cudaSuccess) return (int)err;
-  Gemm g = gemm(w.ohs, 2 * H, 0, w.w2, C, 0, 1, out, C, 0, (int)R, C, 2 * H);
-  g.res = static_cast<const bf16*>(x);
-  g.ldr = C;
-  g.bias = static_cast<const float*>(out_bias);
-  return (int)launch_gemm(g, 1, kResidual, st);
 }

@@ -214,6 +214,148 @@ def any_plan(bf: int, n: int, c: int, heads: int, d: int) -> dict:
     return dict(plan, **apply)
 
 
+@functools.lru_cache(maxsize=256)
+def head_any_plan(bf: int, n: int, c: int, heads: int, d: int) -> dict:
+    """The launch plan of the any-shape row 8 (the head layout) at a shape,
+    the mirror of csrc/any_linear_head.cu's head_plan
+    (vmt_linear_head_any_plan), which chip_smoke.py holds it to. Keys:
+    - dp: d padded to k-steps of 16;
+    - stats_tile (`stats_tile`), stats_group (heads a stats block: one or
+      an even number, at most 128 k and 128 v columns, halved while the
+      grid has fewer than ANY_GRID_BLOCKS blocks, then while neither mode
+      fits), stats_res (1: C <= 128 and the weights and two sub-tiles of x
+      rows stay in shared memory beside two blocks an SM), stats_stages
+      (else the ring's stages: as many as fit two blocks an SM where the
+      grid has more blocks than SMs, else one), stats_smem (bytes; the
+      P || v tiles as bf16 hi and lo, one part of the group at a time);
+    - apply_tile, apply_span, apply_group, apply_res, apply_stages,
+      apply_smem as `any_plan`'s (the resident apply's oh hi and lo tiles
+      over its spent y tile), but where the grid of 64-token tiles has
+      more than ANY_GRID_BLOCKS blocks the streamed apply takes the
+      largest token tile, then head group (halved), that fits two blocks
+      an SM; and apply_ohg: 1 where the streamed apply's oh tiles of every
+      head (heads x dp columns, hi and lo) fit no token tile, so they hold
+      one head group at a time;
+    - workspace: the bytes of vmt_linear_head_any_workspace, the stats'
+      partials m, z (bf, tiles, heads d) and ctx (bf, tiles, heads, d, d)
+      float32 and ctxn's hi and lo blocks (bf, heads, 2, dp, dp + 8) bf16,
+      each rounded up to 256 bytes.
+    Raises ValueError at d > ANY_MAX_D and at no other shape."""
+    if min(bf, n, c, heads, d) <= 0:
+        raise ValueError(f"no any-shape head plan for {(bf, n, c, heads, d)}")
+    if d > ANY_MAX_D:
+        raise ValueError(f"the any-shape head layout takes d up to "
+                         f"{ANY_MAX_D}, got {d}")
+    dp = -(-d // 16) * 16
+    nkc = -(-c // ANY_KC)
+    xchunk = lambda rows: rows * (ANY_KC + 8) * 2        # bytes
+    r32 = lambda v: -(-v // ANY_KC) * ANY_KC
+    hpk = r32(heads * dp)
+
+    def stage(rows, wp):
+        return xchunk(rows) + ANY_KC * 4 + ANY_KC * wp * 2
+
+    def stages(smem, limit):
+        s = ANY_MIN_STAGES
+        while s < ANY_MAX_STAGES and smem(s + 1) <= limit:
+            s += 1
+        return s
+
+    def stats_smem(group, res, s):
+        half = group * dp
+        wp = 2 * half + 8
+        pitch = (2 if group == 1 else group) * dp + 8    # one part's P || v
+        tail = 2 * ANY_STAT_M * pitch * 2 + 11 * half * 4 + ANY_STAT_M * 8
+        if res:
+            return (nkc * ANY_KC * (wp * 2 + 4) + 2 * nkc * xchunk(ANY_STAT_M)
+                    + tail)
+        return s * stage(ANY_STAT_M, wp) + tail
+
+    def wc_of(tile):
+        """The out-projection's columns a warp."""
+        parts = 8 // (tile // 16)
+        per = -(-c // parts)
+        return min(-(-per // 16) * 16, ANY_MAX_COLS // parts, ANY_WARP_COLS)
+
+    def apply_smem(tile, ga, res, s, ohw):
+        cb = 8 // (tile // 16) * wc_of(tile)
+        common = ga * 2 * dp * (dp + 8) * 2 + tile * 8
+        if res:
+            return (nkc * ANY_KC * ((ga * dp + 8) * 2 + 4) + hpk * (cb + 8) * 2
+                    + 2 * nkc * xchunk(tile)
+                    + max(nkc * xchunk(tile), 2 * tile * (hpk + 8) * 2)
+                    + common)
+        return (s * stage(tile, max(ga * dp, cb) + 8)
+                + 2 * tile * (ohw + 8) * 2 + common)
+
+    tile = stats_tile(n)
+    even = lambda g: g - 1 if g > 1 and g % 2 else g
+    sblocks = lambda g: -(-n // tile) * -(-heads // g) * bf
+    slimit = lambda g: RES_SMEM if sblocks(g) > ANY_GRID_BLOCKS else MAX_SMEM
+    res_fits = lambda g: c <= 128 and stats_smem(g, True, 0) <= RES_SMEM
+    group = even(min(heads, 128 // dp))
+    while group > 1 and sblocks(group) < ANY_GRID_BLOCKS:
+        group = even(group // 2)
+    while (group > 1 and not res_fits(group)
+           and stats_smem(group, False, ANY_MIN_STAGES) > slimit(group)):
+        group = even(group // 2)
+    res = int(res_fits(group))
+    s = 0 if res else stages(lambda k: stats_smem(group, False, k),
+                             slimit(group))
+    tiles = -(-n // tile)
+    a256 = lambda v: -(-v // 256) * 256
+    parts = bf * tiles * heads
+    plan = dict(dp=dp, stats_tile=tile, stats_group=group, stats_res=res,
+                stats_stages=s, stats_smem=stats_smem(group, res, s),
+                workspace=(2 * a256(parts * d * 4) + a256(parts * d * d * 4)
+                           + a256(bf * heads * 2 * dp * (dp + 8) * 2)))
+    ga = min(heads, 2 * (64 // dp))
+    if (ga == heads and 2 * wc_of(64) >= c
+            and apply_smem(64, ga, True, 0, hpk) <= RES_SMEM):
+        span = ANY_SPAN_TILES
+        while span > 1 and -(-n // (64 * span)) * bf < ANY_SPAN_BLOCKS:
+            span //= 2
+        return dict(plan, apply_tile=64, apply_span=64 * span,
+                    apply_group=ga, apply_res=1, apply_stages=0,
+                    apply_smem=apply_smem(64, ga, True, 0, hpk), apply_ohg=0)
+    many = -(-n // 64) * bf > ANY_GRID_BLOCKS
+    for ohg in (0, 1):
+        for tile in (64, 32, 16) if many else ():
+            parts = 8 // (tile // 16)
+            g = min(parts * (128 // dp), ANY_MAX_COLS // dp, heads)
+            while True:
+                ohw = r32(g * dp) if ohg else hpk
+                if apply_smem(tile, g, False, ANY_MIN_STAGES, ohw) <= RES_SMEM:
+                    s = stages(lambda k: apply_smem(tile, g, False, k, ohw),
+                               RES_SMEM)
+                    return dict(plan, apply_tile=tile, apply_span=tile,
+                                apply_group=g, apply_res=0, apply_stages=s,
+                                apply_smem=apply_smem(tile, g, False, s, ohw),
+                                apply_ohg=ohg)
+                if g == 1:
+                    break
+                g = -(-g // 2)
+        apply = None
+        for tile in (64, 32, 16):
+            parts = 8 // (tile // 16)
+            ga = min(parts * (128 // dp), ANY_MAX_COLS // dp, heads)
+            ohw = r32(ga * dp) if ohg else hpk
+            if apply_smem(tile, ga, False, ANY_MIN_STAGES, ohw) > MAX_SMEM:
+                continue
+            nblocks = -(-n // tile) * bf
+            s = stages(lambda k: apply_smem(tile, ga, False, k, ohw),
+                       RES_SMEM if nblocks > ANY_GRID_BLOCKS else MAX_SMEM)
+            apply = dict(apply_tile=tile, apply_span=tile, apply_group=ga,
+                         apply_res=0, apply_stages=s,
+                         apply_smem=apply_smem(tile, ga, False, s, ohw),
+                         apply_ohg=ohg)
+            if nblocks >= ANY_APPLY_BLOCKS:
+                break
+        if apply is not None:
+            return dict(plan, **apply)
+    raise AssertionError("the oh tiles of one head group fit every shape")
+
+
 # the any-shape rows 6-7 (`bwd_any_plan`, csrc/any_linear_bwd.cu's
 # bwd_plan): two warps a head and row group; pass 1 in 64-token sub-tiles
 # of a tile of BWD_SUM_TILES tokens, a head a block; pass 2 in tiles of 64,
@@ -674,11 +816,13 @@ def linear_block_head(x, gamma, w_qkv, w_out, out_bias, ek, ev, *,
 
 def _head_any(x, gamma, w_qkv, w_out, out_bias, ek, ev, *, heads: int,
               scale: float, spatial_size: int):
-    """Row 8 through the any-shape kernel (csrc/any_shape_bwd.cu): LN, q,
-    k, v in float32, the backward's token sums without a cotangent (ctx
-    normalised, keys unclamped), the per-head float32 apply and the
-    out-projection of oh's bf16 hi + lo parts; one workspace allocated
-    here."""
+    """Row 8 through the any-shape kernels (csrc/any_linear_head.cu and
+    csrc/any_linear_head_apply.cu): the fused token sums (LN, k || v and
+    the running-max softmax sums on the tensor cores, bf16 hi + lo
+    products), the ordered merge into ctxn's hi and lo blocks, and the
+    fused apply (LN, q, Q ctxn and oh W_out as split products, the
+    residual in the epilogue), as `head_any_plan` says; one workspace, the
+    stats' partials and ctxn's blocks, allocated here."""
     hidden, d = _check_common(x, gamma, w_qkv, heads)
     _build.require(d <= 64,
                    f"the any-shape head layout takes d up to 64, got {d}")
